@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (cyten_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the sources in the checkout, holds each against its
+plain PyTorch version on the card, drives the port's main path (U(1) Heisenberg
+two-site DMRG: HeisenbergModel -> SimpleMPS -> DMRGEngine.run) at the full width of
+the repo's production setting, checks the energies, and ends with one JSON line
+naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
+fails. Imports nothing of JAX or cyten_tpu.
+
+Phases:
+  1. card name and power limit; kernel build time
+  2. grouped GEMM against its plain version: the pair lists of
+     tests/test_pallas_grouped.py and of the chi=4096 tdot(LP, theta) on the
+     bench.py build_workload structure, in f64, f32 and bf16
+  3. L=12 Heisenberg DMRG, chi_max=64, against exact diagonalization (1e-9)
+  4. L=24 Heisenberg DMRG at chi_max=1024, eps=0, N_max=10 (bench.py:1124-1145
+     without bf16), swept until the centre bond holds chi=1024, against
+     HEIS24_E_REF (1e-8), with the kernel counted; then the time of the centre
+     bond by stage and one bond update under torch.profiler
+  5. one effective-Hamiltonian matvec at chi=4096 in f32, card against CPU (1e-5)
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HEIS24_E_REF = -10.45378576040958  # bench.py:1121: f64 DMRG of L=24 at chi=512
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+CHI_BENCH = 4096
+# (rtol, atol) of the kernel against its plain version; the check is
+# max|kernel - plain| <= atol + rtol * max|plain| over each output
+TOLERANCES = {'float64': (1e-12, 0.), 'float32': (2e-5, 2e-4), 'bfloat16': (2e-2, 0.)}
+PALLAS_SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129),
+                 (128, 128, 128), (128, 128, 128), (128, 128, 128), (1, 1, 1), (2, 300, 2)]
+
+
+def peak_ops_per_s(dtype) -> float:
+    """Dense peak of one H100 SXM for the kernel's arithmetic: f32 outside the tensor
+    cores (67 TFLOP/s), bf16 tensor cores (989), f64 tensor cores (67, data sheet)."""
+    import torch
+
+    return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989e12}[dtype]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def build_workload(backend, chi: int, dtype, seed: int = 0):
+    """The U(1) DMRG bond environment of bench.py:190-218 (build_workload)."""
+    from cyten_tpu_torch import ElementarySpace, SymmetricTensor, u1_symmetry
+
+    rng = np.random.default_rng(seed)
+    charges = np.arange(-4, 5)
+    weights = np.exp(-0.4 * charges ** 2)
+    mults = np.maximum(1, np.round(chi * weights / weights.sum()).astype(int))
+    v_leg = ElementarySpace(u1_symmetry, charges[:, None], mults)
+    p_leg = ElementarySpace(u1_symmetry, [[-1], [1]], [1, 1])
+    w_leg = ElementarySpace.from_defining_sectors(
+        u1_symmetry, np.array([[0], [2], [-2], [0], [0]]), unique_sectors=False)
+    kw = dict(backend=backend, rng=rng, dtype=dtype)
+    LP = SymmetricTensor.from_random_normal([v_leg], [v_leg, w_leg],
+                                            labels=[['vR*'], ['vR', 'wR']], **kw)
+    RP = SymmetricTensor.from_random_normal([v_leg, w_leg], [v_leg],
+                                            labels=['vL', 'wL', 'vL*'], **kw)
+    W = SymmetricTensor.from_random_normal([w_leg, p_leg], [p_leg, w_leg],
+                                           labels=['wL', 'p', 'wR', 'p*'], **kw)
+    theta = SymmetricTensor.from_random_normal([v_leg, p_leg, p_leg], [v_leg],
+                                               labels=['vL', 'p0', 'p1', 'vR'], **kw)
+    return LP, RP, W, W, theta
+
+
+def lp_theta_pairs(LP, theta):
+    """The grouped-GEMM pair list of the matvec's first contraction tdot(LP, theta)."""
+    return LP.backend.tdot_operands(LP, theta, [LP.get_leg_idx('vR')],
+                                    [theta.get_leg_idx('vL')])
+
+
+def work_of(As, Bs, out_id):
+    """(operations, bytes) the grouped product must do and move: each distinct input
+    matrix read once, each output written once."""
+    flops = sum(2 * A.shape[0] * A.shape[1] * B.shape[1] for A, B in zip(As, Bs))
+    inputs = {t.data_ptr(): t.numel() * t.element_size() for t in (*As, *Bs)}
+    out_m = {o: (A.shape[0], B.shape[1]) for A, B, o in zip(As, Bs, out_id.tolist())}
+    out_bytes = sum(m * n for m, n in out_m.values()) * As[0].element_size()
+    return flops, sum(inputs.values()) + out_bytes
+
+
+def compare_kernel(label, As, Bs, out_id, n_out, dtype):
+    """Kernel against plain on the card; times of kernel, plain and a per-pair
+    torch.matmul loop. Raises if they disagree."""
+    import torch
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul, grouped_matmul_plain
+
+    As = [A.to(dtype).contiguous() for A in As]
+    Bs = [B.to(dtype).contiguous() for B in Bs]
+    got = grouped_matmul(As, Bs, out_id, n_out)
+    ref = grouped_matmul_plain(As, Bs, out_id, n_out)
+    torch.cuda.synchronize()
+    name = str(dtype).split('.')[-1]
+    rtol, atol = TOLERANCES[name]
+    err = 0.
+    for c, r in zip(got, ref):
+        e = float((c.double() - r.double()).abs().max()) if c.numel() else 0.
+        scale = float(r.double().abs().max()) if r.numel() else 0.
+        if not e <= atol + rtol * scale:
+            raise AssertionError(f'{label} {name}: kernel disagrees with plain: '
+                                 f'{e} > {atol} + {rtol} * {scale}')
+        err = max(err, e)
+    ms = cuda_ms(lambda: grouped_matmul(As, Bs, out_id, n_out))
+    plain_ms = cuda_ms(lambda: grouped_matmul_plain(As, Bs, out_id, n_out))
+    library_ms = cuda_ms(lambda: [torch.matmul(A, B) for A, B in zip(As, Bs)])
+    flops, nbytes = work_of(As, Bs, out_id)
+    t_ops, t_bytes = flops / peak_ops_per_s(dtype), nbytes / HBM_BYTES_PER_S
+    res = {'pairs': len(As), 'outputs': n_out, 'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
+           'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+           'bound_ms': max(t_ops, t_bytes) * 1e3,
+           'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+    print(f'[kernel] {label} {name}: ' + json.dumps(res), flush=True)
+    return res
+
+
+def profile_bond(eng, i: int, top: int = 8):
+    """One bond update under torch.profiler: wall time, the device's busy share and
+    the kernels that took the most device time. Reports what the trace holds and
+    checks nothing: an empty device trace prints as 'not measured'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.update_bond(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.count, getattr(e, 'self_device_time_total', 0.))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(t for _, _, t in kernels)
+    if busy_us <= 0:
+        print(f'[profile bond {i}] wall {wall_us / 1e3:.1f} ms; device time not measured',
+              flush=True)
+        return
+    kernels.sort(key=lambda k: -k[2])
+    print(f'[profile bond {i}] wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms '
+          f'({100 * busy_us / wall_us:.1f} %), {sum(c for _, c, _ in kernels)} kernels',
+          flush=True)
+    for name, count, t in kernels[:top]:
+        print(f'[profile bond {i}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}', flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    from cyten_tpu_torch import Dtype, get_backend, u1_symmetry
+    from cyten_tpu_torch.algorithms import (
+        DMRGEngine, HEffective, HeisenbergModel, SimpleMPS,
+        heisenberg_exact_finite_gs_energy,
+    )
+    from cyten_tpu_torch.blocks import _kernels
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+
+    t_start = time.perf_counter()
+    # --- 1. card and build -------------------------------------------------------------
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+          f'{torch.cuda.get_device_name(0)}', flush=True)
+    t0 = time.perf_counter()
+    seconds = _kernels.build()
+    print(f'[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)',
+          flush=True)
+
+    # --- 2. kernel against plain ---------------------------------------------------------
+    rng = np.random.default_rng(0)
+    As = [torch.from_numpy(rng.normal(size=(M, K))).cuda() for M, K, N in PALLAS_SHAPES]
+    Bs = [torch.from_numpy(rng.normal(size=(K, N))).cuda() for M, K, N in PALLAS_SHAPES]
+    ids = np.arange(len(As))
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        compare_kernel('pallas-test shapes', As, Bs, ids, len(As), dtype)
+    backend = get_backend(u1_symmetry, device='cuda')
+    LP, RP, W1, W2, theta = build_workload(backend, CHI_BENCH, Dtype.float64)
+    As, Bs, out_id, n_out, _, _ = lp_theta_pairs(LP, theta)
+    permute_ms = cuda_ms(lambda: lp_theta_pairs(LP, theta))
+    print(f'[permute] chi={CHI_BENCH} tdot(LP, theta) operand permute+copy f64: '
+          f'{permute_ms:.3f} ms for {len(As)} pairs', flush=True)
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, dtype)
+    del LP, RP, W1, W2, theta, As, Bs
+    torch.cuda.empty_cache()
+
+    # --- 3. main path, small: L=12 against exact diagonalization -------------------------
+    grouped_matmul.launches = 0
+    model = HeisenbergModel(L=12, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * 6)
+    E12 = DMRGEngine(psi, model, chi_max=64, eps=1e-14).run(n_sweeps=10)
+    E12_exact = heisenberg_exact_finite_gs_energy(12, 1.)
+    print(f'[L=12] E = {E12!r}, exact {E12_exact!r}, |dE| = {abs(E12 - E12_exact):.3e}, '
+          f'launches {grouped_matmul.launches}', flush=True)
+    if not abs(E12 - E12_exact) < 1e-9 or grouped_matmul.launches == 0:
+        raise AssertionError('L=12 DMRG energy or kernel launches wrong')
+
+    # --- 4. main path at full width: L=24, chi_max=1024 ----------------------------------
+    # From the product state two-site DMRG at most doubles chi per half sweep, so the
+    # centre bond reaches chi_max=1024 in the fifth sweep (eps=0 keeps every value).
+    L, chi_max = 24, 1024
+    model = HeisenbergModel(L=L, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2))
+    eng = DMRGEngine(psi, model, chi_max=chi_max, eps=0., lanczos_options={'N_max': 10})
+    grouped_matmul.launches = 0
+    E24 = None
+    n_sweeps = 0
+    for sweep in range(6):
+        t0 = time.perf_counter()
+        E_new = eng.run(n_sweeps=1)
+        torch.cuda.synchronize()
+        n_sweeps += 1
+        print(f'[L=24] sweep {sweep + 1}: E = {E_new!r}, {time.perf_counter() - t0:.2f} s, '
+              f'max chi {psi.max_chi()}', flush=True)
+        converged = E24 is not None and abs(E_new - E24) < 1e-10
+        E24 = E_new
+        if converged and psi.max_chi() == chi_max:
+            break
+    launches = grouped_matmul.launches
+    bonds = n_sweeps * 2 * (L - 1)
+    print(f'[L=24] E = {E24!r}, ref {HEIS24_E_REF!r}, |dE| = {abs(E24 - HEIS24_E_REF):.3e}, '
+          f'launches {launches} ({launches / bonds:.1f} per bond over {bonds} bonds)',
+          flush=True)
+    if not abs(E24 - HEIS24_E_REF) < 1e-8 or launches == 0 or psi.max_chi() != chi_max:
+        raise AssertionError('L=24 DMRG energy, width or kernel launches wrong')
+
+    # the centre bond of the converged state: where the time of a bond goes, and the
+    # kernel at the shapes the main path gives it
+    i = L // 2 - 1
+    H = HEffective(eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i], model.H_mpo[i + 1])
+    theta0 = psi.get_theta2(i)
+    matvec_ms = cuda_ms(lambda: H.matvec(theta0), reps=3)
+    from cyten_tpu_torch.algorithms.mps import split_truncate_theta
+    from cyten_tpu_torch.tensors import lanczos
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, theta, n_iter = lanczos(H, theta0, eng.lanczos_options)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    split_truncate_theta(theta, eng.chi_max, eng.eps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f'[L=24 centre bond] matvec {matvec_ms:.3f} ms; lanczos {n_iter} its '
+          f'{(t1 - t0) * 1e3:.1f} ms; split_truncate_theta (SVD) {(t2 - t1) * 1e3:.1f} ms',
+          flush=True)
+    As, Bs, out_id, n_out, _, _ = lp_theta_pairs(H.LP, theta0)
+    main = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
+                          out_id, n_out, torch.float64)
+    profile_bond(eng, i)
+
+    # --- 5. bench-shaped matvec at chi=4096, f32: card against CPU -----------------------
+    args = build_workload(backend, CHI_BENCH, Dtype.float32)
+    Hg = HEffective(*args[:4])
+    grouped_matmul.launches = 0
+    y = Hg.matvec(args[4])
+    torch.cuda.synchronize()
+    mv_launches = grouped_matmul.launches
+    mv_ms = cuda_ms(lambda: Hg.matvec(args[4]), reps=3)
+    cpu = get_backend(u1_symmetry, device='cpu')
+    moved = []
+    for t in args:
+        t = t.copy(deep=False)
+        t.backend = cpu
+        t.data = type(t.data)([b.cpu() for b in t.data.blocks], t.data.block_inds,
+                              t.data.dtype, is_sorted=True)
+        moved.append(t)
+    y_cpu = HEffective(*moved[:4]).matvec(moved[4])
+    diff = np.linalg.norm(y.to_numpy() - y_cpu.to_numpy()) / np.linalg.norm(y_cpu.to_numpy())
+    print(f'[matvec chi={CHI_BENCH} f32] {mv_ms:.3f} ms on the card, {mv_launches} '
+          f'grouped-GEMM launches, relative difference to the CPU {diff:.3e}', flush=True)
+    if not diff < 1e-5 or mv_launches == 0:
+        raise AssertionError('chi=4096 matvec disagrees with the CPU or skipped the kernel')
+
+    print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
+    kernels = [{'name': 'grouped_gemm', 'route': 'cuda',
+                'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+                'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+                'launches': launches, 'max_abs_err': main['max_abs_err'],
+                'ms': main['ms'], 'plain_ms': main['plain_ms'],
+                'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+                'library_ms': main['library_ms']}]
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                             'kind': torch.cuda.get_device_name(0),
+                                             'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

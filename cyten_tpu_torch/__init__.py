@@ -1,0 +1,28 @@
+"""cyten_tpu_torch: the PyTorch/CUDA port of cyten_tpu, for one NVIDIA H100.
+
+Block-sparse symmetric tensors (abelian and no symmetry) and two-site DMRG, written in
+PyTorch. The block-pair products of every abelian ``tdot``/``compose`` run as one
+launch of a hand-written CUDA grouped-GEMM kernel (``csrc/grouped_gemm.cu``). Entry
+points put their tensors on the CUDA card unless the caller passes ``device='cpu'``;
+without CUDA and without a device they raise.
+
+The JAX package ``cyten_tpu`` is the reference this port is tested against; nothing
+here imports it or JAX.
+"""
+
+from .config import config
+from .dtypes import Dtype
+from . import symmetries
+from . import tools
+from . import blocks
+from . import backends
+from . import tensors
+from . import algorithms
+from .blocks import BlockBackend, get_block_backend
+from .backends import TensorBackend, get_backend
+from .symmetries import (
+    U1, ZN, AbelianLegPipe, ElementarySpace, Leg, LegPipe, NoSymmetry, Sector,
+    SectorArray, Space, Symmetry, SymmetryError, TensorProduct, no_symmetry,
+    u1_symmetry, z2_symmetry, z3_symmetry, z4_symmetry,
+)
+from .tensors import *  # noqa: F401,F403

@@ -1,0 +1,269 @@
+"""Spin-1/2 Heisenberg chain and its MPO, with an exact reference.
+
+The counterpart of ``cyten_tpu/algorithms/models.py``'s ``spin_half_site`` (:35),
+``mpo_from_bond_op`` (:99) and ``HeisenbergModel`` (:471). H_bonds (two-site gates)
+and H_mpo (MPO tensors) are SymmetricTensors for a chosen conserved symmetry. The
+exact ground-state energy comes from sparse exact diagonalization.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..symmetries import ElementarySpace, u1_symmetry, z2_symmetry, no_symmetry
+from ..tensors import (
+    SymmetricTensor, add_trivial_leg, permute_legs, scale_axis, svd,
+    truncate_singular_values, svd_apply_mask,
+)
+
+__all__ = ['HeisenbergModel', 'spin_half_site', 'mpo_from_bond_op',
+           'heisenberg_exact_finite_gs_energy']
+
+# Pauli z in the (|up>, |down>) basis
+_sz = np.array([[1., 0.], [0., -1.]])
+_id = np.eye(2)
+
+
+def spin_half_site(conserve: str = 'None', backend=None):
+    """The spin-1/2 site leg for a given conservation choice.
+
+    conserve in {'Sz', 'parity', 'None'}: U(1) by 2*Sz, Z2 by spin-flip parity of the
+    ordered basis, or no symmetry. Public basis order is (|up>, |down>) in all cases.
+    SU(2) needs the fusion-tree backend, which is not ported yet.
+    """
+    if conserve in ('SU2', 'SU(2)'):
+        raise NotImplementedError('SU(2): the fusion-tree backend is not ported yet')
+    if conserve == 'Sz':
+        leg = ElementarySpace.from_basis(u1_symmetry, [[1], [-1]])
+    elif conserve == 'parity':
+        leg = ElementarySpace.from_basis(z2_symmetry, [[0], [1]])
+    else:
+        leg = ElementarySpace.from_trivial_sector(2, symmetry=no_symmetry)
+    return leg
+
+
+def _factorize_pair(h_pair: SymmetricTensor, svd_cut: float = 1e-12):
+    """``h = sum_k A_k ⊗ B_k`` by SVD across the pair, in MPO-entry form.
+
+    Works for heterogeneous site legs. Returns ``(A, B, k_leg)``: ``A`` with
+    legs ``[wL(trivial), p, wR=k, p*]``, ``B`` with ``[wL=k, p, wR(trivial),
+    p*]``, and ``k_leg`` the factorization bond space carried between them
+    (``B``'s wL codomain factor). The reference's ``horizontal_factorization``
+    idea (cyten/tensors/planar.py:1102); all moves planar.
+    """
+    h = h_pair.relabelled(['p0', 'p1', 'p1*', 'p0*'])
+    # planar horizontal cut: left arc (p0*, p0) vs right arc (p1*, p1)
+    X = permute_legs(h, codomain=['p0*', 'p0'], domain=['p1*', 'p1'])
+    U, S, Vh = svd(X, new_labels=['wR', 'wL'])
+    mask, err, _ = truncate_singular_values(S, svd_min=svd_cut)
+    U, S, Vh = svd_apply_mask(U, S, Vh, mask)
+    sqrt_S = S.sqrt() if not S.dtype.is_complex else S ** 0.5
+    A_k = scale_axis(U, sqrt_S, 'wR')   # legs [p0*, p0, wR]
+    B_k = scale_axis(Vh, sqrt_S, 'wL')  # legs [wL, p1, p1*]
+    A_k = permute_legs(A_k, codomain=['p0'], domain=['p0*', 'wR'])
+    A_k = add_trivial_leg(A_k, 0, label='wL')
+    A_k = A_k.relabelled({'p0': 'p', 'p0*': 'p*'})
+    B_k = permute_legs(B_k, codomain=['wL', 'p1'], domain=['p1*'])
+    B_k = add_trivial_leg(B_k, 2, label='wR', to_domain=True, is_dual=True)
+    B_k = B_k.relabelled({'p1': 'p', 'p1*': 'p*'})
+    return A_k, B_k, B_k.codomain.factors[0]
+
+
+def _eye_mpo_cell(p, backend, dtype):
+    """Identity MPO cell ``[wL(trivial), p, wR(trivial), p*]``."""
+    eye_p = SymmetricTensor.from_eye([p], backend=backend, labels=['p'],
+                                     dtype=dtype)
+    Id = add_trivial_leg(eye_p, 0, label='wL')
+    return add_trivial_leg(Id, 2, label='wR', to_domain=True, is_dual=True)
+
+
+def _factorize_bond(h_bond: SymmetricTensor, svd_cut: float = 1e-12):
+    """``h = sum_k A_k ⊗ B_k`` by SVD across the bond, in MPO-entry form.
+
+    Returns ``(A, B, Id)`` with legs ``[wL, p, wR, p*]`` each (trivial wL on A,
+    trivial wR on B).
+    """
+    A_k, B_k, _ = _factorize_pair(h_bond, svd_cut)
+    p = h_bond.codomain.factors[0]
+    Id = _eye_mpo_cell(p, h_bond.backend, h_bond.dtype)
+    return A_k, B_k, Id
+
+
+def mpo_from_bond_op(h_bond: SymmetricTensor, L: int, svd_cut: float = 1e-12,
+                     bc: str = 'finite'):
+    """Uniform nearest-neighbor MPO from a two-site bond operator.
+
+    Assembles the standard 3-block MPO ``W = [[1, A, 0], [0, 0, B], [0, 0, 1]]``
+    with :func:`tensor_from_grid`.
+    """
+    from ..tensors import tensor_from_grid
+
+    A_k, B_k, Id = _factorize_bond(h_bond, svd_cut)
+    grid = [[Id, A_k, None],
+            [None, None, B_k],
+            [None, None, Id]]
+    W = tensor_from_grid(grid, labels=['wL', 'p', 'wR', 'p*'], row_leg='wL',
+                         col_leg='wR')
+    if bc == 'infinite':
+        return [W] * L
+    first = _boundary_selector(W, left=True)
+    last = _boundary_selector(W, left=False)
+    mpos = [first if i == 0 else (last if i == L - 1 else W) for i in range(L)]
+    return mpos
+
+
+def _boundary_selector(W: SymmetricTensor, left: bool) -> SymmetricTensor:
+    """Contract the left (row 0) or right (last column) boundary unit vector.
+
+    Selects the first / last multiplicity of the trivial sector of the stacked leg
+    (works for every backend, incl. anyons).
+    """
+    from ..dtypes import Dtype
+    from ..tensors import DiagonalTensor, Mask, apply_mask
+
+    label = 'wL' if left else 'wR'
+    leg = W.get_leg_co_domain(label)
+    sym = leg.symmetry
+    bb = W.backend.block_backend
+
+    def func(shape, sector):
+        keep = np.zeros(shape[0], dtype=bool)
+        if np.all(np.asarray(sector) == sym.trivial_sector):
+            keep[0 if left else -1] = True
+        return bb.as_block(keep, Dtype.bool)
+
+    diag = DiagonalTensor.from_sector_block_func(func, leg, backend=W.backend)
+    mask = Mask.from_DiagonalTensor(diag)
+    return apply_mask(W, mask, label)
+
+
+class HeisenbergModel:
+    r"""Spin-1/2 Heisenberg chain: :math:`H = J \sum \vec{S}_i \cdot \vec{S}_{i+1}`.
+
+    ``conserve='Sz'`` uses the U(1) symmetry of total :math:`S^z`. The tensors live
+    on ``device`` (default: the CUDA card) unless a ``backend`` is given.
+    """
+
+    def __init__(self, L: int, J: float = 1., conserve: str = 'Sz', backend=None,
+                 block_backend=None, bc: str = 'finite', device: str = None):
+        if conserve not in ('Sz', 'parity', 'None', None):
+            raise NotImplementedError(f'conserve={conserve!r} is not ported yet')
+        if bc not in ('finite', 'infinite'):
+            raise ValueError(f'unknown bc {bc!r}')
+        self.L = L
+        self.J = J
+        self.bc = bc
+        self.conserve = conserve = conserve or 'None'
+        self.site_leg = spin_half_site(conserve)
+        from ..backends import get_backend
+
+        self.backend = backend if backend is not None else \
+            get_backend(self.site_leg.symmetry, block_backend, device=device)
+        self.H_bonds = self._build_H_bonds()
+        self.H_mpo = self._build_H_mpo()
+
+    @property
+    def site_legs(self):
+        return [self.site_leg] * self.L
+
+    def _build_H_bonds(self):
+        Sp = np.array([[0., 1.], [0., 0.]])
+        Sm = Sp.T
+        Sz = 0.5 * _sz
+        h = self.J * (0.5 * (np.kron(Sp, Sm) + np.kron(Sm, Sp)) + np.kron(Sz, Sz))
+        p = self.site_leg
+        block = h.reshape(2, 2, 2, 2).transpose(0, 1, 3, 2)
+        op = SymmetricTensor.from_dense_block(
+            block, [p, p], [p, p], backend=self.backend,
+            labels=['p0', 'p1', 'p1*', 'p0*'])
+        return [op] * (self.L if self.bc == 'infinite' else self.L - 1)
+
+    def _build_H_mpo(self):
+        Sp = np.array([[0., 1.], [0., 0.]])
+        Sm = Sp.T
+        Sz = 0.5 * _sz
+        J = self.J
+        p = self.site_leg
+        sym = p.symmetry
+        W = np.zeros((5, 2, 2, 5))
+        W[0, :, :, 0] = _id
+        W[0, :, :, 1] = Sp
+        W[0, :, :, 2] = Sm
+        W[0, :, :, 3] = Sz
+        W[1, :, :, 4] = J / 2. * Sm
+        W[2, :, :, 4] = J / 2. * Sp
+        W[3, :, :, 4] = J * Sz
+        W[4, :, :, 4] = _id
+        if self.conserve == 'Sz':
+            # virtual charges (2*Sz units): charge rule fuse(wL, p_ket) ==
+            # fuse(wR, p_ket-of-domain-index) gives +2 for the Sp column, -2 for Sm.
+            w_sectors = np.array([[0], [2], [-2], [0], [0]])
+        elif self.conserve == 'parity':
+            w_sectors = np.array([[0], [1], [1], [0], [0]])
+        else:
+            w_sectors = np.zeros((5, sym.sector_ind_len), dtype=int)
+        w_leg = ElementarySpace.from_basis(sym, w_sectors)
+        triv = ElementarySpace(sym, sym.trivial_sector[None, :])
+        first = np.zeros((1, 5))
+        first[0, 0] = 1.
+        last = np.zeros((5, 1))
+        last[4, 0] = 1.
+        mpos = []
+        for i in range(self.L):
+            Wi = W
+            wl, wr = w_leg, w_leg
+            if i == 0 and self.bc == 'finite':
+                Wi = np.tensordot(first, Wi, (1, 0))
+                wl = triv
+            if i == self.L - 1 and self.bc == 'finite':
+                Wi = np.tensordot(Wi, last, (3, 0))
+                wr = triv
+            mpos.append(SymmetricTensor.from_dense_block(
+                np.transpose(Wi, (0, 1, 3, 2)), [wl, p], [p, wr],
+                backend=self.backend, labels=['wL', 'p', 'wR', 'p*']))
+        return mpos
+
+
+# --- exact reference (sparse ED) -------------------------------------------------------
+
+
+def _sparse_chain_hamiltonian(L: int, bond_terms):
+    """Sparse Hamiltonian from a list of (coupling, op_i, op_j) nearest-neighbor terms
+    plus optional onsite terms; ops are 2x2 matrices."""
+    import scipy.sparse as sp
+
+    dim = 2 ** L
+    H = sp.csr_matrix((dim, dim))
+
+    def op_at(op, i):
+        mats = [sp.identity(2, format='csr')] * L
+        mats[i] = sp.csr_matrix(op)
+        res = mats[0]
+        for m in mats[1:]:
+            res = sp.kron(res, m, format='csr')
+        return res
+
+    for term in bond_terms:
+        if len(term) == 3:
+            c, op1, op2 = term
+            for i in range(L - 1):
+                H = H + c * (op_at(op1, i) @ op_at(op2, i + 1))
+        else:
+            c, op1 = term[0], term[1]
+            for i in range(L):
+                H = H + c * op_at(op1, i)
+    return H
+
+
+def heisenberg_exact_finite_gs_energy(L: int, J: float) -> float:
+    """Exact Heisenberg ground energy for a finite open chain (sparse ED)."""
+    import scipy.sparse.linalg
+
+    Sp = np.array([[0., 1.], [0., 0.]])
+    Sm = Sp.T
+    Sz = 0.5 * _sz
+    H = _sparse_chain_hamiltonian(
+        L, [(J / 2., Sp, Sm), (J / 2., Sm, Sp), (J, Sz, Sz)])
+    vals = scipy.sparse.linalg.eigsh(H, k=1, which='SA',
+                                     return_eigenvectors=False)
+    return float(vals[0])

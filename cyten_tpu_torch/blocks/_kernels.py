@@ -1,0 +1,96 @@
+"""Build and bind the hand-written CUDA kernels of ``cyten_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with ``nvcc``
+for ``sm_90a`` into ``build/cyten_tpu_torch/lib<name>-<hash>.so`` at the root of
+the checkout, at first use, and loaded with :mod:`ctypes`. The hash of the source
+is part of the file name, so an edited source is rebuilt. Nothing is compiled when
+the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ['build', 'library', 'BUILD_DIR', 'SOURCE_DIR']
+
+SOURCE_DIR = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cyten_tpu_torch'
+NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+# C signatures, by library name: {symbol: (argtypes, restype)}
+_SIGNATURES = {
+    'grouped_gemm': {
+        'cyten_grouped_gemm': ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int64, ctypes.c_void_p], ctypes.c_int),
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = '/usr/local/cuda/bin/nvcc'
+    if os.path.exists(default):
+        return default
+    raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((SOURCE_DIR / f'{name}.cu').read_bytes()
+                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f'lib{name}-{digest}.so'
+
+
+def build(names=None, verbose: bool = False) -> dict[str, float]:
+    """Compile the named kernels (default: all) that are not built yet.
+
+    One ``nvcc`` per source, all started together. Returns the wall seconds of
+    each build that ran; raises ``RuntimeError`` with the compiler's output if one
+    fails.
+    """
+    names = list(_SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE_DIR / f'{name}.cu')]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    seconds = {}
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for {name}.cu:\n{log}')
+        if verbose:
+            print(f'[build {name}.cu: {seconds[name]:.1f} s]\n{log.strip()}')
+        os.replace(tmp, out)
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for symbol, (argtypes, restype) in _SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _loaded[name] = lib
+    return lib

@@ -9,7 +9,7 @@ from setuptools import Extension, setup
 setup(
     name='cyten_tpu',
     version='0.1.0',
-    packages=['cyten_tpu'],
+    packages=['cyten_tpu', 'cyten_tpu_torch'],
     ext_modules=[
         Extension(
             'cyten_tpu._core',

@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: it imports neither JAX nor cyten_tpu, and without
+CUDA its default device raises instead of running on the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_SCRIPT = """
+import sys
+import cyten_tpu_torch
+from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
+model = HeisenbergModel(L=4, conserve='Sz', device='cpu')
+psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1], backend=model.backend)
+E = DMRGEngine(psi, model, chi_max=8).run(n_sweeps=2)
+assert abs(E - (-1.6160254037844384)) < 1e-9, E
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu'))
+print('LEAKED', leaked)
+"""
+
+
+def test_port_runs_without_jax_or_cyten_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, '-c', _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert 'LEAKED []' in res.stdout, res.stdout
+
+
+def test_no_source_file_imports_jax_or_cyten_tpu():
+    pattern = re.compile(r'^\s*(import|from)\s+(jax|cyten_tpu)(\.|\s|$)', re.M)
+    files = list((REPO / 'cyten_tpu_torch').rglob('*.py')) + [REPO / 'chip_smoke.py']
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from cyten_tpu_torch import get_backend, get_block_backend, u1_symmetry
+    from cyten_tpu_torch.algorithms import HeisenbergModel
+
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        get_block_backend('torch')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        get_backend(u1_symmetry)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        HeisenbergModel(L=4, conserve='Sz')
+    # an explicit CPU request is honoured
+    assert str(get_backend(u1_symmetry, device='cpu').block_backend.device) == 'cpu'
