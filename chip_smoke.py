@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in the checkout, holds each against its
-plain PyTorch version on the card, drives the port's main path (U(1) Heisenberg
-two-site DMRG: HeisenbergModel -> SimpleMPS -> DMRGEngine.run) at the full width of
+plain PyTorch version on the card, drives the port's main paths (U(1) Heisenberg
+two-site DMRG: HeisenbergModel -> SimpleMPS -> DMRGEngine.run, dynamic and then in
+static mode; and the port's bench step, cyten_tpu_torch.bench) at the full width of
 the repo's production setting, checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
@@ -21,6 +22,14 @@ Phases:
      HEIS24_E_REF (1e-8), with the kernel counted; then the time of the centre
      bond by stage and one bond update under torch.profiler
   5. one effective-Hamiltonian matvec at chi=4096 in f32, card against CPU (1e-5)
+  6. the probe kernel (csrc/probe.cu) against its plain version, bitwise
+  7. static mode on the converged L=24 engine of phase 4: two steady sweeps against
+     HEIS24_E_REF (1e-8) with every B right-isometric (1e-8); the centre bond's
+     static update by stage, its host syncs and one static update under
+     torch.profiler
+  8. the bench step (cyten_tpu_torch.bench.step_run) at chi=4096: steady in f32 and
+     f64, exact in f32; one chi=1024 f64 static step, card against CPU (E 1e-9
+     relative, S 1e-8); then step_decomposition()
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -63,30 +73,6 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def build_workload(backend, chi: int, dtype, seed: int = 0):
-    """The U(1) DMRG bond environment of bench.py:190-218 (build_workload)."""
-    from cyten_tpu_torch import ElementarySpace, SymmetricTensor, u1_symmetry
-
-    rng = np.random.default_rng(seed)
-    charges = np.arange(-4, 5)
-    weights = np.exp(-0.4 * charges ** 2)
-    mults = np.maximum(1, np.round(chi * weights / weights.sum()).astype(int))
-    v_leg = ElementarySpace(u1_symmetry, charges[:, None], mults)
-    p_leg = ElementarySpace(u1_symmetry, [[-1], [1]], [1, 1])
-    w_leg = ElementarySpace.from_defining_sectors(
-        u1_symmetry, np.array([[0], [2], [-2], [0], [0]]), unique_sectors=False)
-    kw = dict(backend=backend, rng=rng, dtype=dtype)
-    LP = SymmetricTensor.from_random_normal([v_leg], [v_leg, w_leg],
-                                            labels=[['vR*'], ['vR', 'wR']], **kw)
-    RP = SymmetricTensor.from_random_normal([v_leg, w_leg], [v_leg],
-                                            labels=['vL', 'wL', 'vL*'], **kw)
-    W = SymmetricTensor.from_random_normal([w_leg, p_leg], [p_leg, w_leg],
-                                           labels=['wL', 'p', 'wR', 'p*'], **kw)
-    theta = SymmetricTensor.from_random_normal([v_leg, p_leg, p_leg], [v_leg],
-                                               labels=['vL', 'p0', 'p1', 'vR'], **kw)
-    return LP, RP, W, W, theta
 
 
 def lp_theta_pairs(LP, theta):
@@ -139,6 +125,36 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype):
     return res
 
 
+def count_syncs(fn) -> int:
+    """Host syncs that ``fn()`` makes, as torch.cuda.set_sync_debug_mode('warn')
+    reports them (it sees syncs that PyTorch makes, not those inside a library)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def assert_right_isometric(psi, tol: float):
+    """Every B of psi but the first is right-isometric: M M^dag == 1 for M = B as
+    [vL | p, vR]."""
+    from cyten_tpu_torch.tensors import SymmetricTensor, compose, dagger, norm, permute_legs
+
+    for i in range(1, psi.L):
+        B = psi.Bs[i]
+        M = permute_legs(B, codomain=['vL'], domain=['vR', 'p'])
+        eye = SymmetricTensor.from_eye(M.codomain.factors, backend=B.backend, dtype=B.dtype)
+        err = float(norm(compose(M, dagger(M)) - eye))
+        if not err < tol:
+            raise AssertionError(f'B[{i}] is not right-isometric: {err}')
+
+
 def profile_bond(eng, i: int, top: int = 8):
     """One bond update under torch.profiler: wall time, the device's busy share and
     the kernels that took the most device time. Reports what the trace holds and
@@ -179,8 +195,15 @@ def main() -> int:
         DMRGEngine, HEffective, HeisenbergModel, SimpleMPS,
         heisenberg_exact_finite_gs_energy,
     )
+    from cyten_tpu_torch.algorithms.dmrg import _get_static_bond_fn
+    from cyten_tpu_torch.bench import (
+        build_step_state, build_workload, step_decomposition, step_run,
+    )
     from cyten_tpu_torch.blocks import _kernels
     from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
+    from cyten_tpu_torch.tensors.krylov_based import fused_lanczos_impl
+    from cyten_tpu_torch.tensors.steady import steady_truncated_svd
 
     t_start = time.perf_counter()
     # --- 1. card and build -------------------------------------------------------------
@@ -260,7 +283,7 @@ def main() -> int:
     theta0 = psi.get_theta2(i)
     matvec_ms = cuda_ms(lambda: H.matvec(theta0), reps=3)
     from cyten_tpu_torch.algorithms.mps import split_truncate_theta
-    from cyten_tpu_torch.tensors import lanczos
+    from cyten_tpu_torch.tensors import lanczos, permute_legs
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -270,6 +293,7 @@ def main() -> int:
     split_truncate_theta(theta, eng.chi_max, eng.eps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    split_ms = (t2 - t1) * 1e3
     print(f'[L=24 centre bond] matvec {matvec_ms:.3f} ms; lanczos {n_iter} its '
           f'{(t1 - t0) * 1e3:.1f} ms; split_truncate_theta (SVD) {(t2 - t1) * 1e3:.1f} ms',
           flush=True)
@@ -277,6 +301,8 @@ def main() -> int:
     main = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
                           out_id, n_out, torch.float64)
     profile_bond(eng, i)
+    print(f'[L=24 centre bond] host syncs of one dynamic update: '
+          f'{count_syncs(lambda: eng.update_bond(i))}', flush=True)
 
     # --- 5. bench-shaped matvec at chi=4096, f32: card against CPU -----------------------
     args = build_workload(backend, CHI_BENCH, Dtype.float32)
@@ -301,6 +327,106 @@ def main() -> int:
     if not diff < 1e-5 or mv_launches == 0:
         raise AssertionError('chi=4096 matvec disagrees with the CPU or skipped the kernel')
 
+    phase_s = {'1-5': time.perf_counter() - t_start}
+
+    # --- 6. the probe kernel against its plain version -----------------------------------
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(256, 256))).to(
+        'cuda', torch.float32)
+    if not torch.equal(scale2(x), scale2_plain(x)):
+        raise AssertionError('probe kernel disagrees with its plain version')
+    probe = {'max_abs_err': 0., 'ms': cuda_ms(lambda: scale2(x), reps=200),
+             'plain_ms': cuda_ms(lambda: scale2_plain(x), reps=200),
+             'library_ms': cuda_ms(lambda: x * 2.0, reps=200)}
+    # read x once, write o once; one multiply per element
+    t_bytes = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+    t_ops = x.numel() / peak_ops_per_s(torch.float32)
+    probe['bound_ms'] = max(t_bytes, t_ops) * 1e3
+    probe['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    print('[probe] [256, 256] f32, bitwise equal: ' + json.dumps(probe), flush=True)
+    phase_s['6'] = time.perf_counter() - t_phase
+
+    # --- 7. static mode on the converged L=24 engine -------------------------------------
+    t_phase = time.perf_counter()
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    grouped_matmul.launches = 0
+    scale2.launches = 0
+    for sweep in range(2):
+        t0 = time.perf_counter()
+        E_static = eng.sweep()
+        torch.cuda.synchronize()
+        print(f'[L=24 static] sweep {sweep + 1}: E = {E_static!r}, '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+    static_launches = grouped_matmul.launches
+    print(f'[L=24 static] |dE| = {abs(E_static - HEIS24_E_REF):.3e}, grouped-GEMM '
+          f'launches {static_launches} ({static_launches / (2 * 2 * (L - 1)):.1f} per bond)',
+          flush=True)
+    if not abs(E_static - HEIS24_E_REF) < 1e-8 or static_launches == 0:
+        raise AssertionError('L=24 static-mode energy or kernel launches wrong')
+    assert_right_isometric(psi, 1e-8)
+    # the centre bond in static mode, by stage
+    H = HEffective(eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i], model.H_mpo[i + 1])
+    theta_tmpl, _ = eng._static_consts(i)
+    th = psi.get_theta2(i) + theta_tmpl
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, theta = fused_lanczos_impl(H, th, 10)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    thp = permute_legs(theta, codomain=['vL', 'p0'], domain=['vR', 'p1'])
+    Vh_prev = permute_legs(psi.Bs[i + 1].relabelled({'p': 'p1'}), codomain=['vL'],
+                           domain=['vR', 'p1'])
+    steady_truncated_svd(thp, Vh_prev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    eng.update_bond(i)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f'[L=24 static centre bond] fused lanczos (10 its) {(t1 - t0) * 1e3:.1f} ms; '
+          f'steady SVD {(t2 - t1) * 1e3:.1f} ms (phase 4 exact split: '
+          f'{split_ms:.1f} ms); whole static update {(t3 - t2) * 1e3:.1f} ms; '
+          f'host syncs of one static update: {count_syncs(lambda: eng.update_bond(i))}',
+          flush=True)
+    profile_bond(eng, i)
+    phase_s['7'] = time.perf_counter() - t_phase
+
+    # --- 8. the bench step -----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    lengths, repeats = (1, 3), 1
+    for svd_mode, dtype in (('steady', Dtype.float32), ('steady', Dtype.float64),
+                            ('exact', Dtype.float32)):
+        t_step, flops = step_run(CHI_BENCH, svd_mode=svd_mode, dtype=dtype,
+                                 lengths=lengths, repeats=repeats)
+        print(f'[step chi={CHI_BENCH} {svd_mode} {dtype.name}] {t_step * 1e3:.3f} ms/step, '
+              f'{flops / t_step / 1e12:.3f} TFLOP/s ({flops / 1e9:.2f} GFLOP/step), '
+              f'{step_run.launches_per_step} grouped-GEMM launches/step', flush=True)
+    # one static step at chi=1024, f64: the same host-drawn state on card and CPU
+    out = {}
+    for device in ('cuda', 'cpu'):
+        LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
+            get_backend(u1_symmetry, device=device), 1024)
+        out[device] = _get_static_bond_fn(10, 'steady')(HEffective(LP, RP, W1, W2), S,
+                                                         B1, B2, tmpl, None)
+    (E_card, _, S_card, *_), (E_cpu, _, S_cpu, *_) = out['cuda'], out['cpu']
+    dE = abs(E_card - E_cpu) / abs(E_cpu)
+    dS = float(np.abs(S_card.to_numpy() - S_cpu.to_numpy()).max())
+    print(f'[step chi=1024 f64] card against CPU: E {E_card!r} vs {E_cpu!r} '
+          f'(relative {dE:.3e}), max |dS| {dS:.3e}', flush=True)
+    if not (dE < 1e-9 and dS < 1e-8):
+        raise AssertionError('the chi=1024 static step disagrees between card and CPU')
+    del out
+    torch.cuda.empty_cache()
+    grouped_matmul.launches = 0
+    scale2.launches = 0
+    decomposition = step_decomposition(CHI_BENCH, lengths=lengths, repeats=repeats)
+    bench_launches = {'grouped_gemm': grouped_matmul.launches, 'probe': scale2.launches}
+    print(f'[step_decomposition] {json.dumps(decomposition)}; launches {bench_launches}',
+          flush=True)
+    if not decomposition['probe_works'] or 0 in bench_launches.values():
+        raise AssertionError('step_decomposition: probe failed or a kernel was not run')
+    phase_s['8'] = time.perf_counter() - t_phase
+    print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
+
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
     kernels = [{'name': 'grouped_gemm', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
@@ -308,7 +434,11 @@ def main() -> int:
                 'launches': launches, 'max_abs_err': main['max_abs_err'],
                 'ms': main['ms'], 'plain_ms': main['plain_ms'],
                 'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-                'library_ms': main['library_ms']}]
+                'library_ms': main['library_ms']},
+               {'name': 'probe', 'route': 'cuda',
+                'source': 'cyten_tpu_torch/csrc/probe.cu',
+                'replaces': 'scripts/exp_r5_step_decomp.py:59',
+                'launches': bench_launches['probe'], **probe}]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

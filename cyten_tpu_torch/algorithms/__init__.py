@@ -1,4 +1,5 @@
-"""Tensor-network algorithms: finite MPS, the Heisenberg chain and two-site DMRG.
+"""Tensor-network algorithms: finite MPS, the Heisenberg and transverse-field Ising
+chains and two-site DMRG (host-driven or static).
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
 ``HeisenbergModel -> SimpleMPS -> DMRGEngine.run``.
@@ -6,10 +7,11 @@ The counterpart of ``cyten_tpu/algorithms/`` for the main path
 
 from .mps import SimpleMPS, split_truncate_theta
 from .models import (
-    HeisenbergModel, heisenberg_exact_finite_gs_energy, mpo_from_bond_op, spin_half_site,
+    HeisenbergModel, TFIModel, heisenberg_exact_finite_gs_energy, mpo_from_bond_op,
+    spin_half_site, tfi_exact_finite_gs_energy,
 )
 from .dmrg import DMRGEngine, FaultError, HEffective
 
-__all__ = ['SimpleMPS', 'split_truncate_theta', 'HeisenbergModel',
-           'heisenberg_exact_finite_gs_energy', 'mpo_from_bond_op', 'spin_half_site',
-           'DMRGEngine', 'FaultError', 'HEffective']
+__all__ = ['SimpleMPS', 'split_truncate_theta', 'HeisenbergModel', 'TFIModel',
+           'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
+           'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective']

@@ -1,10 +1,16 @@
 """Two-site DMRG on finite MPS.
 
 The counterpart of ``cyten_tpu/algorithms/dmrg.py``: the environment updates,
-``_apply_bond_mixing``, the effective-Hamiltonian matvec, :class:`HEffective` and
-:class:`DMRGEngine` with ``sweep``, ``update_bond`` and ``run``. Every ``tdot`` and
-``compose`` on the abelian backend runs its block products as one grouped-GEMM kernel
-launch; the Lanczos solver is driven from the host.
+``_apply_bond_mixing``, the effective-Hamiltonian matvec, :class:`HEffective`, the
+static bond update ``_get_static_bond_fn`` and :class:`DMRGEngine` with ``sweep``,
+``update_bond``, static mode and ``run``. Every ``tdot`` and ``compose`` on the
+abelian backend runs its block products as one grouped-GEMM kernel launch.
+
+A bond update runs in one of two modes. The dynamic mode drives a converging Lanczos
+solve from the host and truncates with an exact per-sector SVD. Static mode, for a
+state whose bond structures have stopped changing, runs a fixed-length fused Lanczos
+and an SVD truncated to the frozen per-sector chi allocation (exact, or the
+warm-started steady SVD), and reads nothing on the host inside the solve.
 
 Environment conventions:
 
@@ -18,10 +24,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..backends.data import BlockSparseData, DiagonalBlockData
+from ..symmetries import TensorProduct
 from ..tensors import (
-    SymmetricTensor, compose, dagger, permute_legs, pinv, scale_axis, tdot,
+    DiagonalTensor, Mask, SymmetricTensor, compose, dagger, permute_legs, pinv,
+    scalar_multiply, scale_axis, svd, tdot,
 )
-from ..tensors.krylov_based import lanczos
+from ..tensors.krylov_based import (
+    _close_structure, _device_norm, fused_lanczos_impl, lanczos,
+)
+from ..tensors.steady import steady_truncated_svd
 from ..tensors.sparse import LinearOperator
 from .mps import SimpleMPS, split_truncate_theta
 
@@ -170,10 +182,6 @@ def _apply_bond_mixing(x1, W1, W2):
             out_blocks.append(blk)
             out_rows.append([p1o, w2, p0o, i_idx, b_idx])
 
-    from ..backends.data import BlockSparseData
-    from ..symmetries import TensorProduct
-    from ..tensors import SymmetricTensor
-
     codomain = TensorProduct(
         [W2._as_codomain_leg('p1'), W2._as_codomain_leg('wR'),
          W1._as_codomain_leg('p0'), x1._as_codomain_leg('vR*')],
@@ -222,12 +230,156 @@ class HEffective(LinearOperator):
         return _heff_matvec_impl(self.LP, self.RP, self.W1, self.W2, theta)
 
 
+class _PrefixMask:
+    """The frozen truncation of static mode, resolved to host-side slices once.
+
+    Static mode keeps the first ``k`` singular values of each sector of the SVD's new
+    leg, ``k`` being the multiplicity the sector had when the structures froze. A
+    :class:`Mask` says so with boolean blocks on the device, and applying it there
+    (``svd_apply_mask``) makes the host read them on every bond. Here the blocks
+    are read once: :meth:`apply` then cuts each block to its first ``k`` entries,
+    the same result as ``svd_apply_mask`` with no device read.
+    """
+
+    def __init__(self, mask: Mask):
+        if not mask.is_projection:
+            raise ValueError('static mode truncates with a projection mask')
+        bb = mask.backend.block_backend
+        self.small_leg = mask.small_leg
+        self.large_leg = mask.large_leg
+        self.keep = {}  # large-leg sector index -> (small-leg sector index, k)
+        for (i_small, i_large), blk in zip(mask.data.block_inds, mask.data.blocks):
+            keep = bb.to_numpy(blk).astype(bool)
+            k = int(keep.sum())
+            if not keep[:k].all():
+                raise ValueError('static mode keeps a prefix of each sector')
+            self.keep[int(i_large)] = (int(i_small), k)
+
+    def _cut(self, blocks, block_inds, leg_idx: int):
+        """Blocks on ``large_leg`` at ``leg_idx`` cut to the kept prefix, and their
+        rows with that leg's sector index on ``small_leg``."""
+        out, rows = [], []
+        for blk, row in zip(blocks, block_inds):
+            hit = self.keep.get(int(row[leg_idx]))
+            if hit is None:
+                continue
+            i_small, k = hit
+            idx = [slice(None)] * blk.ndim
+            idx[leg_idx] = slice(0, k)
+            out.append(blk[tuple(idx)])
+            row = row.copy()
+            row[leg_idx] = i_small
+            rows.append(row)
+        return out, np.array(rows, np.intp).reshape(len(rows), np.shape(block_inds)[1])
+
+    def apply(self, U, S, Vh):
+        """``svd_apply_mask(U, S, Vh, mask)`` for the SVD's own new leg."""
+        if not (U.domain.factors[-1] == S.leg == Vh.codomain.factors[0]
+                == self.large_leg):
+            raise ValueError('the mask does not fit the SVD')
+        blocks, rows = self._cut(U.data.blocks, U.data.block_inds, U.num_legs - 1)
+        U = SymmetricTensor(BlockSparseData(blocks, rows, U.data.dtype), U.codomain,
+                            TensorProduct([self.small_leg]), U.backend, U.labels)
+        blocks, rows = self._cut(S.data.blocks, S.data.block_inds[:, None], 0)
+        S = DiagonalTensor(DiagonalBlockData(blocks, rows[:, 0], S.data.dtype),
+                           self.small_leg, S.backend, S.labels)
+        blocks, rows = self._cut(Vh.data.blocks, Vh.data.block_inds, 0)
+        Vh = SymmetricTensor(BlockSparseData(blocks, rows, Vh.data.dtype),
+                             TensorProduct([self.small_leg]), Vh.domain, Vh.backend,
+                             Vh.labels)
+        return U, S, Vh
+
+
+def _freeze_bond(H, theta, kept_leg):
+    """The constants of a static bond update: ``(theta_tmpl, mask)``.
+
+    ``theta_tmpl`` is the zero tensor on the block structure of ``theta`` closed under
+    ``H.matvec``; ``mask`` is the :class:`Mask` on the SVD's new leg that keeps the
+    first ``kept_leg.multiplicities`` values of each sector (none of a sector that
+    ``kept_leg`` lacks).
+    """
+    from ..dtypes import Dtype
+    from ..symmetries import ElementarySpace
+
+    closed = _close_structure(H, theta)
+    theta_tmpl = scalar_multiply(0., closed)
+    thp = permute_legs(closed, codomain=['vL', 'p0'], domain=['vR', 'p1'])
+    full = ElementarySpace.from_largest_common_subspace(thp.codomain, thp.domain,
+                                                        is_dual=False)
+    kept_map = {tuple(int(x) for x in s): int(m) for s, m in
+                zip(kept_leg.sector_decomposition, kept_leg.multiplicities)}
+    bb = theta.backend.block_backend
+
+    def func(shape, coupled):
+        k = kept_map.get(tuple(int(x) for x in np.asarray(coupled)), 0)
+        keep = np.zeros(shape[0], dtype=bool)
+        keep[:min(k, shape[0])] = True
+        return bb.as_block(keep, Dtype.bool)
+
+    diag = DiagonalTensor.from_sector_block_func(func, full, backend=theta.backend)
+    return theta_tmpl, Mask.from_DiagonalTensor(diag)
+
+
+def _get_static_bond_fn(N: int, svd_mode: str = 'exact', steady_opts: dict = None):
+    """The whole static-mode bond update as one function.
+
+    ``impl(H, S_i, B_i, B_ip1, theta_tmpl, mask)`` assembles theta, runs ``N``
+    iterations of the fused Lanczos, splits theta with an SVD truncated to the frozen
+    per-sector chi allocation, restores the B form of site i and updates both
+    environments. It returns ``(E, new_B_i, S, B, LP_new, RP_new)`` with E a host
+    float. The only values it reads on the host are the fused Lanczos's alphas and
+    betas, in one sync; ``torch.linalg``'s factorisations may sync on their own.
+
+    ``svd_mode='exact'`` takes the per-sector SVD of theta (``torch.linalg.svd``)
+    and truncates it with ``mask``, a :class:`_PrefixMask`. ``'steady'`` takes the
+    warm-started GEMM/QR steady SVD (``tensors/steady.py``) seeded by the current
+    right isometry B_{i+1}, whose leg fixes the allocation; it ignores ``mask``.
+    ``steady_opts`` overrides its iteration counts (n_power, n_jacobi, ns_polish).
+    """
+    if svd_mode not in ('exact', 'steady'):
+        raise ValueError(f'unknown svd_mode {svd_mode!r}')
+    steady_opts = dict(steady_opts or {})
+
+    def impl(H, S_i, B_i, B_ip1, theta_tmpl, mask):
+        # theta0 = S_i B_i B_{i+1}, embedded into the closed block structure
+        th = scale_axis(B_i, S_i, 'vL').relabelled({'p': 'p0'})
+        th = tdot(th, B_ip1.relabelled({'p': 'p1'}), 'vR', 'vL')
+        th = permute_legs(th, codomain=['vL', 'p0', 'p1'], domain=['vR'])
+        th = th + theta_tmpl                   # union with the closed structure
+        E, theta = fused_lanczos_impl(H, th, N)
+        thp = permute_legs(theta, codomain=['vL', 'p0'], domain=['vR', 'p1'])
+        if svd_mode == 'steady':
+            Vh_prev = permute_legs(B_ip1.relabelled({'p': 'p1'}),
+                                   codomain=['vL'], domain=['vR', 'p1'])
+            U, S, Vh, _ = steady_truncated_svd(thp, Vh_prev, new_labels=('vR', 'vL'),
+                                               **steady_opts)
+        else:
+            U, S, Vh = svd(thp, new_labels=['vR', 'vL'])
+            U, S, Vh = mask.apply(U, S, Vh)
+        S = scalar_multiply(1. / _device_norm(S), S)
+        A = U.relabelled({'p0': 'p'})
+        B = permute_legs(Vh, codomain=['vL', 'p1'], domain=['vR']).relabelled({'p1': 'p'})
+        Sinv = pinv(S_i, cutoff=1e-14)
+        new_B_i = scale_axis(scale_axis(A, Sinv, 'vL'), S, 'vR')
+        LP_new = _update_LP_impl(H.LP, H.W1.relabelled({'p0': 'p', 'p0*': 'p*'}), A)
+        RP_new = _update_RP_impl(H.RP, H.W2.relabelled({'p1': 'p', 'p1*': 'p*'}), B)
+        return E, new_B_i, S, B, LP_new, RP_new
+
+    return impl
+
+
 class DMRGEngine:
-    """Two-site DMRG sweeps with a host-driven Lanczos ground-state search per bond.
+    """Two-site DMRG sweeps with a Lanczos ground-state search per bond.
+
+    A bond update is dynamic (host-driven Lanczos, exact SVD truncated by ``chi_max``
+    and ``eps``) until static mode is on: :meth:`enable_static_mode` freezes the
+    bond structures, or ``auto_static`` turns it on in :meth:`run` once they stop
+    changing between two sweeps (``True`` for the steady SVD, ``'exact'`` for the
+    exact one).
 
     Options of ``cyten_tpu``'s engine that are not ported yet raise
-    ``NotImplementedError``: ``mesh``, ``orthogonal_to``, ``auto_static``, static
-    mode, ``dynamic_svd`` other than 'exact', and ``run(checkpoint=...)``.
+    ``NotImplementedError``: ``mesh``, ``orthogonal_to``, ``dynamic_svd`` other than
+    'exact', and ``run(checkpoint=...)``.
     """
 
     def __init__(self, psi: SimpleMPS, model, chi_max: int = 32, eps: float = 1e-12,
@@ -237,8 +389,6 @@ class DMRGEngine:
             raise NotImplementedError('DMRGEngine(mesh=...) is not ported yet')
         if orthogonal_to:
             raise NotImplementedError('DMRGEngine(orthogonal_to=...) is not ported yet')
-        if auto_static:
-            raise NotImplementedError('static mode (auto_static) is not ported yet')
         if dynamic_svd != 'exact':
             raise NotImplementedError(f'dynamic_svd={dynamic_svd!r} is not ported yet')
         self.psi = psi
@@ -246,6 +396,9 @@ class DMRGEngine:
         self.chi_max = chi_max
         self.eps = eps
         self.lanczos_options = lanczos_options or {'N_max': 20, 'P_tol': 1e-14}
+        #: switch to static mode in run() once the bond structures stop changing
+        self.auto_static = auto_static
+        self.static_mode = False
         self.backend = psi.backend
         L = psi.L
         self.LPs = [None] * L
@@ -297,7 +450,72 @@ class DMRGEngine:
             self.update_bond(i)
         return self.E
 
+    # --- static mode ---------------------------------------------------------------------
+
+    def enable_static_mode(self, n_lanczos: int = 20, svd_mode: str = 'exact',
+                           steady_svd_options: dict = None):
+        """Freeze the current bond structures: from now on every bond update runs
+        ``n_lanczos`` iterations of the fused Lanczos and truncates to the per-sector
+        chi allocation each bond has now, with no host sync inside the solve.
+
+        Call it once the state has structurally converged. ``svd_mode='steady'``
+        swaps the per-sector exact SVD for the warm-started GEMM/QR steady SVD
+        (``tensors/steady.py``); ``steady_svd_options`` sets its iteration counts
+        (n_power, n_jacobi, ns_polish).
+        """
+        if svd_mode not in ('exact', 'steady'):
+            raise ValueError(f'unknown svd_mode {svd_mode!r}')
+        self.static_mode = True
+        self._static_n_lanczos = n_lanczos
+        self._static_svd_mode = svd_mode
+        self._static_steady_opts = steady_svd_options
+        self._static_cache = {}
+
+    def _static_consts(self, i: int):
+        """``(theta_tmpl, mask)`` of bond i (:func:`_freeze_bond`), made at its first
+        static update and kept: the mask, a :class:`_PrefixMask`, keeps the
+        multiplicities ``Ss[i+1]`` has then."""
+        entry = self._static_cache.get(('consts', i))
+        if entry is not None:
+            return entry
+        Heff = HEffective(self.LPs[i], self.RPs[i + 1], self.model.H_mpo[i],
+                          self.model.H_mpo[i + 1])
+        theta_tmpl, mask = _freeze_bond(Heff, self.psi.get_theta2(i),
+                                        self.psi.Ss[i + 1].leg)
+        entry = self._static_cache[('consts', i)] = (theta_tmpl, _PrefixMask(mask))
+        return entry
+
+    def _static_entry(self, i: int):
+        """The static update of bond i: ``fn(H, S_i, B_i, B_ip1)`` (cached)."""
+        entry = self._static_cache.get(i)
+        if entry is not None:
+            return entry
+        theta_tmpl, mask = self._static_consts(i)
+        impl = _get_static_bond_fn(self._static_n_lanczos, self._static_svd_mode,
+                                   self._static_steady_opts)
+
+        def fn(H, S_i, B_i, B_ip1):
+            return impl(H, S_i, B_i, B_ip1, theta_tmpl, mask)
+
+        entry = self._static_cache[i] = fn
+        return entry
+
+    def _update_bond_static(self, i: int):
+        psi = self.psi
+        fn = self._static_entry(i)
+        Heff = HEffective(self.LPs[i], self.RPs[i + 1], self.model.H_mpo[i],
+                          self.model.H_mpo[i + 1])
+        E, new_B, S, B, LP_new, RP_new = fn(Heff, psi.Ss[i], psi.Bs[i], psi.Bs[i + 1])
+        self.E = E
+        psi.Bs[i] = new_B
+        psi.Ss[i + 1] = S.relabelled(['vL', 'vL*'])
+        psi.Bs[i + 1] = B
+        self.LPs[i + 1] = LP_new
+        self.RPs[i] = RP_new
+
     def update_bond(self, i: int):
+        if self.static_mode:
+            return self._update_bond_static(i)
         psi = self.psi
         Heff = HEffective(self.LPs[i], self.RPs[i + 1], self.model.H_mpo[i],
                           self.model.H_mpo[i + 1])
@@ -313,6 +531,13 @@ class DMRGEngine:
         self.update_LP(i, A)
         self.update_RP(i + 1, B)
 
+    def _bond_signature(self):
+        """Hashable snapshot of every bond structure (for auto_static)."""
+        return tuple(
+            (tuple(map(tuple, B.get_leg_co_domain('vL').sector_decomposition.tolist())),
+             tuple(int(m) for m in B.get_leg_co_domain('vL').multiplicities))
+            for B in self.psi.Bs)
+
     def run(self, n_sweeps: int = 10, tol: float = 1e-10, verbose: bool = False,
             checkpoint=None) -> float:
         """Sweep until the energy changes by less than ``tol`` (at most ``n_sweeps``).
@@ -320,10 +545,16 @@ class DMRGEngine:
         A sweep whose energy is not finite, or that fails in a factorization,
         raises :class:`FaultError`: there is no checkpoint to roll back to
         (``checkpoint=`` is not ported yet and raises ``NotImplementedError``).
+
+        With ``auto_static``, static mode is turned on after the first sweep that
+        leaves every bond structure as the sweep before it did. In static mode each
+        sweep still runs bond by bond (``cyten_tpu`` batches a half sweep into one
+        ``lax.scan``; the energies are the same).
         """
         if checkpoint is not None:
             raise NotImplementedError('DMRGEngine.run(checkpoint=...) is not ported yet')
         E_old = np.inf
+        sig_old = None
         for sweep in range(n_sweeps):
             fault_exc = None
             try:
@@ -340,6 +571,17 @@ class DMRGEngine:
             if verbose:
                 print(f'sweep {sweep + 1}: E = {E:.12f}, '
                       f'max chi = {self.psi.max_chi()}')
+            if self.auto_static and not self.static_mode:
+                sig = self._bond_signature()
+                if sig == sig_old:
+                    mode = self.auto_static if isinstance(self.auto_static, str) \
+                        else 'steady'
+                    self.enable_static_mode(
+                        n_lanczos=self.lanczos_options.get('N_max', 20), svd_mode=mode)
+                    if verbose:
+                        print(f'sweep {sweep + 1}: structures saturated -> '
+                              f'static mode (svd_mode={mode})')
+                sig_old = sig
             if abs(E - E_old) < tol:
                 break
             E_old = E

@@ -1,9 +1,11 @@
-"""Spin-1/2 Heisenberg chain and its MPO, with an exact reference.
+"""Spin-1/2 chains (Heisenberg, transverse-field Ising) and their MPOs, with exact
+references.
 
 The counterpart of ``cyten_tpu/algorithms/models.py``'s ``spin_half_site`` (:35),
-``mpo_from_bond_op`` (:99) and ``HeisenbergModel`` (:471). H_bonds (two-site gates)
-and H_mpo (MPO tensors) are SymmetricTensors for a chosen conserved symmetry. The
-exact ground-state energy comes from sparse exact diagonalization.
+``mpo_from_bond_op`` (:99), ``TFIModel`` (:372, finite chains) and ``HeisenbergModel``
+(:471). H_bonds (two-site gates) and H_mpo (MPO tensors) are SymmetricTensors for a
+chosen conserved symmetry. The exact ground-state energies come from sparse exact
+diagonalization.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ from ..tensors import (
     truncate_singular_values, svd_apply_mask,
 )
 
-__all__ = ['HeisenbergModel', 'spin_half_site', 'mpo_from_bond_op',
-           'heisenberg_exact_finite_gs_energy']
+__all__ = ['HeisenbergModel', 'TFIModel', 'spin_half_site', 'mpo_from_bond_op',
+           'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy']
 
-# Pauli z in the (|up>, |down>) basis
+# Pauli x and z in the (|up>, |down>) basis
+_sx = np.array([[0., 1.], [1., 0.]])
 _sz = np.array([[1., 0.], [0., -1.]])
 _id = np.eye(2)
 
@@ -224,6 +227,96 @@ class HeisenbergModel:
         return mpos
 
 
+class TFIModel:
+    r"""Transverse field Ising chain: :math:`H = -J \sum σ^x_i σ^x_{i+1} - g \sum σ^z_i`.
+
+    The Z2 symmetry (spin-flip in the x direction == parity of down spins in the z
+    basis) can be conserved with ``conserve='parity'``. The tensors live on ``device``
+    (default: the CUDA card) unless a ``backend`` is given. Finite chains only:
+    ``bc='infinite'`` needs the infinite MPS, which is not ported yet.
+    """
+
+    def __init__(self, L: int, J: float = 1., g: float = 1.,
+                 conserve: str = 'parity', backend=None, block_backend=None,
+                 bc: str = 'finite', device: str = None):
+        if conserve not in ('parity', 'None', None):
+            raise ValueError(f'TFIModel: unknown conserve={conserve!r}')
+        if bc == 'infinite':
+            raise NotImplementedError('TFIModel(bc="infinite") is not ported yet')
+        if bc != 'finite':
+            raise ValueError(f'unknown bc {bc!r}')
+        self.L = L
+        self.J = J
+        self.g = g
+        self.bc = bc
+        self.conserve = conserve = conserve or 'None'
+        self.site_leg = spin_half_site(conserve)
+        from ..backends import get_backend
+
+        self.backend = backend if backend is not None else \
+            get_backend(self.site_leg.symmetry, block_backend, device=device)
+        self.H_bonds = self._build_H_bonds()
+        self.H_mpo = self._build_H_mpo()
+
+    @property
+    def site_legs(self):
+        return [self.site_leg] * self.L
+
+    def _build_H_bonds(self):
+        """Two-site gates; the field of the end sites sits wholly on their one bond."""
+        p = self.site_leg
+        res = []
+        for i in range(self.L - 1):
+            gL = self.g / 2. * (2. if i == 0 else 1.)
+            gR = self.g / 2. * (2. if i + 1 == self.L - 1 else 1.)
+            h = -self.J * np.kron(_sx, _sx) \
+                - gL * np.kron(_sz, _id) - gR * np.kron(_id, _sz)
+            block = h.reshape(2, 2, 2, 2).transpose(0, 1, 3, 2)  # legs [p0,p1,p1*,p0*]
+            res.append(SymmetricTensor.from_dense_block(
+                block, [p, p], [p, p], backend=self.backend,
+                labels=['p0', 'p1', 'p1*', 'p0*']))
+        return res
+
+    def _build_H_mpo(self):
+        p = self.site_leg
+        sym = p.symmetry
+        if self.conserve == 'parity':
+            wL_sectors = np.array([[0], [1], [0]])
+        else:
+            wL_sectors = np.zeros((3, sym.sector_ind_len), dtype=int)
+        w_leg = ElementarySpace.from_basis(sym, wL_sectors)
+        # W[wL, p(ket), p(bra), wR]; MPO layout is [wL, p, wR, p*]
+        W = np.zeros((3, 2, 2, 3))
+        W[0, :, :, 0] = _id
+        W[0, :, :, 1] = _sx
+        W[0, :, :, 2] = -self.g * _sz
+        W[1, :, :, 2] = -self.J * _sx
+        W[2, :, :, 2] = _id
+        first = np.zeros((1, 3))
+        first[0, 0] = 1.
+        last = np.zeros((3, 1))
+        last[2, 0] = 1.
+        triv = ElementarySpace(sym, sym.trivial_sector[None, :])
+        mpos = []
+        for i in range(self.L):
+            Wi = W
+            wl, wr = w_leg, w_leg
+            if i == 0:
+                Wi = np.tensordot(first, Wi, (1, 0))
+                wl = triv
+            if i == self.L - 1:
+                Wi = np.tensordot(Wi, last, (3, 0))
+                wr = triv
+            # dense axes [wL, p, p', wR] -> legs order [wL, p, wR, p*]
+            mpos.append(SymmetricTensor.from_dense_block(
+                np.transpose(Wi, (0, 1, 3, 2)), [wl, p], [p, wr],
+                backend=self.backend, labels=['wL', 'p', 'wR', 'p*']))
+        return mpos
+
+    def exact_finite_gs_energy(self) -> float:
+        return tfi_exact_finite_gs_energy(self.L, self.J, self.g)
+
+
 # --- exact reference (sparse ED) -------------------------------------------------------
 
 
@@ -264,6 +357,16 @@ def heisenberg_exact_finite_gs_energy(L: int, J: float) -> float:
     Sz = 0.5 * _sz
     H = _sparse_chain_hamiltonian(
         L, [(J / 2., Sp, Sm), (J / 2., Sm, Sp), (J, Sz, Sz)])
+    vals = scipy.sparse.linalg.eigsh(H, k=1, which='SA',
+                                     return_eigenvectors=False)
+    return float(vals[0])
+
+
+def tfi_exact_finite_gs_energy(L: int, J: float, g: float) -> float:
+    """Exact TFI ground energy for a finite open chain (sparse ED)."""
+    import scipy.sparse.linalg
+
+    H = _sparse_chain_hamiltonian(L, [(-J, _sx, _sx), (-g, _sz)])
     vals = scipy.sparse.linalg.eigsh(H, k=1, which='SA',
                                      return_eigenvectors=False)
     return float(vals[0])

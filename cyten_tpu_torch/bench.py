@@ -1,0 +1,228 @@
+"""The port's bench: the static DMRG bond update of ``bench.py``, timed on the card.
+
+The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_step_state``
+(:598) and ``step_run`` (:649), and of ``scripts/exp_r5_step_decomp.py``
+(:func:`step_decomposition`). Everything runs on ``device`` (default: the CUDA card).
+Times are host-clock seconds around work that ends in ``torch.cuda.synchronize()``.
+
+    from cyten_tpu_torch.bench import step_run, step_decomposition
+    s_per_step, flops_per_step = step_run(4096)
+    print(step_decomposition())
+
+Not ported: the int8-environment GEMM probe of the script (:67-113) and the
+``work_dtype='bfloat16'`` step of ``step_run``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .algorithms.dmrg import (
+    HEffective, _PrefixMask, _freeze_bond, _get_static_bond_fn, _heff_matvec_impl,
+)
+from .backends import get_backend
+from .blocks.grouped_gemm import grouped_matmul
+from .blocks.probe import scale2, scale2_plain
+from .config import config
+from .dtypes import Dtype
+from .symmetries import ElementarySpace, u1_symmetry
+from .tensors import DiagonalTensor, SymmetricTensor, scalar_multiply, tdot
+from .tensors.krylov_based import _device_norm
+from .tools.flops import tdot_flops
+
+__all__ = ['build_workload', 'build_step_state', 'step_flops', 'step_run',
+           'step_decomposition']
+
+
+def build_workload(backend, chi: int, dtype=Dtype.float64, seed: int = 0):
+    """The U(1) DMRG bond environment of bench.py:190-218 (build_workload):
+    ``LP, RP, W1, W2, theta`` with nine charge sectors of total multiplicity ~chi."""
+    rng = np.random.default_rng(seed)
+    charges = np.arange(-4, 5)
+    weights = np.exp(-0.4 * charges ** 2)
+    mults = np.maximum(1, np.round(chi * weights / weights.sum()).astype(int))
+    v_leg = ElementarySpace(u1_symmetry, charges[:, None], mults)
+    p_leg = ElementarySpace(u1_symmetry, [[-1], [1]], [1, 1])
+    w_leg = ElementarySpace.from_defining_sectors(
+        u1_symmetry, np.array([[0], [2], [-2], [0], [0]]), unique_sectors=False)
+    kw = dict(backend=backend, rng=rng, dtype=dtype)
+    LP = SymmetricTensor.from_random_normal([v_leg], [v_leg, w_leg],
+                                            labels=[['vR*'], ['vR', 'wR']], **kw)
+    RP = SymmetricTensor.from_random_normal([v_leg, w_leg], [v_leg],
+                                            labels=['vL', 'wL', 'vL*'], **kw)
+    W = SymmetricTensor.from_random_normal([w_leg, p_leg], [p_leg, w_leg],
+                                           labels=['wL', 'p', 'wR', 'p*'], **kw)
+    theta = SymmetricTensor.from_random_normal([v_leg, p_leg, p_leg], [v_leg],
+                                               labels=['vL', 'p0', 'p1', 'vR'], **kw)
+    W1 = W.relabelled({'p': 'p0', 'p*': 'p0*'})
+    W2 = W.relabelled({'p': 'p1', 'p*': 'p1*'})
+    return LP, RP, W1, W2, theta
+
+
+def build_step_state(backend, chi: int, seed: int = 0, dtype=Dtype.float64):
+    """The static-mode step state of bench.py:598-646 (build_step_state):
+    ``LP, RP, W1, W2, S, B1, B2, theta_tmpl, mask``. ``mask`` keeps the full
+    multiplicities of the bond leg, so a step returns the state to its own structure.
+    """
+    LP, RP, W1, W2, theta = build_workload(backend, chi, dtype, seed)
+    v_leg = theta.get_leg_co_domain('vL')
+    p_leg = theta.get_leg_co_domain('p0')
+    rng = np.random.default_rng(seed + 1)
+    kw = dict(backend=backend, labels=['vL', 'p', 'vR'], rng=rng, dtype=dtype)
+    B1 = SymmetricTensor.from_random_normal([v_leg, p_leg], [v_leg], **kw)
+    B2 = SymmetricTensor.from_random_normal([v_leg, p_leg], [v_leg], **kw)
+    S = DiagonalTensor.from_random_uniform(v_leg, backend=backend, labels=['vL', 'vL*'],
+                                           rng=rng, dtype=dtype) + 1.5
+    theta_tmpl, mask = _freeze_bond(HEffective(LP, RP, W1, W2), theta, v_leg)
+    if mask.small_leg != v_leg:
+        raise AssertionError('the frozen mask does not keep the bond leg')
+    return LP, RP, W1, W2, S, B1, B2, theta_tmpl, mask
+
+
+def step_flops(LP, RP, W1, W2, theta, n_lanczos: int) -> int:
+    """Contraction FLOPs of one static step, counted as bench.py:759-775 counts them:
+    the exact GEMM FLOPs of the matvec chain LP, W1, W2, RP times ``n_lanczos + 2``
+    (the two environment updates count as one matvec each). The SVD is in the time
+    but not in the FLOPs. The chain's intermediates are computed to read their
+    block structure."""
+    flops = tdot_flops(LP, theta, ['vR'], ['vL'])
+    x = tdot(LP, theta, 'vR', 'vL')
+    flops += tdot_flops(x, W1, ['wR', 'p0'], ['wL', 'p0*'])
+    x = tdot(x, W1, ['wR', 'p0'], ['wL', 'p0*'])
+    flops += tdot_flops(x, W2, ['wR', 'p1'], ['wL', 'p1*'])
+    x = tdot(x, W2, ['wR', 'p1'], ['wL', 'p1*'])
+    flops += tdot_flops(x, RP, ['vR', 'wR'], ['vL', 'wL'])
+    return flops * (n_lanczos + 2)
+
+
+def _seconds_per_call(run, carry, lengths, repeats: int) -> float:
+    """Seconds per call of the work that ``run(carry, n)`` does ``n`` times (ending
+    in a device sync and returning the new carry): the best of ``repeats`` host
+    times for each of ``lengths``, then the slope between the shortest and the
+    longest, or the mean of a single length (an upper bound that includes the fixed
+    cost)."""
+    times = {}
+    for n in lengths:
+        best = np.inf
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            carry = run(carry, n)
+            best = min(best, time.perf_counter() - t0)
+        times[n] = best
+    n1, n2 = min(times), max(times)
+    slope = (times[n2] - times[n1]) / (n2 - n1) if n2 > n1 else 0.
+    return slope if slope > 0 else times[n2] / n2
+
+
+def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
+             precision: str = 'float32', svd_mode: str = 'steady',
+             dtype=Dtype.float32, device: str = 'cuda', seed: int = 0):
+    """Time the full static DMRG step of bench.py:649-775 (step_run) on ``device``.
+
+    One step is one static-mode bond update (theta assembly, ``n_lanczos``
+    iterations of the fused Lanczos, SVD, frozen-chi truncation, both environment
+    updates) on the :func:`build_step_state` state, whose outputs are fed back as
+    the next step's inputs; LP and RP are renormalised each step. ``precision`` sets
+    ``config.matmul_precision`` for the run.
+
+    It runs one warm-up step, then ``repeats`` runs of each of ``lengths`` steps, and
+    takes the slope of the best times over the lengths (:func:`_seconds_per_call`).
+    Returns ``(seconds per
+    step, FLOPs per step)`` with the FLOPs of :func:`step_flops`, and leaves the
+    grouped-GEMM launches of the warm-up step in ``step_run.launches_per_step``.
+    """
+    backend = get_backend(u1_symmetry, device=device)
+    dtype = Dtype[dtype] if isinstance(dtype, str) else dtype
+    LP, RP, W1, W2, S, B1, B2, theta_tmpl, mask = build_step_state(backend, chi,
+                                                                   dtype=dtype)
+    flops = step_flops(LP, RP, W1, W2, theta_tmpl, n_lanczos)
+    impl = _get_static_bond_fn(n_lanczos, svd_mode)
+    mask = _PrefixMask(mask)
+
+    def run(carry, n):
+        for _ in range(n):
+            S, B1, B2, LP, RP = carry
+            E, nB1, S2, B2n, LPn, RPn = impl(HEffective(LP, RP, W1, W2), S, B1, B2,
+                                             theta_tmpl, mask)
+            LPn = scalar_multiply(1. / _device_norm(LPn), LPn)
+            RPn = scalar_multiply(1. / _device_norm(RPn), RPn)
+            carry = (S2.relabelled(['vL', 'vL*']), nB1, B2n, LPn, RPn)
+        backend.block_backend.synchronize()
+        return carry
+
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        launches = grouped_matmul.launches
+        carry = run((S, B1, B2, LP, RP), 1)
+        step_run.launches_per_step = grouped_matmul.launches - launches
+        t_step = _seconds_per_call(run, carry, lengths, repeats)
+    finally:
+        config.matmul_precision = old
+    return t_step, flops
+
+
+step_run.launches_per_step = None
+
+
+def _matvec_slope(args, lengths=(10, 50), repeats: int = 2) -> float:
+    """Seconds per effective-Hamiltonian matvec, each output renormalised (in f32)
+    and fed back, from the slope over ``lengths`` (scripts/exp_r5_step_decomp.py
+    :126-156)."""
+    LP, RP, W1, W2, theta = args
+
+    def run(th, n):
+        for _ in range(n):
+            out = _heff_matvec_impl(LP, RP, W1, W2, th)
+            th = scalar_multiply(1. / _device_norm(out), out)
+        LP.backend.block_backend.synchronize()
+        return th
+
+    return _seconds_per_call(run, run(theta, 1), lengths, repeats)
+
+
+def step_decomposition(chi: int = 4096, lengths=(2, 6), repeats: int = 1,
+                       device: str = 'cuda') -> dict:
+    """Where the time of the chi=4096 step goes: the port of
+    scripts/exp_r5_step_decomp.py, its phases in this order.
+
+    1. The probe kernel against its plain version on a [256, 256] f32 array
+       (``probe_works``: bitwise equal; the script's :51-65).
+    2. The bare matvec at chi with bf16 storage and ``matmul_precision='default'``,
+       slope-timed (``matvec{chi}_bf16_default_ms``; :115-161).
+    3. The ``n_lanczos`` slope of the full f32 step (10 against 5 iterations) with
+       the steady SVD: ms per Lanczos iteration and the intercept (theta assembly,
+       SVD, truncation, environment updates); and the step with the exact SVD
+       (:163-183).
+
+    Returns a dict of the results; ms values are unrounded.
+    """
+    res = {}
+    x = torch.ones((256, 256), dtype=torch.float32, device=device)
+    res['probe_works'] = bool(torch.equal(scale2(x), scale2_plain(x)))
+
+    backend = get_backend(u1_symmetry, device=device)
+    args = [t.to_dtype(Dtype.bfloat16) for t in build_workload(backend, chi)]
+    old = config.matmul_precision
+    config.matmul_precision = 'default'
+    try:
+        res[f'matvec{chi}_bf16_default_ms'] = _matvec_slope(args) * 1e3
+    finally:
+        config.matmul_precision = old
+    del args
+
+    for n_l in (10, 5):
+        t, flops = step_run(chi, n_lanczos=n_l, lengths=lengths, repeats=repeats,
+                            svd_mode='steady', device=device)
+        res[f'step{chi}_f32_nl{n_l}_ms'] = t * 1e3
+        res[f'step{chi}_f32_nl{n_l}_tflops'] = flops / t / 1e12
+    a, b = res[f'step{chi}_f32_nl10_ms'], res[f'step{chi}_f32_nl5_ms']
+    res['per_lanczos_iter_ms'] = (a - b) / 5
+    res['intercept_ms'] = a - 10 * res['per_lanczos_iter_ms']
+    t, _ = step_run(chi, n_lanczos=10, lengths=lengths, repeats=repeats,
+                    svd_mode='exact', device=device)
+    res[f'step{chi}_f32_exactsvd_ms'] = t * 1e3
+    return res

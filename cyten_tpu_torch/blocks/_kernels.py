@@ -30,6 +30,10 @@ _SIGNATURES = {
         'cyten_grouped_gemm': ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_int64, ctypes.c_void_p], ctypes.c_int),
     },
+    'probe': {
+        'cyten_scale2': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                          ctypes.c_void_p], ctypes.c_int),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -7,6 +7,8 @@ device is the CUDA card (:func:`~.backend.default_device`).
 
 from __future__ import annotations
 
+from numbers import Number
+
 import numpy as np
 import torch
 
@@ -115,7 +117,10 @@ class _TorchNamespace:
         return torch.imag(x) if torch.is_complex(x) else torch.zeros_like(x)
 
     def where(self, c, a, b):
-        return torch.where(c, self.asarray(a), self.asarray(b))
+        # Python numbers go to torch.where as they are: made into tensors they
+        # would be copied to the device, and that copy makes the host wait for it
+        return torch.where(c, a if isinstance(a, Number) else self.asarray(a),
+                           b if isinstance(b, Number) else self.asarray(b))
 
 
 class TorchBlockBackend(BlockBackend):

@@ -1,0 +1,151 @@
+"""Steady-state truncated SVD: GEMMs, thin QR and small rotations, warm-started.
+
+The counterpart of ``cyten_tpu/tensors/steady.py``. A converged DMRG sweep revisits
+each bond with a slightly rotated theta, and in static mode the kept per-sector
+multiplicities are frozen, so the right isometry of the previous visit (the current
+``B`` tensor) is a good warm start. This module computes the rank-frozen truncated
+SVD
+
+    theta  ~=  U S Vh     (U, Vh isometric; S positive diagonal)
+
+in four steps:
+
+1. subspace (power) iteration from the warm start:  V <- qr(theta^dag theta V)
+2. Rayleigh-Ritz:  T = (theta V)^dag (theta V), nearly diagonal
+3. first-order Jacobi sweeps per sector: R ~= qr(I + E/(D_j - D_i)); degenerate
+   clusters stay mixed, which is harmless (any orthonormal basis of a degenerate
+   cluster is a valid singular basis)
+4. U = theta V S^+, polished to an isometry by Newton-Schulz (GEMMs only)
+
+Every ``compose`` is one grouped-GEMM launch on the abelian backend; the QRs go to
+``torch.linalg.qr``. Nothing here reads a value on the host, so on the card the
+whole SVD queues without a host sync apart from what the QRs themselves need.
+The subspace converges to the dominant singular subspace at rate
+``(sigma_{k+1} / sigma_k)^2`` per power iteration.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..dtypes import Dtype
+from ._functions import compose, dagger, linear_combination, qr, scale_axis
+from ._tensors import DiagonalTensor, SymmetricTensor
+from .krylov_based import _device_norm
+
+__all__ = ['steady_truncated_svd']
+
+
+def _rotation_blocks(T, n_jacobi: int, eps: float):
+    """Per-sector cleanup rotations diagonalising the nearly diagonal PSD ``T``.
+
+    Returns (rotation blocks [kept -> kept], diagonal entries of the rotated T).
+    bf16 blocks are rotated in f32 and cast back (the factorisation policy of the
+    block backends); the outputs keep the storage dtype, S included, since a wider S
+    would promote B again through ``scale_axis`` downstream.
+    """
+    half = T.dtype == Dtype.bfloat16
+    R_blocks = []
+    diags = []
+    for blk in T.data.blocks:
+        k = blk.shape[0]
+        if k == 0:
+            R_blocks.append(blk)
+            diags.append(blk[:0, 0])
+            continue
+        Tc = blk.float() if half else blk
+        R_tot = None
+        for _ in range(n_jacobi):
+            D = torch.diagonal(Tc)
+            E = Tc - torch.diag(D)
+            den = D[None, :] - D[:, None]
+            scale = torch.max(torch.abs(D)) + 1e-30
+            safe = torch.abs(den) > eps * scale
+            W = torch.where(safe, E / torch.where(safe, den, 1.), 0.)
+            Q, _ = torch.linalg.qr(torch.eye(k, dtype=W.dtype, device=W.device) + W)
+            Tc = Q.conj().T @ Tc @ Q
+            R_tot = Q if R_tot is None else R_tot @ Q
+        if R_tot is None:
+            R_tot = torch.eye(k, dtype=Tc.dtype, device=Tc.device)
+        d = torch.diagonal(Tc)
+        if half:
+            R_tot = R_tot.to(torch.bfloat16)
+            d = d.to(torch.bfloat16)
+        R_blocks.append(R_tot)
+        diags.append(d)
+    return R_blocks, diags
+
+
+def steady_truncated_svd(thp, Vh_prev, n_power: int = 1, n_jacobi: int = 2,
+                         ns_polish: int = 2, eps: float = 1e-6,
+                         new_labels=('vR', 'vL')):
+    """Truncated SVD of ``thp`` with the rank allocation (and warm start) of
+    ``Vh_prev``.
+
+    Parameters
+    ----------
+    thp : SymmetricTensor
+        The wavefunction as a morphism codomain -> domain (e.g. [vL, p0 | vR, p1]).
+    Vh_prev : SymmetricTensor
+        Right isometry from the previous visit: codomain [kept], domain =
+        ``thp.domain``. Its codomain leg fixes the kept per-sector multiplicities
+        (static-mode chi allocation).
+    n_power, n_jacobi, ns_polish, eps
+        Iteration counts of the three cleanup stages and the relative gap below
+        which two values count as degenerate; the defaults suffice near convergence.
+
+    Returns
+    -------
+    U : SymmetricTensor   codomain = thp.codomain, domain [kept]
+    S : DiagonalTensor    on the kept leg (unnormalised)
+    Vh : SymmetricTensor  codomain [kept], domain = thp.domain
+    err : 0-d tensor      relative discarded weight sqrt(1 - |S|^2 / |thp|^2)
+    """
+    from ..backends.data import BlockSparseData, DiagonalBlockData
+
+    backend = thp.backend
+    V = dagger(Vh_prev)                       # domain -> kept   (as morphism)
+    # subspace iteration toward the dominant right-singular subspace
+    for _ in range(n_power):
+        B = compose(thp, V)                   # [codomain | kept]
+        Z = compose(dagger(thp), B)           # [domain | kept]
+        V, _ = qr(Z)
+    B = compose(thp, V)
+    T = compose(dagger(B), B)                 # [kept | kept], nearly diagonal
+    R_blocks, diag_vals = _rotation_blocks(T, n_jacobi, eps)
+    R_data = BlockSparseData(R_blocks, T.data.block_inds.copy(), T.data.dtype,
+                             is_sorted=True)
+    R = SymmetricTensor(R_data, T.codomain, T.domain, backend, T.labels)
+    B = compose(B, R)
+    V = compose(V, R)
+    kept_leg = V.domain.factors[0]
+    # singular values: sqrt of the (cleaned) Rayleigh quotients
+    s_blocks = [torch.sqrt(torch.clamp_min(d.real, 0.)) for d in diag_vals]
+    diag_inds = np.array([int(i) for i, _ in T.data.block_inds], dtype=np.intp)
+    S_data = DiagonalBlockData(s_blocks, diag_inds, T.data.dtype.to_real, is_sorted=True)
+    S = DiagonalTensor(S_data, kept_leg, backend, [new_labels[1], f'{new_labels[1]}*'])
+    # U = B S^+  (then Newton-Schulz polish back to exact isometry). The
+    # pseudo-inverse drops the values whose weight s^2 is below the working
+    # precision relative to the largest, s < sqrt(eps) * s_max: their columns of B
+    # are roundoff, 1/s would blow it up past what the polish can repair, and U
+    # would stop being an isometry. Their columns of U are zero, as for s = 0.
+    # (cyten_tpu cuts at an absolute 1e-30, steady.py:144, and loses the isometry
+    # on such spectra: ROADMAP.md Queue 3.)
+    s_max = torch.stack([b.max() for b in s_blocks if b.numel()]).max()
+    cut = s_max * torch.finfo(s_max.dtype).eps ** 0.5
+    inv_blocks = [torch.where(b > cut, 1. / torch.where(b > cut, b, 1.), 0.)
+                  for b in s_blocks]
+    Sinv = DiagonalTensor(
+        DiagonalBlockData(inv_blocks, diag_inds.copy(), S.data.dtype, is_sorted=True),
+        kept_leg, backend, S.labels)
+    U = scale_axis(B, Sinv, -1)
+    for _ in range(ns_polish):
+        G = compose(dagger(U), U)
+        U = linear_combination(1.5, U, -0.5, compose(U, G))
+    Vh = dagger(V)
+    U = U.relabelled({U.labels[-1]: new_labels[0]})
+    Vh = Vh.relabelled({Vh.labels[0]: new_labels[1]})
+    ratio = _device_norm(S) ** 2 / _device_norm(thp) ** 2
+    err = torch.sqrt(torch.clamp_min(1. - ratio, 0.))
+    return U, S, Vh, err

@@ -1,15 +1,21 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels and its static step on the card, against their plain
+versions and the CPU.
 
-Marked ``cuda``: they skip without a card. This file imports no JAX, so it also runs
-on a machine without it: ``python -m pytest --noconftest tests/test_torch_cuda.py``
-(the suite's conftest.py imports JAX).
+Marked ``cuda``: they skip without a card. This file imports no JAX at module level,
+so it also runs on a machine without it:
+``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's conftest.py
+imports JAX). Its one CPU test, the FLOP count against cyten_tpu, skips there.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cyten_tpu_torch import get_backend, u1_symmetry
+from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn
+from cyten_tpu_torch.bench import build_step_state, build_workload, step_flops
 from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul, grouped_matmul_plain
+from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
 
 SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129), (37, 3, 65)]
 
@@ -48,3 +54,56 @@ def test_grouped_gemm_refuses_complex(card):
     a = torch.zeros(3, 3, dtype=torch.complex128, device=card)
     with pytest.raises(NotImplementedError):
         grouped_matmul([a], [a])
+
+
+@pytest.mark.cuda
+def test_scale2_matches_plain(card):
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(256, 256))).to(
+        card, torch.float32)
+    before = scale2.launches
+    got = scale2(x)
+    torch.cuda.synchronize()
+    assert scale2.launches == before + 1
+    assert torch.equal(got, scale2_plain(x))  # x * 2 is exact in f32
+    with pytest.raises(NotImplementedError):
+        scale2(x.double())
+
+
+@pytest.mark.cuda
+def test_static_step_card_matches_cpu(card):
+    """One steady static bond update of build_step_state at chi=64, f64: the same
+    host-drawn inputs on the card and on the CPU."""
+    out = {}
+    for device in ('cuda', 'cpu'):
+        LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
+            get_backend(u1_symmetry, device=device), 64)
+        before = grouped_matmul.launches
+        out[device] = _get_static_bond_fn(10, 'steady')(HEffective(LP, RP, W1, W2), S,
+                                                         B1, B2, tmpl, None)
+        if device == 'cuda':
+            assert grouped_matmul.launches > before
+    (E, _, S, *_), (E_cpu, _, S_cpu, *_) = out['cuda'], out['cpu']
+    # f64 sums in another order: energies to 1e-9 relative, S to 1e-8
+    assert abs(E - E_cpu) < 1e-9 * abs(E_cpu)
+    np.testing.assert_allclose(S.to_numpy(), S_cpu.to_numpy(), rtol=0, atol=1e-8)
+
+
+def test_step_flops_matches_cyten_tpu():
+    """The step's FLOP count equals bench.py:759-775's on build_workload(chi=64)."""
+    pytest.importorskip('jax')
+    import bench as jax_bench
+    import cyten_tpu as ct
+    from cyten_tpu.tensors import tdot
+    from cyten_tpu.tools.flops import tdot_flops
+
+    LP, RP, W1, W2, theta = jax_bench.build_workload(
+        ct.get_backend(ct.u1_symmetry, 'numpy'), chi=64)
+    ref = tdot_flops(LP, theta, ['vR'], ['vL'])
+    x = tdot(LP, theta, 'vR', 'vL')
+    ref += tdot_flops(x, W1, ['wR', 'p0'], ['wL', 'p0*'])
+    x = tdot(x, W1, ['wR', 'p0'], ['wL', 'p0*'])
+    ref += tdot_flops(x, W2, ['wR', 'p1'], ['wL', 'p1*'])
+    x = tdot(x, W2, ['wR', 'p1'], ['wL', 'p1*'])
+    ref += tdot_flops(x, RP, ['vR', 'wR'], ['vL', 'wL'])
+    args = build_workload(get_backend(u1_symmetry, device='cpu'), 64)
+    assert step_flops(*args, n_lanczos=10) == ref * 12

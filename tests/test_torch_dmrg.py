@@ -139,8 +139,11 @@ def test_non_finite_sweep_raises_fault_error():
         eng.run(n_sweeps=2)
 
 
+# auto_static is ported (tests/test_torch_static.py); its place checks the other
+# unported dynamic_svd method
 @pytest.mark.parametrize('kwargs', [{'mesh': object()}, {'orthogonal_to': [None]},
-                                    {'auto_static': True}, {'dynamic_svd': 'adaptive'}])
+                                    {'dynamic_svd': 'randomized'},
+                                    {'dynamic_svd': 'adaptive'}])
 def test_unported_engine_options_raise(kwargs):
     model = HeisenbergModel(L=2, conserve='Sz', device='cpu')
     psi = SimpleMPS.from_product_state(model.site_legs, [0, 1], backend=model.backend)

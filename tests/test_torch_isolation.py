@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor cyten_tpu, and without
-CUDA its default device raises instead of running on the CPU."""
+"""The PyTorch port stands alone: it imports neither JAX nor cyten_tpu (every module,
+the bench and static mode included), and without CUDA its default device raises
+instead of running on the CPU."""
 
 import os
 import re
@@ -15,10 +16,18 @@ REPO = Path(__file__).resolve().parent.parent
 _SCRIPT = """
 import sys
 import cyten_tpu_torch
+import cyten_tpu_torch.bench
+import cyten_tpu_torch.blocks.probe
+import cyten_tpu_torch.tensors.steady
+import cyten_tpu_torch.tools.flops
 from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
 model = HeisenbergModel(L=4, conserve='Sz', device='cpu')
 psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1], backend=model.backend)
-E = DMRGEngine(psi, model, chi_max=8).run(n_sweeps=2)
+eng = DMRGEngine(psi, model, chi_max=8)
+E = eng.run(n_sweeps=2)
+assert abs(E - (-1.6160254037844384)) < 1e-9, E
+eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+E = eng.sweep()
 assert abs(E - (-1.6160254037844384)) < 1e-9, E
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu'))
