@@ -11,18 +11,30 @@ the repo's production setting, checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
+    python3 chip_smoke.py --kernels-only   # phases 1, 2 and 6, then stop
+
 Phases:
-  1. card name and power limit; kernel build time
+  1. card name and power limit; kernel build time and each kernel's -Xptxas -v
+     report (registers, shared memory, spills); the grouped GEMM's SASS holds
+     DMMA (f64) and HGMMA (bf16, wgmma), checked with cuobjdump where the toolkit
+     has it
   2. grouped GEMM against its plain version: the pair lists of
-     tests/test_pallas_grouped.py and of the chi=4096 tdot(LP, theta) on the
-     bench.py build_workload structure, in f64, f32 and bf16
+     tests/test_pallas_grouped.py, the ragged lists of
+     tests/test_torch_grouped_gemm.py, and the chi=4096 tdot(LP, theta) on the
+     bench.py build_workload structure, in f64, f32 and bf16. Each prints the
+     wrapper's time (ms), the kernel alone launched on tables built once
+     (device_ms) and a per-pair torch.matmul loop (library_ms), timed in turns
+     with the spread of each, the plain version's time and the bound
   3. L=12 Heisenberg DMRG, chi_max=64, against exact diagonalization (1e-9)
   4. L=24 Heisenberg DMRG at chi_max=1024, eps=0, N_max=10 (bench.py:1124-1145
      without bf16), swept until the centre bond holds chi=1024, against
      HEIS24_E_REF (1e-8), with the kernel counted; then the time of the centre
-     bond by stage and one bond update under torch.profiler
+     bond by stage, the kernel at the centre pair list with a host-time
+     breakdown of one wrapper call, and one bond update under torch.profiler
   5. one effective-Hamiltonian matvec at chi=4096 in f32, card against CPU (1e-5)
-  6. the probe kernel (csrc/probe.cu) against its plain version, bitwise
+  6. the probe kernel (csrc/probe.cu) against its plain version, bitwise, also on
+     unaligned arrays with a tail; its times and the host cost of each piece of
+     one call
   7. static mode on the converged L=24 engine of phase 4: two steady sweeps against
      HEIS24_E_REF (1e-8) with every B right-isometric (1e-8); the centre bond's
      static update by stage, its host syncs and one static update under
@@ -35,6 +47,8 @@ Phases:
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -48,6 +62,16 @@ CHI_BENCH = 4096
 # (rtol, atol) of the kernel against its plain version; the check is
 # max|kernel - plain| <= atol + rtol * max|plain| over each output
 TOLERANCES = {'float64': (1e-12, 0.), 'float32': (2e-5, 2e-4), 'bfloat16': (2e-2, 0.)}
+# ragged lists: name -> (shapes (M, K, N), out_ids), as in tests/test_torch_grouped_gemm.py
+RAGGED = {
+    'k_odd': ([(37, 131, 65), (64, 295, 40), (3, 1, 5)], [0, 1, 2]),
+    'k_not_multiple_of_8': ([(130, 6, 70), (20, 10, 129), (129, 1462, 3)], [0, 1, 2]),
+    'below_one_tile': ([(5, 3, 7), (1, 1, 1), (127, 15, 63), (2, 60, 127)], [0, 1, 2, 3]),
+    'twenty_into_one': ([(70, k, 90) for k in range(1, 41, 2)], [0] * 20),
+    'all_k_zero': ([(30, 0, 20), (30, 0, 20), (9, 4, 11)], [0, 0, 1]),
+    # more table rows than fit in the launch's parameters
+    'six_hundred_pairs': ([(9, 1 + k % 7, 5) for k in range(600)], [k // 2 for k in range(600)]),
+}
 PALLAS_SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129),
                  (128, 128, 128), (128, 128, 128), (128, 128, 128), (1, 1, 1), (2, 300, 2)]
 
@@ -76,14 +100,15 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def lp_theta_pairs(LP, theta):
-    """The grouped-GEMM pair list of the matvec's first contraction tdot(LP, theta)."""
+    """The grouped-GEMM operands of the matvec's first contraction tdot(LP, theta):
+    ``(As, Bs, pairs, out_id, n_out)``, each block once, as the backend passes them."""
     return LP.backend.tdot_operands(LP, theta, [LP.get_leg_idx('vR')],
-                                    [theta.get_leg_idx('vL')])
+                                    [theta.get_leg_idx('vL')])[:5]
 
 
 def work_of(As, Bs, out_id):
-    """(operations, bytes) the grouped product must do and move: each distinct input
-    matrix read once, each output written once."""
+    """(operations, bytes) the grouped product of the pair lists ``As``, ``Bs`` must do
+    and move: each distinct input matrix read once, each output written once."""
     flops = sum(2 * A.shape[0] * A.shape[1] * B.shape[1] for A, B in zip(As, Bs))
     inputs = {t.data_ptr(): t.numel() * t.element_size() for t in (*As, *Bs)}
     out_m = {o: (A.shape[0], B.shape[1]) for A, B, o in zip(As, Bs, out_id.tolist())}
@@ -91,16 +116,21 @@ def work_of(As, Bs, out_id):
     return flops, sum(inputs.values()) + out_bytes
 
 
-def compare_kernel(label, As, Bs, out_id, n_out, dtype):
-    """Kernel against plain on the card; times of kernel, plain and a per-pair
-    torch.matmul loop. Raises if they disagree."""
+def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 20,
+                   rounds: int = 2):
+    """Kernel against plain on the card, then times in turns: the wrapper (``ms``),
+    the kernel alone (``device_ms``: the C entry point launched on tables built
+    once) and a per-pair torch.matmul loop (``library_ms``); then the plain version.
+    ``pairs`` as in grouped_matmul. Raises if kernel and plain disagree."""
     import torch
-    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul, grouped_matmul_plain
+    from cyten_tpu_torch.blocks.grouped_gemm import (
+        grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
+    )
 
     As = [A.to(dtype).contiguous() for A in As]
     Bs = [B.to(dtype).contiguous() for B in Bs]
-    got = grouped_matmul(As, Bs, out_id, n_out)
-    ref = grouped_matmul_plain(As, Bs, out_id, n_out)
+    got = grouped_matmul(As, Bs, out_id, n_out, pairs)
+    ref = grouped_matmul_plain(As, Bs, out_id, n_out, pairs)
     torch.cuda.synchronize()
     name = str(dtype).split('.')[-1]
     rtol, atol = TOLERANCES[name]
@@ -112,17 +142,74 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype):
             raise AssertionError(f'{label} {name}: kernel disagrees with plain: '
                                  f'{e} > {atol} + {rtol} * {scale}')
         err = max(err, e)
-    ms = cuda_ms(lambda: grouped_matmul(As, Bs, out_id, n_out))
-    plain_ms = cuda_ms(lambda: grouped_matmul_plain(As, Bs, out_id, n_out))
-    library_ms = cuda_ms(lambda: [torch.matmul(A, B) for A, B in zip(As, Bs)])
-    flops, nbytes = work_of(As, Bs, out_id)
+    _, launch = grouped_matmul_plan(As, Bs, out_id, n_out, pairs)
+    # the pair lists, for the library loop and the work count
+    PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
+    PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
+    (ms, device_ms, library_ms), spread = turns(
+        [lambda: grouped_matmul(As, Bs, out_id, n_out, pairs), launch,
+         lambda: [torch.matmul(A, B) for A, B in zip(PA, PB)]], reps, rounds)
+    plain_ms = cuda_ms(lambda: grouped_matmul_plain(As, Bs, out_id, n_out, pairs))
+    flops, nbytes = work_of(PA, PB, out_id)
     t_ops, t_bytes = flops / peak_ops_per_s(dtype), nbytes / HBM_BYTES_PER_S
-    res = {'pairs': len(As), 'outputs': n_out, 'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
-           'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+    res = {'pairs': len(PA), 'outputs': n_out, 'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
+           'max_abs_err': err, 'ms': ms, 'device_ms': device_ms, 'plain_ms': plain_ms,
+           'library_ms': library_ms, 'spread': dict(zip(('ms', 'device_ms', 'library_ms'),
+                                                        spread)),
            'bound_ms': max(t_ops, t_bytes) * 1e3,
            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
     print(f'[kernel] {label} {name}: ' + json.dumps(res), flush=True)
     return res
+
+
+def turns(fns, reps: int, rounds: int = 2):
+    """CUDA-event ms per call of each of ``fns``, timed in ``rounds`` turns (the list,
+    then the list reversed, and so on): the median of each over the turns, and its
+    spread, (max - min) / median."""
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            times[i].append(cuda_ms(fns[i], reps))
+    medians = [float(np.median(t)) for t in times]
+    return medians, [(max(t) - min(t)) / m for t, m in zip(times, medians)]
+
+
+def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
+    """Host ms per call of each step of one grouped_matmul call, over ``reps`` calls:
+    the steps of grouped_matmul_plan called here one by one (its device checks
+    left out), then the launch."""
+    import torch
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+    from cyten_tpu_torch.blocks._kernels import call, function
+
+    fn = function('grouped_gemm', 'cyten_grouped_gemm')
+    steps = ('prepare', 'casts', 'outputs', 'tables', 'upload', 'launch')
+    t = dict.fromkeys(steps, 0.)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        marks = [time.perf_counter()]
+        (ua, ia, a, _, a_dt), (ub, ib, b, _, b_dt) = gg._pair_list(As, Bs, pairs)
+        dtype = gg._common_dtype(a_dt | b_dt)
+        tile, inline_words = gg._kernel_info(dtype)
+        n, out_layout, table_layout = gg._layouts(a, ia, b, ib, out_id, n_out, dtype, tile)
+        marks.append(time.perf_counter())
+        gg._as_operands(ua, a, a_dt, dtype)
+        gg._as_operands(ub, b, b_dt, dtype)
+        marks.append(time.perf_counter())
+        _, flat = gg._outputs(out_layout, dtype, ua[0].device)
+        marks.append(time.perf_counter())
+        table = gg._fill_table(table_layout, a, ia, b, ib, flat.data_ptr())
+        marks.append(time.perf_counter())
+        table_args, _ = gg._table_args(table, flat.device, inline_words)
+        marks.append(time.perf_counter())
+        call(fn, (gg._DTYPE_CODE[dtype], *table_args, n, table_layout.n_tiles),
+             flat.get_device(), 'grouped_gemm')
+        marks.append(time.perf_counter())
+        for step, t0, t1 in zip(steps, marks, marks[1:]):
+            t[step] += (t1 - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
 
 
 def count_syncs(fn) -> int:
@@ -184,8 +271,91 @@ def profile_bond(eng, i: int, top: int = 8):
         print(f'[profile bond {i}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}', flush=True)
 
 
+def probe_phase() -> dict:
+    """The probe kernel against its plain version (bitwise), at [256, 256] and on
+    unaligned tails; its times beside the bound."""
+    import torch
+    from cyten_tpu_torch.blocks._kernels import call, function
+    from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(256, 256))).to('cuda', torch.float32)
+    if not torch.equal(scale2(x), scale2_plain(x)):
+        raise AssertionError('probe kernel disagrees with its plain version')
+    y = torch.from_numpy(rng.normal(size=1031)).to('cuda', torch.float32)
+    for t in (y, y[1:], y[3:1030]):  # n % 4 != 0, and arrays off 16-byte alignment
+        if not torch.equal(scale2(t), scale2_plain(t)):
+            raise AssertionError('probe kernel disagrees on an unaligned or ragged array')
+    out = torch.empty_like(x)
+    fn = function('probe', 'cyten_scale2')
+    kernel = lambda: call(fn, (x.data_ptr(), out.data_ptr(), x.numel()), 0, 'scale2')  # noqa: E731
+    (ms, device_ms, library_ms), spread = turns(
+        [lambda: scale2(x), kernel, lambda: x * 2.0], 200, rounds=8)
+    probe = {'max_abs_err': 0., 'ms': ms, 'device_ms': device_ms,
+             'plain_ms': cuda_ms(lambda: scale2_plain(x), reps=500),
+             'library_ms': library_ms,
+             'spread': dict(zip(('ms', 'device_ms', 'library_ms'), spread))}
+    # read x once, write o once; one multiply per element
+    t_bytes = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+    t_ops = x.numel() / peak_ops_per_s(torch.float32)
+    probe['bound_ms'] = max(t_bytes, t_ops) * 1e3
+    probe['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    print('[probe] [256, 256] f32, bitwise equal: ' + json.dumps(probe), flush=True)
+    print('[probe] host us per call: ' + json.dumps(probe_breakdown(x, out, fn)), flush=True)
+    return probe
+
+
+def probe_breakdown(x, out, fn, reps: int = 2000) -> dict:
+    """Host microseconds of each piece of one scale2 call, each timed alone."""
+    import torch
+    from cyten_tpu_torch.blocks import _kernels
+
+    args = (x.data_ptr(), out.data_ptr(), x.numel())
+    stream = torch.cuda.current_stream(0).cuda_stream
+    pieces = {
+        'checks': lambda: (x.is_cuda, x.dtype != torch.float32, x.is_contiguous()),
+        'empty_like': lambda: torch.empty_like(x),
+        'args': lambda: (x.data_ptr(), out.data_ptr(), x.numel(), x.get_device()),
+        'current_stream (public)': lambda: torch.cuda.current_stream(0).cuda_stream,
+        'raw_stream (used)': lambda: _kernels._current_stream(0),
+        'ctypes_call': lambda: fn(*args, 0, stream),
+        'x * 2.0': lambda: x * 2.0,
+    }
+    res = {}
+    for name, f in pieces.items():
+        f()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        res[name] = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return res
+
+
+def check_sass(kernels):
+    """The f64 path's SASS holds DMMA and the bf16 path's HGMMA (wgmma), by
+    cuobjdump where the toolkit has it; raises if one is missing."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not os.path.exists(tool):
+        print('[sass] cuobjdump not found: DMMA/HGMMA not checked', flush=True)
+        return
+    sass = subprocess.run([tool, '-sass', str(kernels._lib_path('grouped_gemm'))],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for part in sass.split('Function : ')[1:]:
+        name = part.split(None, 1)[0]
+        for policy, op in (('3F64', 'DMMA'), ('4BF16', 'HGMMA'), ('3F32', 'FFMA')):
+            if policy in name:
+                found[policy] = (op, op in part)
+    print(f'[sass] {json.dumps(found)}', flush=True)
+    if sorted(found) != ['3F32', '3F64', '4BF16'] or not all(ok for _, ok in found.values()):
+        raise AssertionError('the grouped GEMM does not run on DMMA (f64) and HGMMA (bf16)')
+
+
 def main() -> int:
     import torch
+
+    kernels_only = '--kernels-only' in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -200,8 +370,8 @@ def main() -> int:
         build_step_state, build_workload, step_decomposition, step_run,
     )
     from cyten_tpu_torch.blocks import _kernels
-    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
-    from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
+    from cyten_tpu_torch.blocks.grouped_gemm import _LAYOUTS, grouped_matmul
+    from cyten_tpu_torch.blocks.probe import scale2
     from cyten_tpu_torch.tensors.krylov_based import fused_lanczos_impl
     from cyten_tpu_torch.tensors.steady import steady_truncated_svd
 
@@ -214,9 +384,10 @@ def main() -> int:
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.get_device_name(0)}', flush=True)
     t0 = time.perf_counter()
-    seconds = _kernels.build()
+    seconds = _kernels.build(verbose=True)  # prints each kernel's -Xptxas -v report
     print(f'[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)',
           flush=True)
+    check_sass(_kernels)
 
     # --- 2. kernel against plain ---------------------------------------------------------
     rng = np.random.default_rng(0)
@@ -225,16 +396,27 @@ def main() -> int:
     ids = np.arange(len(As))
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
         compare_kernel('pallas-test shapes', As, Bs, ids, len(As), dtype)
+    for case, (shapes, out_ids) in RAGGED.items():
+        As = [torch.from_numpy(rng.normal(size=(M, K))).cuda() for M, K, N in shapes]
+        Bs = [torch.from_numpy(rng.normal(size=(K, N))).cuda() for M, K, N in shapes]
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            compare_kernel(f'ragged {case}', As, Bs, np.array(out_ids), max(out_ids) + 1,
+                           dtype, reps=5)
     backend = get_backend(u1_symmetry, device='cuda')
     LP, RP, W1, W2, theta = build_workload(backend, CHI_BENCH, Dtype.float64)
-    As, Bs, out_id, n_out, _, _ = lp_theta_pairs(LP, theta)
+    As, Bs, pairs, out_id, n_out = lp_theta_pairs(LP, theta)
     permute_ms = cuda_ms(lambda: lp_theta_pairs(LP, theta))
     print(f'[permute] chi={CHI_BENCH} tdot(LP, theta) operand permute+copy f64: '
-          f'{permute_ms:.3f} ms for {len(As)} pairs', flush=True)
+          f'{permute_ms:.3f} ms for {len(out_id)} pairs', flush=True)
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
-        compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, dtype)
+        compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, dtype,
+                       pairs)
     del LP, RP, W1, W2, theta, As, Bs
     torch.cuda.empty_cache()
+    if kernels_only:
+        probe = probe_phase()
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (kernels only)', flush=True)
+        return 0
 
     # --- 3. main path, small: L=12 against exact diagonalization -------------------------
     grouped_matmul.launches = 0
@@ -254,6 +436,7 @@ def main() -> int:
     model = HeisenbergModel(L=L, conserve='Sz')
     psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2))
     eng = DMRGEngine(psi, model, chi_max=chi_max, eps=0., lanczos_options={'N_max': 10})
+    layouts = len(_LAYOUTS)
     grouped_matmul.launches = 0
     E24 = None
     n_sweeps = 0
@@ -271,8 +454,8 @@ def main() -> int:
     launches = grouped_matmul.launches
     bonds = n_sweeps * 2 * (L - 1)
     print(f'[L=24] E = {E24!r}, ref {HEIS24_E_REF!r}, |dE| = {abs(E24 - HEIS24_E_REF):.3e}, '
-          f'launches {launches} ({launches / bonds:.1f} per bond over {bonds} bonds)',
-          flush=True)
+          f'launches {launches} ({launches / bonds:.1f} per bond over {bonds} bonds), '
+          f'pair lists laid out anew {len(_LAYOUTS) - layouts}', flush=True)
     if not abs(E24 - HEIS24_E_REF) < 1e-8 or launches == 0 or psi.max_chi() != chi_max:
         raise AssertionError('L=24 DMRG energy, width or kernel launches wrong')
 
@@ -297,9 +480,13 @@ def main() -> int:
     print(f'[L=24 centre bond] matvec {matvec_ms:.3f} ms; lanczos {n_iter} its '
           f'{(t1 - t0) * 1e3:.1f} ms; split_truncate_theta (SVD) {(t2 - t1) * 1e3:.1f} ms',
           flush=True)
-    As, Bs, out_id, n_out, _, _ = lp_theta_pairs(H.LP, theta0)
+    As, Bs, pairs, out_id, n_out = lp_theta_pairs(H.LP, theta0)
     main = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
-                          out_id, n_out, torch.float64)
+                          out_id, n_out, torch.float64, pairs, rounds=8)
+    breakdown = wrapper_breakdown(As, Bs, out_id, n_out, pairs)
+    print(f'[breakdown] wrapper host ms per call, {len(out_id)} pairs of {len(As)} + '
+          f'{len(Bs)} operands, {n_out} outputs of {len({B.shape[1] for B in Bs})} widths: '
+          f'{json.dumps(breakdown)} (sum {sum(breakdown.values()):.4f})', flush=True)
     profile_bond(eng, i)
     print(f'[L=24 centre bond] host syncs of one dynamic update: '
           f'{count_syncs(lambda: eng.update_bond(i))}', flush=True)
@@ -331,19 +518,7 @@ def main() -> int:
 
     # --- 6. the probe kernel against its plain version -----------------------------------
     t_phase = time.perf_counter()
-    x = torch.from_numpy(np.random.default_rng(6).normal(size=(256, 256))).to(
-        'cuda', torch.float32)
-    if not torch.equal(scale2(x), scale2_plain(x)):
-        raise AssertionError('probe kernel disagrees with its plain version')
-    probe = {'max_abs_err': 0., 'ms': cuda_ms(lambda: scale2(x), reps=200),
-             'plain_ms': cuda_ms(lambda: scale2_plain(x), reps=200),
-             'library_ms': cuda_ms(lambda: x * 2.0, reps=200)}
-    # read x once, write o once; one multiply per element
-    t_bytes = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
-    t_ops = x.numel() / peak_ops_per_s(torch.float32)
-    probe['bound_ms'] = max(t_bytes, t_ops) * 1e3
-    probe['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
-    print('[probe] [256, 256] f32, bitwise equal: ' + json.dumps(probe), flush=True)
+    probe = probe_phase()
     phase_s['6'] = time.perf_counter() - t_phase
 
     # --- 7. static mode on the converged L=24 engine -------------------------------------
@@ -432,13 +607,14 @@ def main() -> int:
                 'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
                 'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
                 'launches': launches, 'max_abs_err': main['max_abs_err'],
-                'ms': main['ms'], 'plain_ms': main['plain_ms'],
+                'ms': main['ms'], 'device_ms': main['device_ms'], 'plain_ms': main['plain_ms'],
                 'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
                 'library_ms': main['library_ms']},
                {'name': 'probe', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/probe.cu',
                 'replaces': 'scripts/exp_r5_step_decomp.py:59',
-                'launches': bench_launches['probe'], **probe}]
+                'launches': bench_launches['probe'],
+                **{k: v for k, v in probe.items() if k != 'spread'}}]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -68,7 +68,9 @@ def _row_lookup(block_inds: np.ndarray) -> dict[tuple, int]:
 @functools.lru_cache(maxsize=4096)
 def _cached_compose_plan(a_bytes, a_shape, a_contr_cols, a_keep_cols,
                          b_bytes, b_shape, b_contr_cols, b_keep_cols):
-    """Memoized GEMM-pair plan: merged int keys -> (ia, ib, out_id, n_out).
+    """Memoized GEMM-pair plan: merged int keys -> ``(ia, ib, out_id, n_out, ua, pa,
+    ub, pb)``: per pair the a- and b-block index and the output id, then the distinct
+    a-blocks read and the position of each pair's a-block among them (and so for b).
 
     Pure python here (:func:`cyten_tpu_torch._native.compose_plan`); the C++ plan
     builder comes with a later slice.
@@ -104,8 +106,10 @@ def _cached_compose_plan(a_bytes, a_shape, a_contr_cols, a_keep_cols,
         if a_sub_k.shape[1] else np.ones(0, np.int64)
     s_kb = strides_for(np.max(b_sub_k, axis=0, initial=0) + 1) \
         if b_sub_k.shape[1] else np.ones(0, np.int64)
-    return compose_plan(merged(a_sub_c, s_c), merged(a_sub_k, s_ka),
-                        merged(b_sub_c, s_c), merged(b_sub_k, s_kb))
+    ia, ib, out_id, n_out = compose_plan(merged(a_sub_c, s_c), merged(a_sub_k, s_ka),
+                                         merged(b_sub_c, s_c), merged(b_sub_k, s_kb))
+    return (ia, ib, out_id, n_out, *np.unique(ia, return_inverse=True),
+            *np.unique(ib, return_inverse=True))
 
 
 class AbelianBackend(TensorBackend):
@@ -361,15 +365,18 @@ class AbelianBackend(TensorBackend):
 
         Each operand block is permuted to ``[kept, contracted]`` (resp.
         ``[contracted, kept]``) and made a matrix, once per block: a copy unless the
-        permutation is trivial. Returns ``(As, Bs, out_id, n_out, out_rows,
-        out_shapes)``: the pair list and, per output block, its block-index row and
-        its shape in ``[open legs of a ..., open legs of b ...]`` order.
+        permutation is trivial. Returns ``(As, Bs, pairs, out_id, n_out, out_rows,
+        out_shapes)``: the matrices of the blocks that some pair reads, each once, the
+        pair list ``pairs = (a_index, b_index)`` into them (the ``pairs`` of
+        :func:`~cyten_tpu_torch.blocks.grouped_gemm.grouped_matmul`) and, per output
+        block, its block-index row and its shape in ``[open legs of a ..., open legs of
+        b ...]`` order.
         """
         a_bi = a.data.block_inds
         b_bi = b.data.block_inds
         a_keep = [n for n in range(a.num_legs) if n not in legs1]
         b_keep = [n for n in range(b.num_legs) if n not in legs2]
-        ia, ib, out_id, n_out = _cached_compose_plan(
+        ia, ib, out_id, n_out, ua, pa, ub, pb = _cached_compose_plan(
             a_bi.tobytes(), a_bi.shape, tuple(legs1), tuple(a_keep),
             b_bi.tobytes(), b_bi.shape, tuple(legs2), tuple(b_keep))
         bb = self.block_backend
@@ -380,10 +387,8 @@ class AbelianBackend(TensorBackend):
             K = int(np.prod([shape[i] for i in cols], dtype=np.int64))
             return bb.reshape(bb.permute_axes(block, list(rows) + list(cols)), (M, K))
 
-        a_mats = {n: as_matrix(a.data.blocks[n], a_keep, legs1)
-                  for n in np.unique(ia).tolist()}
-        b_mats = {n: as_matrix(b.data.blocks[n], legs2, b_keep)
-                  for n in np.unique(ib).tolist()}
+        a_mats = [as_matrix(a.data.blocks[n], a_keep, legs1) for n in ua.tolist()]
+        b_mats = [as_matrix(b.data.blocks[n], legs2, b_keep) for n in ub.tolist()]
         out_rows: list = [None] * n_out
         out_shapes: list = [None] * n_out
         for n1, n2, oid in zip(ia.tolist(), ib.tolist(), out_id.tolist()):
@@ -392,8 +397,7 @@ class AbelianBackend(TensorBackend):
                 sa = bb.get_shape(a.data.blocks[n1])
                 sb = bb.get_shape(b.data.blocks[n2])
                 out_shapes[oid] = tuple(sa[i] for i in a_keep) + tuple(sb[i] for i in b_keep)
-        return ([a_mats[n] for n in ia.tolist()], [b_mats[n] for n in ib.tolist()],
-                out_id, n_out, out_rows, out_shapes)
+        return a_mats, b_mats, (pa, pb), out_id, n_out, out_rows, out_shapes
 
     def tdot_data(self, a, b, legs1, legs2):
         """Block-pair contraction over arbitrary legs, as one grouped GEMM.
@@ -404,10 +408,11 @@ class AbelianBackend(TensorBackend):
         one output block.
         """
         dtype = Dtype.common(a.data.dtype, b.data.dtype)
-        As, Bs, out_id, n_out, out_rows, out_shapes = self.tdot_operands(a, b, legs1, legs2)
+        As, Bs, pairs, out_id, n_out, out_rows, out_shapes = self.tdot_operands(
+            a, b, legs1, legs2)
         bb = self.block_backend
         blocks = []
-        for mat, shape in zip(grouped_matmul(As, Bs, out_id, n_out), out_shapes):
+        for mat, shape in zip(grouped_matmul(As, Bs, out_id, n_out, pairs), out_shapes):
             blk = bb.reshape(mat, shape)
             blocks.append(blk if bb.get_dtype(blk) == dtype else bb.to_dtype(blk, dtype))
         block_inds = np.array(out_rows, dtype=np.intp).reshape(

@@ -5,6 +5,14 @@ for ``sm_90a`` into ``build/cyten_tpu_torch/lib<name>-<hash>.so`` at the root of
 the checkout, at first use, and loaded with :mod:`ctypes`. The hash of the source
 is part of the file name, so an edited source is rebuilt. Nothing is compiled when
 the package is imported.
+
+Every wrapper launches through :func:`call`: the ``ctypes`` function is resolved once
+(:func:`function`), the entry point makes the tensor's device current only when it
+is not (one ``cudaGetDevice`` otherwise), and the stream handle is PyTorch's current
+stream of that device. The libraries are loaded as ``ctypes.PyDLL``: an entry point
+only checks its arguments and enqueues a launch, so it keeps the interpreter lock
+rather than paying to release and take it again around a call of a few
+microseconds.
 """
 
 from __future__ import annotations
@@ -17,7 +25,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ['build', 'library', 'BUILD_DIR', 'SOURCE_DIR']
+import torch
+
+__all__ = ['build', 'library', 'function', 'call', 'BUILD_DIR', 'SOURCE_DIR']
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cyten_tpu_torch'
@@ -27,16 +37,19 @@ NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 # C signatures, by library name: {symbol: (argtypes, restype)}
 _SIGNATURES = {
     'grouped_gemm': {
-        'cyten_grouped_gemm': ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_int64, ctypes.c_void_p], ctypes.c_int),
+        'cyten_grouped_gemm': ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+                               ctypes.c_int),
+        'cyten_grouped_gemm_info': ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     },
     'probe': {
-        'cyten_scale2': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        'cyten_scale2': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_void_p], ctypes.c_int),
     },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict = {}  # (library, symbol) -> ctypes function
 
 
 def _nvcc() -> str:
@@ -91,10 +104,41 @@ def library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.PyDLL(str(_lib_path(name)))
         for symbol, (argtypes, restype) in _SIGNATURES[name].items():
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = restype
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str):
+    """The ``ctypes`` function ``symbol`` of library ``name``, resolved once."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = _functions[name, symbol] = getattr(library(name), symbol)
+    return fn
+
+
+def _raw_stream_getter():
+    """A function of a device index returning the raw handle of its current stream:
+    ``torch._C._cuda_getCurrentRawStream``, the getter Triton's launcher uses, where
+    this PyTorch has it (it returns the handle without building a ``Stream``
+    object: several microseconds less per launch); else
+    ``torch.cuda.current_stream(index).cuda_stream``."""
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    return raw if raw is not None else (lambda i: torch.cuda.current_stream(i).cuda_stream)
+
+
+_current_stream = _raw_stream_getter()
+
+
+def call(fn, args: tuple, index: int, label: str) -> None:
+    """``fn(*args, index, stream)``: the entry point launches on ``stream``, the
+    current stream of CUDA device ``index``, with that device current (it switches
+    only if another one is). Raises ``RuntimeError`` if the launch returns a CUDA
+    error."""
+    err = fn(*args, index, _current_stream(index))
+    if err != 0:
+        raise RuntimeError(f'{label} launch failed: cudaError {err}')

@@ -8,42 +8,146 @@ index are summed into that output inside the kernel. That sum is the block-spars
 contraction's ``add`` over contracted sectors (abelian ``tdot`` / ``compose``).
 
 The operands are used where they lie, with no padding to tiles: the host builds two
-small int64 tables (one row per 64 x 64 output tile, one row per pair) and the
-kernel reads the matrices through the pointers in them. See the source for what
-bounds the kernel and how its design answers that.
+small int64 tables, one row per output and one row per pair, and the kernel reads
+the matrices through the pointers in them. See the source for what bounds the
+kernel and how its design answers that.
 
 :func:`grouped_matmul` launches the kernel for CUDA tensors and takes the plain
 version, :func:`grouped_matmul_plain`, only for tensors on the CPU. On CUDA it
 never falls back: an operand it does not take (complex, another dtype, another
-device) raises.
+device) raises. :func:`grouped_matmul_plan` splits a CUDA call into its host part
+and the launch, so that the launch alone can be timed or repeated.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
+import operator
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-__all__ = ['grouped_matmul', 'grouped_matmul_plain', 'launch_tables', 'work_table', 'TILE']
+from ._kernels import call, function
 
-TILE = 64  # output tile edge of the kernel (BM = BN in csrc/grouped_gemm.cu)
+__all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan']
+
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 
+# unbound tensor methods, mapped over a list in C rather than called one by one
+_T = torch.Tensor
+_dtype_of = operator.attrgetter('dtype')
+_chain = itertools.chain.from_iterable
 
-def _common_dtype(As, Bs) -> torch.dtype:
-    """One dtype for the whole list, as ``TorchBlockBackend._dot_dtypes`` chooses it:
-    bf16 only if every operand is bf16, else the promoted type (bf16 with f32 -> f32)."""
-    dtypes = {t.dtype for t in (*As, *Bs)}
+
+def _common_dtype(dtypes) -> torch.dtype:
+    """One dtype for a list whose operands have the set of dtypes ``dtypes``, as
+    ``TorchBlockBackend._dot_dtypes`` chooses it: bf16 only if every operand is bf16,
+    else the promoted type (bf16 with f32 -> f32)."""
     if dtypes == {torch.bfloat16}:
         return torch.bfloat16
-    res = None
-    for dt in dtypes:
-        res = dt if res is None else torch.promote_types(res, dt)
-    if res == torch.bfloat16:
-        res = torch.float32
-    return res
+    res = functools.reduce(torch.promote_types, dtypes)
+    return torch.float32 if res == torch.bfloat16 else res
+
+
+def _gather(ts, index=None):
+    """The operands of one side of a pair list.
+
+    Returns the tensors as a list, the position of each pair's operand in it
+    (``index`` where given, else one tensor per pair), the int64 matrix ``[len(ts),
+    5]`` of their ``(data_ptr, stride(0), stride(1), rows, cols)``, and the sets of
+    their devices (``get_device()``: -1 off CUDA) and of their dtypes. Raises unless
+    each is a matrix. One ``map`` per attribute: well under a microsecond a tensor.
+    """
+    tensors = list(ts)
+    if index is None:
+        pos = np.arange(len(tensors))
+    else:
+        pos = np.asarray(index, np.int64).reshape(-1)
+        if len(pos) and (pos.min() < 0 or pos.max() >= len(tensors)):
+            raise ValueError('operand index out of range')
+    strides = list(map(_T.stride, tensors))
+    if set(map(len, strides)) - {2}:
+        raise ValueError('every operand must be a matrix')
+    n = len(tensors)
+    flat = np.array([*map(_T.data_ptr, tensors), *_chain(strides),
+                     *_chain(map(_T.size, tensors))], np.int64)
+    info = np.empty((n, 5), np.int64)
+    info[:, 0] = flat[:n]
+    info[:, 1:] = flat[n:].reshape(2, n, 2).transpose(1, 0, 2).reshape(n, 4)
+    return tensors, pos, info, set(map(_T.get_device, tensors)), set(map(_dtype_of, tensors))
+
+
+@functools.cache
+def _kernel_info(dtype) -> tuple[tuple[int, int], int]:
+    """The kernel's output tile ``(BM, BN)`` for ``dtype`` and the most int64 table
+    words it takes inside the launch's parameters, as the kernel states them."""
+    import ctypes
+
+    info = (ctypes.c_int64 * 3)()
+    if function('grouped_gemm', 'cyten_grouped_gemm_info')(_DTYPE_CODE[dtype],
+                                                           ctypes.addressof(info)) != 0:
+        raise RuntimeError(f'grouped_gemm: the kernel has no tile for {dtype}')
+    return (info[0], info[1]), info[2]
+
+
+def _check(X: np.ndarray, out_ids, n_out):
+    """Checks a pair list given by its pair matrix ``X [n, 10]`` (the ``_gather`` rows
+    of A, then of B, per pair). Returns ``out_ids``, ``n_out``, the per-output
+    ``MN [n_out, 2]``."""
+    n = len(X)
+    out_ids = (np.arange(n, dtype=np.int64) if out_ids is None
+               else np.asarray(out_ids, dtype=np.int64).reshape(-1))
+    if len(out_ids) != n:
+        raise ValueError('need one output index per pair')
+    try:  # raises for a negative index
+        counts = np.bincount(out_ids, minlength=0 if n_out is None else n_out)
+    except ValueError:
+        raise ValueError('output index out of range') from None
+    if n_out is None:
+        n_out = len(counts)
+    if len(counts) > n_out:
+        raise ValueError('output index out of range')
+    mn = X[:, _MN]
+    MN = np.zeros((n_out, 2), np.int64)
+    MN[out_ids] = mn
+    bad = MN[out_ids] != mn
+    bad[:, 0] |= X[:, 4] != X[:, 8]
+    if bad.any() or not counts.all():  # find which rule is broken
+        inner = X[:, 4] != X[:, 8]
+        if inner.any():
+            p = int(np.argmax(inner))
+            raise ValueError(f'not a matrix product: {tuple(X[p, 3:5])} @ {tuple(X[p, 8:])}')
+        if bad.any():
+            raise ValueError('pairs summed into one output differ in shape')
+        raise ValueError('every output needs at least one pair')
+    return out_ids, n_out, MN
+
+
+_MN = [3, 9]  # the columns of M (rows of A) and N (columns of B) in a pair matrix
+
+
+def _pair_list(As, Bs, pairs):
+    """``_gather`` of both sides, checked to have as many pairs each."""
+    a_index, b_index = (None, None) if pairs is None else pairs
+    ga = _gather(As, a_index)
+    gb = _gather(Bs, b_index)
+    if len(ga[1]) != len(gb[1]):
+        raise ValueError(f'{len(ga[1])} left operands but {len(gb[1])} right operands')
+    return ga, gb
+
+
+def _select(ts, index) -> list:
+    """``[ts[i] for i in index]``; raises for an index out of range."""
+    index = np.asarray(index, np.int64).reshape(-1)
+    if len(index) and (index.min() < 0 or index.max() >= len(ts)):
+        raise ValueError('operand index out of range')
+    return [ts[i] for i in index.tolist()]
 
 
 def _prepare(As, Bs, out_ids, n_out):
+    """The checks of the plain version, pair by pair. Returns ``out_ids``, ``n_out``."""
     if len(As) != len(Bs):
         raise ValueError(f'{len(As)} left operands but {len(Bs)} right operands')
     n = len(As)
@@ -66,131 +170,259 @@ def _prepare(As, Bs, out_ids, n_out):
             raise ValueError(f'pairs summed into output {o} differ in shape')
     if np.any(M < 0):
         raise ValueError('every output needs at least one pair')
-    return out_ids, n_out, M, N
+    return out_ids, n_out
 
 
-def grouped_matmul_plain(As, Bs, out_ids=None, n_out=None) -> list:
+def _as_operands(tensors, info, dtypes, dtype):
+    """Copies, in place in ``tensors`` and ``info``, the tensors that the kernel cannot
+    read where they lie: another dtype (only tested where ``dtypes``, the set of
+    their dtypes, holds another), or a row stride other than 1."""
+    need = (info[:, 2] != 1) & (info[:, 4] > 1)
+    if dtypes != {dtype}:
+        need |= np.fromiter((t.dtype != dtype for t in tensors), bool, len(tensors))
+    if need.any():
+        for i in np.flatnonzero(need).tolist():
+            t = tensors[i] = tensors[i].to(dtype).contiguous()
+            info[i, :3] = t.data_ptr(), t.stride(0), 1
+
+
+def grouped_matmul_plain(As, Bs, out_ids=None, n_out=None, pairs=None) -> list:
     """The plain PyTorch version: a loop of ``torch.matmul``, then a sum per output.
 
     Same dtype policy as the kernel: bf16 products accumulate in f32 and are cast
     back once; mixed dtypes are promoted to their common type first.
     """
-    out_ids, n_out, _, _ = _prepare(As, Bs, out_ids, n_out)
-    dtype = _common_dtype(As, Bs) if len(As) else torch.float64
+    if pairs is not None:
+        As, Bs = _select(As, pairs[0]), _select(Bs, pairs[1])
+    out_ids, n_out = _prepare(As, Bs, out_ids, n_out)
+    dtype = _common_dtype({t.dtype for t in (*As, *Bs)}) if len(As) else torch.float64
     work = torch.float32 if dtype == torch.bfloat16 else dtype
     outs = [None] * n_out
-    for A, B, o in zip(As, Bs, out_ids):
+    for A, B, o in zip(As, Bs, out_ids.tolist()):
         prod = torch.matmul(A.to(work), B.to(work))
         outs[o] = prod if outs[o] is None else outs[o] + prod
     return [c.to(dtype) for c in outs]
 
 
-def work_table(M: np.ndarray, N: np.ndarray) -> np.ndarray:
-    """Output tiles of the kernel: rows ``(output, row0, col0)``, one per
-    ``TILE x TILE`` tile of each ``[M[o], N[o]]`` output, outputs in order."""
-    tm = -(-np.asarray(M, np.int64) // TILE)
-    tn = -(-np.asarray(N, np.int64) // TILE)
-    n_tiles = tm * tn
-    out = np.repeat(np.arange(len(n_tiles), dtype=np.int64), n_tiles)
-    first = np.cumsum(n_tiles) - n_tiles
-    local = np.arange(int(n_tiles.sum()), dtype=np.int64) - first[out]
-    return np.stack([out, (local // tn[out]) * TILE, (local % tn[out]) * TILE], axis=1)
+class _TableLayout(NamedTuple):
+    """The part of a launch table that follows from the shapes alone."""
+    table: np.ndarray       # the table, zero where the pointers and pitches go
+    c_offsets: np.ndarray   # of output row r of the table: its byte offset from C's base
+    pair_order: np.ndarray  # pair row r of the table is pair pair_order[r] of the list
+    n_tiles: int
 
 
-def launch_tables(a_ptrs, b_ptrs, K, out_ids, M, N, c_ptrs):
-    """The kernel's two int64 tables (layout in ``csrc/grouped_gemm.cu``).
+def _table_layout(K, out_ids, M, N, c_offsets, tile) -> _TableLayout:
+    """The kernel's int64 table (layout in ``csrc/grouped_gemm.cu``) but for the
+    pointers and pitches, which :func:`_fill_table` writes per call.
 
-    ``a_ptrs``, ``b_ptrs`` and ``K`` per pair, ``M``, ``N`` and ``c_ptrs`` per output.
-    Returns ``work [n_tiles, 8]`` (c_ptr, M, N, row0, col0, pair_begin, pair_end, 0),
-    one row per output tile, and ``pairs [n_pairs, 4]`` (a_ptr, b_ptr, K, 0), sorted by
-    output so that each output reads the contiguous range of pair rows its tiles name.
+    ``K`` and ``out_ids`` per pair, ``M``, ``N`` and ``c_offsets`` (bytes from one
+    base) per output, ``tile = (BM, BN)`` of the dtype. The table is ``[n_out +
+    n_pairs, 8]``:
+
+    - rows ``[:n_out]``, one per output: c_ptr, M, N, first_tile, tiles_n,
+      pair_begin, pair_end, 0; ordered by work (the sum of K over its pairs, largest
+      first), its tiles numbered from ``first_tile`` in that order;
+    - rows ``[n_out:]``, one per pair: a_ptr, lda, b_ptr, ldb, K, 0, 0, 0; sorted so
+      that each output reads the contiguous range of pair rows it names.
     """
     out_ids = np.asarray(out_ids, np.int64)
-    order = np.argsort(out_ids, kind='stable')
-    outputs = np.arange(len(M))
-    begin = np.searchsorted(out_ids[order], outputs, side='left')
-    end = np.searchsorted(out_ids[order], outputs, side='right')
-    pairs = np.zeros((len(order), 4), np.int64)
-    pairs[:, 0] = np.asarray(a_ptrs, np.int64)[order]
-    pairs[:, 1] = np.asarray(b_ptrs, np.int64)[order]
-    pairs[:, 2] = np.asarray(K, np.int64)[order]
-    tiles = work_table(M, N)
-    o = tiles[:, 0]
-    work = np.zeros((len(tiles), 8), np.int64)
-    work[:, 0] = np.asarray(c_ptrs, np.int64)[o]
-    work[:, 1] = M[o]
-    work[:, 2] = N[o]
-    work[:, 3:5] = tiles[:, 1:]
-    work[:, 5] = begin[o]
-    work[:, 6] = end[o]
-    return work, pairs
+    n_out, n = len(M), len(out_ids)
+    work = np.bincount(out_ids, weights=K, minlength=n_out)
+    by_work = np.argsort(-work, kind='stable')
+    pair_rank = np.argsort(by_work)[out_ids]
+    pair_order = np.argsort(pair_rank, kind='stable')
+    end = np.cumsum(np.bincount(pair_rank, minlength=n_out))
+    mn = np.stack([M, N], axis=1)[by_work]
+    tiles = (mn + (tile[0] - 1, tile[1] - 1)) // tile
+    n_tiles = tiles[:, 0] * tiles[:, 1]
+    first = np.cumsum(n_tiles)
+    table = np.zeros((n_out + n, 8), np.int64)
+    outs = table[:n_out]
+    outs[:, 1:3] = mn
+    outs[:, 3] = first - n_tiles
+    outs[:, 4] = tiles[:, 1]
+    outs[1:, 5] = end[:-1]
+    outs[:, 6] = end
+    table[n_out:, 4] = np.asarray(K)[pair_order]
+    return _TableLayout(table, np.asarray(c_offsets, np.int64)[by_work], pair_order,
+                        int(first[-1]) if n_out else 0)
 
 
-def _launch(As, Bs, out_ids, n_out, M, N, dtype, device) -> list:
-    from ._kernels import library
+def _fill_table(layout: _TableLayout, a, ia, b, ib, c_base: int) -> np.ndarray:
+    """A copy of ``layout.table`` holding one call's pointers and pitches: ``a``, ``b``
+    the ``_gather`` rows of the operands, ``ia``, ``ib`` those of each pair, ``c_base``
+    the address the outputs' offsets count from."""
+    table = layout.table.copy()
+    n_out = len(layout.c_offsets)
+    np.add(layout.c_offsets, c_base, out=table[:n_out, 0])
+    pairs = table[n_out:]
+    pairs[:, 0:2] = a[ia[layout.pair_order], 0:2]
+    pairs[:, 2:4] = b[ib[layout.pair_order], 0:2]
+    return table
 
-    # temporaries made here are freed on return while the kernel may still read
-    # them; the caching allocator reuses their memory only for work queued later
-    # on the same stream
-    As = [A.to(dtype).contiguous() for A in As]
-    Bs = [B.to(dtype).contiguous() for B in Bs]
-    sizes = M * N
-    offsets = np.cumsum(sizes) - sizes
-    flat = torch.empty(int(sizes.sum()), dtype=dtype, device=device)
-    outs = [flat[int(off):int(off) + int(s)].view(int(m), int(n))
-            for off, s, m, n in zip(offsets, sizes, M, N)]
-    work, pairs = launch_tables([A.data_ptr() for A in As], [B.data_ptr() for B in Bs],
-                                [A.shape[1] for A in As], out_ids, M, N,
-                                flat.data_ptr() + offsets * flat.element_size())
-    if not len(work):  # every output is empty: nothing to launch
+
+class _OutputLayout(NamedTuple):
+    """Where the outputs of a call lie in one flat buffer: outputs of equal ``N`` next
+    to each other, so that one ``unsafe_split_with_sizes`` of a ``[sum M, N]`` view
+    makes all of them (one call per distinct ``N``, not per output)."""
+    size: int            # elements of the buffer
+    offsets: np.ndarray  # the first element of each output
+    groups: list         # per distinct N: (first element, N, rows of each output)
+    order: list          # the output of each view, in the order the groups make them
+
+
+def _output_layout(MN: np.ndarray) -> _OutputLayout:
+    order = np.argsort(MN[:, 1], kind='stable')
+    mn = MN[order]
+    sizes = mn[:, 0] * mn[:, 1]
+    starts = np.cumsum(sizes) - sizes
+    offsets = np.empty_like(sizes)
+    offsets[order] = starts
+    rows, widths, starts = mn[:, 0].tolist(), mn[:, 1].tolist(), starts.tolist()
+    bounds = [0, *(np.flatnonzero(np.diff(mn[:, 1])) + 1).tolist(), len(rows)] if rows else []
+    groups = [(starts[s], widths[s], rows[s:e]) for s, e in zip(bounds, bounds[1:])]
+    return _OutputLayout(int(sizes.sum()), offsets, groups, order.tolist())
+
+
+def _outputs(layout: _OutputLayout, dtype, device):
+    """The outputs of ``layout`` as slices of one new flat buffer, and the buffer. The
+    slices are made by ``unsafe_split_with_sizes``: they share the buffer's storage but
+    carry no autograd view record, which makes them cheaper to make and to free (the
+    port computes no gradients)."""
+    flat = torch.empty(layout.size, dtype=dtype, device=device)
+    views = []
+    for start, n, rows in layout.groups:
+        if n == 0:
+            views += [flat[:0].view(m, 0) for m in rows]
+        else:
+            views += flat[start:start + sum(rows) * n].view(-1, n).unsafe_split_with_sizes(rows)
+    outs = [None] * len(views)
+    for o, c in zip(layout.order, views):
+        outs[o] = c
+    return outs, flat
+
+
+# the layouts of the pair lists seen, by their shapes (see _layouts); the oldest goes
+# first when it is full
+_LAYOUTS: dict = {}
+_LAYOUTS_MAX = 1024
+
+
+def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile):
+    """``(n_out, output layout, table layout)`` of a pair list: ``a``, ``b`` the
+    ``_gather`` rows of its operands, ``ia``, ``ib`` those of each pair, ``tile`` the
+    kernel's ``(BM, BN)`` for ``dtype``.
+
+    They follow from the shapes of the pairs, ``out_ids``, ``n_out``, the dtype and
+    the tile alone, so each distinct list is checked (:func:`_check`) and laid out
+    once and then taken from ``_LAYOUTS``: the DMRG path contracts the same block
+    structure on every iteration of a solve and every sweep, with new blocks each time.
+    """
+    key = (a[ia, 3:5].tobytes(), b[ib, 3:5].tobytes(),
+           None if out_ids is None else np.asarray(out_ids, np.int64).tobytes(),
+           n_out, dtype, tile)
+    found = _LAYOUTS.get(key)
+    if found is None:
+        out_ids, n_out, MN = _check(np.concatenate((a[ia], b[ib]), axis=1), out_ids, n_out)
+        out_layout = _output_layout(MN)
+        found = (n_out, out_layout,
+                 _table_layout(a[ia, 4], out_ids, MN[:, 0], MN[:, 1],
+                               out_layout.offsets * dtype.itemsize, tile))
+        if len(_LAYOUTS) >= _LAYOUTS_MAX:
+            del _LAYOUTS[next(iter(_LAYOUTS))]
+        _LAYOUTS[key] = found
+    return found
+
+
+def _table_args(table: np.ndarray, device, inline_words: int):
+    """``(tables, n_words, on_device)`` for the C entry point, and the buffer that must
+    outlive the launches. Up to ``inline_words`` words travel inside the launch's
+    parameters from the host array: read through the constant cache, they make the
+    kernel faster than tables in device memory (``PERF.md`` §6). A larger table
+    is copied to the device through pinned memory, without a sync."""
+    if table.size <= inline_words:
+        return (table.ctypes.data, table.size, 0), table
+    host = torch.empty(table.size, dtype=torch.int64, pin_memory=True)
+    host.numpy()[:] = table.reshape(-1)
+    tables = host.to(device, non_blocking=True)
+    return (tables.data_ptr(), table.size, 1), tables
+
+
+def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
+    """The host part of :func:`grouped_matmul` for CUDA operands.
+
+    Returns ``(outs, launch)``: the ``n_out`` output tensors, allocated but not yet
+    written, and a function that launches the kernel filling them. ``launch()`` may
+    be called again; it reads the operands as they are then. The operands (and any
+    copies made of them here) stay alive as long as ``launch`` does.
+
+    The host reads each operand once (with ``pairs``, once however many pairs read
+    it), and what follows from the shapes alone once per distinct pair list
+    (:func:`_layouts`).
+    """
+    (ua, ia, a, a_dev, a_dt), (ub, ib, b, b_dev, b_dt) = _pair_list(As, Bs, pairs)
+    devices = a_dev | b_dev
+    if len(devices) != 1 or ua[0].device.type != ub[0].device.type:
+        raise ValueError('operands on several devices: '
+                         f'{sorted({str(t.device) for t in (*ua, *ub)})}')
+    if not ua[0].is_cuda:
+        raise NotImplementedError(f'grouped_matmul: no kernel for {ua[0].device}')
+    index = devices.pop()
+    dtype = _common_dtype(a_dt | b_dt)
+    if dtype.is_complex:
+        raise NotImplementedError('grouped_matmul: complex operands have no CUDA kernel yet')
+    if dtype not in _DTYPE_CODE:
+        raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
+    tile, inline_words = _kernel_info(dtype)
+    n_out, out_layout, table_layout = _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile)
+    _as_operands(ua, a, a_dt, dtype)
+    _as_operands(ub, b, b_dt, dtype)
+    outs, flat = _outputs(out_layout, dtype, torch.device('cuda', index))
+    if table_layout.n_tiles == 0:  # every output is empty: nothing to launch
+        return outs, lambda: outs
+    table = _fill_table(table_layout, a, ia, b, ib, flat.data_ptr())
+    table_args, keep = _table_args(table, flat.device, inline_words)
+    args = (_DTYPE_CODE[dtype], *table_args, n_out, table_layout.n_tiles)
+    fn = function('grouped_gemm', 'cyten_grouped_gemm')
+
+    def launch():
+        call(fn, args, index, 'grouped_gemm')
+        grouped_matmul.launches += 1
         return outs
-    host = torch.from_numpy(np.concatenate([work.reshape(-1), pairs.reshape(-1)]))
-    tables = host.pin_memory().to(device, non_blocking=True)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = library('grouped_gemm').cyten_grouped_gemm(
-            _DTYPE_CODE[dtype], tables.data_ptr(), tables.data_ptr() + work.size * 8,
-            len(work), stream)
-    if err != 0:
-        raise RuntimeError(f'grouped_gemm launch failed: cudaError {err}')
-    grouped_matmul.launches += 1
-    return outs
+
+    launch.operands = (ua, ub, keep)  # alive for as long as launch is
+    return outs, launch
 
 
-def grouped_matmul(As, Bs, out_ids=None, n_out=None) -> list:
-    """``C[o] = sum over pairs p with out_ids[p] == o of As[p] @ Bs[p]``.
+def grouped_matmul(As, Bs, out_ids=None, n_out=None, pairs=None) -> list:
+    """``C[o] = sum over pairs p with out_ids[p] == o of A_p @ B_p``.
 
     Parameters
     ----------
     As, Bs
-        Lists of 2D tensors, ``As[p]: [M, K_p]``, ``Bs[p]: [K_p, N]``, all on one device.
+        Lists of 2D tensors, all on one device. Without ``pairs``, pair ``p`` is
+        ``As[p]: [M, K_p]`` times ``Bs[p]: [K_p, N]``.
     out_ids
         Output index of each pair (default: one output per pair). Pairs summed into
         one output must agree in ``M`` and ``N``; every output needs a pair.
     n_out
         Number of outputs (default: ``max(out_ids) + 1``).
+    pairs
+        Optional ``(a_index, b_index)``, one entry per pair: pair ``p`` is
+        ``As[a_index[p]] @ Bs[b_index[p]]``, so that an operand read by several pairs
+        is passed once (the abelian backend passes each block once this way).
 
     Returns the ``n_out`` outputs ``[M, N]`` in the common dtype of the operands
     (bf16 stays bf16, accumulated in f32). CUDA tensors go through one launch of the
     kernel; CPU tensors through :func:`grouped_matmul_plain`.
     """
-    out_ids, n_out, M, N = _prepare(As, Bs, out_ids, n_out)
-    if not As:
-        return []
-    devices = {t.device for t in (*As, *Bs)}
-    if len(devices) != 1:
-        raise ValueError(f'operands on several devices: {devices}')
-    device = devices.pop()
-    if device.type == 'cpu':
-        return grouped_matmul_plain(As, Bs, out_ids, n_out)
-    if device.type != 'cuda':
-        raise NotImplementedError(f'grouped_matmul: no kernel for {device}')
-    dtype = _common_dtype(As, Bs)
-    if dtype.is_complex:
-        raise NotImplementedError('grouped_matmul: complex operands have no CUDA kernel yet')
-    if dtype not in _DTYPE_CODE:
-        raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
-    return _launch(As, Bs, out_ids, n_out, M, N, dtype, device)
+    if not As or not Bs or (As[0].device.type == 'cpu' and not Bs[0].is_cuda):
+        # the plain version raises where a list is empty and the other is not, or
+        # where a later operand lies elsewhere
+        return grouped_matmul_plain(As, Bs, out_ids, n_out, pairs)
+    _, launch = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)
+    return launch()
 
 
 grouped_matmul.launches = 0  # kernel launches, counted where the kernel is launched

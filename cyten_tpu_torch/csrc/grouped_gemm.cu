@@ -3,147 +3,663 @@
 // Replaces the Pallas TPU kernel cyten_tpu/blocks/pallas_grouped.py::grouped_matmul
 // (kernel body :123-136, pallas_call :151). That kernel padded every operand to
 // 128 x 128 tiles and walked a sequential grid of (output tile, k tile) items,
-// carrying an f32 accumulator in VMEM from one k item to the next. Here blocks
-// run in parallel and in no order, so the k loop and the sum over the pairs that
-// feed one output live inside the block: one CTA owns one 64 x 64 output tile,
-// loops over its pairs and their k tiles, and writes the tile once. No padding
-// copy is made; ragged edges are masked on load and store.
+// carrying an f32 accumulator in VMEM from one k item to the next. Here the k loop
+// and the sum over the pairs that feed one output live inside a CTA: a CTA owns one
+// output tile at a time, streams the k slices of all its pairs through shared
+// memory, and writes the tile once. No padding copy is made; ragged edges are
+// zero-filled on load and masked on store.
 //
-// What bounds it. On the DMRG path the pair lists of tdot/compose are a few
-// dozen to a few hundred products with M, N, K of several hundred to a few
-// thousand (chi = 1024..4096). At K ~ 1000 one product does ~2K/(3 * itemsize)
-// operations per byte of operands -- far above the ~20 (f32) or ~10 (f64)
-// operations per byte at which the card's FMA pipes, not its memory, become the
-// limit. So the kernel is bound by operations. This first version runs on the
-// FMA pipes only: a 64 x 64 tile per CTA, 16 x 16 threads with a 4 x 4 register
-// patch each, operands staged through shared memory in k slices of 16. The
-// tensor-core path (wgmma for bf16/TF32, DMMA for f64) with TMA loads is the
-// next step.
+// What bounds it. On the DMRG path a list holds tens to hundreds of products with
+// M, N, K of a few to a few thousand (chi = 1024..4096). At K ~ 1000 a product does
+// hundreds of operations per byte of its operands, so the card's arithmetic is the
+// limit, and which pipe does the arithmetic decides the rate:
+//   f64   DMMA, the f64 tensor cores: mma.sync.m16n8k4.f64 (67 TFLOP/s; wgmma has
+//         no f64 form). 128 x 64 tile, 4 warps of 64 x 32, f64 accumulators.
+//   bf16  wgmma.m64n128k16 from shared memory, f32 accumulators, one rounding to
+//         bf16 at the store. 128 x 128 tile, two warpgroups. A is read K-major, B
+//         (row-major [K, N]) MN-major through the transpose flag, both from the
+//         128-byte swizzled layout.
+//   f32   exact, on the FMA pipes (67 TFLOP/s): the port has no TF32 path, and
+//         config.matmul_precision is 'highest'. 128 x 128 tile, 256 threads with
+//         an 8 x 8 register patch and float4 shared-memory reads.
+// The operands reach shared memory through a ring of stages filled by cp.async, so
+// the loads of later k slices overlap the products of this one. The ring runs over
+// the concatenated (pair, k slice) stream of a tile: the loads of the next pair
+// overlap the last products of this one.
 //
-// Types: f64 accumulates in f64, f32 in f32, bf16 is read and written as bf16
-// and accumulates in f32.
+// Alignment. Sector sizes are arbitrary (1462, 980, 295, 40, 2 at chi = 4096), so a
+// row of A or B starts on a 16-byte boundary only by chance. The kernel picks one
+// copy width per operand of a pair (copy_bytes), the widest of 16, 8 and 4 bytes
+// that divides both the base address and the row pitch; a bf16 operand with an odd
+// pitch is copied one element at a time through registers.
 //
-// Tables (int64, on the device, built by cyten_tpu_torch/blocks/grouped_gemm.py):
-//   work  [n_work, 8]  = c_ptr, M, N, row0, col0, pair_begin, pair_end, 0
-//   pairs [n_pairs, 4] = a_ptr, b_ptr, K, 0
-// A_p is row-major [M, K], B_p row-major [K, N], C_o row-major [M, N], all
-// contiguous; every pair in [pair_begin, pair_end) has the M and N of its work row.
+// Each thread issues its copies of a stage in a loop unrolled LOAD_UNROLL times:
+// fully unrolled, the 16-32 narrow bf16 copies of a stage held their addresses in
+// registers and pushed the wgmma accumulators out to local memory.
+//
+// Why not TMA yet. A tensor map needs row pitches that are multiples of 16 bytes,
+// which these operands rarely have, and it needs one descriptor per operand per
+// call: host work of the kind this design removes. Narrower cp.async copies serve
+// every pitch. TMA with warp-specialised producers, and operand strides read by the
+// kernel (so that the abelian backend stops copying permuted blocks), are later steps.
+//
+// Schedule. The grid is persistent, a few CTAs per SM. CTA b takes the tile ids b,
+// b + gridDim.x, ... and finds the output of a tile by a binary search over the
+// outputs' first tile ids. The host orders the outputs by work (the sum of K over
+// their pairs, largest first), so the heaviest tiles are taken first.
+//
+// Tables (int64, built by cyten_tpu_torch/blocks/grouped_gemm.py). Up to
+// INLINE_WORDS of them travel inside the launch's parameter block (32 KB since CUDA
+// 12.1): no allocation, no copy of their own on the host, and the kernel reads its
+// per-step pair rows through the constant cache. On the H100 that made the bf16 path
+// at the chi = 4096 list 1.4x faster than the same kernel reading its tables from
+// device memory, and f64 a few per cent. Larger lists come in device memory.
+//   outs  [n_out, 8]   = c_ptr, M, N, first_tile, tiles_n, pair_begin, pair_end, 0
+//   pairs [n_pairs, 8] = a_ptr, lda, b_ptr, ldb, K, 0, 0, 0
+// A_p is [M, K] with row pitch lda, B_p [K, N] with row pitch ldb (unit stride
+// along a row), C_o contiguous [M, N]. The tiles of output o are first_tile ..
+// first_tile + ceil(M / BM) * tiles_n - 1, tiles_n = ceil(N / BN), row-major.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TY = 16;                 // thread rows; each thread owns rows ty + TY * i
-constexpr int TX = 16;                 // thread cols; each thread owns cols tx + TX * j
-constexpr int THREADS = TY * TX;
-constexpr int RM = BM / TY;            // 4 rows per thread
-constexpr int RN = BN / TX;            // 4 cols per thread
-constexpr int WORK_COLS = 8;
-constexpr int PAIR_COLS = 4;
+constexpr int OUT_COLS = 8;
+constexpr int PAIR_COLS = 8;
+constexpr int PAIR_K = 4;  // the column of K in a pair row
 
-template <typename T> struct AccOf { using type = T; };
-template <> struct AccOf<__nv_bfloat16> { using type = float; };
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__device__ __forceinline__ double to_acc(double x) { return x; }
-__device__ __forceinline__ float to_acc(float x) { return x; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(BYTES), "r"(src_bytes) : "memory");
+  }
+}
 
-__device__ __forceinline__ void store(double* p, double v) { *p = v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Copies the ROWS x COLS box at (r0, c0) of a row-major matrix (pitch ld, R x C
+// valid) into one stage of shared memory, element (r, c) at byte off(r, c) of
+// `stage`, in copies of VB bytes; what lies outside the matrix reads as zero.
+// Neighbouring threads take neighbouring chunks of a row; each thread keeps one
+// column and steps down the rows, so it carries one pointer, not one per copy.
+template <typename T, int ROWS, int COLS, int THREADS, int UNROLL, int VB, class Off>
+__device__ __forceinline__ void load_box_v(unsigned char* stage, const T* base, int64_t ld,
+                                           int64_t r0, int64_t c0, int64_t R, int64_t C,
+                                           Off off) {
+  constexpr int V = VB / static_cast<int>(sizeof(T));
+  constexpr int PER_ROW = COLS / V;
+  static_assert(THREADS % PER_ROW == 0, "a row's chunks must not straddle the threads");
+  constexpr int ROW_STEP = THREADS / PER_ROW;
+  static_assert(ROWS % ROW_STEP == 0, "box does not split evenly over the threads");
+  const int r = static_cast<int>(threadIdx.x) / PER_ROW;
+  const int c = (static_cast<int>(threadIdx.x) % PER_ROW) * V;
+  int64_t cols = C - (c0 + c);  // valid elements of this thread's chunk
+  cols = cols < 0 ? 0 : (cols > V ? V : cols);
+  const int bytes = static_cast<int>(cols) * static_cast<int>(sizeof(T));
+  int64_t rows = R - (r0 + r);  // valid rows from this thread's first one
+  const int n_rows = static_cast<int>(rows < 0 ? 0 : (rows > ROWS ? ROWS : rows));
+  const T* src = base + (r0 + r) * ld + c0 + c;
+  const int64_t step = ROW_STEP * ld;
+#pragma unroll UNROLL
+  for (int i = 0; i < ROWS / ROW_STEP; ++i) {
+    const int n = i * ROW_STEP < n_rows ? bytes : 0;
+    if constexpr (VB >= 4) {
+      // with a source size of 0 nothing is read: src may point past the matrix
+      cp_async<VB>(smem_u32(stage + off(r + i * ROW_STEP, c)), src, n);
+    } else {  // one element through registers: a pitch no cp.async width divides
+      *reinterpret_cast<T*>(stage + off(r + i * ROW_STEP, c)) = n > 0 ? *src : T(0);
+    }
+    src += step;
+  }
+}
+
+// The widest cp.async copy (16, 8 or 4 bytes) that divides both the base address and
+// the row pitch of a matrix of T; sizeof(T) where none does.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-grouped_gemm_kernel(const int64_t* __restrict__ work, const int64_t* __restrict__ pairs) {
-  using Acc = typename AccOf<T>::type;
-  // A is stored k-major so the compute loop reads a column of A as a broadcast;
-  // the +1 pad spreads the transposing stores over the banks.
-  __shared__ Acc sA[BK][BM + 1];
-  __shared__ Acc sB[BK][BN];
+__device__ __forceinline__ int copy_bytes(const T* base, int64_t ld) {
+  const uint64_t both = reinterpret_cast<uint64_t>(base) | static_cast<uint64_t>(ld * sizeof(T));
+  const uint64_t low = both & (~both + 1);  // its lowest set bit
+  return low == 0 || low >= 16 ? 16 : (low < sizeof(T) ? static_cast<int>(sizeof(T))
+                                                       : static_cast<int>(low));
+}
 
-  const int64_t* w = work + WORK_COLS * static_cast<int64_t>(blockIdx.x);
-  T* C = reinterpret_cast<T*>(w[0]);
-  const int64_t M = w[1], N = w[2], row0 = w[3], col0 = w[4];
-  const int64_t p_begin = w[5], p_end = w[6];
+template <typename T, int ROWS, int COLS, int THREADS, int UNROLL, class Off>
+__device__ __forceinline__ void load_box(unsigned char* stage, const T* base, int64_t ld,
+                                         int64_t r0, int64_t c0, int64_t R, int64_t C,
+                                         Off off) {
+  const int width = copy_bytes(base, ld);
+  // the widths a T cannot take are never asked for; they instantiate the 16-byte copy
+  constexpr int W8 = sizeof(T) <= 8 ? 8 : 16;
+  constexpr int W4 = sizeof(T) <= 4 ? 4 : 16;
+  constexpr int W1 = sizeof(T) < 4 ? static_cast<int>(sizeof(T)) : 16;
+  if (width == 16) {
+    load_box_v<T, ROWS, COLS, THREADS, UNROLL, 16>(stage, base, ld, r0, c0, R, C, off);
+  } else if (width == 8) {
+    load_box_v<T, ROWS, COLS, THREADS, UNROLL, W8>(stage, base, ld, r0, c0, R, C, off);
+  } else if (width == 4) {
+    load_box_v<T, ROWS, COLS, THREADS, UNROLL, W4>(stage, base, ld, r0, c0, R, C, off);
+  } else {
+    load_box_v<T, ROWS, COLS, THREADS, UNROLL, W1>(stage, base, ld, r0, c0, R, C, off);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+// ---- f64: DMMA (mma.sync m16n8k4 .f64) ------------------------------------------------
 
-  Acc acc[RM][RN];
+struct F64 {
+  using T = double;
+  static constexpr int THREADS = 128, BM = 128, BN = 64, BK = 16, STAGES = 3, MIN_CTAS = 2,
+                       LOAD_UNROLL = 16;
+  static constexpr int LDA = BK + 4;   // padded rows: fragment loads hit 16 distinct banks
+  static constexpr int LDB = BN + 4;
+  static constexpr int A_BYTES = BM * LDA * 8;
+  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 8;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false;
+  struct Acc { double v[4][4][4]; };  // [m16 tile][n8 tile][fragment]
+
+  __device__ __forceinline__ static uint32_t a_off(int r, int c) {
+    return (r * LDA + c) * 8;
+  }
+  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
+    return A_BYTES + (r * LDB + c) * 8;
+  }
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = Acc(0);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc.v[i][j][f] = 0.;
+  }
 
-  for (int64_t p = p_begin; p < p_end; ++p) {
-    const T* A = reinterpret_cast<const T*>(pairs[PAIR_COLS * p]);
-    const T* B = reinterpret_cast<const T*>(pairs[PAIR_COLS * p + 1]);
-    const int64_t K = pairs[PAIR_COLS * p + 2];
-    for (int64_t k0 = 0; k0 < K; k0 += BK) {
+  __device__ __forceinline__ static void drain(Acc&) {}
+
+  // warp w owns rows (w / 2) * 64 .. + 63 and cols (w % 2) * 32 .. + 31 of the tile
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
+    const double* sA = reinterpret_cast<const double*>(stage);
+    const double* sB = reinterpret_cast<const double*>(stage + A_BYTES);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const double* a_base = sA + ((warp / 2) * 64 + g) * LDA + t;
+    const double* b_base = sB + t * LDB + (warp % 2) * 32 + g;
 #pragma unroll
-      for (int i = 0; i < BM * BK / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int r = e / BK, k = e % BK;   // neighbouring threads walk along k
-        const int64_t gr = row0 + r, gk = k0 + k;
-        sA[k][r] = (gr < M && gk < K) ? to_acc(A[gr * K + gk]) : Acc(0);
+    for (int kk = 0; kk < BK; kk += 4) {
+      // A fragments: rows g and g + 8, col t; B fragment: row t, col g
+      double a[4][2], b[4][1];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i][0] = a_base[(i * 16) * LDA + kk];
+        a[i][1] = a_base[(i * 16 + 8) * LDA + kk];
       }
 #pragma unroll
-      for (int i = 0; i < BK * BN / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int k = e / BN, c = e % BN;   // neighbouring threads walk along n
-        const int64_t gk = k0 + k, gc = col0 + c;
-        sB[k][c] = (gk < K && gc < N) ? to_acc(B[gk * N + gc]) : Acc(0);
-      }
-      __syncthreads();
+      for (int j = 0; j < 4; ++j) b[j][0] = b_base[kk * LDB + j * 8];
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        Acc a[RM], b[RN];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < RM; ++i) a[i] = sA[kk][ty + TY * i];
-#pragma unroll
-        for (int j = 0; j < RN; ++j) b[j] = sB[kk][tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] += a[i] * b[j];
-      }
-      __syncthreads();
+        for (int j = 0; j < 4; ++j) dmma(acc.v[i][j], a[i], b[j]);
     }
   }
 
+  __device__ __forceinline__ static void dmma(double (&c)[4], const double (&a)[2],
+                                              const double (&b)[1]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  }
+
+  // fragment f of an m16n8 tile: row g + 8 * (f / 2), col 2 * t + f % 2
+  __device__ __forceinline__ static void store(const Acc& acc, double* C, int64_t M, int64_t N,
+                                               int64_t row0, int64_t col0) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int64_t r = row0 + ty + TY * i;
-    if (r >= M) continue;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int64_t c = col0 + tx + TX * j;
-      if (c < N) store(C + r * N + c, acc[i][j]);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int64_t r = row0 + (warp / 2) * 64 + i * 16 + g + 8 * (f / 2);
+          const int64_t c = col0 + (warp % 2) * 32 + j * 8 + 2 * t + f % 2;
+          if (r < M && c < N) C[r * N + c] = acc.v[i][j][f];
+        }
+  }
+};
+
+// ---- f32: FMA pipes, 8 x 8 register patch ---------------------------------------------
+
+struct F32 {
+  using T = float;
+  static constexpr int THREADS = 256, BM = 128, BN = 128, BK = 16, STAGES = 4, MIN_CTAS = 2,
+                       LOAD_UNROLL = 8;
+  static constexpr int LDA = BK + 4;
+  static constexpr int LDB = BN + 4;
+  static constexpr int A_BYTES = BM * LDA * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 4;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false;
+  struct Acc { float v[8][8]; };
+
+  __device__ __forceinline__ static uint32_t a_off(int r, int c) { return (r * LDA + c) * 4; }
+  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
+    return A_BYTES + (r * LDB + c) * 4;
+  }
+
+  // thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 + i and 64 + ty*4 + i, cols
+  // tx*4 + j and 64 + tx*4 + j (i, j < 4)
+  __device__ __forceinline__ static int row(int i) {
+    return (i / 4) * 64 + (threadIdx.x / 16) * 4 + i % 4;
+  }
+  __device__ __forceinline__ static int col(int j) {
+    return (j / 4) * 64 + (threadIdx.x % 16) * 4 + j % 4;
+  }
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc.v[i][j] = 0.f;
+  }
+
+  __device__ __forceinline__ static void drain(Acc&) {}
+
+  __device__ __forceinline__ static float lane_of(const float4& v, int q) {
+    return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+  }
+
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
+    const float* sA = reinterpret_cast<const float*>(stage);
+    const float* sB = reinterpret_cast<const float*>(stage + A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(sA + row(i) * LDA + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b0 = *reinterpret_cast<const float4*>(sB + (kk + q) * LDB + col(0));
+        const float4 b1 = *reinterpret_cast<const float4*>(sB + (kk + q) * LDB + col(4));
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = lane_of(a[i], q);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc.v[i][j] = fmaf(av, b[j], acc.v[i][j]);
+        }
+      }
     }
   }
+
+  __device__ __forceinline__ static void store(const Acc& acc, float* C, int64_t M, int64_t N,
+                                               int64_t row0, int64_t col0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t r = row0 + row(i);
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int64_t c = col0 + col(j);
+        if (c < N) C[r * N + c] = acc.v[i][j];
+      }
+    }
+  }
+};
+
+// ---- bf16: wgmma m64n128k16, f32 accumulators -----------------------------------------
+
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  // start address, leading and stride byte offsets in 16-byte units; layout 1 = 128B swizzle
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16)
+       | (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32)
+       | (1ull << 62);
+}
+
+// D[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major: trans-b = 1)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+struct BF16 {
+  using T = uint16_t;  // bf16 bits: the loads copy, they do not convert
+  static constexpr int THREADS = 256, BM = 128, BN = 128, BK = 64, STAGES = 3, MIN_CTAS = 2,
+                       LOAD_UNROLL = 8;
+  static constexpr int A_BYTES = BM * BK * 2;  // 16 KiB
+  static constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2;
+  static constexpr bool SWIZZLED = true, ASYNC_MMA = true;
+  struct Acc { float v[64]; };
+
+  // 128-byte swizzle (the layout of TMA's SWIZZLE_128B): in each 1024-byte block of
+  // eight 128-byte rows, the 16-byte chunk c of row r sits at chunk c ^ r.
+  // A [BM x 64] K-major: row m is 128 bytes of k; 8-row blocks 1024 bytes apart.
+  __device__ __forceinline__ static uint32_t a_off(int r, int c) {
+    return (r / 8) * 1024 + (r % 8) * 128 + (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
+  }
+  // B [64 x BN] MN-major: two 64-column halves 8 KiB apart; in each, row k is 128
+  // bytes of n, 8-row blocks 1024 bytes apart.
+  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
+    return A_BYTES + (c / 64) * 8192 + (r / 8) * 1024 + (r % 8) * 128
+         + ((((c % 64) / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
+  }
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc.v[i] = 0.f;
+  }
+
+  __device__ __forceinline__ static void fence_acc(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc.v[i]) :: "memory");
+  }
+
+  // warpgroup w issues its 64 rows, the four k16 steps of the stage in one group, and
+  // waits for the group of the step before: one group stays in flight while the
+  // threads refill the ring
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
+    const uint32_t a = smem_u32(stage) + (threadIdx.x / 128) * 8192;
+    const uint32_t b = smem_u32(stage + A_BYTES);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(acc.v, wgmma_desc(a + kk * 32, 16, 1024),
+                       wgmma_desc(b + kk * 2048, 8192, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+
+  __device__ __forceinline__ static void drain(Acc& acc) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+  }
+
+  // accumulator i of thread (warp w4 of warpgroup wg, lane l): n8 block i / 4,
+  // row wg*64 + w4*16 + l/4 + 8 * ((i / 2) % 2), col 8 * (i / 4) + 2 * (l % 4) + i % 2
+  __device__ __forceinline__ static void store(const Acc& acc, __nv_bfloat16* C, int64_t M,
+                                               int64_t N, int64_t row0, int64_t col0) {
+    const int wg = threadIdx.x / 128, w4 = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int64_t r = row0 + wg * 64 + w4 * 16 + l / 4 + 8 * ((i / 2) % 2);
+      const int64_t c = col0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
+      if (r < M && c < N) C[r * N + c] = __float2bfloat16(acc.v[i]);
+    }
+  }
+};
+
+template <class P> struct Out { using type = typename P::T; };
+template <> struct Out<BF16> { using type = __nv_bfloat16; };
+
+template <class P>
+constexpr int smem_bytes() { return P::STAGES * P::STAGE_BYTES + (P::SWIZZLED ? 1024 : 0); }
+
+// The (pair, k0) cursor over a tile's concatenated k-slice stream; pairs with K = 0
+// are skipped.
+struct Cursor {
+  int64_t p, k0;
+  __device__ void skip_empty(const int64_t* pairs, int64_t end) {
+    while (p < end && pairs[PAIR_COLS * p + PAIR_K] == 0) ++p;
+  }
+  __device__ void advance(const int64_t* pairs, int64_t end, int bk) {
+    k0 += bk;
+    if (k0 >= pairs[PAIR_COLS * p + PAIR_K]) {
+      ++p;
+      k0 = 0;
+      skip_empty(pairs, end);
+    }
+  }
+};
+
+template <class P>
+__device__ __forceinline__ void load_step(unsigned char* stage, const int64_t* pr,
+                                          int64_t k0, int64_t M, int64_t N,
+                                          int64_t row0, int64_t col0) {
+  using T = typename P::T;
+  const T* A = reinterpret_cast<const T*>(pr[0]);
+  const T* B = reinterpret_cast<const T*>(pr[2]);
+  const int64_t K = pr[PAIR_K];
+  const auto a_off = [](int r, int c) { return P::a_off(r, c); };
+  const auto b_off = [](int r, int c) { return P::b_off(r, c); };
+  load_box<T, P::BM, P::BK, P::THREADS, P::LOAD_UNROLL>(stage, A, pr[1], row0, k0, M, K,
+                                                        a_off);
+  load_box<T, P::BK, P::BN, P::THREADS, P::LOAD_UNROLL>(stage, B, pr[3], k0, col0, K, N,
+                                                        b_off);
+}
+
+// The tables of a launch: in device memory, or, for lists small enough, inside the
+// kernel's parameter block (up to 32 KB since CUDA 12.1), which costs the host no
+// allocation and no copy of its own and is read through the constant cache.
+struct DeviceTables {
+  const int64_t* outs;
+  const int64_t* pairs;
+  __device__ __forceinline__ const int64_t* out_rows() const { return outs; }
+  __device__ __forceinline__ const int64_t* pair_rows(int) const { return pairs; }
+};
+
+constexpr int INLINE_WORDS = 4000;  // int64 words: 32000 bytes of parameters
+
+struct InlineTables {
+  int64_t w[INLINE_WORDS];  // outs rows, then pairs rows
+  __device__ __forceinline__ const int64_t* out_rows() const { return w; }
+  __device__ __forceinline__ const int64_t* pair_rows(int n_out) const {
+    return w + OUT_COLS * n_out;
+  }
+};
+
+template <class P, class Tables>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_CTAS)
+grouped_gemm_kernel(const __grid_constant__ Tables tables, int n_out, int n_tiles) {
+  const int64_t* __restrict__ outs = tables.out_rows();
+  const int64_t* __restrict__ pairs = tables.pair_rows(n_out);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if (P::SWIZZLED)  // the swizzle is a function of the address: stages start on 1 KiB
+    smem += (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // the last output whose first tile is <= tile (outputs with no tiles are skipped)
+    int lo = 0, hi = n_out - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (outs[OUT_COLS * mid + 3] <= tile) lo = mid; else hi = mid - 1;
+    }
+    const int64_t* o = outs + OUT_COLS * lo;
+    auto* C = reinterpret_cast<typename Out<P>::type*>(o[0]);
+    const int64_t M = o[1], N = o[2], local = tile - o[3], tiles_n = o[4];
+    const int64_t p_begin = o[5], p_end = o[6];
+    const int64_t row0 = (local / tiles_n) * P::BM, col0 = (local % tiles_n) * P::BN;
+
+    int64_t steps = 0;
+    for (int64_t p = p_begin; p < p_end; ++p)
+      steps += (pairs[PAIR_COLS * p + PAIR_K] + P::BK - 1) / P::BK;
+
+    typename P::Acc acc;
+    P::zero(acc);
+    Cursor load{p_begin, 0};
+    load.skip_empty(pairs, p_end);
+    int64_t loaded = 0;
+    int write = 0, read = 0;  // ring slots of the next load and the next product
+#pragma unroll 1
+    for (int s = 0; s < P::STAGES - 1; ++s) {
+      if (loaded < steps) {
+        load_step<P>(smem + write * P::STAGE_BYTES, pairs + PAIR_COLS * load.p, load.k0, M,
+                     N, row0, col0);
+        load.advance(pairs, p_end, P::BK);
+        ++loaded;
+        write = write + 1 == P::STAGES ? 0 : write + 1;
+      }
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int64_t s = 0; s < steps; ++s) {
+      cp_async_wait<P::STAGES - 2>();
+      if (P::SWIZZLED)  // make the generic-proxy writes visible to wgmma's async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      unsigned char* stage = smem + read * P::STAGE_BYTES;
+      read = read + 1 == P::STAGES ? 0 : read + 1;
+      if constexpr (P::ASYNC_MMA) {
+        P::mma(acc, stage);  // issued; this warpgroup's product of step s - 1 is done
+        __syncthreads();     // and every warpgroup's
+      }
+      // into the slot of step s - 1, which every thread has finished with
+      if (loaded < steps) {
+        load_step<P>(smem + write * P::STAGE_BYTES, pairs + PAIR_COLS * load.p, load.k0, M,
+                     N, row0, col0);
+        load.advance(pairs, p_end, P::BK);
+        ++loaded;
+        write = write + 1 == P::STAGES ? 0 : write + 1;
+      }
+      cp_async_commit();
+      if constexpr (!P::ASYNC_MMA) P::mma(acc, stage);
+    }
+    P::drain(acc);
+    P::store(acc, C, M, N, row0, col0);
+    cp_async_wait<0>();
+    __syncthreads();  // the next tile's first loads reuse the stages
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Sets the kernel's shared-memory limit and returns its grid cap (resident CTAs per
+// SM times SMs) on the current device, once per device.
+template <class P, class Tables>
+int grid_cap(int& err) {
+  static int cap[MAX_DEVICES] = {};
+  int dev = 0;
+  err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return 0;
+  if (dev < MAX_DEVICES && cap[dev] > 0) return cap[dev];
+  auto kernel = grouped_gemm_kernel<P, Tables>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<P>()));
+  if (err) return 0;
+  int sms = 0, per_sm = 0;
+  err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err) return 0;
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, P::THREADS, smem_bytes<P>()));
+  if (err) return 0;
+  if (per_sm <= 0) {
+    err = static_cast<int>(cudaErrorInvalidConfiguration);
+    return 0;
+  }
+  if (dev < MAX_DEVICES) cap[dev] = sms * per_sm;
+  return sms * per_sm;
+}
+
+template <class P, class Tables>
+int launch(const Tables& tables, int64_t n_out, int64_t n_tiles, cudaStream_t stream) {
+  int err = 0;
+  const int cap = grid_cap<P, Tables>(err);
+  if (err) return err;
+  const int grid = static_cast<int>(n_tiles < cap ? n_tiles : cap);
+  grouped_gemm_kernel<P, Tables><<<grid, P::THREADS, smem_bytes<P>(), stream>>>(
+      tables, static_cast<int>(n_out), static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Tables>
+int launch_dtype(int dtype, const Tables& tables, int64_t n_out, int64_t n_tiles,
+                 cudaStream_t s) {
+  switch (dtype) {
+    case 0: return launch<F64>(tables, n_out, n_tiles, s);
+    case 1: return launch<F32>(tables, n_out, n_tiles, s);
+    case 2: return launch<BF16>(tables, n_out, n_tiles, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Runs launch() with CUDA device `device` current and gives the caller's thread its
+// device back: where it is current already, as on every call of the DMRG path, that
+// costs one cudaGetDevice.
+template <class F>
+int with_device(int device, F&& launch) {
+  int current = 0;
+  int err = static_cast<int>(cudaGetDevice(&current));
+  if (err || current == device) return err ? err : launch();
+  if ((err = static_cast<int>(cudaSetDevice(device)))) return err;
+  err = launch();
+  cudaSetDevice(current);
+  return err;
 }
 
 }  // namespace
 
-// dtype: 0 = float64, 1 = float32, 2 = bfloat16. Returns the cudaError_t of the
-// launch (0 on success); the caller raises on anything else.
-extern "C" int cyten_grouped_gemm(int dtype, const int64_t* work, const int64_t* pairs,
-                                  int64_t n_work, void* stream) {
-  if (n_work <= 0) return 0;
-  if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid(static_cast<unsigned>(n_work));
+// dtype: 0 = float64, 1 = float32, 2 = bfloat16. `tables` holds the outs rows and
+// then the pairs rows, n_words int64 in all: in host memory if tables_on_device is 0
+// (then n_words <= INLINE_WORDS; they are copied into the launch's parameters and may
+// be freed on return), else in device memory. Launches on `stream` of CUDA device
+// `device`. Returns the cudaError_t of the launch (0 on success); the caller raises
+// on anything else.
+extern "C" int cyten_grouped_gemm(int dtype, const int64_t* tables, int64_t n_words,
+                                  int tables_on_device, int64_t n_out, int64_t n_tiles,
+                                  int device, void* stream) {
+  if (n_tiles <= 0 || n_out <= 0) return 0;
+  if (n_tiles > 0x7fffffffLL || n_out > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tables_on_device)
+    return with_device(device, [&] {
+      return launch_dtype(dtype, DeviceTables{tables, tables + OUT_COLS * n_out}, n_out,
+                          n_tiles, s);
+    });
+  if (n_words > INLINE_WORDS) return static_cast<int>(cudaErrorInvalidValue);
+  static thread_local InlineTables inline_tables;  // 32 KB: kept off the stack
+  memcpy(inline_tables.w, tables, static_cast<size_t>(n_words) * sizeof(int64_t));
+  return with_device(device, [&] { return launch_dtype(dtype, inline_tables, n_out, n_tiles, s); });
+}
+
+// The output tile (BM, BN) of each dtype and the capacity of the inline tables in
+// int64 words: the host's table builder takes both from here.
+extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
+  bm_bn_words[2] = INLINE_WORDS;
   switch (dtype) {
-    case 0: grouped_gemm_kernel<double><<<grid, THREADS, 0, s>>>(work, pairs); break;
-    case 1: grouped_gemm_kernel<float><<<grid, THREADS, 0, s>>>(work, pairs); break;
-    case 2: grouped_gemm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(work, pairs); break;
+    case 0: bm_bn_words[0] = F64::BM; bm_bn_words[1] = F64::BN; return 0;
+    case 1: bm_bn_words[0] = F32::BM; bm_bn_words[1] = F32::BN; return 0;
+    case 2: bm_bn_words[0] = BF16::BM; bm_bn_words[1] = BF16::BN; return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

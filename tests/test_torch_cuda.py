@@ -49,6 +49,87 @@ def test_grouped_gemm_matches_plain(card, dtype):
         assert err <= atol + rtol * float(r.double().abs().max())
 
 
+# the ragged lists of tests/test_torch_grouped_gemm.py: name -> (shapes, out_ids)
+RAGGED = {
+    'k_odd': ([(37, 131, 65), (64, 295, 40), (3, 1, 5)], [0, 1, 2]),
+    'k_not_multiple_of_8': ([(130, 6, 70), (20, 10, 129), (129, 1462, 3)], [0, 1, 2]),
+    'below_one_tile': ([(5, 3, 7), (1, 1, 1), (127, 15, 63), (2, 60, 127)], [0, 1, 2, 3]),
+    'twenty_into_one': ([(70, k, 90) for k in range(1, 41, 2)], [0] * 20),
+    'all_k_zero': ([(30, 0, 20), (30, 0, 20), (9, 4, 11)], [0, 0, 1]),
+    # more table rows than fit in the launch's parameters
+    'six_hundred_pairs': ([(9, 1 + k % 7, 5) for k in range(600)], [k // 2 for k in range(600)]),
+}
+TOL = {torch.float64: (1e-12, 0.), torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 0.)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(RAGGED))
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32, torch.bfloat16])
+def test_grouped_gemm_ragged_lists(card, case, dtype):
+    shapes, out_ids = RAGGED[case]
+    rng = np.random.default_rng(6)
+    As = [torch.from_numpy(rng.normal(size=(M, K))).to(card, dtype) for M, K, N in shapes]
+    Bs = [torch.from_numpy(rng.normal(size=(K, N))).to(card, dtype) for M, K, N in shapes]
+    got = grouped_matmul(As, Bs, out_ids)
+    ref = grouped_matmul_plain(As, Bs, out_ids)
+    torch.cuda.synchronize()
+    rtol, atol = TOL[dtype]  # as in test_grouped_gemm_matches_plain
+    for c, r in zip(got, ref):
+        assert c.dtype == dtype and c.shape == r.shape
+        err = float((c.double() - r.double()).abs().max())
+        assert err <= atol + rtol * float(r.double().abs().max())
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_indexed_pairs(card):
+    """Distinct operands with ``pairs`` (as the abelian backend passes them) give what
+    the expanded pair lists give, in one launch."""
+    rng = np.random.default_rng(9)
+    As = [torch.from_numpy(rng.normal(size=(70, k))).to(card) for k in (33, 130)]
+    Bs = [torch.from_numpy(rng.normal(size=(k, 90))).to(card) for k in (33, 130, 33)]
+    a_index, b_index, out_ids = [0, 1, 0, 0], [0, 1, 2, 2], [0, 0, 1, 2]
+    before = grouped_matmul.launches
+    got = grouped_matmul(As, Bs, out_ids, pairs=(np.array(a_index), np.array(b_index)))
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    ref = grouped_matmul_plain([As[i] for i in a_index], [Bs[i] for i in b_index], out_ids)
+    for c, r in zip(got, ref):
+        assert float((c - r).abs().max()) <= 1e-12 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_strided_rows(card):
+    """Operands with a row pitch other than their width are read where they lie."""
+    rng = np.random.default_rng(7)
+    A = torch.from_numpy(rng.normal(size=(70, 40))).to(card)[:, 3:36]
+    B = torch.from_numpy(rng.normal(size=(33, 90))).to(card)[:, :81]
+    (c,) = grouped_matmul([A], [B])
+    torch.cuda.synchronize()
+    assert float((c - A @ B).abs().max()) <= 1e-12 * float((A @ B).abs().max())
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_casts_what_it_cannot_read(card):
+    """An operand of another dtype or with a column stride is copied once, however
+    many pairs read it; the list takes the promoted dtype."""
+    rng = np.random.default_rng(11)
+    A = torch.from_numpy(rng.normal(size=(40, 70))).to(card, torch.float32).t()  # [70, 40]
+    Bs = [torch.from_numpy(rng.normal(size=(40, n))).to(card) for n in (9, 130)]
+    got = grouped_matmul([A], Bs, [0, 1], pairs=(np.array([0, 0]), np.array([0, 1])))
+    torch.cuda.synchronize()
+    for c, B in zip(got, Bs):
+        ref = A.double() @ B
+        assert c.dtype == torch.float64
+        assert float((c - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_scale2_unaligned_tail(card):
+    y = torch.from_numpy(np.random.default_rng(8).normal(size=1031)).to(card, torch.float32)
+    for t in (y, y[1:], y[3:1030]):  # n % 4 != 0, and arrays off 16-byte alignment
+        assert torch.equal(scale2(t), scale2_plain(t))
+
+
 @pytest.mark.cuda
 def test_grouped_gemm_refuses_complex(card):
     a = torch.zeros(3, 3, dtype=torch.complex128, device=card)

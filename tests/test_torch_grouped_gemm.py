@@ -16,9 +16,14 @@ from cyten_tpu.blocks.pallas_grouped import (  # noqa: E402
     grouped_matmul as pallas_grouped_matmul, tile_group, untile_results,
 )
 
+from cyten_tpu_torch.blocks import grouped_gemm  # noqa: E402
 from cyten_tpu_torch.blocks.grouped_gemm import (  # noqa: E402
-    TILE, grouped_matmul, grouped_matmul_plain, launch_tables, work_table,
+    grouped_matmul, grouped_matmul_plain,
 )
+
+# an output tile (BM, BN): the table builder numbers tiles of whatever size it is given
+# (the kernel states its own per dtype, cyten_grouped_gemm_info)
+TILE = (128, 64)
 
 # the shapes of tests/test_pallas_grouped.py:15-19
 PALLAS_SHAPES = [
@@ -88,56 +93,208 @@ def test_dtype_policy():
     assert grouped_matmul([a.float()], [b])[0].dtype == torch.float64
 
 
-def test_work_table_covers_every_output_tile_once():
-    M = np.array([1, 64, 65, 130, 0])
-    N = np.array([1, 64, 200, 7, 5])
-    tiles = work_table(M, N)
-    for o in range(len(M)):
-        mine = tiles[tiles[:, 0] == o]
-        covered = np.zeros((M[o], N[o]), int)
-        for _, r0, c0 in mine:
-            assert r0 % TILE == 0 and c0 % TILE == 0 and r0 < M[o] and c0 < N[o]
-            covered[r0:r0 + TILE, c0:c0 + TILE] += 1
-        assert np.all(covered == 1)
-    assert np.all(np.diff(tiles[:, 0]) >= 0)  # outputs in order
+# ragged lists: name -> (shapes (M, K, N), out_ids); the same cases run on the card
+# in tests/test_torch_cuda.py and chip_smoke.py
+RAGGED = {
+    'k_odd': ([(37, 131, 65), (64, 295, 40), (3, 1, 5)], [0, 1, 2]),
+    'k_not_multiple_of_8': ([(130, 6, 70), (20, 10, 129), (129, 1462, 3)], [0, 1, 2]),
+    'below_one_tile': ([(5, 3, 7), (1, 1, 1), (127, 15, 63), (2, 60, 127)], [0, 1, 2, 3]),
+    'twenty_into_one': ([(70, k, 90) for k in range(1, 41, 2)], [0] * 20),
+    'all_k_zero': ([(30, 0, 20), (30, 0, 20), (9, 4, 11)], [0, 0, 1]),
+    # more table rows than fit in the launch's parameters
+    'six_hundred_pairs': ([(9, 1 + k % 7, 5) for k in range(600)], [k // 2 for k in range(600)]),
+}
+
+
+@pytest.mark.parametrize('case', list(RAGGED))
+def test_ragged_lists_against_numpy(case):
+    shapes, out_ids = RAGGED[case]
+    As, Bs = _pairs(np.random.default_rng(5), shapes)
+    got = grouped_matmul_plain([torch.from_numpy(a) for a in As],
+                               [torch.from_numpy(b) for b in Bs], out_ids)
+    ref = {}
+    for a, b, o in zip(As, Bs, out_ids):
+        ref[o] = ref.get(o, 0) + a @ b
+    assert len(got) == len(ref)
+    for o, c in enumerate(got):
+        # f64 sums of <= 20 products of depth <= 1462 in another order
+        np.testing.assert_allclose(c.numpy(), ref[o] + np.zeros(c.shape), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def _launch_table(a_ptrs, b_ptrs, K, lda, ldb, out_ids, M, N, c_ptrs, tile):
+    """The kernel's table as the wrapper builds it: its layout, then one call's
+    pointers and pitches (``c_ptrs`` as offsets from 0). Returns (table, n_tiles)."""
+    layout = grouped_gemm._table_layout(K, out_ids, M, N, c_ptrs, tile)
+    ia = np.arange(len(layout.pair_order))
+    table = grouped_gemm._fill_table(layout, np.stack([a_ptrs, lda], axis=1), ia,
+                                     np.stack([b_ptrs, ldb], axis=1), ia, 0)
+    return table, layout.n_tiles
+
+
+def _tables(As, Bs, out_ids, M, N, outs, tile=TILE):
+    """The table of _launch_table split into its output rows and its pair rows."""
+    table, n_tiles = _launch_table([a.data_ptr() for a in As], [b.data_ptr() for b in Bs],
+                                   [a.shape[1] for a in As], [a.stride(0) for a in As],
+                                   [b.stride(0) for b in Bs], out_ids, M, N,
+                                   [c.data_ptr() for c in outs], tile)
+    return table[:len(M)], table[len(M):], n_tiles
+
+
+def _walk(outs, n_tiles, grid):
+    """The kernel's schedule, as csrc/grouped_gemm.cu walks it: CTA b takes the tile
+    ids b, b + grid, ...; a binary search over first_tile finds the output of each.
+    Yields (output row, tile row0, tile col0)."""
+    for b in range(grid):
+        for tile in range(b, n_tiles, grid):
+            lo, hi = 0, len(outs) - 1
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if outs[mid, 3] <= tile:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            local = tile - outs[lo, 3]
+            yield lo, local // outs[lo, 4], local % outs[lo, 4]
+
+
+@pytest.mark.parametrize('grid', [1, 3, 264])
+def test_work_table_covers_every_output_tile_once(grid):
+    """The per-output table walked as the kernel walks it visits every tile of every
+    output exactly once, whatever the grid; outputs with no tiles are never visited;
+    rows are ordered by work."""
+    M = np.array([1, 128, 129, 300, 0, 7])
+    N = np.array([1, 64, 200, 7, 5, 0])
+    K = np.array([5, 3, 40, 1, 2, 9, 0])
+    out_ids = np.array([0, 1, 2, 3, 4, 5, 2])
+    bm, bn = TILE
+    table, n_tiles = _launch_table(np.arange(7) * 64, np.arange(7) * 64, K, K, N[out_ids],
+                                   out_ids, M, N, np.arange(6) * 64, (bm, bn))
+    outs, pairs = table[:len(M)], table[len(M):]
+    assert n_tiles == int(sum(-(-m // bm) * -(-n // bn) for m, n in zip(M, N)))
+    work = outs[:, 6] - outs[:, 5]  # pair counts; the work is the sum of K
+    sum_k = [int(pairs[b:e, 4].sum()) for b, e in outs[:, 5:7]]
+    assert sum_k == sorted(sum_k, reverse=True) and work.sum() == len(K)
+    covered = {o: np.zeros((outs[o, 1], outs[o, 2]), int) for o in range(len(outs))}
+    for o, tr, tc in _walk(outs, n_tiles, grid):
+        assert outs[o, 1] > 0 and outs[o, 2] > 0
+        covered[o][tr * bm:(tr + 1) * bm, tc * bn:(tc + 1) * bn] += 1
+    for o, c in covered.items():
+        assert np.all(c == 1)
 
 
 def test_launch_tables_drive_the_kernel_walk():
     """The tables the wrapper hands the CUDA kernel, walked as the kernel walks them
-    (one work row per output tile, the pair range it names, the pointers in it)."""
+    (a strided tile id, a binary search over first_tile, the pair range and the
+    pointers, K and pitches of each pair), compute what the plain version computes."""
     rng = np.random.default_rng(4)
-    shapes = [(130, 17, 70), (12, 9, 3), (130, 64, 70), (5, 200, 129), (130, 1, 70)]
-    out_ids = np.array([2, 0, 2, 1, 2])  # output 2 sums three pairs, out of order
+    shapes = [(130, 17, 70), (12, 9, 3), (130, 64, 70), (5, 200, 129), (130, 1, 70),
+              (12, 0, 3)]
+    out_ids = np.array([2, 0, 2, 1, 2, 0])  # output 2 sums three pairs, out of order
     As, Bs = _pairs(rng, shapes)
     As, Bs = [torch.from_numpy(a) for a in As], [torch.from_numpy(b) for b in Bs]
+    As[0] = torch.from_numpy(rng.normal(size=(130, 20)))[:, :17]  # row pitch 20, not 17
     M, N = np.array([12, 5, 130]), np.array([3, 129, 70])
     outs = [torch.full((int(m), int(n)), np.nan, dtype=torch.float64) for m, n in zip(M, N)]
-    work, pairs = launch_tables([a.data_ptr() for a in As], [b.data_ptr() for b in Bs],
-                                [a.shape[1] for a in As], out_ids, M, N,
-                                [c.data_ptr() for c in outs])
+    o_tab, p_tab, n_tiles = _tables(As, Bs, out_ids, M, N, outs, (64, 64))
     by_ptr = {t.data_ptr(): t for t in (*As, *Bs, *outs)}
-    for c_ptr, m, n, row0, col0, begin, end, _ in work.tolist():
+    for o, tr, tc in _walk(o_tab, n_tiles, 5):
+        c_ptr, m, n, _, _, begin, end, _ = o_tab[o].tolist()
         C = by_ptr[c_ptr]
         assert tuple(C.shape) == (m, n)
-        rows, cols = slice(row0, row0 + TILE), slice(col0, col0 + TILE)
-        acc = torch.zeros_like(C[rows, cols])
-        for a_ptr, b_ptr, k, _ in pairs[begin:end].tolist():
+        r, c = slice(tr * 64, tr * 64 + 64), slice(tc * 64, tc * 64 + 64)
+        acc = torch.zeros_like(C[r, c])
+        for a_ptr, lda, b_ptr, ldb, k, *rest in p_tab[begin:end].tolist():
+            assert rest == [0, 0, 0]
+            if k == 0:  # the kernel skips empty products; their pointers may be null
+                continue
             A, B = by_ptr[a_ptr], by_ptr[b_ptr]
             assert A.shape == (m, k) and B.shape == (k, n)
-            acc += A[rows] @ B[:, cols]
-        C[rows, cols] = acc
+            assert (lda, ldb) == (A.stride(0), B.stride(0))
+            acc += A[r] @ B[:, c]
+        C[r, c] = acc
     ref = grouped_matmul_plain(As, Bs, out_ids)
     for c, r in zip(outs, ref):
         # f64, the same products summed per tile instead of per output
         np.testing.assert_allclose(c.numpy(), r.numpy(), rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize('case', ['length', 'inner_dim', 'shared_shape', 'empty_output'])
+def test_gather_reads_pointers_pitches_and_shapes():
+    """One side of a pair list: each tensor's pointer, row pitch, column stride and
+    shape, its device and dtype, and the operand of each pair (one per pair, or the
+    index given)."""
+    base = torch.zeros(12, 10)
+    A, B, C = base[:, 1:8], torch.zeros(3, 4, dtype=torch.float64), base.t()
+    uniq, pos, info, devices, dtypes = grouped_gemm._gather([A, B, C])
+    assert uniq == [A, B, C] and pos.tolist() == [0, 1, 2]
+    assert info.tolist() == [[A.data_ptr(), 10, 1, 12, 7], [B.data_ptr(), 4, 1, 3, 4],
+                             [C.data_ptr(), 1, 10, 10, 12]]
+    assert devices == {-1} and dtypes == {torch.float32, torch.float64}
+    uniq, pos, info, _, _ = grouped_gemm._gather([C, A], np.array([1, 1, 0]))
+    assert uniq == [C, A] and pos.tolist() == [1, 1, 0] and info[1, 0] == A.data_ptr()
+    for bad in ([2, 0], [-1, 0]):
+        with pytest.raises(ValueError):
+            grouped_gemm._gather([C, A], bad)
+    with pytest.raises(ValueError):
+        grouped_gemm._gather([torch.zeros(3)])
+
+
+def test_indexed_pairs_match_pair_lists():
+    """``pairs=(a_index, b_index)`` over distinct operands gives what the expanded pair
+    lists give."""
+    rng = np.random.default_rng(9)
+    As = [torch.from_numpy(rng.normal(size=(6, k))) for k in (3, 5)]
+    Bs = [torch.from_numpy(rng.normal(size=(k, 4))) for k in (3, 5, 3)]
+    a_index, b_index, out_ids = [0, 1, 0, 0], [0, 1, 2, 2], [0, 0, 1, 2]
+    got = grouped_matmul(As, Bs, out_ids, pairs=(np.array(a_index), np.array(b_index)))
+    ref = grouped_matmul([As[i] for i in a_index], [Bs[i] for i in b_index], out_ids)
+    assert len(got) == len(ref) == 3
+    for c, r in zip(got, ref):
+        # the same products in the same order on both sides
+        np.testing.assert_array_equal(c.numpy(), r.numpy())
+    with pytest.raises(ValueError):
+        grouped_matmul(As, Bs, out_ids, pairs=([0, 2, 0, 0], b_index))
+
+
+def test_layouts_are_kept_by_shape():
+    """A pair list is checked and laid out once per distinct shapes, out_ids and dtype;
+    the kept table layout, filled with one call's pointers, is the table built anew."""
+    rng = np.random.default_rng(10)
+    shapes = [(30, 17, 40), (30, 5, 40), (12, 9, 3)]
+    As, Bs = _pairs(rng, shapes)
+    # _gather rows (data_ptr, stride(0), stride(1), rows, cols) of three A and three B
+    a = np.array([(64 * i, k, 1, m, k) for i, (m, k, n) in enumerate(shapes)])
+    b = np.array([(64 * i + 8, n, 1, k, n) for i, (m, k, n) in enumerate(shapes)])
+    ia = ib = np.arange(3)
+    first = grouped_gemm._layouts(a, ia, b, ib, [0, 0, 1], None, torch.float64, TILE)
+    a2, b2 = a.copy(), b.copy()
+    a2[:, 0] += 4096  # other blocks of the same shapes
+    b2[:, 0] += 8192
+    assert grouped_gemm._layouts(a2, ia, b2, ib, np.array([0, 0, 1]), None,
+                                 torch.float64, TILE) is first
+    for out_ids, dtype, tile in (([0, 1, 2], torch.float64, TILE),
+                                 ([0, 0, 1], torch.float32, TILE),
+                                 ([0, 0, 1], torch.float64, (64, 64))):
+        assert grouped_gemm._layouts(a, ia, b, ib, out_ids, None, dtype, tile) is not first
+    n_out, out_layout, table_layout = first
+    table = grouped_gemm._fill_table(table_layout, a2, ia, b2, ib, 1 << 20)
+    ref, n_tiles = _launch_table(a2[:, 0], b2[:, 0], a2[:, 4], a2[:, 1], b2[:, 1], [0, 0, 1],
+                                 [30, 12], [40, 3], (1 << 20) + 8 * out_layout.offsets,
+                                 TILE)
+    assert n_out == 2 and n_tiles == table_layout.n_tiles == 2
+    np.testing.assert_array_equal(table, ref)
+    with pytest.raises(ValueError):  # a list that fails its checks is never kept
+        grouped_gemm._layouts(a, ia, b, ib, [0, 1, 1], None, torch.float64, TILE)
+
+
+@pytest.mark.parametrize('case', ['length', 'inner_dim', 'shared_shape', 'empty_output',
+                                  'operand_index'])
 def test_rejects_malformed_lists(case):
     a, b = torch.zeros(3, 4), torch.zeros(4, 5)
     args = {'length': ([a, a], [b]),
             'inner_dim': ([a], [torch.zeros(5, 5)]),
             'shared_shape': ([a, torch.zeros(2, 4)], [b, b], [0, 0]),
-            'empty_output': ([a], [b], [1], 2)}[case]
+            'empty_output': ([a], [b], [1], 2),
+            'operand_index': ([a], [b], [0], 1, ([0], [-1]))}[case]
     with pytest.raises(ValueError):
         grouped_matmul(*args)
