@@ -11,7 +11,7 @@ the repo's production setting, checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
-    python3 chip_smoke.py --kernels-only   # phases 1, 2 and 6, then stop
+    python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
@@ -25,6 +25,10 @@ Phases:
      wrapper's time (ms), the kernel alone launched on tables built once
      (device_ms) and a per-pair torch.matmul loop (library_ms), timed in turns
      with the spread of each, the plain version's time and the bound
+  2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on random
+     Lanczos matrices and on ones whose Krylov space closes (a vanishing beta), N=10,
+     20, 37 and 64: E to 1e-12 relative, the coefficients to 1e-10; its times and
+     bound at N=10
   3. L=12 Heisenberg DMRG, chi_max=64, against exact diagonalization (1e-9)
   4. L=24 Heisenberg DMRG at chi_max=1024, eps=0, N_max=10 (bench.py:1124-1145
      without bf16), swept until the centre bond holds chi=1024, against
@@ -35,13 +39,18 @@ Phases:
   6. the probe kernel (csrc/probe.cu) against its plain version, bitwise, also on
      unaligned arrays with a tail; its times and the host cost of each piece of
      one call
-  7. static mode on the converged L=24 engine of phase 4: two steady sweeps against
-     HEIS24_E_REF (1e-8) with every B right-isometric (1e-8); the centre bond's
-     static update by stage, its host syncs and one static update under
-     torch.profiler
+  7. static mode on the converged L=24 engine of phase 4: two eager steady sweeps
+     against HEIS24_E_REF (1e-8) with every B right-isometric (1e-8); the centre
+     bond's static update by stage, its host syncs and one static update under
+     torch.profiler; then two sweep_static_batched() sweeps through CUDA graphs
+     (same checks; the runs of _static_runs, graphs captured and capture seconds,
+     launches counted through replays, host syncs of a batched sweep, peak reserved
+     memory), the centre bond's graph replay under torch.profiler, and one more
+     eager sweep that must agree with the graphs' energy (1e-10)
   8. the bench step (cyten_tpu_torch.bench.step_run) at chi=4096: steady in f32 and
-     f64, exact in f32; one chi=1024 f64 static step, card against CPU (E 1e-9
-     relative, S 1e-8); then step_decomposition()
+     f64, eager and as a CUDA graph (CUDA-event times), exact in f32; one chi=1024
+     f64 static step, card against CPU (E 1e-9 relative, S 1e-8); then
+     step_decomposition()
 """
 
 from __future__ import annotations
@@ -242,17 +251,17 @@ def assert_right_isometric(psi, tol: float):
             raise AssertionError(f'B[{i}] is not right-isometric: {err}')
 
 
-def profile_bond(eng, i: int, top: int = 8):
-    """One bond update under torch.profiler: wall time, the device's busy share and
-    the kernels that took the most device time. Reports what the trace holds and
-    checks nothing: an empty device trace prints as 'not measured'."""
+def profile_run(label: str, fn, top: int = 8):
+    """``fn()`` under torch.profiler: wall time, the device's busy share and the
+    kernels that took the most device time. Reports what the trace holds and checks
+    nothing: an empty device trace prints as 'not measured'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.update_bond(i)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.key, e.count, getattr(e, 'self_device_time_total', 0.))
@@ -260,15 +269,15 @@ def profile_bond(eng, i: int, top: int = 8):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(t for _, _, t in kernels)
     if busy_us <= 0:
-        print(f'[profile bond {i}] wall {wall_us / 1e3:.1f} ms; device time not measured',
+        print(f'[profile {label}] wall {wall_us / 1e3:.1f} ms; device time not measured',
               flush=True)
         return
     kernels.sort(key=lambda k: -k[2])
-    print(f'[profile bond {i}] wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms '
+    print(f'[profile {label}] wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms '
           f'({100 * busy_us / wall_us:.1f} %), {sum(c for _, c, _ in kernels)} kernels',
           flush=True)
     for name, count, t in kernels[:top]:
-        print(f'[profile bond {i}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}', flush=True)
+        print(f'[profile {label}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}', flush=True)
 
 
 def probe_phase() -> dict:
@@ -332,6 +341,70 @@ def probe_breakdown(x, out, fn, reps: int = 2000) -> dict:
     return res
 
 
+def lanczos_matrices(rng):
+    """``(label, alphas, betas)`` of fixed-length Lanczos matrices: random ones at
+    N=10 (the static sweeps' n_lanczos) and 20, and at 37 and 64, where the kernel's
+    threads span two warps; and ones whose Krylov space closes (a vanishing beta; the
+    later alphas are garbage)."""
+    cases = []
+    for n in (10, 20, 37, 64):
+        cases.append((f'random N={n}', rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))))
+    for n, k in ((10, 4), (20, 11), (64, 40)):
+        a, b = rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))
+        b[k] = 1e-14
+        a[k + 1:] = 1e3 * rng.normal(size=n - k - 1)
+        cases.append((f'closes at {k + 1} N={n}', a, b))
+    return cases
+
+
+def tridiag_phase() -> dict:
+    """The tridiagonal kernel against its plain version (on the CPU, where the
+    fused Lanczos's tests run it): E to 1e-12 relative, the coefficients to 1e-10;
+    then its times at N=10 beside the bound and torch.linalg.eigh."""
+    import torch
+    from cyten_tpu_torch.blocks._kernels import call, function
+    from cyten_tpu_torch.blocks.tridiag import (
+        tridiagonal_ground_state, tridiagonal_ground_state_plain,
+    )
+
+    err = 0.
+    for label, a, b in lanczos_matrices(np.random.default_rng(11)):
+        at, bt = torch.from_numpy(a), torch.from_numpy(b)
+        E, c = tridiagonal_ground_state(at.cuda(), bt.cuda())
+        E_ref, c_ref = tridiagonal_ground_state_plain(at, bt)
+        dE = abs(float(E) - float(E_ref)) / abs(float(E_ref))
+        dc = float((c.cpu() - c_ref).abs().max())
+        print(f'[tridiag] {label}: E {float(E)!r}, relative |dE| {dE:.3e}, '
+              f'max |dc| {dc:.3e}', flush=True)
+        if not (dE <= 1e-12 and dc <= 1e-10):
+            raise AssertionError(f'tridiag kernel disagrees with its plain version: {label}')
+        err = max(err, abs(float(E) - float(E_ref)), dc)
+    a, b = (torch.from_numpy(x).cuda() for x in lanczos_matrices(np.random.default_rng(11))[0][1:])
+    n = a.numel()
+    ab = torch.stack([a, b]).contiguous()
+    out = torch.empty(n + 1, dtype=torch.float64, device='cuda')
+    fn = function('tridiag', 'cyten_tridiag_ground_state')
+    kernel = lambda: call(fn, (ab.data_ptr(), n, out.data_ptr()), 0, 'tridiag')  # noqa: E731
+    T = torch.diag(a) + torch.diag(b[:-1], 1) + torch.diag(b[:-1], -1)
+    (ms, device_ms, library_ms), spread = turns(
+        [lambda: tridiagonal_ground_state(a, b), kernel, lambda: torch.linalg.eigh(T)],
+        50, rounds=4)
+    res = {'N': n, 'max_abs_err': err, 'ms': ms, 'device_ms': device_ms,
+           'plain_ms': cuda_ms(lambda: tridiagonal_ground_state_plain(a, b), reps=20),
+           'library_ms': library_ms,
+           'spread': dict(zip(('ms', 'device_ms', 'library_ms'), spread))}
+    # read 2N f64, write N + 1. The work the function needs, not the kernel's O(N^3)
+    # with all of Z: the eigenvalues by implicit QL, about two steps per eigenvalue
+    # of up to N rotations of about 10 operations (10 N^2), and one eigenvector by
+    # inverse iteration on the tridiagonal matrix (about 10 N)
+    t_bytes = (3 * n + 1) * 8 / HBM_BYTES_PER_S
+    t_ops = (10 * n ** 2 + 10 * n) / peak_ops_per_s(torch.float64)
+    res['bound_ms'] = max(t_bytes, t_ops) * 1e3
+    res['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    print('[tridiag] N=10: ' + json.dumps(res), flush=True)
+    return res
+
+
 def check_sass(kernels):
     """The f64 path's SASS holds DMMA and the bf16 path's HGMMA (wgmma), by
     cuobjdump where the toolkit has it; raises if one is missing."""
@@ -372,6 +445,7 @@ def main() -> int:
     from cyten_tpu_torch.blocks import _kernels
     from cyten_tpu_torch.blocks.grouped_gemm import _LAYOUTS, grouped_matmul
     from cyten_tpu_torch.blocks.probe import scale2
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_ground_state
     from cyten_tpu_torch.tensors.krylov_based import fused_lanczos_impl
     from cyten_tpu_torch.tensors.steady import steady_truncated_svd
 
@@ -413,6 +487,8 @@ def main() -> int:
                        pairs)
     del LP, RP, W1, W2, theta, As, Bs
     torch.cuda.empty_cache()
+    # --- 2b. the tridiagonal kernel against its plain version ----------------------------
+    tridiag = tridiag_phase()
     if kernels_only:
         probe = probe_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (kernels only)', flush=True)
@@ -487,7 +563,7 @@ def main() -> int:
     print(f'[breakdown] wrapper host ms per call, {len(out_id)} pairs of {len(As)} + '
           f'{len(Bs)} operands, {n_out} outputs of {len({B.shape[1] for B in Bs})} widths: '
           f'{json.dumps(breakdown)} (sum {sum(breakdown.values()):.4f})', flush=True)
-    profile_bond(eng, i)
+    profile_run(f'bond {i}', lambda: eng.update_bond(i))
     print(f'[L=24 centre bond] host syncs of one dynamic update: '
           f'{count_syncs(lambda: eng.update_bond(i))}', flush=True)
 
@@ -523,15 +599,17 @@ def main() -> int:
 
     # --- 7. static mode on the converged L=24 engine -------------------------------------
     t_phase = time.perf_counter()
-    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
     grouped_matmul.launches = 0
     scale2.launches = 0
+    eager_s = []
     for sweep in range(2):
         t0 = time.perf_counter()
         E_static = eng.sweep()
         torch.cuda.synchronize()
-        print(f'[L=24 static] sweep {sweep + 1}: E = {E_static!r}, '
-              f'{time.perf_counter() - t0:.2f} s', flush=True)
+        eager_s.append(time.perf_counter() - t0)
+        print(f'[L=24 static] eager sweep {sweep + 1}: E = {E_static!r}, '
+              f'{eager_s[-1]:.2f} s', flush=True)
     static_launches = grouped_matmul.launches
     print(f'[L=24 static] |dE| = {abs(E_static - HEIS24_E_REF):.3e}, grouped-GEMM '
           f'launches {static_launches} ({static_launches / (2 * 2 * (L - 1)):.1f} per bond)',
@@ -562,17 +640,60 @@ def main() -> int:
           f'{split_ms:.1f} ms); whole static update {(t3 - t2) * 1e3:.1f} ms; '
           f'host syncs of one static update: {count_syncs(lambda: eng.update_bond(i))}',
           flush=True)
-    profile_bond(eng, i)
+    profile_run(f'bond {i}', lambda: eng.update_bond(i))
+
+    # the same engine, its sweeps batched and each bond update a CUDA graph
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    torch.cuda.reset_peak_memory_stats()
+    print(f'[L=24 graphs] runs of _static_runs: {eng._static_runs()}', flush=True)
+    graph_s = []
+    for sweep in range(2):
+        grouped_matmul.launches = 0
+        tridiagonal_ground_state.launches = 0
+        t0 = time.perf_counter()
+        E_graph = eng.sweep_static_batched()
+        torch.cuda.synchronize()
+        graph_s.append(time.perf_counter() - t0)
+        launches_graph = grouped_matmul.launches
+        tridiag_launches = tridiagonal_ground_state.launches
+        print(f'[L=24 graphs] batched sweep {sweep + 1}: E = {E_graph!r}, '
+              f'{graph_s[-1]:.2f} s, |dE| = {abs(E_graph - HEIS24_E_REF):.3e}, '
+              f'grouped-GEMM launches {launches_graph}, tridiag launches '
+              f'{tridiag_launches}', flush=True)
+    graphs = eng.static_graphs()
+    syncs = count_syncs(eng.sweep_static_batched)
+    peak_gb = torch.cuda.max_memory_reserved() / 1e9
+    print(f'[L=24 graphs] {len(graphs)} graphs captured in '
+          f'{sum(g.capture_seconds for g in graphs):.2f} s; launches per replayed sweep: '
+          f'grouped GEMM {launches_graph}, tridiag {tridiag_launches}; host syncs of a '
+          f'batched sweep {syncs} (two half sweeps); peak reserved {peak_gb:.2f} GB; '
+          f'sweep s eager {json.dumps(eager_s)}, graphs {json.dumps(graph_s)}', flush=True)
+    if not (abs(E_graph - HEIS24_E_REF) < 1e-8 and launches_graph > 0
+            and tridiag_launches > 0 and syncs <= 2 and graphs):
+        raise AssertionError('L=24 batched static sweeps: energy, launches or syncs wrong')
+    assert_right_isometric(psi, 1e-8)
+    profile_run(f'bond {i} graph', lambda: eng.update_bond(i))
+    profile_run('batched sweep', eng.sweep_static_batched, top=4)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    E_eager = eng.sweep()
+    print(f'[L=24 graphs] eager sweep after: E = {E_eager!r}, |E - E_graphs| = '
+          f'{abs(E_eager - E_graph):.3e}', flush=True)
+    if not abs(E_eager - E_graph) < 1e-10:
+        raise AssertionError('the eager static sweep disagrees with the graphs')
     phase_s['7'] = time.perf_counter() - t_phase
 
     # --- 8. the bench step -----------------------------------------------------------------
     t_phase = time.perf_counter()
     lengths, repeats = (1, 3), 1
-    for svd_mode, dtype in (('steady', Dtype.float32), ('steady', Dtype.float64),
-                            ('exact', Dtype.float32)):
-        t_step, flops = step_run(CHI_BENCH, svd_mode=svd_mode, dtype=dtype,
-                                 lengths=lengths, repeats=repeats)
-        print(f'[step chi={CHI_BENCH} {svd_mode} {dtype.name}] {t_step * 1e3:.3f} ms/step, '
+    for svd_mode, dtype, graph in (('steady', Dtype.float32, False),
+                                   ('steady', Dtype.float32, True),
+                                   ('steady', Dtype.float64, False),
+                                   ('steady', Dtype.float64, True),
+                                   ('exact', Dtype.float32, False)):
+        t_step, flops = step_run(CHI_BENCH, svd_mode=svd_mode, dtype=dtype, graph=graph,
+                                 lengths=(2, 6) if graph else lengths, repeats=repeats)
+        print(f'[step chi={CHI_BENCH} {svd_mode} {dtype.name}'
+              f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step, '
               f'{flops / t_step / 1e12:.3f} TFLOP/s ({flops / 1e9:.2f} GFLOP/step), '
               f'{step_run.launches_per_step} grouped-GEMM launches/step', flush=True)
     # one static step at chi=1024, f64: the same host-drawn state on card and CPU
@@ -583,6 +704,7 @@ def main() -> int:
         out[device] = _get_static_bond_fn(10, 'steady')(HEffective(LP, RP, W1, W2), S,
                                                          B1, B2, tmpl, None)
     (E_card, _, S_card, *_), (E_cpu, _, S_cpu, *_) = out['cuda'], out['cpu']
+    E_card, E_cpu = float(E_card), float(E_cpu)
     dE = abs(E_card - E_cpu) / abs(E_cpu)
     dS = float(np.abs(S_card.to_numpy() - S_cpu.to_numpy()).max())
     print(f'[step chi=1024 f64] card against CPU: E {E_card!r} vs {E_cpu!r} '
@@ -614,7 +736,12 @@ def main() -> int:
                 'source': 'cyten_tpu_torch/csrc/probe.cu',
                 'replaces': 'scripts/exp_r5_step_decomp.py:59',
                 'launches': bench_launches['probe'],
-                **{k: v for k, v in probe.items() if k != 'spread'}}]
+                **{k: v for k, v in probe.items() if k != 'spread'}},
+               {'name': 'tridiag', 'route': 'cuda',
+                'source': 'cyten_tpu_torch/csrc/tridiag.cu',
+                'replaces': 'jnp.linalg.eigh in cyten_tpu/tensors/krylov_based.py:396',
+                'launches': tridiag_launches,
+                **{k: v for k, v in tridiag.items() if k not in ('spread', 'N')}}]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -21,6 +21,8 @@ Environment conventions:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -30,8 +32,9 @@ from ..tensors import (
     DiagonalTensor, Mask, SymmetricTensor, compose, dagger, permute_legs, pinv,
     scalar_multiply, scale_axis, svd, tdot,
 )
+from ..blocks._kernels import Graph
 from ..tensors.krylov_based import (
-    _close_structure, _device_norm, fused_lanczos_impl, lanczos,
+    _close_structure, _device_norm, _with_blocks, fused_lanczos_impl, lanczos,
 )
 from ..tensors.steady import steady_truncated_svd
 from ..tensors.sparse import LinearOperator
@@ -326,9 +329,10 @@ def _get_static_bond_fn(N: int, svd_mode: str = 'exact', steady_opts: dict = Non
     ``impl(H, S_i, B_i, B_ip1, theta_tmpl, mask)`` assembles theta, runs ``N``
     iterations of the fused Lanczos, splits theta with an SVD truncated to the frozen
     per-sector chi allocation, restores the B form of site i and updates both
-    environments. It returns ``(E, new_B_i, S, B, LP_new, RP_new)`` with E a host
-    float. The only values it reads on the host are the fused Lanczos's alphas and
-    betas, in one sync; ``torch.linalg``'s factorisations may sync on their own.
+    environments. It returns ``(E, new_B_i, S, B, LP_new, RP_new)`` with E a 0-d
+    tensor on the device. With ``svd_mode='steady'`` it reads nothing on the host, so
+    on CUDA it can be captured as a graph (:class:`_GraphedStep`); the exact SVD
+    (``torch.linalg.svd``) syncs to check its result.
 
     ``svd_mode='exact'`` takes the per-sector SVD of theta (``torch.linalg.svd``)
     and truncates it with ``mask``, a :class:`_PrefixMask`. ``'steady'`` takes the
@@ -368,6 +372,73 @@ def _get_static_bond_fn(N: int, svd_mode: str = 'exact', steady_opts: dict = Non
     return impl
 
 
+def _structure(t):
+    """Hashable key of everything about ``t`` but its values: type, legs, labels,
+    block indices, dtype and block shapes (the pytree structure ``cyten_tpu`` keys
+    on, with the shapes its leaves carry)."""
+    legs = (t.leg,) if isinstance(t, DiagonalTensor) else (t.codomain, t.domain)
+    return (type(t), *legs, tuple(t.labels), t.data.block_inds.tobytes(), t.data.dtype,
+            tuple(tuple(b.shape) for b in t.data.blocks))
+
+
+def _slots_like(tensors):
+    """Tensors of the structure of ``tensors`` with contiguous blocks of their own."""
+    return [_with_blocks(t, [torch.empty_like(b, memory_format=torch.contiguous_format)
+                             for b in t.data.blocks]) for t in tensors]
+
+
+class _GraphedStep:
+    """``fn(*inputs)`` captured once as a CUDA graph and replayed.
+
+    ``fn`` takes tensors and returns a tuple of tensors and 0-d torch tensors. The
+    graph reads its inputs from slots of its own, which :meth:`run` fills with one
+    ``_foreach_copy_`` from the tensors it is given (of the structures captured; it
+    raises for others). Its outputs are gathered inside the graph into one buffer per
+    dtype, and :meth:`run` returns copies of them: an output of the graph lives in its
+    pool and is overwritten by its next replay, or by another graph of the pool.
+    Capture runs nothing, reads nothing on the host, and raises where ``fn`` would
+    sync (``capture_error_mode='global'``).
+    """
+
+    def __init__(self, fn, inputs, pool=None):
+        t0 = time.perf_counter()
+        self.keys = [_structure(t) for t in inputs]
+        slots = _slots_like(inputs)
+        self.slot_blocks = [b for t in slots for b in t.data.blocks]
+        self.graph = Graph(pool)
+        with self.graph.capture():
+            outs = fn(*slots)
+            pieces: dict = {}  # dtype -> flat views of the outputs of that dtype
+            for o in outs:
+                for b in ([o] if isinstance(o, torch.Tensor) else o.data.blocks):
+                    pieces.setdefault(b.dtype, []).append(b.reshape(-1))
+            self.flats = {dt: torch.cat(ps) for dt, ps in pieces.items()}
+        # what run() rebuilds the outputs from: per output, its shell (a tensor with
+        # no blocks) or None for a 0-d torch tensor, and the shapes of its blocks
+        self.outputs = [(None, [(o.dtype, o.shape)]) if isinstance(o, torch.Tensor)
+                        else (_with_blocks(o, []),
+                              [(b.dtype, b.shape) for b in o.data.blocks])
+                        for o in outs]
+        self.capture_seconds = time.perf_counter() - t0
+
+    def run(self, inputs) -> tuple:
+        if [_structure(t) for t in inputs] != self.keys:
+            raise ValueError('the inputs differ in structure from those captured')
+        torch._foreach_copy_(self.slot_blocks, [b for t in inputs for b in t.data.blocks])
+        self.graph.replay()
+        flats = {dt: f.clone() for dt, f in self.flats.items()}
+        offset = dict.fromkeys(flats, 0)
+        res = []
+        for shell, blocks in self.outputs:
+            views = []
+            for dt, shape in blocks:
+                n = shape.numel()
+                views.append(flats[dt][offset[dt]:offset[dt] + n].view(shape))
+                offset[dt] += n
+            res.append(views[0] if shell is None else _with_blocks(shell, views))
+        return tuple(res)
+
+
 class DMRGEngine:
     """Two-site DMRG sweeps with a Lanczos ground-state search per bond.
 
@@ -377,14 +448,19 @@ class DMRGEngine:
     changing between two sweeps (``True`` for the steady SVD, ``'exact'`` for the
     exact one).
 
+    ``pad_chi_multiple`` rounds the kept multiplicity of each sector up to a multiple
+    of it (chi bucketing), so that the bond structures repeat along the chain
+    (:meth:`_static_runs`) and, on the card, bonds of one structure replay one graph.
+
     Options of ``cyten_tpu``'s engine that are not ported yet raise
     ``NotImplementedError``: ``mesh``, ``orthogonal_to``, ``dynamic_svd`` other than
     'exact', and ``run(checkpoint=...)``.
     """
 
     def __init__(self, psi: SimpleMPS, model, chi_max: int = 32, eps: float = 1e-12,
-                 lanczos_options: dict = None, mesh=None, orthogonal_to=None,
-                 auto_static: bool | str = False, dynamic_svd: str = 'exact'):
+                 lanczos_options: dict = None, pad_chi_multiple: int = None, mesh=None,
+                 orthogonal_to=None, auto_static: bool | str = False,
+                 dynamic_svd: str = 'exact'):
         if mesh is not None:
             raise NotImplementedError('DMRGEngine(mesh=...) is not ported yet')
         if orthogonal_to:
@@ -395,6 +471,7 @@ class DMRGEngine:
         self.model = model
         self.chi_max = chi_max
         self.eps = eps
+        self.pad_chi_multiple = pad_chi_multiple
         self.lanczos_options = lanczos_options or {'N_max': 20, 'P_tol': 1e-14}
         #: switch to static mode in run() once the bond structures stop changing
         self.auto_static = auto_static
@@ -443,25 +520,48 @@ class DMRGEngine:
         self.RPs[i - 1] = _update_RP_impl(self.RPs[i], self.model.H_mpo[i], B)  # [vL, wL, vL*]
 
     def sweep(self) -> float:
+        """One sweep, bonds 0..L-2 then back; returns the energy. In static mode the
+        bonds go through :meth:`_static_step` and E is read on the host once, at the
+        end of the sweep."""
         L = self.psi.L
-        for i in range(L - 1):
-            self.update_bond(i)
-        for i in range(L - 2, -1, -1):
-            self.update_bond(i)
+        bonds = [*range(L - 1), *range(L - 2, -1, -1)]
+        if not self.static_mode:
+            for i in bonds:
+                self.update_bond(i)
+            return self.E
+        for i in bonds:
+            E = self._static_step(i)
+        self.E = float(E)
         return self.E
+
+    def sweep_static_batched(self) -> float:
+        """A static sweep (:meth:`sweep`), under the name of ``cyten_tpu``'s
+        batched sweep, which scans runs of repeating bond structures
+        (:meth:`_static_runs`). Here every bond is already one graph replay, keyed by
+        its structure, so a run needs nothing of its own. Requires static mode."""
+        if not self.static_mode:
+            raise RuntimeError('sweep_static_batched needs static mode')
+        return self.sweep()
 
     # --- static mode ---------------------------------------------------------------------
 
     def enable_static_mode(self, n_lanczos: int = 20, svd_mode: str = 'exact',
-                           steady_svd_options: dict = None):
+                           steady_svd_options: dict = None, cuda_graphs: bool = True):
         """Freeze the current bond structures: from now on every bond update runs
         ``n_lanczos`` iterations of the fused Lanczos and truncates to the per-sector
-        chi allocation each bond has now, with no host sync inside the solve.
+        chi allocation each bond has now, with no host sync inside the update.
 
         Call it once the state has structurally converged. ``svd_mode='steady'``
         swaps the per-sector exact SVD for the warm-started GEMM/QR steady SVD
         (``tensors/steady.py``); ``steady_svd_options`` sets its iteration counts
         (n_power, n_jacobi, ns_polish).
+
+        On CUDA with ``svd_mode='steady'`` a bond update is a CUDA graph, captured
+        once per bond structure (:meth:`_bond_structure`) at the second static
+        update of a bond of that structure (the first runs eagerly and warms up the
+        layouts and libraries) and replayed from then on, whatever bond has that
+        structure. ``svd_mode='exact'`` stays eager: ``torch.linalg.svd`` syncs.
+        ``cuda_graphs=False`` runs every update eagerly, to compare the two.
         """
         if svd_mode not in ('exact', 'steady'):
             raise ValueError(f'unknown svd_mode {svd_mode!r}')
@@ -470,6 +570,10 @@ class DMRGEngine:
         self._static_svd_mode = svd_mode
         self._static_steady_opts = steady_svd_options
         self._static_cache = {}
+        on_card = torch.device(self.backend.block_backend.device).type == 'cuda'
+        #: the graphs' shared memory pool (None: bond updates run eagerly)
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if on_card and svd_mode == 'steady' and cuda_graphs else None)
 
     def _static_consts(self, i: int):
         """``(theta_tmpl, mask)`` of bond i (:func:`_freeze_bond`), made at its first
@@ -486,7 +590,8 @@ class DMRGEngine:
         return entry
 
     def _static_entry(self, i: int):
-        """The static update of bond i: ``fn(H, S_i, B_i, B_ip1)`` (cached)."""
+        """The static update of bond i, ``fn(LP, RP, S_i, B_i, B_ip1, W_i, W_ip1)``
+        (cached)."""
         entry = self._static_cache.get(i)
         if entry is not None:
             return entry
@@ -494,24 +599,82 @@ class DMRGEngine:
         impl = _get_static_bond_fn(self._static_n_lanczos, self._static_svd_mode,
                                    self._static_steady_opts)
 
-        def fn(H, S_i, B_i, B_ip1):
-            return impl(H, S_i, B_i, B_ip1, theta_tmpl, mask)
+        def fn(LP, RP, S_i, B_i, B_ip1, W_i, W_ip1):
+            return impl(HEffective(LP, RP, W_i, W_ip1), S_i, B_i, B_ip1, theta_tmpl, mask)
 
         entry = self._static_cache[i] = fn
         return entry
 
-    def _update_bond_static(self, i: int):
+    def _bond_args(self, i: int) -> tuple:
+        """The inputs of bond i's static update."""
         psi = self.psi
-        fn = self._static_entry(i)
-        Heff = HEffective(self.LPs[i], self.RPs[i + 1], self.model.H_mpo[i],
-                          self.model.H_mpo[i + 1])
-        E, new_B, S, B, LP_new, RP_new = fn(Heff, psi.Ss[i], psi.Bs[i], psi.Bs[i + 1])
-        self.E = E
+        return (self.LPs[i], self.RPs[i + 1], psi.Ss[i], psi.Bs[i], psi.Bs[i + 1],
+                self.model.H_mpo[i], self.model.H_mpo[i + 1])
+
+    def _bond_structure(self, i: int):
+        """Hashable structure key of bond i's static update inputs."""
+        return tuple(_structure(t) for t in self._bond_args(i))
+
+    def _static_step(self, i: int):
+        """Bond i's static update, written back into the state; returns E as a 0-d
+        tensor on the device (nothing is read on the host).
+
+        With graphs on (:meth:`enable_static_mode`), the update of a structure seen
+        before replays that structure's graph, capturing it first where it has none;
+        the first update of a structure runs eagerly. A failed capture raises."""
+        args = self._bond_args(i)
+        graph = None
+        if self._graph_pool is not None:
+            key = self._bond_structure(i)
+            graph = self._static_cache.get(('graph', key))
+            if graph is None and ('warm', key) in self._static_cache:
+                graph = self._static_cache[('graph', key)] = _GraphedStep(
+                    self._static_entry(i), args, self._graph_pool)
+            self._static_cache[('warm', key)] = True
+        outs = self._static_entry(i)(*args) if graph is None else graph.run(args)
+        E, new_B, S, B, LP_new, RP_new = outs
+        psi = self.psi
         psi.Bs[i] = new_B
         psi.Ss[i + 1] = S.relabelled(['vL', 'vL*'])
         psi.Bs[i + 1] = B
         self.LPs[i + 1] = LP_new
         self.RPs[i] = RP_new
+        return E
+
+    def _update_bond_static(self, i: int):
+        self.E = float(self._static_step(i))
+
+    def static_graphs(self) -> list:
+        """The CUDA graphs static mode has captured (:class:`_GraphedStep`)."""
+        return [v for k, v in getattr(self, '_static_cache', {}).items()
+                if isinstance(k, tuple) and k[0] == 'graph']
+
+    def _static_runs(self, max_period: int = 2):
+        """Maximal runs of consecutive bonds whose structures repeat with period
+        ``p <= max_period``; returns ``[(b0, b1, p)]`` with ``b1 - b0`` a multiple of
+        p. The algorithm of ``cyten_tpu``'s ``DMRGEngine._static_runs``, which scans
+        each run as one compiled program: p=1 is the uniform case, p=2 the
+        alternating charge classes of U(1)-Sz or SU(2) chains; ties prefer the
+        smaller period. Here it only reports how far the structures repeat: the
+        graphs are keyed by structure, bond by bond."""
+        L = self.psi.L
+        structs = [self._bond_structure(i) for i in range(L - 1)]
+        runs = []
+        i = 0
+        while i < L - 1:
+            best_j, best_p = i + 1, 1
+            for p in range(1, max_period + 1):
+                if i + p > L - 1:
+                    break
+                j = i + p  # first full period
+                while j < L - 1 and structs[j] == structs[j - p]:
+                    j += 1
+                j = i + ((j - i) // p) * p  # whole periods only
+                if j > best_j:
+                    best_j, best_p = j, p
+            runs.append((i, best_j, best_p))  # bonds [i, best_j)
+            i = best_j
+        return runs
 
     def update_bond(self, i: int):
         if self.static_mode:
@@ -521,7 +684,8 @@ class DMRGEngine:
                           self.model.H_mpo[i + 1])
         E, theta, n_iter = lanczos(Heff, psi.get_theta2(i), self.lanczos_options)
         self.E = E
-        A, S, B, err = split_truncate_theta(theta, self.chi_max, self.eps)
+        A, S, B, err = split_truncate_theta(theta, self.chi_max, self.eps,
+                                            pad_to_multiple=self.pad_chi_multiple)
         self.trunc_err = max(self.trunc_err, err)
         # restore B form on site i: B_i = S_i^{-1} A S_new
         Sinv = pinv(psi.Ss[i], cutoff=1e-14)
@@ -547,9 +711,8 @@ class DMRGEngine:
         (``checkpoint=`` is not ported yet and raises ``NotImplementedError``).
 
         With ``auto_static``, static mode is turned on after the first sweep that
-        leaves every bond structure as the sweep before it did. In static mode each
-        sweep still runs bond by bond (``cyten_tpu`` batches a half sweep into one
-        ``lax.scan``; the energies are the same).
+        leaves every bond structure as the sweep before it did. In static mode a
+        sweep reads E on the host once (:meth:`sweep`).
         """
         if checkpoint is not None:
             raise NotImplementedError('DMRGEngine.run(checkpoint=...) is not ported yet')

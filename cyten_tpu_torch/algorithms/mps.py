@@ -151,7 +151,7 @@ class SimpleMPS:
 
 
 def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True,
-                         method: str = 'exact'):
+                         pad_to_multiple: int = None, method: str = 'exact'):
     """Split a two-site wavefunction and truncate.
 
     Parameters
@@ -160,6 +160,8 @@ def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True
         Two-site wavefunction, labels [vL, p0, p1, vR] (any codomain/domain split).
     chi_max, eps
         Truncation: keep at most chi_max singular values, discard those below eps.
+    pad_to_multiple
+        Round the kept count of each sector up to a multiple of this (chi bucketing).
     method : 'exact'
         Per-sector SVD of theta (``torch.linalg.svd``). The sketch-based methods of
         ``cyten_tpu`` ('randomized', 'adaptive') raise ``NotImplementedError``.
@@ -176,7 +178,8 @@ def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True
                                   'ported yet')
     theta = permute_legs(theta, codomain=['vL', 'p0'], domain=['vR', 'p1'])
     U, S, Vh = svd(theta, new_labels=['vR', 'vL'])
-    mask, err, new_norm = truncate_singular_values(S, chi_max=chi_max, svd_min=eps)
+    mask, err, new_norm = truncate_singular_values(S, chi_max=chi_max, svd_min=eps,
+                                                   pad_to_multiple=pad_to_multiple)
     U, S, Vh = svd_apply_mask(U, S, Vh, mask)
     if normalize:
         S = (1. / new_norm) * S

@@ -388,6 +388,7 @@ def truncation_mask_from_S(S_sectors: list[np.ndarray], qdims: np.ndarray,
                            trunc_cut: float | None = None,
                            svd_min: float | None = None,
                            minimize_error: bool = True,
+                           pad_to_multiple: int | None = None,
                            ) -> tuple[list[np.ndarray], float, float]:
     """Global truncation decision across sectors, weighted by quantum dimension.
 
@@ -489,6 +490,14 @@ def truncation_mask_from_S(S_sectors: list[np.ndarray], qdims: np.ndarray,
         m = np.zeros(len(s), dtype=bool)
         sel = (sector_idx == i)
         m[inner_idx[sel]] = keep[sel]
+        if pad_to_multiple and m.any():
+            # chi bucketing: round the kept count per sector UP to a multiple, so
+            # that block shapes repeat across truncations (static-mode runs and their
+            # CUDA graphs). Extra kept values are the largest of the discarded ones.
+            # err and new_norm stay those of the unpadded cut, as in cyten_tpu.
+            want = min(-(-int(m.sum()) // pad_to_multiple) * pad_to_multiple, len(s))
+            extra = np.argsort(-np.where(m, -np.inf, np.asarray(s, float)))
+            m[extra[:want - int(m.sum())]] = True
         masks.append(m)
     err_sq = float(disc[k]) / norm_sq
     new_norm = float(np.sqrt(max(norm_sq - disc[k], 0.)))

@@ -3,7 +3,8 @@
 The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_step_state``
 (:598) and ``step_run`` (:649), and of ``scripts/exp_r5_step_decomp.py``
 (:func:`step_decomposition`). Everything runs on ``device`` (default: the CUDA card).
-Times are host-clock seconds around work that ends in ``torch.cuda.synchronize()``.
+Times are host-clock seconds around work that ends in ``torch.cuda.synchronize()``,
+except those of ``step_run(graph=True)``: CUDA events around graph steps.
 
     from cyten_tpu_torch.bench import step_run, step_decomposition
     s_per_step, flops_per_step = step_run(4096)
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from .algorithms.dmrg import (
-    HEffective, _PrefixMask, _freeze_bond, _get_static_bond_fn, _heff_matvec_impl,
+    HEffective, _GraphedStep, _PrefixMask, _freeze_bond, _get_static_bond_fn,
+    _heff_matvec_impl,
 )
 from .backends import get_backend
 from .blocks.grouped_gemm import grouped_matmul
@@ -98,28 +100,43 @@ def step_flops(LP, RP, W1, W2, theta, n_lanczos: int) -> int:
     return flops * (n_lanczos + 2)
 
 
-def _seconds_per_call(run, carry, lengths, repeats: int) -> float:
-    """Seconds per call of the work that ``run(carry, n)`` does ``n`` times (ending
-    in a device sync and returning the new carry): the best of ``repeats`` host
-    times for each of ``lengths``, then the slope between the shortest and the
-    longest, or the mean of a single length (an upper bound that includes the fixed
-    cost)."""
-    times = {}
-    for n in lengths:
-        best = np.inf
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            carry = run(carry, n)
-            best = min(best, time.perf_counter() - t0)
-        times[n] = best
+def _slope(seconds_of, lengths, repeats: int) -> float:
+    """Seconds per call of the work that ``seconds_of(n)`` times ``n`` times: the best
+    of ``repeats`` times for each of ``lengths``, then the slope between the
+    shortest and the longest, or the mean of a single length (an upper bound that
+    includes the fixed cost)."""
+    times = {n: min(seconds_of(n) for _ in range(repeats)) for n in lengths}
     n1, n2 = min(times), max(times)
     slope = (times[n2] - times[n1]) / (n2 - n1) if n2 > n1 else 0.
     return slope if slope > 0 else times[n2] / n2
 
 
+def _seconds_per_call(run, carry, lengths, repeats: int, events: bool = False) -> float:
+    """:func:`_slope` of ``run(carry, n)``, which does the work ``n`` times and returns
+    the new carry: timed on the host clock, ``run`` ending in a device sync, or with
+    CUDA events around it (``events``)."""
+    state = [carry]
+
+    def seconds_of(n):
+        if not events:
+            t0 = time.perf_counter()
+            state[0] = run(state[0], n)
+            return time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state[0] = run(state[0], n)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3
+
+    return _slope(seconds_of, lengths, repeats)
+
+
 def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
              precision: str = 'float32', svd_mode: str = 'steady',
-             dtype=Dtype.float32, device: str = 'cuda', seed: int = 0):
+             dtype=Dtype.float32, device: str = 'cuda', seed: int = 0,
+             graph: bool = False):
     """Time the full static DMRG step of bench.py:649-775 (step_run) on ``device``.
 
     One step is one static-mode bond update (theta assembly, ``n_lanczos``
@@ -129,10 +146,16 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
     ``config.matmul_precision`` for the run.
 
     It runs one warm-up step, then ``repeats`` runs of each of ``lengths`` steps, and
-    takes the slope of the best times over the lengths (:func:`_seconds_per_call`).
-    Returns ``(seconds per
-    step, FLOPs per step)`` with the FLOPs of :func:`step_flops`, and leaves the
-    grouped-GEMM launches of the warm-up step in ``step_run.launches_per_step``.
+    takes the slope of the best times over the lengths (:func:`_slope`). Returns
+    ``(seconds per step, FLOPs per step)`` with the FLOPs of :func:`step_flops`, and
+    leaves the grouped-GEMM launches of one step in ``step_run.launches_per_step``.
+
+    ``graph=False`` runs the steps eagerly and times them on the host clock.
+    ``graph=True`` (CUDA, ``svd_mode='steady'``: the counterpart of ``bench.py``'s
+    jitted ``lax.scan`` of steps, :703-727) captures one step after the warm-up step
+    as static mode captures a bond update (``algorithms/dmrg.py::_GraphedStep``) and
+    times runs of ``_GraphedStep.run`` with CUDA events: each step fills the graph's
+    slots with the carry, replays it and copies its outputs out, as the engine does.
     """
     backend = get_backend(u1_symmetry, device=device)
     dtype = Dtype[dtype] if isinstance(dtype, str) else dtype
@@ -142,14 +165,19 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
     impl = _get_static_bond_fn(n_lanczos, svd_mode)
     mask = _PrefixMask(mask)
 
+    if graph and not (torch.device(device).type == 'cuda' and svd_mode == 'steady'):
+        raise ValueError('step_run(graph=True) needs CUDA and svd_mode="steady"')
+
+    def step(S, B1, B2, LP, RP):
+        E, nB1, S2, B2n, LPn, RPn = impl(HEffective(LP, RP, W1, W2), S, B1, B2,
+                                         theta_tmpl, mask)
+        LPn = scalar_multiply(1. / _device_norm(LPn), LPn)
+        RPn = scalar_multiply(1. / _device_norm(RPn), RPn)
+        return S2.relabelled(['vL', 'vL*']), nB1, B2n, LPn, RPn
+
     def run(carry, n):
         for _ in range(n):
-            S, B1, B2, LP, RP = carry
-            E, nB1, S2, B2n, LPn, RPn = impl(HEffective(LP, RP, W1, W2), S, B1, B2,
-                                             theta_tmpl, mask)
-            LPn = scalar_multiply(1. / _device_norm(LPn), LPn)
-            RPn = scalar_multiply(1. / _device_norm(RPn), RPn)
-            carry = (S2.relabelled(['vL', 'vL*']), nB1, B2n, LPn, RPn)
+            carry = step(*carry)
         backend.block_backend.synchronize()
         return carry
 
@@ -159,7 +187,18 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
         launches = grouped_matmul.launches
         carry = run((S, B1, B2, LP, RP), 1)
         step_run.launches_per_step = grouped_matmul.launches - launches
-        t_step = _seconds_per_call(run, carry, lengths, repeats)
+        if graph:
+            g = _GraphedStep(step, carry)
+            step_run.launches_per_step = g.graph.launches.get(grouped_matmul, 0)
+
+            def replays(carry, n):
+                for _ in range(n):
+                    carry = g.run(carry)
+                return carry
+
+            t_step = _seconds_per_call(replays, carry, lengths, repeats, events=True)
+        else:
+            t_step = _seconds_per_call(run, carry, lengths, repeats)
     finally:
         config.matmul_precision = old
     return t_step, flops
@@ -195,8 +234,9 @@ def step_decomposition(chi: int = 4096, lengths=(2, 6), repeats: int = 1,
        slope-timed (``matvec{chi}_bf16_default_ms``; :115-161).
     3. The ``n_lanczos`` slope of the full f32 step (10 against 5 iterations) with
        the steady SVD: ms per Lanczos iteration and the intercept (theta assembly,
-       SVD, truncation, environment updates); and the step with the exact SVD
-       (:163-183).
+       SVD, truncation, environment updates), eagerly and, on CUDA, also as CUDA
+       graphs timed by CUDA events (the keys with ``_graph``); and the step with the
+       exact SVD (:163-183).
 
     Returns a dict of the results; ms values are unrounded.
     """
@@ -214,14 +254,16 @@ def step_decomposition(chi: int = 4096, lengths=(2, 6), repeats: int = 1,
         config.matmul_precision = old
     del args
 
-    for n_l in (10, 5):
-        t, flops = step_run(chi, n_lanczos=n_l, lengths=lengths, repeats=repeats,
-                            svd_mode='steady', device=device)
-        res[f'step{chi}_f32_nl{n_l}_ms'] = t * 1e3
-        res[f'step{chi}_f32_nl{n_l}_tflops'] = flops / t / 1e12
-    a, b = res[f'step{chi}_f32_nl10_ms'], res[f'step{chi}_f32_nl5_ms']
-    res['per_lanczos_iter_ms'] = (a - b) / 5
-    res['intercept_ms'] = a - 10 * res['per_lanczos_iter_ms']
+    for graph in ((False, True) if torch.device(device).type == 'cuda' else (False,)):
+        tag = '_graph' if graph else ''
+        for n_l in (10, 5):
+            t, flops = step_run(chi, n_lanczos=n_l, lengths=lengths, repeats=repeats,
+                                svd_mode='steady', device=device, graph=graph)
+            res[f'step{chi}_f32_nl{n_l}{tag}_ms'] = t * 1e3
+            res[f'step{chi}_f32_nl{n_l}{tag}_tflops'] = flops / t / 1e12
+        a, b = res[f'step{chi}_f32_nl10{tag}_ms'], res[f'step{chi}_f32_nl5{tag}_ms']
+        res[f'per_lanczos_iter{tag}_ms'] = (a - b) / 5
+        res[f'intercept{tag}_ms'] = a - 10 * res[f'per_lanczos_iter{tag}_ms']
     t, _ = step_run(chi, n_lanczos=10, lengths=lengths, repeats=repeats,
                     svd_mode='exact', device=device)
     res[f'step{chi}_f32_exactsvd_ms'] = t * 1e3

@@ -13,21 +13,28 @@ stream of that device. The libraries are loaded as ``ctypes.PyDLL``: an entry po
 only checks its arguments and enqueues a launch, so it keeps the interpreter lock
 rather than paying to release and take it again around a call of a few
 microseconds.
+
+Every wrapper counts its launches through :func:`count`. Inside a CUDA graph
+captured by :class:`Graph` a wrapper launches nothing: the launch is recorded, and
+each :meth:`Graph.replay` adds the launches the graph holds to the wrappers' counts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
 
-__all__ = ['build', 'library', 'function', 'call', 'BUILD_DIR', 'SOURCE_DIR']
+__all__ = ['build', 'library', 'function', 'call', 'count', 'Graph', 'BUILD_DIR',
+           'SOURCE_DIR']
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cyten_tpu_torch'
@@ -45,6 +52,10 @@ _SIGNATURES = {
     'probe': {
         'cyten_scale2': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_void_p], ctypes.c_int),
+    },
+    'tridiag': {
+        'cyten_tridiag_ground_state': ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     },
 }
 
@@ -142,3 +153,65 @@ def call(fn, args: tuple, index: int, label: str) -> None:
     err = fn(*args, index, _current_stream(index))
     if err != 0:
         raise RuntimeError(f'{label} launch failed: cudaError {err}')
+
+
+_capture = None  # the Graph being captured, if any
+
+
+def count(wrapper, keep=None) -> None:
+    """Counts one launch of ``wrapper``'s kernel in ``wrapper.launches``, or, while a
+    :class:`Graph` is captured, records it in that graph, which then also keeps
+    ``keep`` (host buffers the launch reads) alive for as long as it lives. Raises if
+    the current stream is captured by anything but a :class:`Graph`: such a graph
+    would neither count its launches nor keep its buffers."""
+    if _capture is not None:
+        _capture.launches[wrapper] = _capture.launches.get(wrapper, 0) + 1
+        if keep is not None:
+            _capture.keep.append(keep)
+    elif torch.cuda.is_current_stream_capturing():
+        raise RuntimeError('a kernel of cyten_tpu_torch was captured outside '
+                           'blocks._kernels.Graph')
+    else:
+        wrapper.launches += 1
+
+
+class Graph:
+    """A ``torch.cuda.CUDAGraph`` that knows the kernel launches it holds.
+
+    ``with g.capture(): ...`` captures the work queued in the block (on a side
+    stream, with ``capture_error_mode='global'``, so a host sync inside fails);
+    :meth:`replay` runs it and adds its launches to each wrapper's count. ``pool``
+    is a ``torch.cuda.graph_pool_handle()`` shared with other graphs, or None for a
+    private one.
+    """
+
+    def __init__(self, pool=None):
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool = pool
+        self.launches: dict = {}  # wrapper -> launches per replay
+        self.keep: list = []      # host buffers the graph's copies read
+
+    @contextmanager
+    def capture(self):
+        global _capture
+        if _capture is not None:
+            raise RuntimeError('a Graph is being captured already')
+        # no garbage collection inside the capture: it could destroy another graph
+        # that has become garbage, which is illegal while a stream is captured
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool, capture_error_mode='global'):
+                _capture = self
+                try:
+                    yield self
+                finally:
+                    _capture = None
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n

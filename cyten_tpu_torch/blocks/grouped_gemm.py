@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ._kernels import call, function
+from ._kernels import call, count, function
 
 __all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan']
 
@@ -340,13 +340,16 @@ def _table_args(table: np.ndarray, device, inline_words: int):
     outlive the launches. Up to ``inline_words`` words travel inside the launch's
     parameters from the host array: read through the constant cache, they make the
     kernel faster than tables in device memory (``PERF.md`` §6). A larger table
-    is copied to the device through pinned memory, without a sync."""
+    is copied to the device through pinned memory, without a sync. The pinned
+    buffer is part of what must outlive the launches: a CUDA graph that captured
+    the copy reads it again at every replay, so it must not go back to PyTorch's
+    host cache for another call to fill."""
     if table.size <= inline_words:
         return (table.ctypes.data, table.size, 0), table
     host = torch.empty(table.size, dtype=torch.int64, pin_memory=True)
     host.numpy()[:] = table.reshape(-1)
     tables = host.to(device, non_blocking=True)
-    return (tables.data_ptr(), table.size, 1), tables
+    return (tables.data_ptr(), table.size, 1), (host, tables)
 
 
 def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
@@ -388,7 +391,7 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
 
     def launch():
         call(fn, args, index, 'grouped_gemm')
-        grouped_matmul.launches += 1
+        count(grouped_matmul, keep)
         return outs
 
     launch.operands = (ua, ub, keep)  # alive for as long as launch is

@@ -1604,10 +1604,12 @@ def _diagonal_per_sector(p: DiagonalTensor):
 
 def truncate_singular_values(S: DiagonalTensor, chi_max=None, chi_min=None,
                              degeneracy_tol=None, trunc_cut=None, svd_min=None,
-                             minimize_error=True):
+                             minimize_error=True, pad_to_multiple=None):
     """Compute a Mask to truncate singular values; global across sectors.
 
     Returns (mask, err, new_norm). Cf. reference :6633 and _backend.py:791-909.
+    ``pad_to_multiple`` rounds kept counts per sector up (chi bucketing, so that
+    block shapes repeat).
     """
     leg = S.leg
     per_sector = _diagonal_per_sector(S)
@@ -1616,7 +1618,7 @@ def truncate_singular_values(S: DiagonalTensor, chi_max=None, chi_min=None,
     masks, err, new_norm = truncation_mask_from_S(
         S_list, np.asarray(qdims, float), chi_max=chi_max, chi_min=chi_min,
         degeneracy_tol=degeneracy_tol, trunc_cut=trunc_cut, svd_min=svd_min,
-        minimize_error=minimize_error)
+        minimize_error=minimize_error, pad_to_multiple=pad_to_multiple)
     # build the Mask DIRECTLY from the host-side boolean decision where the
     # public basis is per-multiplicity (abelian/no-symmetry): the former
     # DiagonalTensor detour shipped the bools to the device and fetched them

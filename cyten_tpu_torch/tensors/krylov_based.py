@@ -3,9 +3,10 @@
 The counterpart of ``cyten_tpu/tensors/krylov_based.py``'s ``LanczosGroundState``,
 ``lanczos`` (:262) and the fused solver of static mode (``lanczos_fused``,
 ``fused_lanczos_impl``, ``_close_structure``; :270-404). The matvec runs on the
-tensors' device. The host-driven solver reads every alpha and beta on the host and
-stops when converged; the fused solver runs a fixed number of iterations whose
-scalars stay on the device. Both solve the small Krylov eigenproblem with numpy.
+tensors' device. The host-driven solver reads every alpha and beta on the host,
+solves the small Krylov eigenproblem with numpy and stops when converged; the fused
+solver runs a fixed number of iterations whose scalars stay on the device, where
+its Krylov eigenproblem is solved too (``blocks/tridiag.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._functions import inner, linear_combination, norm, scalar_multiply
+from ..blocks.tridiag import tridiagonal_ground_state
+from ._functions import inner, norm, scalar_multiply
 from ._tensors import Tensor
 from .sparse import LinearOperator
 
@@ -113,27 +115,38 @@ def lanczos(H: LinearOperator, psi0: Tensor, options: dict = None
 # --- fused (static-mode) Lanczos ---------------------------------------------------------
 
 
-def _device_inner(a, b):
-    """``Re <a|b>`` of two abelian tensors as a 0-d tensor on their device: the
-    per-block products are summed there and nothing is read by the host (bf16
-    blocks accumulate in f32)."""
-    bb = a.backend.block_backend
-    lookup = {tuple(r): n for n, r in enumerate(b.data.block_inds)}
-    terms = [bb.inner(blk, b.data.blocks[lookup[tuple(r)]], do_dagger=True)
-             for blk, r in zip(a.data.blocks, a.data.block_inds) if tuple(r) in lookup]
-    if not terms:
-        return torch.zeros((), dtype=torch.float64, device=bb.device)
-    res = torch.stack(terms).sum()
-    return res.real if res.is_complex() else res
-
-
 def _device_norm(t):
     """Frobenius norm of an abelian tensor (block-sparse or diagonal) as a 0-d tensor
-    on its device, with no host sync (bf16 blocks accumulate in f32)."""
+    on its device, with no host sync: one ``_foreach_norm`` over the blocks and one
+    norm of the results (bf16 blocks accumulate in f32)."""
     bb = t.backend.block_backend
-    if not t.data.blocks:
+    blocks = t.data.blocks
+    if not blocks:
         return torch.zeros((), dtype=torch.float64, device=bb.device)
-    return torch.sqrt(torch.stack([bb.norm_sq(blk) for blk in t.data.blocks]).sum())
+    acc = torch.float32 if blocks[0].dtype == torch.bfloat16 else None
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(blocks, 2, dtype=acc)))
+
+
+def _flatten(t) -> torch.Tensor:
+    """The blocks of ``t`` one after the other in one new vector."""
+    return torch.cat([b.reshape(-1) for b in t.data.blocks])
+
+
+def _with_blocks(template, blocks):
+    """A tensor with the legs, labels and block indices of ``template`` and the
+    blocks ``blocks`` (one per block of ``template``, in its order)."""
+    res = template.copy(deep=False)
+    res.data = type(template.data)(blocks, template.data.block_inds, template.data.dtype,
+                                   is_sorted=True)
+    return res
+
+
+def _unflatten(template, flat: torch.Tensor):
+    """A tensor with the legs, labels and block structure of ``template`` whose blocks
+    are views of the vector ``flat`` (the layout of :func:`_flatten`)."""
+    blocks = template.data.blocks
+    parts = flat.split([b.numel() for b in blocks])
+    return _with_blocks(template, [p.view(b.shape) for p, b in zip(parts, blocks)])
 
 
 def _union_embed(t, other):
@@ -178,23 +191,6 @@ def _close_structure(H, psi0, max_rounds: int = 4):
     raise ValueError('matvec block structure did not close; cannot fuse')
 
 
-def _tridiagonal_ground_state(alphas: np.ndarray, betas: np.ndarray):
-    """Lowest eigenpair ``(E, coefficients)`` of the fixed-length Lanczos matrix.
-
-    A vanishing ``beta_k`` means the Krylov space closed at k, and the later alphas
-    are garbage: their couplings are dropped and their diagonal entries shifted above
-    the valid spectrum by a Gershgorin bound (not by a huge constant, which would
-    spoil the eigensolver's accuracy).
-    """
-    valid = np.cumprod(np.concatenate([[True], betas[:-1] > 1e-12])).astype(bool)
-    a_v = np.where(valid, alphas, 0.)
-    bound = np.max(np.abs(a_v)) + 2. * np.max(betas) + 1.
-    off = np.where(valid[1:], betas[:-1], 0.)
-    T = np.diag(np.where(valid, alphas, bound)) + np.diag(off, 1) + np.diag(off, -1)
-    evals, evecs = np.linalg.eigh(T)
-    return float(evals[0]), evecs[:, 0]
-
-
 def lanczos_fused(H, psi0: Tensor, options: dict = None) -> tuple[float, Tensor, int]:
     """Fixed-length Lanczos ground-state search with no host sync in its loop.
 
@@ -205,46 +201,53 @@ def lanczos_fused(H, psi0: Tensor, options: dict = None) -> tuple[float, Tensor,
     N = int((options or {}).get('N_max', 20))
     psi0 = _close_structure(H, psi0)
     E, theta = fused_lanczos_impl(H, psi0, N)
-    return E, theta, N
+    return float(E), theta, N  # the solve's one host sync
 
 
 def fused_lanczos_impl(H, psi0, N: int):
-    """``N`` Lanczos iterations queued on the device, then one host sync.
+    """``N`` Lanczos iterations and the Ritz vector, queued on the device with no host
+    sync.
 
     The counterpart of ``cyten_tpu``'s ``fused_lanczos_impl``, a ``lax.scan`` there.
-    Here it is a Python loop whose scalars (alpha, beta, the 1/beta scale) stay 0-d
-    tensors on the device, so the host never waits inside the loop. After the loop
-    the alphas and betas are read in one sync, the N x N tridiagonal problem is
-    solved on the host, and the Ritz vector is rebuilt from the stored basis (N
-    state copies in device memory).
+    Here it is a Python loop over one flat vector per Krylov vector (the rows of one
+    ``[N, size]`` buffer): the vector arithmetic of an iteration is a few launches
+    whatever the number of blocks, and only the matvec sees the block structure.
+    The alphas and betas stay on the device, where the tridiagonal ground state is
+    solved (:func:`~cyten_tpu_torch.blocks.tridiag.tridiagonal_ground_state`) and
+    the Ritz vector rebuilt from the basis with its coefficients. So the whole solve
+    can be captured in a CUDA graph.
 
     ``psi0``'s block structure must be a fixed point of ``H.matvec`` (see
-    :func:`_close_structure`). Returns ``(E, theta)``: E a host float, theta
-    normalised.
+    :func:`_close_structure`). Returns ``(E, theta)``: E a 0-d f64 tensor on the
+    device, theta normalised.
     """
-    v = scalar_multiply(1. / _device_norm(psi0), psi0)
-    basis, alphas, betas = [], [], []
-    v_prev = beta_prev = None
+    if not psi0.data.blocks:
+        raise ValueError('fused Lanczos of a tensor with no blocks')
+    x = _flatten(psi0)
+    acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype  # for reductions
+
+    def dot(a, b):
+        res = torch.vdot(a.to(acc), b.to(acc))
+        return res.real if res.is_complex() else res
+
+    V = x.new_empty((N, x.numel()))
+    torch.mul(x, 1. / torch.linalg.vector_norm(x, dtype=acc), out=V[0])
+    alphas, betas = [], []
     for k in range(N):
-        w = H.matvec(v)
-        alpha = _device_inner(v, w)
-        w = linear_combination(1., w, -alpha, v)
-        if v_prev is not None:
-            w = linear_combination(1., w, -beta_prev, v_prev)
-        beta = _device_norm(w)
-        basis.append(v)
+        w = _flatten(H.matvec(_unflatten(psi0, V[k])))
+        alpha = dot(V[k], w)
+        w.addcmul_(V[k], alpha, value=-1)
+        if k > 0:
+            w.addcmul_(V[k - 1], betas[-1], value=-1)
+        beta = torch.linalg.vector_norm(w, dtype=acc)
         alphas.append(alpha)
         betas.append(beta)
         if k + 1 < N:
             # after Krylov closure (beta ~ 0) the next vector is zero, not w/tiny:
             # amplified roundoff would otherwise leak into the reconstruction
-            scale = torch.where(beta > 1e-12, 1. / beta.clamp_min(1e-30), 0.)
-            v_prev, v, beta_prev = v, scalar_multiply(scale, w), beta
-    ab = torch.stack([torch.stack(alphas).double(), torch.stack(betas).double()])
-    ab = ab.cpu().numpy()  # the solve's one host sync
-    E, coeffs = _tridiagonal_ground_state(ab[0], ab[1])
-    theta = scalar_multiply(float(coeffs[0]), basis[0])
-    for c, b in zip(coeffs[1:], basis[1:]):
-        theta = linear_combination(1., theta, float(c), b)
-    theta = scalar_multiply(1. / _device_norm(theta).clamp_min(1e-30), theta)
-    return E, theta
+            torch.mul(w, torch.where(beta > 1e-12, 1. / beta.clamp_min(1e-30), 0.),
+                      out=V[k + 1])
+    E, coeffs = tridiagonal_ground_state(torch.stack(alphas), torch.stack(betas))
+    theta = coeffs.to(V.dtype) @ V
+    theta = theta / torch.linalg.vector_norm(theta, dtype=acc).clamp_min(1e-30)
+    return E, _unflatten(psi0, theta)

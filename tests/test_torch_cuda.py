@@ -7,15 +7,24 @@ so it also runs on a machine without it:
 imports JAX). Its one CPU test, the FLOP count against cyten_tpu, skips there.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
 from cyten_tpu_torch import get_backend, u1_symmetry
-from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn
+from cyten_tpu_torch.algorithms import (
+    DMRGEngine, SimpleMPS, TFIModel, tfi_exact_finite_gs_energy,
+)
+from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn, _GraphedStep
+from cyten_tpu_torch.blocks import _kernels
 from cyten_tpu_torch.bench import build_step_state, build_workload, step_flops
 from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul, grouped_matmul_plain
 from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
+from cyten_tpu_torch.blocks.tridiag import (
+    tridiagonal_ground_state, tridiagonal_ground_state_plain,
+)
 
 SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129), (37, 3, 65)]
 
@@ -165,8 +174,172 @@ def test_static_step_card_matches_cpu(card):
             assert grouped_matmul.launches > before
     (E, _, S, *_), (E_cpu, _, S_cpu, *_) = out['cuda'], out['cpu']
     # f64 sums in another order: energies to 1e-9 relative, S to 1e-8
-    assert abs(E - E_cpu) < 1e-9 * abs(E_cpu)
+    assert abs(float(E) - float(E_cpu)) < 1e-9 * abs(float(E_cpu))
     np.testing.assert_allclose(S.to_numpy(), S_cpu.to_numpy(), rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n, closes', [(1, None), (10, None), (20, None), (10, 4), (20, 11),
+                                       (64, None)])
+def test_tridiag_matches_plain(card, n, closes):
+    """The kernel against its plain version on the CPU: E to 1e-12 relative, the
+    coefficients (sign fixed by both) to 1e-10; ``closes``: a vanishing beta there."""
+    rng = np.random.default_rng(n)
+    a, b = rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))
+    if closes is not None:
+        b[closes] = 1e-14
+        a[closes + 1:] = 1e3 * rng.normal(size=n - closes - 1)
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    before = tridiagonal_ground_state.launches
+    E, c = tridiagonal_ground_state(a.to(card), b.to(card))
+    torch.cuda.synchronize()
+    assert tridiagonal_ground_state.launches == before + 1
+    E_ref, c_ref = tridiagonal_ground_state_plain(a, b)
+    assert abs(float(E) - float(E_ref)) <= 1e-12 * abs(float(E_ref))
+    np.testing.assert_allclose(c.cpu().numpy(), c_ref.numpy(), rtol=0, atol=1e-10)
+    with pytest.raises(ValueError):
+        tridiagonal_ground_state(torch.zeros(65, device=card), torch.zeros(65, device=card))
+
+
+@pytest.mark.cuda
+def test_tridiag_matches_plain_past_one_warp(card):
+    """N = 33..64, where the 64 threads span two warps, on three seeds each, random
+    and with a closing Krylov space: the kernel against its plain version."""
+    for n in range(33, 65):
+        for seed in range(3):
+            rng = np.random.default_rng(1000 * n + seed)
+            a, b = rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))
+            if seed == 2:
+                k = int(rng.integers(1, n - 1))
+                b[k] = 1e-14
+                a[k + 1:] = 1e3 * rng.normal(size=n - k - 1)
+            a, b = torch.from_numpy(a), torch.from_numpy(b)
+            E, c = tridiagonal_ground_state(a.to(card), b.to(card))
+            E_ref, c_ref = tridiagonal_ground_state_plain(a, b)
+            assert abs(float(E) - float(E_ref)) <= 1e-12 * abs(float(E_ref)), (n, seed)
+            np.testing.assert_allclose(c.cpu().numpy(), c_ref.numpy(), rtol=0, atol=1e-10,
+                                       err_msg=f'N={n}, seed {seed}')
+
+
+@pytest.mark.cuda
+def test_captured_static_bond_matches_eager(card):
+    """A steady static bond update of build_step_state at chi=64, f64, captured as a
+    CUDA graph and replayed twice (the second time after an eager update has run on
+    other inputs) against the eager update on the same inputs: the same arithmetic,
+    so to 1e-12; and the launches of the replays are counted."""
+    LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(get_backend(u1_symmetry,
+                                                                      device='cuda'), 64)
+    impl = _get_static_bond_fn(10, 'steady')
+
+    def fn(LP, RP, S, B1, B2, W1, W2):
+        return impl(HEffective(LP, RP, W1, W2), S, B1, B2, tmpl, None)
+
+    inputs = (LP, RP, S, B1, B2, W1, W2)
+    ref = fn(*inputs)
+    graph = _GraphedStep(fn, inputs)
+    assert graph.graph.launches[grouped_matmul] > 0
+    assert graph.graph.launches[tridiagonal_ground_state] == 1
+    for _ in range(2):
+        before = grouped_matmul.launches
+        got = graph.run(inputs)
+        torch.cuda.synchronize()
+        assert grouped_matmul.launches == before + graph.graph.launches[grouped_matmul]
+        assert abs(float(got[0]) - float(ref[0])) <= 1e-12 * abs(float(ref[0]))
+        for g, r in zip(got[1:], ref[1:]):
+            assert g.labels == r.labels
+            np.testing.assert_allclose(g.to_numpy(), r.to_numpy(), rtol=0, atol=1e-12)
+        fn(LP, RP, S, B2, B1, W1, W2)  # other work between the replays
+
+
+@pytest.mark.cuda
+def test_graph_replayed_for_bonds_of_one_structure(card):
+    """TFI L=12, g=1.2, chi_max=8 bucketed to multiples of 4, static steady on the
+    card: bonds of one structure share one graph, so fewer graphs are captured than
+    there are bonds. Two sweeps that only replay graphs against two eager sweeps
+    (cuda_graphs=False) from the same state: the same energies (1e-10), at the exact
+    energy (1e-8)."""
+    L, g = 12, 1.2
+    model = TFIModel(L=L, J=1., g=g, conserve='parity', device='cuda')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=8, eps=1e-14, pad_chi_multiple=4)
+    for _ in range(4):
+        eng.sweep()
+    eng.enable_static_mode(n_lanczos=20, svd_mode='steady')
+    # the first static update of a bond gives its tensors their static structure; the
+    # first update of each such structure runs eagerly, the next captures
+    for _ in range(2):
+        eng.sweep()
+    graphs = eng.static_graphs()
+    assert 0 < len(graphs) < L - 1
+    state = (list(psi.Bs), list(psi.Ss), list(eng.LPs), list(eng.RPs))
+    before = grouped_matmul.launches
+    E_graph = [eng.sweep() for _ in range(2)]
+    assert len(eng.static_graphs()) == len(graphs)  # replays only
+    assert grouped_matmul.launches > before  # counted through the replays
+    psi.Bs, psi.Ss, eng.LPs, eng.RPs = (list(x) for x in state)
+    eng.enable_static_mode(n_lanczos=20, svd_mode='steady', cuda_graphs=False)
+    E_eager = [eng.sweep() for _ in range(2)]
+    np.testing.assert_allclose(E_graph, E_eager, rtol=0, atol=1e-10)
+    assert abs(E_graph[-1] - tfi_exact_finite_gs_energy(L, 1., g)) < 1e-8
+
+
+@pytest.mark.cuda
+def test_captured_grouped_gemm_keeps_its_pinned_table(card):
+    """A pair list whose table (7200 words) goes through pinned host memory, captured;
+    another such list runs eagerly, then the replay is still right: the graph keeps
+    its pinned table, which the host cache does not hand out again. The kernel
+    launches on the capture stream."""
+    rng = np.random.default_rng(9)
+    shapes, out_ids = RAGGED['six_hundred_pairs']
+
+    def pair_list():
+        As = [torch.from_numpy(rng.normal(size=(M, K))).to(card) for M, K, N in shapes]
+        Bs = [torch.from_numpy(rng.normal(size=(K, N))).to(card) for M, K, N in shapes]
+        return As, Bs
+
+    As, Bs = pair_list()
+    graph = _kernels.Graph()
+    with graph.capture():
+        assert _kernels._current_stream(0) == torch.cuda.current_stream().cuda_stream
+        outs = grouped_matmul(As, Bs, out_ids)
+    assert graph.launches == {grouped_matmul: 1} and graph.keep
+    As2, Bs2 = pair_list()
+    other = grouped_matmul(As2, Bs2, out_ids)
+    before = grouped_matmul.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    for got, ref in ((outs, grouped_matmul_plain(As, Bs, out_ids)),
+                     (other, grouped_matmul_plain(As2, Bs2, out_ids))):
+        for c, r in zip(got, ref):
+            assert float((c - r).abs().max()) <= 1e-12 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_no_garbage_collection_inside_a_capture(card):
+    """A collection inside a capture could destroy another graph left in a reference
+    cycle, which is illegal while the stream is captured: Graph.capture holds the
+    collector off, and turns it back on after."""
+    x = torch.ones(256, device=card)
+    scale2(x)
+    g = _kernels.Graph()
+    assert gc.isenabled()
+    with g.capture():
+        assert not gc.isenabled()
+        y = scale2(x)
+    assert gc.isenabled()
+    g.replay()
+    assert torch.equal(y, x * 2)
+
+
+@pytest.mark.cuda
+def test_kernel_captured_outside_graph_raises(card):
+    x = torch.ones(256, device=card)
+    scale2(x)  # built and warmed up before the capture
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(g):
+            scale2(x)
 
 
 def test_step_flops_matches_cyten_tpu():
