@@ -25,10 +25,14 @@ Phases:
      wrapper's time (ms), the kernel alone launched on tables built once
      (device_ms) and a per-pair torch.matmul loop (library_ms), timed in turns
      with the spread of each, the plain version's time and the bound
-  2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on random
-     Lanczos matrices and on ones whose Krylov space closes (a vanishing beta), N=10,
-     20, 37 and 64: E to 1e-12 relative, the coefficients to 1e-10; its times and
-     bound at N=10
+  2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on the
+     Lanczos families of tests/test_torch_tridiag.py (N=1; closing at every k;
+     graded like a converged state's; a near-degenerate lowest pair; random N=10,
+     20, 37 and 64), from f64 and f32 buffers: E to 1e-12 relative, the
+     coefficients to 1e-10 where the lowest gap is at least 1e-8 |T|, else the
+     residual to 1e-13 |T|; NaN input gives NaN. Its times at N=10 and 20 in turns
+     beside torch.linalg.eigh and the probe kernel (the launch floor), and replayed
+     from a CUDA graph (graph_ms), beside the bound
   3. L=12 Heisenberg DMRG, chi_max=64, against exact diagonalization (1e-9)
   4. L=24 Heisenberg DMRG at chi_max=1024, eps=0, N_max=10 (bench.py:1124-1145
      without bf16), swept until the centre bond holds chi=1024, against
@@ -42,7 +46,8 @@ Phases:
   7. static mode on the converged L=24 engine of phase 4: two eager steady sweeps
      against HEIS24_E_REF (1e-8) with every B right-isometric (1e-8); the centre
      bond's static update by stage, its host syncs and one static update under
-     torch.profiler; then two sweep_static_batched() sweeps through CUDA graphs
+     torch.profiler, and the tridiagonal kernel on its own Lanczos matrix (as in
+     2b); then two sweep_static_batched() sweeps through CUDA graphs
      (same checks; the runs of _static_runs, graphs captured and capture seconds,
      launches counted through replays, host syncs of a batched sweep, peak reserved
      memory), the centre bond's graph replay under torch.profiler, and one more
@@ -254,7 +259,8 @@ def assert_right_isometric(psi, tol: float):
 def profile_run(label: str, fn, top: int = 8):
     """``fn()`` under torch.profiler: wall time, the device's busy share and the
     kernels that took the most device time. Reports what the trace holds and checks
-    nothing: an empty device trace prints as 'not measured'."""
+    nothing: an empty device trace prints as 'not measured'. Returns the number of
+    kernels traced (None if none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -278,6 +284,7 @@ def profile_run(label: str, fn, top: int = 8):
           flush=True)
     for name, count, t in kernels[:top]:
         print(f'[profile {label}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}', flush=True)
+    return sum(c for _, c, _ in kernels)
 
 
 def probe_phase() -> dict:
@@ -341,68 +348,128 @@ def probe_breakdown(x, out, fn, reps: int = 2000) -> dict:
     return res
 
 
-def lanczos_matrices(rng):
-    """``(label, alphas, betas)`` of fixed-length Lanczos matrices: random ones at
-    N=10 (the static sweeps' n_lanczos) and 20, and at 37 and 64, where the kernel's
-    threads span two warps; and ones whose Krylov space closes (a vanishing beta; the
-    later alphas are garbage)."""
-    cases = []
-    for n in (10, 20, 37, 64):
-        cases.append((f'random N={n}', rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))))
-    for n, k in ((10, 4), (20, 11), (64, 40)):
-        a, b = rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))
-        b[k] = 1e-14
-        a[k + 1:] = 1e3 * rng.normal(size=n - k - 1)
-        cases.append((f'closes at {k + 1} N={n}', a, b))
-    return cases
+def tridiag_families():
+    """``(FAMILIES, check_ground_state, valid_block)`` of tests/test_torch_tridiag.py:
+    the Lanczos matrices the tridiagonal kernel must handle (N=1; closing at every k
+    at N=10; graded like a converged state's; a lowest pair 1e-10 |T| apart, as a
+    Lanczos ghost gives; random at N=10, 20, 37 and 64), the check that holds a
+    result against a reference, and the valid leading block of a matrix."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests'))
+    from test_torch_tridiag import FAMILIES, check_ground_state, valid_block
+
+    return FAMILIES, check_ground_state, valid_block
+
+
+def tridiag_errors(E, c, ab, E_ref, c_ref) -> dict:
+    """The valid block's size m, |dE| and relative |dE|, max |dc|, the residual
+    |T c - E c| / |T| and the lowest gap / |T| of the kernel's ``(E, c)`` against the
+    plain ``(E_ref, c_ref)`` on the Lanczos matrix ``ab`` (its valid block T; numpy
+    arrays)."""
+    T, m = tridiag_families()[2](ab)
+    evals = np.linalg.eigvalsh(T)
+    norm_T = np.abs(evals).max()
+    E, E_ref, c = float(E), float(E_ref), np.asarray(c, np.float64)
+    return {'m': m, 'abs_dE': abs(E - E_ref), 'dE': abs(E - E_ref) / abs(E_ref),
+            'dc': float(np.abs(c - np.asarray(c_ref)).max()),
+            'residual': float(np.linalg.norm(T @ c[:m] - E * c[:m]) / norm_T),
+            'gap': float((evals[1] - evals[0]) / norm_T) if m > 1 else None}
+
+
+def check_tridiag(label, ab) -> dict:
+    """The kernel against its plain version (on the CPU, where the fused Lanczos's
+    tests run it) on the Lanczos matrix ``ab`` (a [2, N] tensor on the card): E to
+    1e-12 relative; the coefficients to 1e-10 where the lowest gap is at least
+    1e-8 |T|, else the residual to 1e-13 |T| (check_ground_state). Prints the errors;
+    raises if they are out of bounds."""
+    from cyten_tpu_torch.blocks.tridiag import (
+        tridiagonal_ground_state, tridiagonal_ground_state_plain,
+    )
+
+    _, check_ground_state, _ = tridiag_families()
+    E, c = tridiagonal_ground_state(ab)
+    E, c = E.cpu(), c.cpu()
+    E_ref, c_ref = tridiagonal_ground_state_plain(ab.cpu())
+    abd = ab.cpu().double().numpy()
+    err = tridiag_errors(E, c.numpy(), abd, E_ref, c_ref.numpy())
+    print(f'[tridiag] {label} {str(ab.dtype).split(".")[-1]}: E {float(E)!r}, '
+          + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                      for k, v in err.items()), flush=True)
+    check_ground_state(E, c.numpy(), abd, ref=(E_ref, c_ref.numpy()), label=label)
+    return err
+
+
+def graph_ms(launch, reps: int = 100) -> float:
+    """Device ms per launch of ``launch`` (a raw C entry point call, no wrapper),
+    ``reps`` launches captured in one CUDA graph and replayed: the kernel's own time
+    and the gap between graph nodes, without the host's launch cost."""
+    import torch
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            launch()
+    return cuda_ms(g.replay, reps=5) / reps
 
 
 def tridiag_phase() -> dict:
-    """The tridiagonal kernel against its plain version (on the CPU, where the
-    fused Lanczos's tests run it): E to 1e-12 relative, the coefficients to 1e-10;
-    then its times at N=10 beside the bound and torch.linalg.eigh."""
+    """The tridiagonal kernel against its plain version on every Lanczos family, from
+    f64 and f32 buffers, and on NaN input; then, at N=10 and N=20 (f64), its times in
+    turns beside torch.linalg.eigh of the built matrix and the probe kernel (the
+    launch floor), and beside the bound. Returns the N=10 (the static sweeps'
+    n_lanczos) numbers."""
     import torch
     from cyten_tpu_torch.blocks._kernels import call, function
     from cyten_tpu_torch.blocks.tridiag import (
         tridiagonal_ground_state, tridiagonal_ground_state_plain,
     )
 
+    families = tridiag_families()[0]
     err = 0.
-    for label, a, b in lanczos_matrices(np.random.default_rng(11)):
-        at, bt = torch.from_numpy(a), torch.from_numpy(b)
-        E, c = tridiagonal_ground_state(at.cuda(), bt.cuda())
-        E_ref, c_ref = tridiagonal_ground_state_plain(at, bt)
-        dE = abs(float(E) - float(E_ref)) / abs(float(E_ref))
-        dc = float((c.cpu() - c_ref).abs().max())
-        print(f'[tridiag] {label}: E {float(E)!r}, relative |dE| {dE:.3e}, '
-              f'max |dc| {dc:.3e}', flush=True)
-        if not (dE <= 1e-12 and dc <= 1e-10):
-            raise AssertionError(f'tridiag kernel disagrees with its plain version: {label}')
-        err = max(err, abs(float(E) - float(E_ref)), dc)
-    a, b = (torch.from_numpy(x).cuda() for x in lanczos_matrices(np.random.default_rng(11))[0][1:])
-    n = a.numel()
-    ab = torch.stack([a, b]).contiguous()
-    out = torch.empty(n + 1, dtype=torch.float64, device='cuda')
+    for label, ab in families:
+        for dtype in (torch.float64, torch.float32):
+            e = check_tridiag(label, torch.from_numpy(ab).to('cuda', dtype))
+            # the coefficients count where they are held to the plain version's
+            err = max(err, e['abs_dE'], e['dc'] if e['gap'] is None or e['gap'] >= 1e-8
+                      else 0.)
+    nan_ab = torch.from_numpy(families[-1][1]).cuda()
+    nan_ab[0, 3] = float('nan')
+    E, c = tridiagonal_ground_state(nan_ab)
+    if not (torch.isnan(E) and torch.isnan(c).all()):
+        raise AssertionError('tridiag kernel: NaN input did not give NaN output')
+    print('[tridiag] NaN input: every output NaN', flush=True)
+
+    x = torch.ones(256, 256, device='cuda', dtype=torch.float32)
+    x_out = torch.empty_like(x)
+    probe_fn = function('probe', 'cyten_scale2')
+    probe = lambda: call(probe_fn, (x.data_ptr(), x_out.data_ptr(), x.numel()), 0,  # noqa: E731
+                         'scale2')
     fn = function('tridiag', 'cyten_tridiag_ground_state')
-    kernel = lambda: call(fn, (ab.data_ptr(), n, out.data_ptr()), 0, 'tridiag')  # noqa: E731
-    T = torch.diag(a) + torch.diag(b[:-1], 1) + torch.diag(b[:-1], -1)
-    (ms, device_ms, library_ms), spread = turns(
-        [lambda: tridiagonal_ground_state(a, b), kernel, lambda: torch.linalg.eigh(T)],
-        50, rounds=4)
-    res = {'N': n, 'max_abs_err': err, 'ms': ms, 'device_ms': device_ms,
-           'plain_ms': cuda_ms(lambda: tridiagonal_ground_state_plain(a, b), reps=20),
-           'library_ms': library_ms,
-           'spread': dict(zip(('ms', 'device_ms', 'library_ms'), spread))}
-    # read 2N f64, write N + 1. The work the function needs, not the kernel's O(N^3)
-    # with all of Z: the eigenvalues by implicit QL, about two steps per eigenvalue
-    # of up to N rotations of about 10 operations (10 N^2), and one eigenvector by
-    # inverse iteration on the tridiagonal matrix (about 10 N)
-    t_bytes = (3 * n + 1) * 8 / HBM_BYTES_PER_S
-    t_ops = (10 * n ** 2 + 10 * n) / peak_ops_per_s(torch.float64)
-    res['bound_ms'] = max(t_bytes, t_ops) * 1e3
-    res['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
-    print('[tridiag] N=10: ' + json.dumps(res), flush=True)
-    return res
+    results = {}
+    for n in (10, 20):
+        ab = torch.from_numpy(dict(families)[f'random N={n}']).cuda()
+        out = torch.empty(n + 1, dtype=torch.float64, device='cuda')
+        kernel = lambda: call(fn, (ab.data_ptr(), 0, n, out.data_ptr()), 0, 'tridiag')  # noqa: E731
+        a, b = ab
+        T = torch.diag(a) + torch.diag(b[:-1], 1) + torch.diag(b[:-1], -1)
+        (ms, device_ms, library_ms, probe_ms), spread = turns(
+            [lambda: tridiagonal_ground_state(ab), kernel, lambda: torch.linalg.eigh(T),
+             probe], 50, rounds=4)
+        res = {'N': n, 'max_abs_err': err, 'ms': ms, 'device_ms': device_ms,
+               'plain_ms': cuda_ms(lambda: tridiagonal_ground_state_plain(ab), reps=20),
+               'library_ms': library_ms, 'probe_device_ms': probe_ms,
+               'graph_ms': graph_ms(kernel), 'probe_graph_ms': graph_ms(probe),
+               'spread': dict(zip(('ms', 'device_ms', 'library_ms', 'probe_device_ms'),
+                                  spread))}
+        # read 2N f64, write N + 1. The work the function needs: one eigenvalue to f64
+        # precision by bisection on Sturm counts (53 halvings of N pivot steps of 3
+        # operations) and its vector by one twisted factorisation (about 10 N)
+        t_bytes = (3 * n + 1) * 8 / HBM_BYTES_PER_S
+        t_ops = (53 * 3 * n + 10 * n) / peak_ops_per_s(torch.float64)
+        res['bound_ms'] = max(t_bytes, t_ops) * 1e3
+        res['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+        print(f'[tridiag] N={n}: ' + json.dumps(res), flush=True)
+        results[n] = res
+    return results[10]
 
 
 def check_sass(kernels):
@@ -641,6 +708,21 @@ def main() -> int:
           f'host syncs of one static update: {count_syncs(lambda: eng.update_bond(i))}',
           flush=True)
     profile_run(f'bond {i}', lambda: eng.update_bond(i))
+    # the tridiagonal kernel on this bond's own Lanczos matrix: once the state has
+    # converged beta_0 is tiny, and ghosts of the lowest eigenvalue can appear
+    import cyten_tpu_torch.tensors.krylov_based as krylov
+
+    lanczos_ab = []
+    krylov.tridiagonal_ground_state = lambda ab: (lanczos_ab.append(ab.clone()),
+                                                  tridiagonal_ground_state(ab))[1]
+    try:
+        fused_lanczos_impl(H, th, 10)
+    finally:
+        krylov.tridiagonal_ground_state = tridiagonal_ground_state
+    print(f'[L=24 static centre bond] Lanczos matrix: alphas '
+          f'{json.dumps(lanczos_ab[0][0].tolist())}, betas '
+          f'{json.dumps(lanczos_ab[0][1].tolist())}', flush=True)
+    check_tridiag('L=24 static centre bond', lanczos_ab[0])
 
     # the same engine, its sweeps batched and each bond update a CUDA graph
     eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
@@ -673,7 +755,9 @@ def main() -> int:
         raise AssertionError('L=24 batched static sweeps: energy, launches or syncs wrong')
     assert_right_isometric(psi, 1e-8)
     profile_run(f'bond {i} graph', lambda: eng.update_bond(i))
-    profile_run('batched sweep', eng.sweep_static_batched, top=4)
+    sweep_kernels = profile_run('batched sweep', eng.sweep_static_batched, top=4)
+    print(f'[L=24 graphs] kernels of one replayed sweep (torch.profiler): {sweep_kernels}',
+          flush=True)
     eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
     E_eager = eng.sweep()
     print(f'[L=24 graphs] eager sweep after: E = {E_eager!r}, |E - E_graphs| = '
@@ -741,7 +825,8 @@ def main() -> int:
                 'source': 'cyten_tpu_torch/csrc/tridiag.cu',
                 'replaces': 'jnp.linalg.eigh in cyten_tpu/tensors/krylov_based.py:396',
                 'launches': tridiag_launches,
-                **{k: v for k, v in tridiag.items() if k not in ('spread', 'N')}}]
+                **{k: tridiag[k] for k in ('max_abs_err', 'ms', 'device_ms', 'plain_ms',
+                                           'bound_ms', 'bound_by', 'library_ms')}}]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -54,8 +54,9 @@ _SIGNATURES = {
                           ctypes.c_void_p], ctypes.c_int),
     },
     'tridiag': {
-        'cyten_tridiag_ground_state': ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                        ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+        'cyten_tridiag_ground_state': ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                                       ctypes.c_int),
     },
 }
 

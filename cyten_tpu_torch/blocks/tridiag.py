@@ -5,6 +5,8 @@ Not the port of a Pallas kernel: :func:`tridiagonal_ground_state` launches
 ``cyten_tpu``'s jitted fused Lanczos (``cyten_tpu/tensors/krylov_based.py:386-397``).
 It reads nothing on the host, so a static bond update whose Lanczos ends in it can be
 captured in a CUDA graph; ``torch.linalg.eigh`` on CUDA syncs to check its result.
+The kernel reads the Lanczos scalars from the ``[2, N]`` buffer the fused Lanczos
+writes them into, in f64 or f32, so nothing is gathered or cast before the launch.
 
 :func:`tridiagonal_ground_state` takes the plain version,
 :func:`tridiagonal_ground_state_plain`, only for tensors on the CPU. On CUDA it
@@ -19,12 +21,13 @@ from ._kernels import call, count, function
 
 __all__ = ['tridiagonal_ground_state', 'tridiagonal_ground_state_plain', 'MAX_N']
 
-MAX_N = 64  # the kernel's one CTA holds at most this many Lanczos steps
+MAX_N = 64  # the kernel's one warp holds two Lanczos steps a lane
+_DTYPE_CODE = {torch.float64: 0, torch.float32: 1}
 
 
-def tridiagonal_ground_state_plain(alphas: torch.Tensor, betas: torch.Tensor):
+def tridiagonal_ground_state_plain(ab: torch.Tensor):
     """``(E, coefficients)``, f64, of the fixed-length Lanczos matrix with diagonal
-    ``alphas`` and couplings ``betas[:-1]``.
+    ``ab[0]`` (the alphas) and couplings ``ab[1, :-1]`` (the betas).
 
     A vanishing ``beta_k`` means the Krylov space closed at k, and the later alphas
     are garbage: their couplings are dropped and their diagonal entries shifted above
@@ -32,7 +35,7 @@ def tridiagonal_ground_state_plain(alphas: torch.Tensor, betas: torch.Tensor):
     spoil the eigensolver's accuracy). The eigenvector's largest-magnitude entry is
     made positive.
     """
-    a, b = alphas.double(), betas.double()
+    a, b = ab[0].double(), ab[1].double()
     valid = torch.cumprod(torch.cat([torch.ones_like(b[:1]), (b[:-1] > 1e-12).double()]),
                           0).bool()
     bound = torch.where(valid, a, 0.).abs().max() + 2. * b.max() + 1.
@@ -44,26 +47,29 @@ def tridiagonal_ground_state_plain(alphas: torch.Tensor, betas: torch.Tensor):
     return evals[0], v
 
 
-def tridiagonal_ground_state(alphas: torch.Tensor, betas: torch.Tensor):
-    """``(E, coefficients)`` as :func:`tridiagonal_ground_state_plain` computes them:
-    a 0-d f64 tensor and an f64 vector of ``N = len(alphas)`` entries, on the
-    tensors' device. On CUDA one launch of ``csrc/tridiag.cu`` (``N <= MAX_N``),
-    with no host sync; on the CPU the plain version."""
-    if alphas.device.type == 'cpu' and betas.device.type == 'cpu':
-        return tridiagonal_ground_state_plain(alphas, betas)
-    if not (alphas.is_cuda and betas.device == alphas.device):
-        raise NotImplementedError(f'tridiagonal_ground_state: no kernel for '
-                                  f'{alphas.device} and {betas.device}')
-    n = alphas.shape[0] if alphas.ndim == 1 else -1
-    if n < 1 or betas.shape != alphas.shape or n > MAX_N:
-        raise ValueError(f'tridiagonal_ground_state: need two vectors of 1 to {MAX_N} '
-                         f'entries, got {tuple(alphas.shape)} and {tuple(betas.shape)}')
-    if alphas.is_complex() or betas.is_complex():
-        raise NotImplementedError('tridiagonal_ground_state: real Lanczos matrices only')
-    ab = torch.stack([alphas, betas]).to(torch.float64).contiguous()
-    out = torch.empty(n + 1, dtype=torch.float64, device=alphas.device)
+def tridiagonal_ground_state(ab: torch.Tensor):
+    """``(E, coefficients)`` as :func:`tridiagonal_ground_state_plain` computes them
+    from the contiguous ``[2, N]`` f64 or f32 buffer ``ab`` (alphas, then betas, which
+    are norms): a 0-d f64 tensor and an f64 vector of N entries, on ``ab``'s device.
+    On CUDA one launch of ``csrc/tridiag.cu`` (``N <= MAX_N``), with no host sync; on
+    the CPU the plain version."""
+    if ab.device.type == 'cpu':
+        return tridiagonal_ground_state_plain(ab)
+    if not ab.is_cuda:
+        raise NotImplementedError(f'tridiagonal_ground_state: no kernel for {ab.device}')
+    if ab.dtype not in _DTYPE_CODE:
+        raise NotImplementedError(f'tridiagonal_ground_state: the kernel takes float64 '
+                                  f'or float32, not {ab.dtype}')
+    n = ab.shape[1] if ab.ndim == 2 and ab.shape[0] == 2 else -1
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f'tridiagonal_ground_state: need a [2, N] buffer with 1 <= N <= '
+                         f'{MAX_N}, got {tuple(ab.shape)}')
+    if not ab.is_contiguous():
+        raise ValueError('tridiagonal_ground_state: the kernel takes a contiguous buffer')
+    out = torch.empty(n + 1, dtype=torch.float64, device=ab.device)
     call(function('tridiag', 'cyten_tridiag_ground_state'),
-         (ab.data_ptr(), n, out.data_ptr()), alphas.get_device(), 'tridiag')
+         (ab.data_ptr(), _DTYPE_CODE[ab.dtype], n, out.data_ptr()), ab.get_device(),
+         'tridiag')
     count(tridiagonal_ground_state)
     return out[0], out[1:]
 

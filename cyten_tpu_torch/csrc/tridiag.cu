@@ -10,29 +10,48 @@
 // What it computes, exactly as the plain version (blocks/tridiag.py) does:
 // - valid[0] = 1, valid[k] = valid[k-1] && beta[k-1] > 1e-12: a vanishing beta
 //   means the Krylov space closed, and the later alphas are garbage;
-// - the invalid diagonal entries are shifted above the valid spectrum by the
-//   Gershgorin bound max|alpha_valid| + 2 max(beta) + 1, their couplings dropped;
+// - the invalid diagonal entries are shifted to the Gershgorin bound
+//   max|alpha_valid| + 2 max(beta) + 1, their couplings dropped;
 // - the lowest eigenvalue E and its unit eigenvector, whose largest-magnitude
-//   entry is made positive (the plain version does the same, so the two agree
-//   entry by entry, not only up to sign).
-// Output: out[0] = E, out[1..N] = the eigenvector, all f64. If the iteration does
-// not converge (non-finite input), every output is NaN: the caller's energy check
-// sees it, and nothing is read on the host.
+//   entry (the first on a tie, as argmax picks) is made positive.
+// The betas are norms, so the bound lies above the valid block's spectrum, and the
+// invalid block is diagonal: the answer is the lowest eigenpair of the valid leading
+// block, with exact zeros after it. The kernel works on that block alone.
+// Input: ab = [alpha_0..alpha_{n-1}, beta_0..beta_{n-1}] where the fused Lanczos
+// wrote them, f64 or f32 (read as such, computed in f64). Output: out[0] = E,
+// out[1..n] = the eigenvector, f64. A non-finite entry that reaches the matrix makes
+// every output NaN: the caller's energy check sees it, and nothing is read on the
+// host.
 //
-// Algorithm: the implicit QL iteration with Wilkinson-type shifts on the
-// tridiagonal matrix (tqli), accumulating the rotations into Z = I. One CTA of 64
-// threads, everything in shared memory (N <= 64; static mode uses 10-20). Thread 0
-// alone reads and writes d, e: it finds each QL step's split point and publishes it
-// in shared memory, so every thread takes the same branches, then computes the
-// step's chain of Givens rotations; thread k then applies the whole chain to row k
-// of Z, so a step costs three barriers, not one per rotation.
+// Design: one warp, in registers, shared memory and warp shuffles; no __syncthreads.
+// 1. Set-up: lane j holds entries j and j + 32. The first closing beta comes from a
+//    ballot; Gershgorin's bracket [lo, hi] of the lowest eigenvalue, the pivot floor
+//    and the finiteness check from warp reductions. d and e^2 go to shared memory
+//    once; later reads are broadcasts.
+// 2. E by Sturm-count multisection: each round, lane j runs CHAINS independent LDL^T
+//    pivot recurrences q_k = (d_k - s) - e_{k-1}^2 / q_{k-1} (pivots below pivmin
+//    in magnitude taken as -pivmin, as LAPACK's dlaebz does) at 64 points spread
+//    over [lo, hi]; a ballot of "some pivot <= 0" (an eigenvalue at or below s)
+//    gives the next bracket, 65 times narrower. Sturm counts are backward stable,
+//    so E lies within a few N eps |T| of the true eigenvalue; the loop stops at a
+//    width of 2 eps |E| (or eps |T|): about 9 rounds from Gershgorin's bracket,
+//    fewer where it is tight, as beta_0 makes it for a converged state.
+// 3. The vector by a twisted factorisation at lambda = lo, where the count is 0
+//    (Dhillon-Parlett; LAPACK's dlar1v): lane 0 runs the forward LDL^T while lane 1
+//    runs the backward UDU^T, in one loop; the twist index r = argmin |gamma_r| comes
+//    from a warp reduction, and z_r = 1 is extended outwards by the two factors,
+//    again on two lanes at once. Scaled by its largest entry (which fixes the sign),
+//    normalised by a warp sum.
 //
-// What bounds it: the function needs the eigenvalues (about 10 N^2 f64 operations
-// by QL) and one eigenvector (O(N) by inverse iteration); it reads and writes under
-// 1 KB. This kernel does more, O(N^3), to keep every thread's share simple, but at
-// N = 10-20 neither count matters: the launch and the serial chain (one thread,
-// dependent divisions and square roots) set its time. It is launched once per
-// Lanczos solve.
+// What bounds it: the function reads 2N and writes N + 1 numbers, under 1 KB, and
+// does some ten f64 operations per pivot step; at N = 10-20 neither count matters.
+// Its time is the launch and the dependent chain of the pivot recurrence (about 9
+// rounds of N steps, then N steps for the factors), which the design keeps short:
+// one round serves 64 points; the reciprocal is inline (a division is a call, which
+// would serialise a lane's recurrences); and the vector costs two chains, not N
+// rotations per eigenvalue. Of one to four recurrences a lane, two were fastest:
+// more points a round cost more per round than the rounds they save. It is launched
+// once per Lanczos solve.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,135 +59,254 @@
 
 namespace {
 
-constexpr int MAX_N = 64;
-constexpr int MAX_ITER = 60;  // QL steps per eigenvalue before giving up
+constexpr int MAX_N = 64;     // two entries per lane of one warp
+constexpr int WARP = 32;
+constexpr int CHAINS = 2;     // pivot recurrences per lane and round
+constexpr int POINTS = WARP * CHAINS;
+constexpr int MAX_ROUNDS = 20;  // the stopping width is reached in about 9
+constexpr unsigned FULL = 0xffffffffu;
+constexpr double CLOSED = 1e-12;  // a beta at or below this closes the Krylov space
+constexpr double EPS = 2.220446049250313e-16;
+constexpr double SAFMIN = 2.2250738585072014e-308;  // smallest normal double
 
-__global__ void __launch_bounds__(MAX_N)
-tridiag_kernel(const double* __restrict__ ab, int n, double* __restrict__ out) {
-  __shared__ double d[MAX_N], e[MAX_N], cs[MAX_N], sn[MAX_N];
-  __shared__ double z[MAX_N][MAX_N + 1];
-  __shared__ int m_s, ilo_s, failed_s;
-  const int t = threadIdx.x;
-  const double* alpha = ab;
-  const double* beta = ab + n;
+// x[i] = the warp's largest x[i], for all i at once: the shuffles of the K
+// reductions interleave
+template <int K>
+__device__ __forceinline__ void warp_max(double (&x)[K]) {
+  for (int o = WARP / 2; o; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) x[i] = fmax(x[i], __shfl_xor_sync(FULL, x[i], o));
+  }
+}
 
-  if (t == 0) {
-    failed_s = 0;
-    double amax = 0.0, bmax = beta[0];
-    bool valid = true;
-    for (int k = 0; k < n; ++k) {
-      if (k > 0) valid = valid && beta[k - 1] > 1e-12;
-      if (valid) amax = fmax(amax, fabs(alpha[k]));
-      bmax = fmax(bmax, beta[k]);
+__device__ __forceinline__ double warp_sum(double x) {
+  for (int o = WARP / 2; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+// (value, index) of the warp's smallest value (largest if `largest`), the smallest
+// index on a tie
+__device__ __forceinline__ void warp_arg(double& v, int& i, bool largest) {
+  for (int o = WARP / 2; o; o >>= 1) {
+    const double v2 = __shfl_xor_sync(FULL, v, o);
+    const int i2 = __shfl_xor_sync(FULL, i, o);
+    const bool take = (largest ? v2 > v : v2 < v) || (v2 == v && i2 < i);
+    v = take ? v2 : v;
+    i = take ? i2 : i;
+  }
+}
+
+// 1/x to an ulp: the special-function unit's approximation of the high word (about
+// 2^-20), refined by one cubic step. Inline, unlike a division (a call to a
+// subroutine), so the independent recurrences of a lane interleave.
+__device__ __forceinline__ double rcp(double x) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  const double e = fma(-x, r, 1.0);
+  return fma(r, fma(e, e, e), r);
+}
+
+// One step of the LDL^T pivot recurrence of T - s I: the pivot (d - s) - e2 / q, given
+// t = 1 / q, where a pivot below pivmin in magnitude counts as -pivmin (LAPACK's
+// guard against a zero pivot)
+__device__ __forceinline__ double pivot(double d, double s, double e2, double t,
+                                        double pivmin) {
+  const double p = fma(-e2, t, d - s);
+  return fabs(p) < pivmin ? -pivmin : p;
+}
+
+// The i-th multisection point of a round: the same expression wherever it is used,
+// so a bracket end is bitwise the point that was tested
+__device__ __forceinline__ double point(double lo, double h, int i) {
+  return fma(static_cast<double>(i), h, lo);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WARP)
+tridiag_kernel(const T* __restrict__ ab, int n, double* __restrict__ out) {
+  __shared__ double sd[MAX_N];       // diagonal of the valid block
+  __shared__ double se[MAX_N];       // se[k] couples k and k + 1; 0 from m - 1 on
+  __shared__ double se2[MAX_N + 1];  // se2[k] = se[k - 1]^2, se2[0] = 0
+  __shared__ double piv[2][MAX_N], mul[2][MAX_N];  // step 3's factors, forward, backward
+  __shared__ double sz[MAX_N];
+  const int lane = threadIdx.x;
+
+  // --- 1. set-up ------------------------------------------------------------------
+  double a[2], b[2];
+  bool in[2], closes[2];
+  for (int j = 0; j < 2; ++j) {
+    const int k = lane + WARP * j;
+    in[j] = k < n;
+    a[j] = in[j] ? static_cast<double>(ab[k]) : 0.0;
+    b[j] = in[j] ? static_cast<double>(ab[n + k]) : 0.0;
+    closes[j] = k < n - 1 && !(b[j] > CLOSED);
+  }
+  // the valid block is 0..m-1: m = 1 + the first k < n - 1 whose beta closes, else n
+  const unsigned c0 = __ballot_sync(FULL, closes[0]), c1 = __ballot_sync(FULL, closes[1]);
+  const int m = c0 ? __ffs(c0) : c1 ? WARP + __ffs(c1) : n;
+
+  // e_k couples k and k + 1 inside the valid block; lane j - 1 holds e_{k-1}
+  double e[2];
+  for (int j = 0; j < 2; ++j) e[j] = lane + WARP * j < m - 1 ? b[j] : 0.0;
+  const double up0 = __shfl_up_sync(FULL, e[0], 1), up1 = __shfl_up_sync(FULL, e[1], 1);
+  const double e31 = __shfl_sync(FULL, e[0], WARP - 1);
+  const double e_prev[2] = {lane ? up0 : 0.0, lane ? up1 : e31};
+  // max |alpha_valid|, max beta, -min d, max e^2, and Gershgorin's interval
+  // [-red[4], red[5]] of the valid block, reduced together
+  double red[6] = {0.0, -INFINITY, -INFINITY, 0.0, -INFINITY, -INFINITY};
+  bool bad = false;
+  for (int j = 0; j < 2; ++j) {
+    const int k = lane + WARP * j;
+    const bool valid = k < m;
+    bad |= (valid && !isfinite(a[j])) || (k < m - 1 && !isfinite(b[j]))
+           || (m < n && in[j] && !isfinite(b[j]));
+    if (valid) {
+      const double radius = fabs(e[j]) + fabs(e_prev[j]);
+      red[0] = fmax(red[0], fabs(a[j]));
+      red[2] = fmax(red[2], -a[j]);
+      red[4] = fmax(red[4], radius - a[j]);
+      red[5] = fmax(red[5], a[j] + radius);
+      sd[k] = a[j];
     }
-    const double bound = amax + 2.0 * bmax + 1.0;
-    valid = true;
-    for (int k = 0; k < n; ++k) {
-      if (k > 0) valid = valid && beta[k - 1] > 1e-12;
-      d[k] = valid ? alpha[k] : bound;
-      // e[k] couples k and k + 1; it is kept where k + 1 is valid
-      e[k] = (k + 1 < n && valid && beta[k] > 1e-12) ? beta[k] : 0.0;
+    if (in[j]) red[1] = fmax(red[1], b[j]);
+    red[3] = fmax(red[3], e[j] * e[j]);
+    se[k] = e[j];
+    se2[k + 1] = e[j] * e[j];
+  }
+  if (lane == 0) se2[0] = 0.0;
+  warp_max(red);
+  const double dmin = -red[2], e2max = red[3], gl = -red[4], gu = red[5];
+  // the shifted entries enter the matrix only when the space closed
+  if (__any_sync(FULL, bad) || (m < n && !isfinite(red[0] + 2.0 * red[1] + 1.0))) {
+    for (int k = lane; k <= n; k += WARP) out[k] = nan("");
+    return;
+  }
+  __syncwarp();
+  const double tnorm = fmax(fabs(gl), fabs(gu));
+  const double pivmin = SAFMIN * fmax(1.0, e2max);
+  const double atol = fmax(EPS * tnorm, pivmin);
+
+  // --- 2. E by Sturm-count multisection -------------------------------------------
+  // count(lo) = 0: below Gershgorin's bound, widened as LAPACK's dstebz does;
+  // count(hi) >= 1: no eigenvalue of T lies above its smallest diagonal entry's
+  double lo = gl - 2.1 * (EPS * tnorm * m + 2.0 * pivmin), hi = dmin;
+  for (int round = 0; round < MAX_ROUNDS; ++round) {
+    if (hi - lo <= fmax(2.0 * EPS * fmax(fabs(lo), fabs(hi)), atol)) break;
+    const double h = (hi - lo) * (1.0 / (POINTS + 1));
+    double s[CHAINS], t[CHAINS];
+    bool below[CHAINS];
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c) {
+      s[c] = point(lo, h, WARP * c + lane + 1);
+      t[c] = 1.0;
+      below[c] = false;
+    }
+    for (int k = 0; k < m; ++k) {
+      const double d = sd[k], e2 = se2[k];
+#pragma unroll
+      for (int c = 0; c < CHAINS; ++c) {
+        const double q = pivot(d, s[c], e2, t[c], pivmin);
+        below[c] |= __double2hiint(q) < 0;  // q <= 0: the guard leaves no zero
+        t[c] = rcp(q);
+      }
+    }
+    // the first point with an eigenvalue at or below it closes the new bracket
+    int p = POINTS;
+#pragma unroll
+    for (int c = CHAINS - 1; c >= 0; --c) {
+      const unsigned mask = __ballot_sync(FULL, below[c]);
+      if (mask) p = WARP * c + __ffs(mask) - 1;
+    }
+    const double new_lo = p > 0 ? point(lo, h, p) : lo;
+    hi = p < POINTS ? point(lo, h, p + 1) : hi;
+    lo = new_lo;
+  }
+  const double E = 0.5 * (lo + hi);
+
+  // --- 3. the vector by a twisted factorisation at lambda = lo ----------------------
+  // Lane 0 factors T - lam I = L D L^T from the top, lane 1 = U R U^T from the bottom,
+  // in one loop (branches of a warp would run one after the other): piv[0][k] = D_k,
+  // mul[0][k] = L_k = e_k / D_k; piv[1][k] = R_k, mul[1][k - 1] = U_{k-1} = e_{k-1} / R_k
+  const double lam = lo;
+  if (lane < 2) {
+    double t = 1.0;
+    for (int i = 0; i < m; ++i) {
+      const int k = lane ? m - 1 - i : i, kc = lane ? k - 1 : k;  // kc: the coupling
+      const double q = pivot(sd[k], lam, se2[lane ? k + 1 : k], t, pivmin);
+      t = rcp(q);
+      piv[lane][k] = q;
+      if (kc >= 0) mul[lane][kc] = se[kc] * t;
     }
   }
-  if (t < n) {
-    for (int j = 0; j < n; ++j) z[t][j] = (t == j) ? 1.0 : 0.0;
-  }
-
-  for (int l = 0; l < n; ++l) {
-    for (int iter = 0;; ++iter) {
-      __syncthreads();  // d, e of the last step are written; its rotations applied
-      if (t == 0) {
-        // thread 0 alone reads d, e here and publishes the split point: no thread
-        // may scan them while thread 0 rewrites them below
-        int m = l;
-        for (; m < n - 1; ++m) {
-          const double dd = fabs(d[m]) + fabs(d[m + 1]);
-          if (fabs(e[m]) <= 2.220446049250313e-16 * dd) break;
-        }
-        if (m != l && (iter == MAX_ITER || failed_s)) {
-          failed_s = 1;  // give up: every later eigenvalue counts as converged
-          m = l;
-        }
-        m_s = m;
-      }
-      __syncthreads();
-      const int m = m_s;
-      if (m == l) break;  // d[l] has converged (or the iteration failed)
-      if (t == 0) {
-        double g = (d[l + 1] - d[l]) / (2.0 * e[l]);
-        double r = hypot(g, 1.0);
-        g = d[m] - d[l] + e[l] / (g + copysign(r, g));
-        double s = 1.0, c = 1.0, p = 0.0;
-        int i = m - 1;
-        for (; i >= l; --i) {
-          const double f = s * e[i];
-          const double b = c * e[i];
-          r = hypot(f, g);
-          e[i + 1] = r;
-          if (r == 0.0) {  // the matrix split: recover and start again
-            d[i + 1] -= p;
-            e[m] = 0.0;
-            break;
-          }
-          s = f / r;
-          c = g / r;
-          g = d[i + 1] - p;
-          r = (d[i] - g) * s + 2.0 * c * b;
-          p = s * r;
-          d[i + 1] = g + p;
-          g = c * r - b;
-          cs[i] = c;
-          sn[i] = s;
-        }
-        ilo_s = i + 1;  // rotations i = m - 1 down to ilo_s were made
-        if (!(r == 0.0 && i >= l)) {
-          d[l] -= p;
-          e[l] = g;
-          e[m] = 0.0;
-        }
-      }
-      __syncthreads();
-      if (t < n) {
-        for (int i = m - 1; i >= ilo_s; --i) {
-          const double f = z[t][i + 1];
-          z[t][i + 1] = sn[i] * z[t][i] + cs[i] * f;
-          z[t][i] = cs[i] * z[t][i] - sn[i] * f;
-        }
-      }
+  __syncwarp();
+  // gamma_k = D_k + R_k - (d_k - lam): the twist with the smallest is the eigenvector's
+  // largest entry, near enough
+  double g = INFINITY;
+  int r = lane < m ? lane : MAX_N;
+  for (int k = lane; k < m; k += WARP) {
+    const double gk = fabs(piv[0][k] + piv[1][k] - (sd[k] - lam));
+    if (gk < g) {
+      g = gk;
+      r = k;
     }
   }
-  __syncthreads();
-
-  if (t == 0) {
-    if (failed_s) {
-      for (int k = 0; k <= n; ++k) out[k] = nan("");
-      return;
+  warp_arg(g, r, false);
+  // z_r = 1, extended upwards by lane 0 (z_k = -L_k z_{k+1}) and downwards by lane 1
+  // (z_k = -U_{k-1} z_{k-1}), again in one loop
+  if (lane == 0) sz[r] = 1.0;
+  if (lane < 2) {
+    double z = 1.0;
+    for (int i = 1, steps = lane ? m - 1 - r : r; i <= steps; ++i) {
+      const int k = lane ? r + i : r - i;
+      sz[k] = z = -mul[lane][lane ? k - 1 : k] * z;
     }
-    int j = 0;
-    for (int k = 1; k < n; ++k)
-      if (d[k] < d[j]) j = k;
-    int big = 0;
-    for (int k = 1; k < n; ++k)
-      if (fabs(z[k][j]) > fabs(z[big][j])) big = k;
-    const double sign = z[big][j] < 0.0 ? -1.0 : 1.0;
-    out[0] = d[j];
-    for (int k = 0; k < n; ++k) out[1 + k] = sign * z[k][j];
+  }
+  __syncwarp();
+  double z[2];
+  double zmax = -1.0;
+  int big = lane < m ? lane : MAX_N;
+  for (int j = 0; j < 2; ++j) {
+    const int k = lane + WARP * j;
+    z[j] = k < m ? sz[k] : 0.0;
+    if (k < m && fabs(z[j]) > zmax) {
+      zmax = fabs(z[j]);
+      big = k;
+    }
+  }
+  warp_arg(zmax, big, true);
+  const double scale = rcp(sz[big]);  // the largest entry becomes +1
+  double ss = 0.0;
+  for (int j = 0; j < 2; ++j) {
+    z[j] *= scale;
+    ss += z[j] * z[j];
+  }
+  const double inv_norm = rsqrt(warp_sum(ss));
+  if (lane == 0) out[0] = E;
+  for (int j = 0; j < 2; ++j) {
+    const int k = lane + WARP * j;
+    if (k < n) out[1 + k] = z[j] * inv_norm;
   }
 }
 
 }  // namespace
 
 // The lowest eigenpair of the Lanczos matrix given by ab = [alpha_0..alpha_{n-1},
-// beta_0..beta_{n-1}] (f64, on the card), written to out[0..n], on `stream` of CUDA
-// device `device`. Returns the cudaError_t of the launch (0 on success).
-extern "C" int cyten_tridiag_ground_state(const double* ab, int n, double* out, int device,
-                                          void* stream) {
-  if (n < 1 || n > MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+// beta_0..beta_{n-1}] (on the card; f64 for dtype 0, f32 for dtype 1), written to
+// out[0..n] in f64, on `stream` of CUDA device `device`. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int cyten_tridiag_ground_state(const void* ab, int dtype, int n, double* out,
+                                          int device, void* stream) {
+  if (n < 1 || n > MAX_N || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   int current = 0;
   int err = static_cast<int>(cudaGetDevice(&current));
   if (err) return err;
   if (current != device && (err = static_cast<int>(cudaSetDevice(device)))) return err;
-  tridiag_kernel<<<1, MAX_N, 0, static_cast<cudaStream_t>(stream)>>>(ab, n, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    tridiag_kernel<double><<<1, WARP, 0, s>>>(static_cast<const double*>(ab), n, out);
+  else
+    tridiag_kernel<float><<<1, WARP, 0, s>>>(static_cast<const float*>(ab), n, out);
   err = static_cast<int>(cudaGetLastError());
   if (current != device) cudaSetDevice(current);
   return err;

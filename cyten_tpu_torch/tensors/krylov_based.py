@@ -212,10 +212,11 @@ def fused_lanczos_impl(H, psi0, N: int):
     Here it is a Python loop over one flat vector per Krylov vector (the rows of one
     ``[N, size]`` buffer): the vector arithmetic of an iteration is a few launches
     whatever the number of blocks, and only the matvec sees the block structure.
-    The alphas and betas stay on the device, where the tridiagonal ground state is
-    solved (:func:`~cyten_tpu_torch.blocks.tridiag.tridiagonal_ground_state`) and
-    the Ritz vector rebuilt from the basis with its coefficients. So the whole solve
-    can be captured in a CUDA graph.
+    The alphas and betas are written into one ``[2, N]`` buffer on the device, in
+    the accumulator's real dtype; the tridiagonal ground state is solved from it
+    where it lies (:func:`~cyten_tpu_torch.blocks.tridiag.tridiagonal_ground_state`)
+    and the Ritz vector rebuilt from the basis with its coefficients. So the whole
+    solve can be captured in a CUDA graph.
 
     ``psi0``'s block structure must be a fixed point of ``H.matvec`` (see
     :func:`_close_structure`). Returns ``(E, theta)``: E a 0-d f64 tensor on the
@@ -226,28 +227,32 @@ def fused_lanczos_impl(H, psi0, N: int):
     x = _flatten(psi0)
     acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype  # for reductions
 
-    def dot(a, b):
-        res = torch.vdot(a.to(acc), b.to(acc))
-        return res.real if res.is_complex() else res
+    def dot(a, b, out):
+        """Re <a, b> into the 0-d ``out``: a [1, n] by [n] product writes its result
+        in place, where torch.vdot(out=...) would copy it (one more kernel)."""
+        a, b = a.to(acc), b.to(acc)
+        if a.is_complex():  # Re <a, b> is the real product of the (re, im) pairs
+            a, b = torch.view_as_real(a).view(-1), torch.view_as_real(b).view(-1)
+        torch.mv(a.view(1, -1), b, out=out.view(1))
 
     V = x.new_empty((N, x.numel()))
     torch.mul(x, 1. / torch.linalg.vector_norm(x, dtype=acc), out=V[0])
-    alphas, betas = [], []
+    # the alphas (row 0) and betas (row 1), written where the Ritz kernel reads them
+    ab = x.new_empty((2, N), dtype=acc.to_real())
     for k in range(N):
         w = _flatten(H.matvec(_unflatten(psi0, V[k])))
-        alpha = dot(V[k], w)
+        alpha, beta = ab[0, k], ab[1, k]
+        dot(V[k], w, alpha)
         w.addcmul_(V[k], alpha, value=-1)
         if k > 0:
-            w.addcmul_(V[k - 1], betas[-1], value=-1)
-        beta = torch.linalg.vector_norm(w, dtype=acc)
-        alphas.append(alpha)
-        betas.append(beta)
+            w.addcmul_(V[k - 1], ab[1, k - 1], value=-1)
+        torch.linalg.vector_norm(w, dtype=acc, out=beta)
         if k + 1 < N:
             # after Krylov closure (beta ~ 0) the next vector is zero, not w/tiny:
             # amplified roundoff would otherwise leak into the reconstruction
             torch.mul(w, torch.where(beta > 1e-12, 1. / beta.clamp_min(1e-30), 0.),
                       out=V[k + 1])
-    E, coeffs = tridiagonal_ground_state(torch.stack(alphas), torch.stack(betas))
+    E, coeffs = tridiagonal_ground_state(ab)
     theta = coeffs.to(V.dtype) @ V
     theta = theta / torch.linalg.vector_norm(theta, dtype=acc).clamp_min(1e-30)
     return E, _unflatten(psi0, theta)

@@ -25,6 +25,7 @@ from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
 from cyten_tpu_torch.blocks.tridiag import (
     tridiagonal_ground_state, tridiagonal_ground_state_plain,
 )
+from test_torch_tridiag import FAMILIES, check_ground_state
 
 SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129), (37, 3, 65)]
 
@@ -189,22 +190,27 @@ def test_tridiag_matches_plain(card, n, closes):
     if closes is not None:
         b[closes] = 1e-14
         a[closes + 1:] = 1e3 * rng.normal(size=n - closes - 1)
-    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    ab = torch.from_numpy(np.stack([a, b]))
     before = tridiagonal_ground_state.launches
-    E, c = tridiagonal_ground_state(a.to(card), b.to(card))
+    E, c = tridiagonal_ground_state(ab.to(card))
     torch.cuda.synchronize()
     assert tridiagonal_ground_state.launches == before + 1
-    E_ref, c_ref = tridiagonal_ground_state_plain(a, b)
+    E_ref, c_ref = tridiagonal_ground_state_plain(ab)
     assert abs(float(E) - float(E_ref)) <= 1e-12 * abs(float(E_ref))
     np.testing.assert_allclose(c.cpu().numpy(), c_ref.numpy(), rtol=0, atol=1e-10)
     with pytest.raises(ValueError):
-        tridiagonal_ground_state(torch.zeros(65, device=card), torch.zeros(65, device=card))
+        tridiagonal_ground_state(torch.zeros(2, 65, device=card, dtype=torch.float64))
+    with pytest.raises(ValueError):  # not contiguous
+        tridiagonal_ground_state(torch.zeros(10, 2, device=card, dtype=torch.float64).T)
+    with pytest.raises(NotImplementedError):
+        tridiagonal_ground_state(ab.to(card, torch.bfloat16))
 
 
 @pytest.mark.cuda
 def test_tridiag_matches_plain_past_one_warp(card):
-    """N = 33..64, where the 64 threads span two warps, on three seeds each, random
-    and with a closing Krylov space: the kernel against its plain version."""
+    """N = 33..64, where each lane of the kernel's warp holds two entries, on three
+    seeds each, random and with a closing Krylov space: the kernel against its plain
+    version."""
     for n in range(33, 65):
         for seed in range(3):
             rng = np.random.default_rng(1000 * n + seed)
@@ -213,12 +219,91 @@ def test_tridiag_matches_plain_past_one_warp(card):
                 k = int(rng.integers(1, n - 1))
                 b[k] = 1e-14
                 a[k + 1:] = 1e3 * rng.normal(size=n - k - 1)
-            a, b = torch.from_numpy(a), torch.from_numpy(b)
-            E, c = tridiagonal_ground_state(a.to(card), b.to(card))
-            E_ref, c_ref = tridiagonal_ground_state_plain(a, b)
+            ab = torch.from_numpy(np.stack([a, b]))
+            E, c = tridiagonal_ground_state(ab.to(card))
+            E_ref, c_ref = tridiagonal_ground_state_plain(ab)
             assert abs(float(E) - float(E_ref)) <= 1e-12 * abs(float(E_ref)), (n, seed)
             np.testing.assert_allclose(c.cpu().numpy(), c_ref.numpy(), rtol=0, atol=1e-10,
                                        err_msg=f'N={n}, seed {seed}')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_tridiag_families_match_plain(card, dtype):
+    """The kernel on every family of tests/test_torch_tridiag.py, from an f64 and an
+    f32 buffer, against its plain version on the same values: E to 1e-12 relative;
+    the coefficients to 1e-10 where the lowest gap is at least 1e-8 |T|, else the
+    residual to 1e-13 |T|. One launch counted per call."""
+    for label, ab in FAMILIES:
+        t = torch.from_numpy(ab).to(dtype)
+        before = tridiagonal_ground_state.launches
+        E, c = tridiagonal_ground_state(t.to(card))
+        torch.cuda.synchronize()
+        assert tridiagonal_ground_state.launches == before + 1
+        assert E.dtype == c.dtype == torch.float64
+        check_ground_state(E.cpu(), c.cpu().numpy(), t.double().numpy(),
+                           ref=tridiagonal_ground_state_plain(t), label=label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_tridiag_non_finite_input_gives_nan(card, dtype):
+    """A non-finite entry of the matrix (a valid alpha, a valid beta, or a NaN beta,
+    which closes the space and makes the shift NaN) turns every output NaN; a NaN
+    among the garbage alphas after a closing beta does not enter the matrix."""
+    rng = np.random.default_rng(3)
+    ab = np.stack([rng.normal(size=10), 0.1 + np.abs(rng.normal(size=10))])
+    for row, k, value in ((0, 3, np.nan), (1, 2, np.inf), (1, 5, np.nan), (0, 9, np.inf)):
+        bad = ab.copy()
+        bad[row, k] = value
+        E, c = tridiagonal_ground_state(torch.from_numpy(bad).to(card, dtype))
+        assert torch.isnan(E) and torch.isnan(c).all(), (row, k, value)
+    closed = ab.copy()
+    closed[1, 4] = 1e-14
+    closed[0, 6] = np.nan
+    t = torch.from_numpy(closed).to(dtype)
+    E, c = tridiagonal_ground_state(t.to(card))
+    check_ground_state(E.cpu(), c.cpu().numpy(), t.double().numpy(),
+                       ref=tridiagonal_ground_state_plain(t))
+
+
+@pytest.mark.cuda
+def test_tridiag_captured_without_host_sync(card):
+    """The kernel captured in a _kernels.Graph (capture_error_mode='global': a host
+    sync would fail the capture), its launch counted at each replay, its result that
+    of an eager call."""
+    ab = torch.from_numpy(FAMILIES[-1][1]).to(card)
+    E_ref, c_ref = tridiagonal_ground_state(ab)
+    graph = _kernels.Graph()
+    with graph.capture():
+        E, c = tridiagonal_ground_state(ab)
+    assert graph.launches == {tridiagonal_ground_state: 1}
+    before = tridiagonal_ground_state.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tridiagonal_ground_state.launches == before + 1
+    assert float(E) == float(E_ref) and torch.equal(c, c_ref)
+
+
+@pytest.mark.cuda
+def test_lanczos_alpha_product_ignores_tf32(card):
+    """fused_lanczos_impl writes each f32 alpha by a [1, n] x [n] torch.mv into its
+    buffer: the product stays full f32 whatever the f32 matmul precision (TF32 would
+    keep about three digits, and the Lanczos recurrence would lose the rest)."""
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rng.normal(size=30000)).to(card, torch.float32)
+            for _ in range(2))
+    out = torch.empty(2, device=card)
+    old = torch.get_float32_matmul_precision()
+    try:
+        for i, precision in enumerate(('highest', 'medium')):
+            torch.set_float32_matmul_precision(precision)
+            torch.mv(a.view(1, -1), b, out=out[i:i + 1])
+    finally:
+        torch.set_float32_matmul_precision(old)
+    assert torch.equal(out[0], out[1])
+    assert abs(float(out[0]) - float(a.double() @ b.double())) <= 1e-5 * float(
+        a.double().norm() * b.double().norm())
 
 
 @pytest.mark.cuda

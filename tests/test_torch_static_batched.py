@@ -50,29 +50,38 @@ def test_truncate_pad_to_multiple_matches_cyten_tpu(chi_max, svd_min, pad):
     assert abs(err - err_ref) < 1e-12 and abs(new_norm - norm_ref) < 1e-12
 
 
-@pytest.mark.parametrize('L, N', [(6, 12), (4, 12)], ids=['L6', 'L4-closes'])
-def test_fused_lanczos_impl_matches_cyten_tpu(L, N):
+@pytest.mark.parametrize('L, N, dtype', [(6, 12, 'float64'), (4, 12, 'float64'),
+                                         (6, 12, 'float32')],
+                         ids=['L6', 'L4-closes', 'L6-float32'])
+def test_fused_lanczos_impl_matches_cyten_tpu(L, N, dtype):
     """The centre bond of TFI after one sweep. At L=4 the Krylov space (8 states)
     closes before N, so a beta vanishes and the Gershgorin shift is exercised. E to
     1e-12; theta to 1e-10 up to one global sign, which jnp.linalg.eigh does not
-    fix."""
+    fix. In float32 (both packages' tensors cast to it, so the port's alphas and
+    betas are an f32 buffer) to tests/test_pallas_grouped.py's f32 tolerance: the
+    sums run in another order, and cyten_tpu solves its Ritz problem in f32."""
     model = JaxTFIModel(L=L, J=1., g=1.2, conserve='parity', block_backend='jax')
     psi = JaxSimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
     eng = JaxDMRGEngine(psi, model, chi_max=16, eps=1e-13)
     eng.sweep()
     i = L // 2 - 1
-    parts = (eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i], model.H_mpo[i + 1])
+    dt = ct.Dtype[dtype]
+    parts = tuple(t.to_dtype(dt) for t in (eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i],
+                                          model.H_mpo[i + 1]))
     H_ref = JaxHEffective(*parts)
-    theta0 = jax_close_structure(H_ref, psi.get_theta2(i))
+    theta0 = jax_close_structure(H_ref, psi.get_theta2(i).to_dtype(dt))
     E_ref, th_ref, _ = jax_lanczos_fused(H_ref, theta0, {'N_max': N})
     H = HEffective(*(to_port(t) for t in parts))
     E, th = fused_lanczos_impl(H, _close_structure(H, to_port(theta0)), N)
     assert E.ndim == 0  # a device scalar: nothing was read on the host
-    assert abs(float(E) - E_ref) < 1e-12
+    assert th.dtype.name == dtype
+    rtol, atol_E, atol_theta = {'float64': (0., 1e-12, 1e-10),
+                                'float32': (2e-5, 2e-4, 2e-4)}[dtype]
+    assert abs(float(E) - E_ref) < atol_E + rtol * abs(E_ref)
     ref = to_port(th_ref).to_numpy()
     got = th.to_numpy()
     sign = np.sign(float(inner(to_port(th_ref), th)))
-    np.testing.assert_allclose(got, sign * ref, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got, sign * ref, rtol=rtol, atol=atol_theta)
 
 
 def test_static_batched_half_sweep_matches_cyten_tpu():
