@@ -25,6 +25,11 @@ Phases:
      wrapper's time (ms), the kernel alone launched on tables built once
      (device_ms) and a per-pair torch.matmul loop (library_ms), timed in turns
      with the spread of each, the plain version's time and the bound
+  2c. the grouped GEMM's converting kinds against their plain versions on the ragged
+     lists and the chi=4096 list: TF32 ('tensorfloat32'), one bf16 pass ('default')
+     and mixed bf16 x f32 at each precision, held to K 2^-23 |A||B| (their products
+     are exact, their sums in another order); library_ms a per-pair torch.matmul
+     under TF32, on bf16-cast operands, or with the bf16 operand widened per call
   2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on the
      Lanczos families of tests/test_torch_tridiag.py (N=1; closing at every k;
      graded like a converged state's; a near-degenerate lowest pair; random N=10,
@@ -37,8 +42,9 @@ Phases:
   4. L=24 Heisenberg DMRG at chi_max=1024, eps=0, N_max=10 (bench.py:1124-1145
      without bf16), swept until the centre bond holds chi=1024, against
      HEIS24_E_REF (1e-8), with the kernel counted; then the time of the centre
-     bond by stage, the kernel at the centre pair list with a host-time
-     breakdown of one wrapper call, and one bond update under torch.profiler
+     bond by stage, the kernel at the centre pair list (also at each converting
+     kind of 2c) with a host-time breakdown of one wrapper call, and one bond
+     update under torch.profiler
   5. one effective-Hamiltonian matvec at chi=4096 in f32, card against CPU (1e-5)
   6. the probe kernel (csrc/probe.cu) against its plain version, bitwise, also on
      unaligned arrays with a tail; its times and the host cost of each piece of
@@ -52,10 +58,23 @@ Phases:
      launches counted through replays, host syncs of a batched sweep, peak reserved
      memory), the centre bond's graph replay under torch.profiler, and one more
      eager sweep that must agree with the graphs' energy (1e-10)
+  7b. static mode with env_dtype=bfloat16 on the same engine, its state and MPO made
+     f32, through graphs: every interior LP/RP bf16 after replayed sweeps; graphs
+     captured anew after matmul_precision='default', and again after env_dtype=None
+     with f32 environments (|dE| < 0.02 relative with bf16 environments, 1e-3 with
+     f32 ones)
   8. the bench step (cyten_tpu_torch.bench.step_run) at chi=4096: steady in f32 and
      f64, eager and as a CUDA graph (CUDA-event times), exact in f32; one chi=1024
      f64 static step, card against CPU (E 1e-9 relative, S 1e-8); then
      step_decomposition()
+  9. the bench step at chi=4096 in f32 at 'tensorfloat32' and at 'default', with
+     env_dtype='bfloat16' and with work_dtype='bfloat16', eager and as a graph: ms,
+     TFLOP/s, launches of each kind, E against the f32 'float32' step (within 0.05
+     relative; every output of the bf16-work step bf16); the LP/RP bytes a matvec
+     reads in f32 and in bf16
+  10. bench.accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=4): polished and raw
+     bf16 dE against HEIS24_E_REF beside cyten_tpu's CPU figures (1.04e-5, 2.25e-3);
+     the polished dE must stay below 1e-3
 """
 
 from __future__ import annotations
@@ -90,12 +109,16 @@ PALLAS_SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129),
                  (128, 128, 128), (128, 128, 128), (128, 128, 128), (1, 1, 1), (2, 300, 2)]
 
 
-def peak_ops_per_s(dtype) -> float:
+def peak_ops_per_s(dtype, precision: str = None) -> float:
     """Dense peak of one H100 SXM for the kernel's arithmetic: f32 outside the tensor
-    cores (67 TFLOP/s), bf16 tensor cores (989), f64 tensor cores (67, data sheet)."""
+    cores (67 TFLOP/s), bf16 tensor cores (989.4), f64 tensor cores (67), and for an
+    f32 result at 'tensorfloat32' the TF32 tensor cores (494.7) and at 'default' the
+    bf16 ones (data sheet)."""
     import torch
 
-    return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989e12}[dtype]
+    if dtype == torch.float32 and precision in ('tensorfloat32', 'default'):
+        return {'tensorfloat32': 494.7e12, 'default': 989.4e12}[precision]
+    return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989.4e12}[dtype]
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -120,52 +143,132 @@ def lp_theta_pairs(LP, theta):
                                     [theta.get_leg_idx('vL')])[:5]
 
 
-def work_of(As, Bs, out_id):
+def work_of(As, Bs, out_id, out_itemsize: int):
     """(operations, bytes) the grouped product of the pair lists ``As``, ``Bs`` must do
-    and move: each distinct input matrix read once, each output written once."""
+    and move: each distinct input matrix read once in its own dtype, each output
+    written once (``out_itemsize`` bytes an element)."""
     flops = sum(2 * A.shape[0] * A.shape[1] * B.shape[1] for A, B in zip(As, Bs))
     inputs = {t.data_ptr(): t.numel() * t.element_size() for t in (*As, *Bs)}
     out_m = {o: (A.shape[0], B.shape[1]) for A, B, o in zip(As, Bs, out_id.tolist())}
-    out_bytes = sum(m * n for m, n in out_m.values()) * As[0].element_size()
+    out_bytes = sum(m * n for m, n in out_m.values()) * out_itemsize
     return flops, sum(inputs.values()) + out_bytes
 
 
+def check_rounded(label, got, ref, As, Bs, out_id, n_out, pairs, precision):
+    """Kernel against plain for an f32 result of rounded operands: the two differ only
+    by the order of their f32 sums, so each element is held to K_o * 2^-23 times the
+    same product of the rounded operands' magnitudes (K_o: the summed depth of the
+    output's pairs). Returns the largest error; raises past the bound."""
+    import torch
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+
+    mag = gg.grouped_matmul_plain(
+        [gg._rounded(A, precision).abs().double() for A in As],
+        [gg._rounded(B, precision).abs().double() for B in Bs], out_id, n_out, pairs)
+    ks = np.zeros(n_out)
+    a_idx = range(len(out_id)) if pairs is None else pairs[0].tolist()
+    np.add.at(ks, np.asarray(out_id), [As[i].shape[1] for i in a_idx])
+    err = 0.
+    for o, (c, r, m) in enumerate(zip(got, ref, mag)):
+        if not c.numel():
+            continue
+        diff = (c.double() - r.double()).abs()
+        if not bool((diff <= ks[o] * 2. ** -23 * m).all()):
+            worst = float((diff - ks[o] * 2. ** -23 * m).max())
+            raise AssertionError(f'{label}: kernel disagrees with plain past K 2^-23 |A||B| '
+                                 f'(output {o}, by {worst})')
+        err = max(err, float(diff.max()))
+    return err
+
+
+def library_call(PA, PB, precision, b_bf16: bool):
+    """One PyTorch call per pair computing what the kernel's kind computes, as the
+    yardstick (``library_ms``): a per-pair torch.matmul loop, under TF32 for
+    'tensorfloat32', on operands cast to bf16 once with an f32 result for 'default',
+    and with the bf16 operand widened per call for a mixed list."""
+    import torch
+
+    if precision == 'tensorfloat32':
+        def run():
+            before = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return [torch.matmul(A.float(), B.float()) for A, B in zip(PA, PB)]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = before
+        return run
+    if precision == 'default':
+        A16 = [A.to(torch.bfloat16) for A in PA]
+        B16 = [B.to(torch.bfloat16) for B in PB]
+        try:
+            torch.mm(A16[0], B16[0], out_dtype=torch.float32)
+            return lambda: [torch.mm(A, B, out_dtype=torch.float32) for A, B in zip(A16, B16)]
+        except (TypeError, NotImplementedError, RuntimeError):  # no out_dtype: bf16 widened
+            return lambda: [torch.mm(A, B).float() for A, B in zip(A16, B16)]
+    if b_bf16:
+        return lambda: [torch.matmul(A, B.float()) for A, B in zip(PA, PB)]
+    return lambda: [torch.matmul(A.float(), B) for A, B in zip(PA, PB)]
+
+
 def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 20,
-                   rounds: int = 2):
+                   rounds: int = 2, precision: str = None, b_dtype=None):
     """Kernel against plain on the card, then times in turns: the wrapper (``ms``),
     the kernel alone (``device_ms``: the C entry point launched on tables built
-    once) and a per-pair torch.matmul loop (``library_ms``); then the plain version.
-    ``pairs`` as in grouped_matmul. Raises if kernel and plain disagree."""
+    once) and a per-pair torch.matmul loop (``library_ms``, see library_call); then
+    the plain version. ``pairs`` as in grouped_matmul. The operands are made
+    ``dtype``, those of B ``b_dtype`` where given (a mixed bf16 x f32 list); an f32
+    result is computed at ``precision`` (config.matmul_precision while the wrapper
+    plans, the plain version's argument) and held to check_rounded's bound, the
+    others to TOLERANCES. Raises if kernel and plain disagree."""
     import torch
     from cyten_tpu_torch.blocks.grouped_gemm import (
         grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
     )
+    from cyten_tpu_torch.config import config
 
+    b_dtype = dtype if b_dtype is None else b_dtype
     As = [A.to(dtype).contiguous() for A in As]
-    Bs = [B.to(dtype).contiguous() for B in Bs]
-    got = grouped_matmul(As, Bs, out_id, n_out, pairs)
-    ref = grouped_matmul_plain(As, Bs, out_id, n_out, pairs)
-    torch.cuda.synchronize()
-    name = str(dtype).split('.')[-1]
-    rtol, atol = TOLERANCES[name]
-    err = 0.
-    for c, r in zip(got, ref):
-        e = float((c.double() - r.double()).abs().max()) if c.numel() else 0.
-        scale = float(r.double().abs().max()) if r.numel() else 0.
-        if not e <= atol + rtol * scale:
-            raise AssertionError(f'{label} {name}: kernel disagrees with plain: '
-                                 f'{e} > {atol} + {rtol} * {scale}')
-        err = max(err, e)
-    _, launch = grouped_matmul_plan(As, Bs, out_id, n_out, pairs)
-    # the pair lists, for the library loop and the work count
-    PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
-    PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
-    (ms, device_ms, library_ms), spread = turns(
-        [lambda: grouped_matmul(As, Bs, out_id, n_out, pairs), launch,
-         lambda: [torch.matmul(A, B) for A, B in zip(PA, PB)]], reps, rounds)
-    plain_ms = cuda_ms(lambda: grouped_matmul_plain(As, Bs, out_id, n_out, pairs))
-    flops, nbytes = work_of(PA, PB, out_id)
-    t_ops, t_bytes = flops / peak_ops_per_s(dtype), nbytes / HBM_BYTES_PER_S
+    Bs = [B.to(b_dtype).contiguous() for B in Bs]
+    out_dtype = torch.promote_types(dtype, b_dtype)
+    rounded = out_dtype == torch.float32 and (precision is not None or dtype != b_dtype)
+    name = ' x '.join(dict.fromkeys(str(t).split('.')[-1] for t in (dtype, b_dtype)))
+    if rounded:
+        name = f'{precision or "float32"} {name}'
+    old = config.matmul_precision
+    config.matmul_precision = precision or 'float32'
+    try:
+        got = grouped_matmul(As, Bs, out_id, n_out, pairs)
+        ref = grouped_matmul_plain(As, Bs, out_id, n_out, pairs, precision)
+        torch.cuda.synchronize()
+        err = 0.
+        if rounded:
+            err = check_rounded(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs,
+                                precision)
+        else:
+            rtol, atol = TOLERANCES[name]
+            for c, r in zip(got, ref):
+                e = float((c.double() - r.double()).abs().max()) if c.numel() else 0.
+                scale = float(r.double().abs().max()) if r.numel() else 0.
+                if not e <= atol + rtol * scale:
+                    raise AssertionError(f'{label} {name}: kernel disagrees with plain: '
+                                         f'{e} > {atol} + {rtol} * {scale}')
+                err = max(err, e)
+        _, launch = grouped_matmul_plan(As, Bs, out_id, n_out, pairs)
+        # the pair lists, for the library loop and the work count
+        PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
+        PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
+        library = (library_call(PA, PB, precision, b_dtype == torch.bfloat16) if rounded
+                   else lambda: [torch.matmul(A, B) for A, B in zip(PA, PB)])
+        (ms, device_ms, library_ms), spread = turns(
+            [lambda: grouped_matmul(As, Bs, out_id, n_out, pairs), launch, library], reps,
+            rounds)
+        plain_ms = cuda_ms(lambda: grouped_matmul_plain(As, Bs, out_id, n_out, pairs,
+                                                        precision))
+    finally:
+        config.matmul_precision = old
+    flops, nbytes = work_of(PA, PB, out_id, got[0].element_size())
+    t_ops = flops / peak_ops_per_s(out_dtype, precision)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     res = {'pairs': len(PA), 'outputs': n_out, 'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
            'max_abs_err': err, 'ms': ms, 'device_ms': device_ms, 'plain_ms': plain_ms,
            'library_ms': library_ms, 'spread': dict(zip(('ms', 'device_ms', 'library_ms'),
@@ -174,6 +277,17 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
     print(f'[kernel] {label} {name}: ' + json.dumps(res), flush=True)
     return res
+
+
+# the converting kinds of the grouped GEMM: (precision, A dtype, B dtype), by the name
+# of the kind they run; f32 x f32 at 'float32' is the f32 path of phase 2
+def rounded_cases():
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [('tensorfloat32', f32, f32), ('tensorfloat32', bf16, f32),
+            ('tensorfloat32', f32, bf16), ('default', f32, f32), ('default', bf16, f32),
+            ('default', f32, bf16), (None, bf16, f32), (None, f32, bf16)]
 
 
 def turns(fns, reps: int, rounds: int = 2):
@@ -205,19 +319,21 @@ def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
         marks = [time.perf_counter()]
         (ua, ia, a, _, a_dt), (ub, ib, b, _, b_dt) = gg._pair_list(As, Bs, pairs)
         dtype = gg._common_dtype(a_dt | b_dt)
-        tile, inline_words = gg._kernel_info(dtype)
-        n, out_layout, table_layout = gg._layouts(a, ia, b, ib, out_id, n_out, dtype, tile)
+        kind, readable = gg._kind(a_dt | b_dt, dtype)
+        tile, inline_words = gg._kernel_info(kind)
+        n, out_layout, table_layout = gg._layouts(a, ia, b, ib, out_id, n_out, dtype, tile,
+                                                  kind)
         marks.append(time.perf_counter())
-        gg._as_operands(ua, a, a_dt, dtype)
-        gg._as_operands(ub, b, b_dt, dtype)
+        a_bf16 = gg._as_operands(ua, a, a_dt, dtype, readable)
+        b_bf16 = gg._as_operands(ub, b, b_dt, dtype, readable)
         marks.append(time.perf_counter())
         _, flat = gg._outputs(out_layout, dtype, ua[0].device)
         marks.append(time.perf_counter())
-        table = gg._fill_table(table_layout, a, ia, b, ib, flat.data_ptr())
+        table = gg._fill_table(table_layout, a, ia, b, ib, flat.data_ptr(), a_bf16, b_bf16)
         marks.append(time.perf_counter())
         table_args, _ = gg._table_args(table, flat.device, inline_words)
         marks.append(time.perf_counter())
-        call(fn, (gg._DTYPE_CODE[dtype], *table_args, n, table_layout.n_tiles),
+        call(fn, (gg._KIND_CODE[kind], *table_args, n, table_layout.n_tiles),
              flat.get_device(), 'grouped_gemm')
         marks.append(time.perf_counter())
         for step, t0, t1 in zip(steps, marks, marks[1:]):
@@ -472,24 +588,31 @@ def tridiag_phase() -> dict:
     return results[10]
 
 
+# kernel policy (its mangled name) -> the SASS instruction its products must run on
+SASS_OPS = {'3F64': 'DMMA', '4BF16': 'HGMMA', '3F32': 'FFMA', '4F32W': 'FFMA',
+            '5TF32P': 'HMMA.1688.F32.TF32', '5BF16P': 'HGMMA'}
+
+
 def check_sass(kernels):
-    """The f64 path's SASS holds DMMA and the bf16 path's HGMMA (wgmma), by
-    cuobjdump where the toolkit has it; raises if one is missing."""
+    """The SASS of each kind of the grouped GEMM holds the instruction its products
+    must run on (SASS_OPS: DMMA for f64, HGMMA for bf16 and the bf16 pass, HMMA .TF32
+    for TF32, FFMA for f32), by cuobjdump where the toolkit has it; raises if one is
+    missing."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     if not os.path.exists(tool):
-        print('[sass] cuobjdump not found: DMMA/HGMMA not checked', flush=True)
+        print('[sass] cuobjdump not found: the instructions are not checked', flush=True)
         return
     sass = subprocess.run([tool, '-sass', str(kernels._lib_path('grouped_gemm'))],
                           capture_output=True, text=True, check=True).stdout
     found = {}
     for part in sass.split('Function : ')[1:]:
         name = part.split(None, 1)[0]
-        for policy, op in (('3F64', 'DMMA'), ('4BF16', 'HGMMA'), ('3F32', 'FFMA')):
+        for policy, op in SASS_OPS.items():
             if policy in name:
                 found[policy] = (op, op in part)
     print(f'[sass] {json.dumps(found)}', flush=True)
-    if sorted(found) != ['3F32', '3F64', '4BF16'] or not all(ok for _, ok in found.values()):
-        raise AssertionError('the grouped GEMM does not run on DMMA (f64) and HGMMA (bf16)')
+    if sorted(found) != sorted(SASS_OPS) or not all(ok for _, ok in found.values()):
+        raise AssertionError(f'the grouped GEMM kinds do not run on {SASS_OPS}')
 
 
 def main() -> int:
@@ -507,7 +630,7 @@ def main() -> int:
     )
     from cyten_tpu_torch.algorithms.dmrg import _get_static_bond_fn
     from cyten_tpu_torch.bench import (
-        build_step_state, build_workload, step_decomposition, step_run,
+        accuracy_bf16work, build_step_state, build_workload, step_decomposition, step_run,
     )
     from cyten_tpu_torch.blocks import _kernels
     from cyten_tpu_torch.blocks.grouped_gemm import _LAYOUTS, grouped_matmul
@@ -552,6 +675,18 @@ def main() -> int:
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
         compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, dtype,
                        pairs)
+    # --- 2c. the converting kinds: TF32, the bf16 pass, mixed bf16 x f32 -----------------
+    rounded = {}  # (precision, A dtype, B dtype) -> the chi=4096 result
+    for precision, a_dtype, b_dtype in rounded_cases():
+        for case, (shapes, out_ids) in RAGGED.items():
+            rA = [torch.from_numpy(rng.normal(size=(M, K))).cuda() for M, K, N in shapes]
+            rB = [torch.from_numpy(rng.normal(size=(K, N))).cuda() for M, K, N in shapes]
+            compare_kernel(f'ragged {case}', rA, rB, np.array(out_ids), max(out_ids) + 1,
+                           a_dtype, reps=5, precision=precision, b_dtype=b_dtype)
+        if b_dtype == torch.float32:  # LP as the bf16 operand: the env_dtype matvec
+            rounded[precision, a_dtype] = compare_kernel(
+                f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, a_dtype, pairs,
+                precision=precision, b_dtype=b_dtype)
     del LP, RP, W1, W2, theta, As, Bs
     torch.cuda.empty_cache()
     # --- 2b. the tridiagonal kernel against its plain version ----------------------------
@@ -626,6 +761,9 @@ def main() -> int:
     As, Bs, pairs, out_id, n_out = lp_theta_pairs(H.LP, theta0)
     main = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
                           out_id, n_out, torch.float64, pairs, rounds=8)
+    for precision, a_dtype, b_dtype in rounded_cases():
+        compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs, out_id,
+                       n_out, a_dtype, pairs, precision=precision, b_dtype=b_dtype)
     breakdown = wrapper_breakdown(As, Bs, out_id, n_out, pairs)
     print(f'[breakdown] wrapper host ms per call, {len(out_id)} pairs of {len(As)} + '
           f'{len(Bs)} operands, {n_out} outputs of {len({B.shape[1] for B in Bs})} widths: '
@@ -766,6 +904,54 @@ def main() -> int:
         raise AssertionError('the eager static sweep disagrees with the graphs')
     phase_s['7'] = time.perf_counter() - t_phase
 
+    # --- 7b. static mode with bf16 environments, through graphs ----------------------------
+    t_phase = time.perf_counter()
+    kinds = grouped_matmul.kinds
+    model.H_mpo = [W.to_dtype(Dtype.float32) for W in model.H_mpo]
+    psi.Bs = [B.to_dtype(Dtype.float32) for B in psi.Bs]
+    psi.Ss = [S.to_dtype(Dtype.float32) for S in psi.Ss]
+    eng.env_dtype = Dtype.bfloat16
+    eng.LPs = [eng.LPs[0].to_dtype(Dtype.float32),
+               *(t.to_dtype(Dtype.bfloat16) for t in eng.LPs[1:])]
+    eng.RPs = [*(t.to_dtype(Dtype.bfloat16) for t in eng.RPs[:-1]),
+               eng.RPs[-1].to_dtype(Dtype.float32)]
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    captured = []  # graphs held after each setting's sweeps
+    for setting, n_sweeps in (('env bf16, float32', 3), ('env bf16, default', 2),
+                              ('env f32, float32', 2)):
+        if setting == 'env bf16, default':
+            eng.matmul_precision = 'default'
+        elif setting == 'env f32, float32':
+            eng.env_dtype, eng.matmul_precision = None, 'float32'
+            eng.LPs = [t.to_dtype(Dtype.float32) for t in eng.LPs]
+            eng.RPs = [t.to_dtype(Dtype.float32) for t in eng.RPs]
+        for k in kinds.values():
+            k.launches = 0
+        sweep_s = []
+        for sweep in range(n_sweeps):
+            t0 = time.perf_counter()
+            E_env = eng.sweep_static_batched()
+            torch.cuda.synchronize()
+            sweep_s.append(time.perf_counter() - t0)
+        captured.append(len(eng.static_graphs()))
+        env_dtypes = sorted({t.dtype.name for t in eng.LPs[1:-1] + eng.RPs[1:-1]})
+        counts = {k: v.launches for k, v in kinds.items() if v.launches}
+        print(f'[L=24 static env] {setting}: E = {E_env!r}, |dE| = '
+              f'{abs(E_env - HEIS24_E_REF):.3e}, sweep s {json.dumps(sweep_s)}, graphs '
+              f'{captured[-1]}, interior LP/RP {env_dtypes}, grouped-GEMM launches by '
+              f'kind {json.dumps(counts)}', flush=True)
+        # bf16 environments perturb the Lanczos energy to first order (0.02 relative,
+        # tests/test_bf16.py:142); with f32 ones it is held to the polish bound
+        want = 'float32' if setting == 'env f32, float32' else 'bfloat16'
+        bound = 1e-3 if want == 'float32' else 0.02 * abs(HEIS24_E_REF)
+        if env_dtypes != [want] or not abs(E_env - HEIS24_E_REF) < bound:
+            raise AssertionError(f'static mode {setting}: environments or energy wrong')
+    if not captured[0] < captured[1] < captured[2]:
+        raise AssertionError(f'static graphs were not captured anew: {captured}')
+    del eng, psi, model, H
+    torch.cuda.empty_cache()
+    phase_s['7b'] = time.perf_counter() - t_phase
+
     # --- 8. the bench step -----------------------------------------------------------------
     t_phase = time.perf_counter()
     lengths, repeats = (1, 3), 1
@@ -776,6 +962,8 @@ def main() -> int:
                                    ('exact', Dtype.float32, False)):
         t_step, flops = step_run(CHI_BENCH, svd_mode=svd_mode, dtype=dtype, graph=graph,
                                  lengths=(2, 6) if graph else lengths, repeats=repeats)
+        if (svd_mode, dtype, graph) == ('steady', Dtype.float32, False):
+            E_step32 = step_run.energy
         print(f'[step chi={CHI_BENCH} {svd_mode} {dtype.name}'
               f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step, '
               f'{flops / t_step / 1e12:.3f} TFLOP/s ({flops / 1e9:.2f} GFLOP/step), '
@@ -806,6 +994,58 @@ def main() -> int:
     if not decomposition['probe_works'] or 0 in bench_launches.values():
         raise AssertionError('step_decomposition: probe failed or a kernel was not run')
     phase_s['8'] = time.perf_counter() - t_phase
+
+    # --- 9. the bench step in the precision settings ----------------------------------------
+    t_phase = time.perf_counter()
+    LP, RP, *_ = build_step_state(backend, CHI_BENCH, dtype=Dtype.float32)
+    env_mb = {name: sum(b.numel() for t in (LP, RP) for b in t.data.blocks) * size / 1e6
+              for name, size in (('float32', 4), ('bfloat16', 2))}
+    del LP, RP
+    print(f'[step chi={CHI_BENCH} env bytes] LP + RP read per matvec, MB: '
+          f'{json.dumps(env_mb)}', flush=True)
+    kind_launches = {}  # the kind each setting must run -> its launches there
+    for name, kw, kind in (('tensorfloat32', {'precision': 'tensorfloat32'}, 'tensorfloat32'),
+                           ('default', {'precision': 'default'}, 'default'),
+                           ('env bf16', {'env_dtype': 'bfloat16'}, 'float32_mixed'),
+                           ('work bf16', {'work_dtype': 'bfloat16'}, 'bfloat16')):
+        for graph in (False, True):
+            for k in kinds.values():
+                k.launches = 0
+            t_step, flops = step_run(CHI_BENCH, svd_mode='steady', graph=graph,
+                                     lengths=(2, 6) if graph else lengths,
+                                     repeats=repeats, **kw)
+            counts = {k: v.launches for k, v in kinds.items() if v.launches}
+            kind_launches[kind] = kind_launches.get(kind, 0) + counts.get(kind, 0)
+            dE = abs(step_run.energy - E_step32) / abs(E_step32)
+            out_dtypes = [d.name for d in step_run.out_dtypes]
+            print(f'[step chi={CHI_BENCH} steady float32 {name}'
+                  f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step, '
+                  f'{flops / t_step / 1e12:.3f} TFLOP/s, E {step_run.energy!r} against '
+                  f'the float32 step {E_step32!r} (relative {dE:.3e}), outputs '
+                  f'{out_dtypes}, launches by kind {json.dumps(counts)}', flush=True)
+            if not counts.get(kind) or not np.isfinite(step_run.energy) or not dE < 0.05:
+                raise AssertionError(f'step {name}: kind {kind} not run, or E off')
+            if 'work_dtype' in kw and set(out_dtypes) != {'bfloat16'}:
+                raise AssertionError(f'the bf16-work step promoted: {out_dtypes}')
+    phase_s['9'] = time.perf_counter() - t_phase
+
+    # --- 10. the accuracy protocol at the reference's scale ---------------------------------
+    t_phase = time.perf_counter()
+    for k in kinds.values():
+        k.launches = 0
+    n_bf16 = 4
+    E_pol, E_bf16, dE_pol = accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=n_bf16)
+    torch.cuda.synchronize()
+    acc_s = time.perf_counter() - t_phase
+    counts = {k: v.launches for k, v in kinds.items() if v.launches}
+    dE_raw = abs(E_bf16 - HEIS24_E_REF)
+    print(f'[accuracy] L=24 chi=1024, {n_bf16} bf16 sweeps + 1 f32 polish: polished E '
+          f'{E_pol!r} dE {dE_pol:.3e} (cyten_tpu on a CPU: 1.04e-5), raw bf16 E {E_bf16!r} '
+          f'dE {dE_raw:.3e} (2.25e-3); {acc_s:.1f} s, {acc_s / (n_bf16 + 1):.1f} s per '
+          f'sweep; launches by kind {json.dumps(counts)}', flush=True)
+    if not dE_pol < 1e-3 or not counts.get('default'):
+        raise AssertionError(f'accuracy protocol: polished dE {dE_pol} or kinds {counts}')
+    phase_s['10'] = acc_s
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -816,6 +1056,16 @@ def main() -> int:
                 'ms': main['ms'], 'device_ms': main['device_ms'], 'plain_ms': main['plain_ms'],
                 'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
                 'library_ms': main['library_ms']},
+               *({'name': f'grouped_gemm[{kind}]', 'route': 'cuda',
+                  'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+                  'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+                  'launches': kind_launches[kind],
+                  **{k: rounded[key][k] for k in ('max_abs_err', 'ms', 'device_ms',
+                                                  'plain_ms', 'bound_ms', 'bound_by',
+                                                  'library_ms')}}
+                 for kind, key in (('tensorfloat32', ('tensorfloat32', torch.float32)),
+                                   ('default', ('default', torch.float32)),
+                                   ('float32_mixed', (None, torch.bfloat16)))),
                {'name': 'probe', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/probe.cu',
                 'replaces': 'scripts/exp_r5_step_decomp.py:59',

@@ -6,6 +6,11 @@ static bond update ``_get_static_bond_fn`` and :class:`DMRGEngine` with ``sweep`
 ``update_bond``, static mode and ``run``. Every ``tdot`` and ``compose`` on the
 abelian backend runs its block products as one grouped-GEMM kernel launch.
 
+Precision is set per operator: ``HEffective(matmul_precision=...)`` (and the engine's
+``matmul_precision``) runs the matvec's f32 products at that precision
+(:func:`_with_precision`), and ``DMRGEngine(env_dtype=...)`` stores the environments
+LP/RP in a narrower dtype (bf16), which the grouped-GEMM kernel reads as they lie.
+
 A bond update runs in one of two modes. The dynamic mode drives a converging Lanczos
 solve from the host and truncates with an exact per-sector SVD. Static mode, for a
 state whose bond structures have stopped changing, runs a fixed-length fused Lanczos
@@ -26,13 +31,14 @@ import time
 import numpy as np
 import torch
 
-from ..backends.data import BlockSparseData, DiagonalBlockData
+from ..backends.data import BlockSparseData
 from ..symmetries import TensorProduct
 from ..tensors import (
     DiagonalTensor, Mask, SymmetricTensor, compose, dagger, permute_legs, pinv,
     scalar_multiply, scale_axis, svd, tdot,
 )
 from ..blocks._kernels import Graph
+from ..tensors._functions import _PrefixMask
 from ..tensors.krylov_based import (
     _close_structure, _device_norm, _with_blocks, fused_lanczos_impl, lanczos,
 )
@@ -46,6 +52,33 @@ __all__ = ['HEffective', 'DMRGEngine', 'FaultError']
 class FaultError(RuntimeError):
     """A sweep produced a non-finite result and there was no checkpoint to roll
     back to."""
+
+
+def _with_precision(fn, precision):
+    """``fn`` with its f32 block products at ``precision``: ``config.matmul_precision``
+    is set around the call and restored after it (None: ``fn`` itself).
+
+    The grouped-GEMM kernel reads the setting when a call is planned: 'float32'
+    computes f32 products exactly, 'tensorfloat32' on TF32 tensor cores (operands
+    rounded to 10 bits of mantissa, about 1e-3 relative per element), 'default' as
+    one bf16 pass (8 bits, about 4e-3), each with f32 sums. It also sets PyTorch's
+    own f32 matmul precision for the plain products of the port. DMRG is
+    variational, so the energy error is second order in the matvec's error. f64
+    and bf16 products ignore the setting.
+    """
+    if precision is None:
+        return fn
+
+    def wrapped(*args, **kwargs):
+        from ..config import config
+
+        old = config.matmul_precision
+        config.matmul_precision = precision
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            config.matmul_precision = old
+    return wrapped
 
 
 def _update_LP_impl(LP, W, A):
@@ -220,77 +253,27 @@ def _heff_matvec_impl(LP, RP, W1, W2, theta):
 
 
 class HEffective(LinearOperator):
-    """Effective two-site Hamiltonian ``LP -- W1 -- W2 -- RP``."""
+    """Effective two-site Hamiltonian ``LP -- W1 -- W2 -- RP``.
 
-    def __init__(self, LP, RP, W1, W2):
+    ``matmul_precision`` (None | 'float32' | 'tensorfloat32' | 'default') sets the
+    precision of the matvec's f32 products (:func:`_with_precision`); None keeps
+    ``config.matmul_precision``. ``use_jit`` is accepted for ``cyten_tpu``'s
+    signature and has no effect: PyTorch runs eagerly, and static mode captures
+    whole bond updates as CUDA graphs instead.
+    """
+
+    def __init__(self, LP, RP, W1, W2, use_jit: bool = None, matmul_precision: str = None):
         self.LP = LP
         self.RP = RP
         self.W1 = W1.relabelled({'p': 'p0', 'p*': 'p0*'})
         self.W2 = W2.relabelled({'p': 'p1', 'p*': 'p1*'})
+        self.use_jit = use_jit
+        self.matmul_precision = matmul_precision
+        self._matvec = _with_precision(_heff_matvec_impl, matmul_precision)
         LinearOperator.__init__(self, dtype=W1.dtype)
 
     def matvec(self, theta):
-        return _heff_matvec_impl(self.LP, self.RP, self.W1, self.W2, theta)
-
-
-class _PrefixMask:
-    """The frozen truncation of static mode, resolved to host-side slices once.
-
-    Static mode keeps the first ``k`` singular values of each sector of the SVD's new
-    leg, ``k`` being the multiplicity the sector had when the structures froze. A
-    :class:`Mask` says so with boolean blocks on the device, and applying it there
-    (``svd_apply_mask``) makes the host read them on every bond. Here the blocks
-    are read once: :meth:`apply` then cuts each block to its first ``k`` entries,
-    the same result as ``svd_apply_mask`` with no device read.
-    """
-
-    def __init__(self, mask: Mask):
-        if not mask.is_projection:
-            raise ValueError('static mode truncates with a projection mask')
-        bb = mask.backend.block_backend
-        self.small_leg = mask.small_leg
-        self.large_leg = mask.large_leg
-        self.keep = {}  # large-leg sector index -> (small-leg sector index, k)
-        for (i_small, i_large), blk in zip(mask.data.block_inds, mask.data.blocks):
-            keep = bb.to_numpy(blk).astype(bool)
-            k = int(keep.sum())
-            if not keep[:k].all():
-                raise ValueError('static mode keeps a prefix of each sector')
-            self.keep[int(i_large)] = (int(i_small), k)
-
-    def _cut(self, blocks, block_inds, leg_idx: int):
-        """Blocks on ``large_leg`` at ``leg_idx`` cut to the kept prefix, and their
-        rows with that leg's sector index on ``small_leg``."""
-        out, rows = [], []
-        for blk, row in zip(blocks, block_inds):
-            hit = self.keep.get(int(row[leg_idx]))
-            if hit is None:
-                continue
-            i_small, k = hit
-            idx = [slice(None)] * blk.ndim
-            idx[leg_idx] = slice(0, k)
-            out.append(blk[tuple(idx)])
-            row = row.copy()
-            row[leg_idx] = i_small
-            rows.append(row)
-        return out, np.array(rows, np.intp).reshape(len(rows), np.shape(block_inds)[1])
-
-    def apply(self, U, S, Vh):
-        """``svd_apply_mask(U, S, Vh, mask)`` for the SVD's own new leg."""
-        if not (U.domain.factors[-1] == S.leg == Vh.codomain.factors[0]
-                == self.large_leg):
-            raise ValueError('the mask does not fit the SVD')
-        blocks, rows = self._cut(U.data.blocks, U.data.block_inds, U.num_legs - 1)
-        U = SymmetricTensor(BlockSparseData(blocks, rows, U.data.dtype), U.codomain,
-                            TensorProduct([self.small_leg]), U.backend, U.labels)
-        blocks, rows = self._cut(S.data.blocks, S.data.block_inds[:, None], 0)
-        S = DiagonalTensor(DiagonalBlockData(blocks, rows[:, 0], S.data.dtype),
-                           self.small_leg, S.backend, S.labels)
-        blocks, rows = self._cut(Vh.data.blocks, Vh.data.block_inds, 0)
-        Vh = SymmetricTensor(BlockSparseData(blocks, rows, Vh.data.dtype),
-                             TensorProduct([self.small_leg]), Vh.domain, Vh.backend,
-                             Vh.labels)
-        return U, S, Vh
+        return self._matvec(self.LP, self.RP, self.W1, self.W2, theta)
 
 
 def _freeze_bond(H, theta, kept_leg):
@@ -375,7 +358,9 @@ def _get_static_bond_fn(N: int, svd_mode: str = 'exact', steady_opts: dict = Non
 def _structure(t):
     """Hashable key of everything about ``t`` but its values: type, legs, labels,
     block indices, dtype and block shapes (the pytree structure ``cyten_tpu`` keys
-    on, with the shapes its leaves carry)."""
+    on, with the shapes its leaves carry). None for None: an environment not built yet."""
+    if t is None:
+        return None
     legs = (t.leg,) if isinstance(t, DiagonalTensor) else (t.codomain, t.domain)
     return (type(t), *legs, tuple(t.labels), t.data.block_inds.tobytes(), t.data.dtype,
             tuple(tuple(b.shape) for b in t.data.blocks))
@@ -452,26 +437,48 @@ class DMRGEngine:
     of it (chi bucketing), so that the bond structures repeat along the chain
     (:meth:`_static_runs`) and, on the card, bonds of one structure replay one graph.
 
-    Options of ``cyten_tpu``'s engine that are not ported yet raise
-    ``NotImplementedError``: ``mesh``, ``orthogonal_to``, ``dynamic_svd`` other than
-    'exact', and ``run(checkpoint=...)``.
+    The parameters are ``cyten_tpu``'s, in its order:
+
+    - ``jit_env_updates`` is accepted and stored; it has no job under PyTorch, which
+      runs the environment updates eagerly (static mode captures them in its graphs).
+    - ``matmul_precision`` (None | 'float32' | 'tensorfloat32' | 'default'): the
+      precision of the f32 products of the Lanczos matvec, dynamic and static
+      (:class:`HEffective`); None keeps ``config.matmul_precision``.
+    - ``env_dtype`` (e.g. ``Dtype.bfloat16``): the storage dtype of the environments
+      LP/RP, cast after every update, dynamic and static. theta and the Lanczos
+      vectors stay in the working dtype; the grouped-GEMM kernel reads the bf16
+      environments as they lie.
+    - ``dynamic_svd``: the SVD of a dynamic bond update, 'exact' (per-sector
+      ``torch.linalg.svd``), 'adaptive' (warm-started from the bond's current B,
+      ``tensors/adaptive.py``) or 'randomized' (``tensors/randomized.py``); see
+      :func:`~cyten_tpu_torch.algorithms.mps.split_truncate_theta`.
+
+    Options that are not ported yet raise ``NotImplementedError``: ``mesh`` (and with
+    it ``shard_axis_name``), ``orthogonal_to`` and ``run(checkpoint=...)``.
     """
 
     def __init__(self, psi: SimpleMPS, model, chi_max: int = 32, eps: float = 1e-12,
-                 lanczos_options: dict = None, pad_chi_multiple: int = None, mesh=None,
-                 orthogonal_to=None, auto_static: bool | str = False,
+                 lanczos_options: dict = None, pad_chi_multiple: int = None,
+                 jit_env_updates: bool = None, mesh=None, shard_axis_name: str = 'mult',
+                 matmul_precision: str = None, orthogonal_to=None,
+                 auto_static: bool | str = False, env_dtype=None,
                  dynamic_svd: str = 'exact'):
         if mesh is not None:
             raise NotImplementedError('DMRGEngine(mesh=...) is not ported yet')
         if orthogonal_to:
             raise NotImplementedError('DMRGEngine(orthogonal_to=...) is not ported yet')
-        if dynamic_svd != 'exact':
-            raise NotImplementedError(f'dynamic_svd={dynamic_svd!r} is not ported yet')
+        if dynamic_svd not in ('exact', 'adaptive', 'randomized'):
+            raise ValueError(f'unknown dynamic_svd {dynamic_svd!r}')
         self.psi = psi
         self.model = model
         self.chi_max = chi_max
         self.eps = eps
         self.pad_chi_multiple = pad_chi_multiple
+        self.jit_env_updates = jit_env_updates
+        self.shard_axis_name = shard_axis_name
+        self.matmul_precision = matmul_precision
+        self.env_dtype = env_dtype
+        self.dynamic_svd = dynamic_svd
         self.lanczos_options = lanczos_options or {'N_max': 20, 'P_tol': 1e-14}
         #: switch to static mode in run() once the bond structures stop changing
         self.auto_static = auto_static
@@ -509,15 +516,19 @@ class DMRGEngine:
         for i in range(L - 1, 0, -1):
             self.update_RP(i)
 
+    def _env(self, t):
+        """An environment in the storage dtype ``env_dtype`` (where one is set)."""
+        return t if self.env_dtype is None else t.to_dtype(self.env_dtype)
+
     def update_LP(self, i: int, A):
         """LPs[i+1] from LPs[i] and the left-isometric tensor A at site i."""
-        self.LPs[i + 1] = _update_LP_impl(self.LPs[i], self.model.H_mpo[i], A)  # [vR*, wR, vR]
+        self.LPs[i + 1] = self._env(_update_LP_impl(self.LPs[i], self.model.H_mpo[i], A))
 
     def update_RP(self, i: int, B=None):
         """RPs[i-1] from RPs[i] and the right-isometric tensor B at site i."""
         if B is None:
             B = self.psi.Bs[i]
-        self.RPs[i - 1] = _update_RP_impl(self.RPs[i], self.model.H_mpo[i], B)  # [vL, wL, vL*]
+        self.RPs[i - 1] = self._env(_update_RP_impl(self.RPs[i], self.model.H_mpo[i], B))
 
     def sweep(self) -> float:
         """One sweep, bonds 0..L-2 then back; returns the energy. In static mode the
@@ -546,7 +557,8 @@ class DMRGEngine:
     # --- static mode ---------------------------------------------------------------------
 
     def enable_static_mode(self, n_lanczos: int = 20, svd_mode: str = 'exact',
-                           steady_svd_options: dict = None, cuda_graphs: bool = True):
+                           max_period: int = 2, steady_svd_options: dict = None, *,
+                           cuda_graphs: bool = True):
         """Freeze the current bond structures: from now on every bond update runs
         ``n_lanczos`` iterations of the fused Lanczos and truncates to the per-sector
         chi allocation each bond has now, with no host sync inside the update.
@@ -554,13 +566,15 @@ class DMRGEngine:
         Call it once the state has structurally converged. ``svd_mode='steady'``
         swaps the per-sector exact SVD for the warm-started GEMM/QR steady SVD
         (``tensors/steady.py``); ``steady_svd_options`` sets its iteration counts
-        (n_power, n_jacobi, ns_polish).
+        (n_power, n_jacobi, ns_polish). ``max_period`` is the longest period of
+        repeating bond structures that :meth:`_static_runs` looks for.
 
         On CUDA with ``svd_mode='steady'`` a bond update is a CUDA graph, captured
-        once per bond structure (:meth:`_bond_structure`) at the second static
-        update of a bond of that structure (the first runs eagerly and warms up the
-        layouts and libraries) and replayed from then on, whatever bond has that
-        structure. ``svd_mode='exact'`` stays eager: ``torch.linalg.svd`` syncs.
+        once per bond structure (:meth:`_bond_structure`), ``matmul_precision`` and
+        ``env_dtype`` at the second static update of a bond of that structure (the
+        first runs eagerly and warms up the layouts and libraries) and replayed from
+        then on, whatever bond has that structure: a change of either setting
+        captures anew. ``svd_mode='exact'`` stays eager: ``torch.linalg.svd`` syncs.
         ``cuda_graphs=False`` runs every update eagerly, to compare the two.
         """
         if svd_mode not in ('exact', 'steady'):
@@ -568,6 +582,7 @@ class DMRGEngine:
         self.static_mode = True
         self._static_n_lanczos = n_lanczos
         self._static_svd_mode = svd_mode
+        self._static_max_period = max_period
         self._static_steady_opts = steady_svd_options
         self._static_cache = {}
         on_card = torch.device(self.backend.block_backend.device).type == 'cuda'
@@ -589,20 +604,32 @@ class DMRGEngine:
         entry = self._static_cache[('consts', i)] = (theta_tmpl, _PrefixMask(mask))
         return entry
 
+    def _settings(self) -> tuple:
+        """What a static update computes at besides its inputs: ``(matmul_precision,
+        env_dtype)``, a part of the keys of its cached functions and graphs."""
+        return self.matmul_precision, self.env_dtype
+
     def _static_entry(self, i: int):
-        """The static update of bond i, ``fn(LP, RP, S_i, B_i, B_ip1, W_i, W_ip1)``
-        (cached)."""
-        entry = self._static_cache.get(i)
+        """The static update of bond i, ``fn(LP, RP, S_i, B_i, B_ip1, W_i, W_ip1)``,
+        at the current :meth:`_settings` (cached by both): the matvec at
+        ``matmul_precision``, the new LP and RP cast to ``env_dtype``."""
+        key = (i, *self._settings())
+        entry = self._static_cache.get(key)
         if entry is not None:
             return entry
         theta_tmpl, mask = self._static_consts(i)
         impl = _get_static_bond_fn(self._static_n_lanczos, self._static_svd_mode,
                                    self._static_steady_opts)
+        precision, env_dtype = self._settings()
 
         def fn(LP, RP, S_i, B_i, B_ip1, W_i, W_ip1):
-            return impl(HEffective(LP, RP, W_i, W_ip1), S_i, B_i, B_ip1, theta_tmpl, mask)
+            H = HEffective(LP, RP, W_i, W_ip1, matmul_precision=precision)
+            E, new_B, S, B, LP_new, RP_new = impl(H, S_i, B_i, B_ip1, theta_tmpl, mask)
+            if env_dtype is not None:
+                LP_new, RP_new = LP_new.to_dtype(env_dtype), RP_new.to_dtype(env_dtype)
+            return E, new_B, S, B, LP_new, RP_new
 
-        entry = self._static_cache[i] = fn
+        entry = self._static_cache[key] = fn
         return entry
 
     def _bond_args(self, i: int) -> tuple:
@@ -625,7 +652,7 @@ class DMRGEngine:
         args = self._bond_args(i)
         graph = None
         if self._graph_pool is not None:
-            key = self._bond_structure(i)
+            key = (self._bond_structure(i), *self._settings())
             graph = self._static_cache.get(('graph', key))
             if graph is None and ('warm', key) in self._static_cache:
                 graph = self._static_cache[('graph', key)] = _GraphedStep(
@@ -649,14 +676,17 @@ class DMRGEngine:
         return [v for k, v in getattr(self, '_static_cache', {}).items()
                 if isinstance(k, tuple) and k[0] == 'graph']
 
-    def _static_runs(self, max_period: int = 2):
+    def _static_runs(self, max_period: int = None):
         """Maximal runs of consecutive bonds whose structures repeat with period
         ``p <= max_period``; returns ``[(b0, b1, p)]`` with ``b1 - b0`` a multiple of
         p. The algorithm of ``cyten_tpu``'s ``DMRGEngine._static_runs``, which scans
         each run as one compiled program: p=1 is the uniform case, p=2 the
         alternating charge classes of U(1)-Sz or SU(2) chains; ties prefer the
-        smaller period. Here it only reports how far the structures repeat: the
-        graphs are keyed by structure, bond by bond."""
+        smaller period. ``max_period`` defaults to that of
+        :meth:`enable_static_mode` (2 before it is called). Here it only reports how
+        far the structures repeat: the graphs are keyed by structure, bond by bond."""
+        if max_period is None:
+            max_period = getattr(self, '_static_max_period', 2)
         L = self.psi.L
         structs = [self._bond_structure(i) for i in range(L - 1)]
         runs = []
@@ -681,11 +711,14 @@ class DMRGEngine:
             return self._update_bond_static(i)
         psi = self.psi
         Heff = HEffective(self.LPs[i], self.RPs[i + 1], self.model.H_mpo[i],
-                          self.model.H_mpo[i + 1])
+                          self.model.H_mpo[i + 1], matmul_precision=self.matmul_precision)
         E, theta, n_iter = lanczos(Heff, psi.get_theta2(i), self.lanczos_options)
         self.E = E
+        adaptive = self.dynamic_svd == 'adaptive'
         A, S, B, err = split_truncate_theta(theta, self.chi_max, self.eps,
-                                            pad_to_multiple=self.pad_chi_multiple)
+                                            pad_to_multiple=self.pad_chi_multiple,
+                                            method=self.dynamic_svd,
+                                            Vh_prev=psi.Bs[i + 1] if adaptive else None)
         self.trunc_err = max(self.trunc_err, err)
         # restore B form on site i: B_i = S_i^{-1} A S_new
         Sinv = pinv(psi.Ss[i], cutoff=1e-14)

@@ -19,10 +19,9 @@ import numpy as np
 from ..dtypes import Dtype
 from ..backends import get_backend
 from ..symmetries import ElementarySpace
-from ..tensors import (
-    DiagonalTensor, SymmetricTensor, permute_legs, scale_axis, svd, svd_apply_mask,
-    tdot, truncate_singular_values,
-)
+from ..tensors import DiagonalTensor, SymmetricTensor, permute_legs, scale_axis, tdot
+from ..tensors.adaptive import adaptive_truncated_svd, fused_truncated_svd
+from ..tensors.randomized import randomized_truncated_svd
 
 __all__ = ['SimpleMPS', 'split_truncate_theta']
 
@@ -151,7 +150,8 @@ class SimpleMPS:
 
 
 def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True,
-                         pad_to_multiple: int = None, method: str = 'exact'):
+                         pad_to_multiple: int = None, method: str = 'exact',
+                         rng=None, Vh_prev=None, n_oversample: int = 16):
     """Split a two-site wavefunction and truncate.
 
     Parameters
@@ -162,9 +162,21 @@ def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True
         Truncation: keep at most chi_max singular values, discard those below eps.
     pad_to_multiple
         Round the kept count of each sector up to a multiple of this (chi bucketing).
-    method : 'exact'
-        Per-sector SVD of theta (``torch.linalg.svd``). The sketch-based methods of
-        ``cyten_tpu`` ('randomized', 'adaptive') raise ``NotImplementedError``.
+    method : 'exact' | 'randomized' | 'adaptive'
+        'exact': the per-sector SVD of theta (``torch.linalg.svd``), truncated by
+        host-side slices (:func:`~cyten_tpu_torch.tensors.adaptive.fused_truncated_svd`,
+        as ``cyten_tpu`` takes it for its jit backends). 'randomized':
+        the GEMM/QR randomized range finder
+        (:func:`~cyten_tpu_torch.tensors.randomized.randomized_truncated_svd`).
+        'adaptive': warm-started from ``Vh_prev`` with ``n_oversample`` columns of
+        per-sector rank head-room
+        (:func:`~cyten_tpu_torch.tensors.adaptive.adaptive_truncated_svd`), whose
+        only SVD runs at the kept-rank size; 'exact' where ``Vh_prev`` is None.
+    rng
+        The numpy generator of the sketch methods' random columns.
+    Vh_prev
+        For ``method='adaptive'``: the previous right isometry, a ``B`` tensor with
+        labels [vL, p, vR] or already shaped [kept | vR, p1].
 
     Returns
     -------
@@ -173,16 +185,28 @@ def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True
     B : right-isometric tensor, labels [vL, p1, vR] (codomain [vL, p1], domain [vR])
     err : truncation error
     """
-    if method != 'exact':
-        raise NotImplementedError(f'split_truncate_theta: method={method!r} is not '
-                                  'ported yet')
+    if method not in ('exact', 'randomized', 'adaptive'):
+        raise ValueError(f'unknown method {method!r}')
     theta = permute_legs(theta, codomain=['vL', 'p0'], domain=['vR', 'p1'])
-    U, S, Vh = svd(theta, new_labels=['vR', 'vL'])
-    mask, err, new_norm = truncate_singular_values(S, chi_max=chi_max, svd_min=eps,
-                                                   pad_to_multiple=pad_to_multiple)
-    U, S, Vh = svd_apply_mask(U, S, Vh, mask)
-    if normalize:
-        S = (1. / new_norm) * S
+    if method == 'adaptive' and Vh_prev is None:
+        method = 'exact'
+    if method == 'adaptive':
+        if 'p' in Vh_prev.labels:  # a B tensor [vL, p | vR]: the Vh form
+            Vh_prev = permute_legs(Vh_prev.relabelled({'p': 'p1'}),
+                                   codomain=['vL'], domain=['vR', 'p1'])
+        U, S, Vh, err, _ = adaptive_truncated_svd(
+            theta, Vh_prev, chi_max=chi_max, svd_min=eps, n_oversample=n_oversample,
+            new_labels=('vR', 'vL'), pad_to_multiple=pad_to_multiple, rng=rng,
+            normalize_to=1. if normalize else None)
+    elif method == 'randomized':
+        U, S, Vh, err, _ = randomized_truncated_svd(
+            theta, chi_max=chi_max, svd_min=eps, new_labels=['vR', 'vL'],
+            pad_to_multiple=pad_to_multiple, rng=rng,
+            normalize_to=1. if normalize else None)
+    else:
+        U, S, Vh, err, _ = fused_truncated_svd(
+            theta, chi_max=chi_max, svd_min=eps, new_labels=('vR', 'vL'),
+            pad_to_multiple=pad_to_multiple, normalize_to=1. if normalize else None)
     A = U.relabelled({'p0': 'p'})
     B = permute_legs(Vh, codomain=['vL', 'p1'], domain=['vR']).relabelled({'p1': 'p'})
     return A, S, B, err

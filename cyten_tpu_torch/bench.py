@@ -1,17 +1,18 @@
 """The port's bench: the static DMRG bond update of ``bench.py``, timed on the card.
 
 The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_step_state``
-(:598) and ``step_run`` (:649), and of ``scripts/exp_r5_step_decomp.py``
-(:func:`step_decomposition`). Everything runs on ``device`` (default: the CUDA card).
-Times are host-clock seconds around work that ends in ``torch.cuda.synchronize()``,
-except those of ``step_run(graph=True)``: CUDA events around graph steps.
+(:598), ``step_run`` (:649) and ``accuracy_bf16work`` (:1124), and of
+``scripts/exp_r5_step_decomp.py`` (:func:`step_decomposition`). Everything runs on
+``device`` (default: the CUDA card). Times are host-clock seconds around work that
+ends in ``torch.cuda.synchronize()``, except those of ``step_run(graph=True)``: CUDA
+events around graph steps.
 
     from cyten_tpu_torch.bench import step_run, step_decomposition
     s_per_step, flops_per_step = step_run(4096)
+    s_per_step, _ = step_run(4096, precision='default', env_dtype='bfloat16')
     print(step_decomposition())
 
-Not ported: the int8-environment GEMM probe of the script (:67-113) and the
-``work_dtype='bfloat16'`` step of ``step_run``.
+Not ported: the int8-environment GEMM probe of the script (:67-113).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from .algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
 from .algorithms.dmrg import (
     HEffective, _GraphedStep, _PrefixMask, _freeze_bond, _get_static_bond_fn,
     _heff_matvec_impl,
@@ -36,7 +38,11 @@ from .tensors.krylov_based import _device_norm
 from .tools.flops import tdot_flops
 
 __all__ = ['build_workload', 'build_step_state', 'step_flops', 'step_run',
-           'step_decomposition']
+           'step_decomposition', 'accuracy_bf16work', 'HEIS24_E_REF']
+
+#: f64 DMRG energy of the L=24 U(1) Heisenberg open chain at chi=512, the reference
+#: of the accuracy protocol (``bench.py:1121``, ``HEIS24_E_REF``)
+HEIS24_E_REF = -10.45378576040958
 
 
 def build_workload(backend, chi: int, dtype=Dtype.float64, seed: int = 0):
@@ -134,21 +140,31 @@ def _seconds_per_call(run, carry, lengths, repeats: int, events: bool = False) -
 
 
 def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
-             precision: str = 'float32', svd_mode: str = 'steady',
-             dtype=Dtype.float32, device: str = 'cuda', seed: int = 0,
+             precision: str = 'float32', svd_mode: str = 'steady', env_dtype=None,
+             work_dtype=None, dtype=Dtype.float32, device: str = 'cuda', seed: int = 0,
              graph: bool = False):
     """Time the full static DMRG step of bench.py:649-775 (step_run) on ``device``.
 
     One step is one static-mode bond update (theta assembly, ``n_lanczos``
     iterations of the fused Lanczos, SVD, frozen-chi truncation, both environment
-    updates) on the :func:`build_step_state` state, whose outputs are fed back as
-    the next step's inputs; LP and RP are renormalised each step. ``precision`` sets
-    ``config.matmul_precision`` for the run.
+    updates) on the :func:`build_step_state` state (built in ``dtype``), whose
+    outputs are fed back as the next step's inputs; LP and RP are renormalised each
+    step. ``precision`` sets ``config.matmul_precision`` for the run.
+
+    ``env_dtype`` (a :class:`Dtype` or its name, e.g. 'bfloat16') stores LP and RP
+    in that dtype, cast again after every step as the engine's static path casts
+    them (``DMRGEngine(env_dtype=...)``): theta and the Lanczos vectors stay in the
+    working dtype. ``work_dtype`` casts the whole state (LP, RP, W1, W2, S, B1, B2
+    and the theta template) to that dtype, and then ``env_dtype`` is not applied:
+    every intermediate stays in it, the reductions and factorisations accumulating
+    wider inside.
 
     It runs one warm-up step, then ``repeats`` runs of each of ``lengths`` steps, and
     takes the slope of the best times over the lengths (:func:`_slope`). Returns
     ``(seconds per step, FLOPs per step)`` with the FLOPs of :func:`step_flops`, and
-    leaves the grouped-GEMM launches of one step in ``step_run.launches_per_step``.
+    leaves the grouped-GEMM launches of one step in ``step_run.launches_per_step``,
+    the energy of the warm-up step in ``step_run.energy`` and the dtypes of its
+    outputs ``(S, B1, B2, LP, RP)`` in ``step_run.out_dtypes``.
 
     ``graph=False`` runs the steps eagerly and times them on the host clock.
     ``graph=True`` (CUDA, ``svd_mode='steady'``: the counterpart of ``bench.py``'s
@@ -158,26 +174,36 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
     slots with the carry, replays it and copies its outputs out, as the engine does.
     """
     backend = get_backend(u1_symmetry, device=device)
-    dtype = Dtype[dtype] if isinstance(dtype, str) else dtype
+    dtype, env_dtype, work_dtype = (Dtype[d] if isinstance(d, str) else d
+                                    for d in (dtype, env_dtype, work_dtype))
     LP, RP, W1, W2, S, B1, B2, theta_tmpl, mask = build_step_state(backend, chi,
                                                                    dtype=dtype)
     flops = step_flops(LP, RP, W1, W2, theta_tmpl, n_lanczos)
     impl = _get_static_bond_fn(n_lanczos, svd_mode)
     mask = _PrefixMask(mask)
+    if work_dtype is not None:
+        LP, RP, W1, W2, S, B1, B2, theta_tmpl = (
+            t.to_dtype(work_dtype) for t in (LP, RP, W1, W2, S, B1, B2, theta_tmpl))
+        env_dtype = None  # the environments are in work_dtype already
+    if env_dtype is not None:
+        LP, RP = LP.to_dtype(env_dtype), RP.to_dtype(env_dtype)
 
     if graph and not (torch.device(device).type == 'cuda' and svd_mode == 'steady'):
         raise ValueError('step_run(graph=True) needs CUDA and svd_mode="steady"')
 
     def step(S, B1, B2, LP, RP):
+        """One step: the new carry ``(S, B1, B2, LP, RP)``, then E."""
         E, nB1, S2, B2n, LPn, RPn = impl(HEffective(LP, RP, W1, W2), S, B1, B2,
                                          theta_tmpl, mask)
         LPn = scalar_multiply(1. / _device_norm(LPn), LPn)
         RPn = scalar_multiply(1. / _device_norm(RPn), RPn)
-        return S2.relabelled(['vL', 'vL*']), nB1, B2n, LPn, RPn
+        if env_dtype is not None:  # the engine's static path casts them so
+            LPn, RPn = LPn.to_dtype(env_dtype), RPn.to_dtype(env_dtype)
+        return S2.relabelled(['vL', 'vL*']), nB1, B2n, LPn, RPn, E
 
     def run(carry, n):
         for _ in range(n):
-            carry = step(*carry)
+            *carry, _ = step(*carry)
         backend.block_backend.synchronize()
         return carry
 
@@ -185,7 +211,9 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
     config.matmul_precision = precision
     try:
         launches = grouped_matmul.launches
-        carry = run((S, B1, B2, LP, RP), 1)
+        *carry, E = step(S, B1, B2, LP, RP)
+        step_run.energy = float(E)
+        step_run.out_dtypes = tuple(t.dtype for t in carry)
         step_run.launches_per_step = grouped_matmul.launches - launches
         if graph:
             g = _GraphedStep(step, carry)
@@ -193,7 +221,7 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
 
             def replays(carry, n):
                 for _ in range(n):
-                    carry = g.run(carry)
+                    *carry, _ = g.run(carry)
                 return carry
 
             t_step = _seconds_per_call(replays, carry, lengths, repeats, events=True)
@@ -205,6 +233,8 @@ def step_run(chi: int, n_lanczos: int = 10, lengths=(2, 6), repeats: int = 3,
 
 
 step_run.launches_per_step = None
+step_run.energy = None
+step_run.out_dtypes = None
 
 
 def _matvec_slope(args, lengths=(10, 50), repeats: int = 2) -> float:
@@ -268,3 +298,56 @@ def step_decomposition(chi: int = 4096, lengths=(2, 6), repeats: int = 1,
                     svd_mode='exact', device=device)
     res[f'step{chi}_f32_exactsvd_ms'] = t * 1e3
     return res
+
+
+def accuracy_bf16work(chi: int = 1024, L: int = 24, e_ref: float = HEIS24_E_REF,
+                      n_bf16_sweeps: int = 6, device: str = 'cuda'):
+    """The end-to-end accuracy of bench.py:1124-1186 (accuracy_bf16work): the U(1)
+    Heisenberg chain run in bf16, then one f32 polish sweep, against ``e_ref``.
+
+    ``n_bf16_sweeps`` sweeps with the state demoted to bf16 before each (the engine's
+    ``env_dtype`` keeps LP/RP bf16), one-pass matmuls (``matmul_precision='default'``)
+    and the adaptive growth SVD; then LP, RP, the Bs and the Ss are cast back to f32,
+    ``env_dtype`` dropped, and one sweep runs at ``'float32'``. ``eps=0`` with
+    ``chi_max=chi`` keeps production-sized blocks. The working dtype is f32, as in
+    ``cyten_tpu``'s run (JAX's default without x64): the MPO and the state are built
+    in f32. ``cyten_tpu``'s cache-clearing between sweeps has no counterpart.
+
+    Returns ``(E, E_bf16, dE)``: the polished energy, that of the last bf16 sweep
+    and ``|E - e_ref|`` (None without ``e_ref``). Prints each sweep's energy and
+    seconds to stderr.
+    """
+    import sys
+
+    model = HeisenbergModel(L=L, conserve='Sz', device=device)
+    model.H_mpo = [W.to_dtype(Dtype.float32) for W in model.H_mpo]
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2),
+                                       backend=model.backend, dtype=Dtype.float32)
+    eng = DMRGEngine(psi, model, chi_max=chi, eps=0., pad_chi_multiple=chi // 4,
+                     env_dtype=Dtype.bfloat16, matmul_precision='default',
+                     dynamic_svd='adaptive', lanczos_options={'N_max': 10, 'P_tol': 1e-10})
+    bb = model.backend.block_backend
+    E_b = None
+    for sweep_i in range(n_bf16_sweeps):
+        t0 = time.perf_counter()
+        for i in range(L):  # the engine's env_dtype covers LP/RP
+            eng.psi.Bs[i] = eng.psi.Bs[i].to_dtype(Dtype.bfloat16)
+            eng.psi.Ss[i] = eng.psi.Ss[i].to_dtype(Dtype.bfloat16)
+        E_b = eng.sweep()
+        bb.synchronize()
+        print(f'accuracy sweep {sweep_i + 1}/{n_bf16_sweeps}: E={E_b:.8f}, '
+              f'{time.perf_counter() - t0:.2f} s', file=sys.stderr, flush=True)
+    # converge, then polish: one full-precision f32 sweep
+    eng.env_dtype = None
+    eng.matmul_precision = 'float32'
+    for i in range(L):
+        eng.psi.Bs[i] = eng.psi.Bs[i].to_dtype(Dtype.float32)
+        eng.psi.Ss[i] = eng.psi.Ss[i].to_dtype(Dtype.float32)
+    eng.LPs = [t if t is None else t.to_dtype(Dtype.float32) for t in eng.LPs]
+    eng.RPs = [t if t is None else t.to_dtype(Dtype.float32) for t in eng.RPs]
+    t0 = time.perf_counter()
+    E = eng.sweep()
+    bb.synchronize()
+    print(f'accuracy polish sweep: E={E:.8f}, {time.perf_counter() - t0:.2f} s',
+          file=sys.stderr, flush=True)
+    return float(E), float(E_b), None if e_ref is None else abs(float(E) - e_ref)

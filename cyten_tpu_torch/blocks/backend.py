@@ -300,14 +300,30 @@ class BlockBackend:
     def apply_elementwise(self, func: Callable, *blocks, **func_kwargs):
         return func(*blocks, **func_kwargs)
 
+    @staticmethod
+    def _sticky_scalar(a):
+        """The scalar ``a`` as it multiplies a block: numpy scalars (and 0-d arrays)
+        become Python numbers.
+
+        bf16 storage is sticky under scalar broadcasting (``cyten_tpu``'s rule,
+        ``blocks/backend.py::_sticky_scalar``): a real scalar that is not bf16 (a
+        Python float, a numpy scalar or a 0-d tensor, e.g. the f32 norm that
+        reductions return) broadcast onto a bf16 block gives bf16; a complex scalar,
+        and a block of a wider dtype, promote as usual. PyTorch already treats
+        Python numbers and 0-d tensors as weak scalars, which give exactly that.
+        Numpy scalars need the conversion: ``np.complex64 * tensor`` drops the
+        imaginary part, and a 0-d ``np.ndarray`` does not multiply a tensor at all.
+        """
+        return a.item() if isinstance(a, (np.generic, np.ndarray)) else a
+
     def mul(self, a, block):
-        return a * block
+        return self._sticky_scalar(a) * block
 
     def add(self, block1, block2):
         return block1 + block2
 
     def linear_combination(self, a, block1, b, block2):
-        return a * block1 + b * block2
+        return self._sticky_scalar(a) * block1 + self._sticky_scalar(b) * block2
 
     # --- boolean / comparison ---------------------------------------------------------
 

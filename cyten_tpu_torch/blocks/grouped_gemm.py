@@ -12,11 +12,19 @@ small int64 tables, one row per output and one row per pair, and the kernel read
 the matrices through the pointers in them. See the source for what bounds the
 kernel and how its design answers that.
 
+A list whose operands are f32, or f32 and bf16, gives f32 and is computed at the
+precision ``config.matmul_precision`` names when the call is planned: 'float32' (or
+None) exactly, 'tensorfloat32' on TF32 tensor cores, 'default' as one bf16 pass. A
+bf16 operand of such a list is read by the kernel where it lies, in bf16. f64 and
+bf16 lists ignore the setting, as JAX's precision touches only f32 dots. Each kind
+of launch is counted on its own too (``grouped_matmul.kinds``).
+
 :func:`grouped_matmul` launches the kernel for CUDA tensors and takes the plain
-version, :func:`grouped_matmul_plain`, only for tensors on the CPU. On CUDA it
-never falls back: an operand it does not take (complex, another dtype, another
-device) raises. :func:`grouped_matmul_plan` splits a CUDA call into its host part
-and the launch, so that the launch alone can be timed or repeated.
+version, :func:`grouped_matmul_plain`, only for tensors on the CPU, at the same
+precision. On CUDA it never falls back: an operand it does not take (complex,
+another dtype, another device) raises. :func:`grouped_matmul_plan` splits a CUDA
+call into its host part and the launch, so that the launch alone can be timed or
+repeated.
 """
 
 from __future__ import annotations
@@ -29,11 +37,34 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import config
 from ._kernels import call, count, function
 
-__all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan']
+__all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'round_tf32']
 
-_DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
+# the kernel's kinds (csrc/grouped_gemm.cu): name -> code. The first three compute in
+# their operands' own dtype; the last three write f32 from f32 or bf16 operands,
+# rounded as config.matmul_precision says
+_KIND_CODE = {'float64': 0, 'float32': 1, 'bfloat16': 2, 'float32_mixed': 3,
+              'tensorfloat32': 4, 'default': 5}
+_DTYPE_KIND = {torch.float64: 'float64', torch.float32: 'float32',
+               torch.bfloat16: 'bfloat16'}
+_F32_OPERANDS = frozenset({torch.float32, torch.bfloat16})
+
+
+def _kind(dtypes, dtype):
+    """``(kind, readable)`` for a list of operand dtypes ``dtypes`` whose common
+    dtype is ``dtype``: the kernel's kind, for an f32 result at the precision of
+    ``config.matmul_precision`` (read now, when the call is planned), else the
+    dtype's own; and the operand dtypes that kind reads as they lie."""
+    if dtype != torch.float32:
+        return _DTYPE_KIND[dtype], frozenset({dtype})
+    precision = config.matmul_precision
+    if precision in ('tensorfloat32', 'default'):
+        return precision, _F32_OPERANDS
+    if dtypes == {torch.float32}:
+        return 'float32', frozenset({dtype})
+    return 'float32_mixed', _F32_OPERANDS
 
 # unbound tensor methods, mapped over a list in C rather than called one by one
 _T = torch.Tensor
@@ -80,15 +111,15 @@ def _gather(ts, index=None):
 
 
 @functools.cache
-def _kernel_info(dtype) -> tuple[tuple[int, int], int]:
-    """The kernel's output tile ``(BM, BN)`` for ``dtype`` and the most int64 table
+def _kernel_info(kind: str) -> tuple[tuple[int, int], int]:
+    """The kernel's output tile ``(BM, BN)`` for ``kind`` and the most int64 table
     words it takes inside the launch's parameters, as the kernel states them."""
     import ctypes
 
     info = (ctypes.c_int64 * 3)()
-    if function('grouped_gemm', 'cyten_grouped_gemm_info')(_DTYPE_CODE[dtype],
+    if function('grouped_gemm', 'cyten_grouped_gemm_info')(_KIND_CODE[kind],
                                                            ctypes.addressof(info)) != 0:
-        raise RuntimeError(f'grouped_gemm: the kernel has no tile for {dtype}')
+        raise RuntimeError(f'grouped_gemm: the kernel has no tile for {kind}')
     return (info[0], info[1]), info[2]
 
 
@@ -173,33 +204,63 @@ def _prepare(As, Bs, out_ids, n_out):
     return out_ids, n_out
 
 
-def _as_operands(tensors, info, dtypes, dtype):
+def _as_operands(tensors, info, dtypes, dtype, readable):
     """Copies, in place in ``tensors`` and ``info``, the tensors that the kernel cannot
-    read where they lie: another dtype (only tested where ``dtypes``, the set of
-    their dtypes, holds another), or a row stride other than 1."""
+    read where they lie: a dtype outside ``readable`` (only tested where ``dtypes``,
+    the set of their dtypes, holds one), made ``dtype``, or a row stride other than 1.
+    Returns the bf16 flag of each tensor as the kernel will read it, or None where
+    the kind reads one dtype only."""
     need = (info[:, 2] != 1) & (info[:, 4] > 1)
-    if dtypes != {dtype}:
-        need |= np.fromiter((t.dtype != dtype for t in tensors), bool, len(tensors))
+    if not dtypes <= readable:
+        need |= np.fromiter((t.dtype not in readable for t in tensors), bool, len(tensors))
     if need.any():
         for i in np.flatnonzero(need).tolist():
-            t = tensors[i] = tensors[i].to(dtype).contiguous()
+            t = tensors[i]
+            t = tensors[i] = (t if t.dtype in readable else t.to(dtype)).contiguous()
             info[i, :3] = t.data_ptr(), t.stride(0), 1
+    if len(readable) == 1:
+        return None
+    return np.fromiter((t.dtype == torch.bfloat16 for t in tensors), bool, len(tensors))
 
 
-def grouped_matmul_plain(As, Bs, out_ids=None, n_out=None, pairs=None) -> list:
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32 (10 stored bits of mantissa), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: half a unit of the last kept bit
+    added to the magnitude's bits, the 13 dropped bits then cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rounded(t: torch.Tensor, precision) -> torch.Tensor:
+    """Operand ``t`` of an f32 product as the kernel's kind for ``precision`` reads
+    it: widened to f32, then rounded to TF32 ('tensorfloat32') or bf16 ('default')."""
+    if precision == 'default':
+        return t.to(torch.bfloat16).float()
+    t = t.float()
+    return round_tf32(t) if precision == 'tensorfloat32' else t
+
+
+def grouped_matmul_plain(As, Bs, out_ids=None, n_out=None, pairs=None,
+                         precision: str = None) -> list:
     """The plain PyTorch version: a loop of ``torch.matmul``, then a sum per output.
 
     Same dtype policy as the kernel: bf16 products accumulate in f32 and are cast
-    back once; mixed dtypes are promoted to their common type first.
+    back once; mixed dtypes are promoted to their common type first. A list with an
+    f32 result is computed at ``precision`` (:func:`_kind`'s names; None is
+    'float32'): each operand rounded as the kernel rounds it (:func:`_rounded`),
+    then multiplied in f32, whose products of rounded values are exact.
     """
     if pairs is not None:
         As, Bs = _select(As, pairs[0]), _select(Bs, pairs[1])
     out_ids, n_out = _prepare(As, Bs, out_ids, n_out)
     dtype = _common_dtype({t.dtype for t in (*As, *Bs)}) if len(As) else torch.float64
     work = torch.float32 if dtype == torch.bfloat16 else dtype
+    if dtype == torch.float32 and precision in ('tensorfloat32', 'default'):
+        cast = functools.partial(_rounded, precision=precision)
+    else:
+        cast = functools.partial(torch.Tensor.to, dtype=work)
     outs = [None] * n_out
     for A, B, o in zip(As, Bs, out_ids.tolist()):
-        prod = torch.matmul(A.to(work), B.to(work))
+        prod = torch.matmul(cast(A), cast(B))
         outs[o] = prod if outs[o] is None else outs[o] + prod
     return [c.to(dtype) for c in outs]
 
@@ -249,16 +310,21 @@ def _table_layout(K, out_ids, M, N, c_offsets, tile) -> _TableLayout:
                         int(first[-1]) if n_out else 0)
 
 
-def _fill_table(layout: _TableLayout, a, ia, b, ib, c_base: int) -> np.ndarray:
+def _fill_table(layout: _TableLayout, a, ia, b, ib, c_base: int, a_bf16=None,
+                b_bf16=None) -> np.ndarray:
     """A copy of ``layout.table`` holding one call's pointers and pitches: ``a``, ``b``
     the ``_gather`` rows of the operands, ``ia``, ``ib`` those of each pair, ``c_base``
-    the address the outputs' offsets count from."""
+    the address the outputs' offsets count from; and, for the kinds that read f32 and
+    bf16, each operand's bf16 flag (``a_bf16``, ``b_bf16``, per operand)."""
     table = layout.table.copy()
     n_out = len(layout.c_offsets)
     np.add(layout.c_offsets, c_base, out=table[:n_out, 0])
     pairs = table[n_out:]
     pairs[:, 0:2] = a[ia[layout.pair_order], 0:2]
     pairs[:, 2:4] = b[ib[layout.pair_order], 0:2]
+    if a_bf16 is not None:
+        pairs[:, 5] = a_bf16[ia[layout.pair_order]]
+        pairs[:, 6] = b_bf16[ib[layout.pair_order]]
     return table
 
 
@@ -309,19 +375,21 @@ _LAYOUTS: dict = {}
 _LAYOUTS_MAX = 1024
 
 
-def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile):
+def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None):
     """``(n_out, output layout, table layout)`` of a pair list: ``a``, ``b`` the
-    ``_gather`` rows of its operands, ``ia``, ``ib`` those of each pair, ``tile`` the
-    kernel's ``(BM, BN)`` for ``dtype``.
+    ``_gather`` rows of its operands, ``ia``, ``ib`` those of each pair, ``dtype`` that
+    of the outputs, ``tile`` the kernel's ``(BM, BN)`` for its ``kind`` (default: the
+    kind of ``dtype`` itself).
 
-    They follow from the shapes of the pairs, ``out_ids``, ``n_out``, the dtype and
-    the tile alone, so each distinct list is checked (:func:`_check`) and laid out
-    once and then taken from ``_LAYOUTS``: the DMRG path contracts the same block
-    structure on every iteration of a solve and every sweep, with new blocks each time.
+    They follow from the shapes of the pairs, ``out_ids``, ``n_out``, the dtype, the
+    kind and the tile alone, so each distinct list is checked (:func:`_check`) and
+    laid out once and then taken from ``_LAYOUTS``: the DMRG path contracts the same
+    block structure on every iteration of a solve and every sweep, with new blocks
+    each time.
     """
     key = (a[ia, 3:5].tobytes(), b[ib, 3:5].tobytes(),
            None if out_ids is None else np.asarray(out_ids, np.int64).tobytes(),
-           n_out, dtype, tile)
+           n_out, dtype, kind or _DTYPE_KIND[dtype], tile)
     found = _LAYOUTS.get(key)
     if found is None:
         out_ids, n_out, MN = _check(np.concatenate((a[ia], b[ib]), axis=1), out_ids, n_out)
@@ -372,26 +440,31 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
     if not ua[0].is_cuda:
         raise NotImplementedError(f'grouped_matmul: no kernel for {ua[0].device}')
     index = devices.pop()
-    dtype = _common_dtype(a_dt | b_dt)
+    dtypes = a_dt | b_dt
+    dtype = _common_dtype(dtypes)
     if dtype.is_complex:
         raise NotImplementedError('grouped_matmul: complex operands have no CUDA kernel yet')
-    if dtype not in _DTYPE_CODE:
+    if dtype not in _DTYPE_KIND:
         raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
-    tile, inline_words = _kernel_info(dtype)
-    n_out, out_layout, table_layout = _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile)
-    _as_operands(ua, a, a_dt, dtype)
-    _as_operands(ub, b, b_dt, dtype)
+    kind, readable = _kind(dtypes, dtype)
+    tile, inline_words = _kernel_info(kind)
+    n_out, out_layout, table_layout = _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile,
+                                               kind)
+    a_bf16 = _as_operands(ua, a, a_dt, dtype, readable)
+    b_bf16 = _as_operands(ub, b, b_dt, dtype, readable)
     outs, flat = _outputs(out_layout, dtype, torch.device('cuda', index))
     if table_layout.n_tiles == 0:  # every output is empty: nothing to launch
         return outs, lambda: outs
-    table = _fill_table(table_layout, a, ia, b, ib, flat.data_ptr())
+    table = _fill_table(table_layout, a, ia, b, ib, flat.data_ptr(), a_bf16, b_bf16)
     table_args, keep = _table_args(table, flat.device, inline_words)
-    args = (_DTYPE_CODE[dtype], *table_args, n_out, table_layout.n_tiles)
+    args = (_KIND_CODE[kind], *table_args, n_out, table_layout.n_tiles)
     fn = function('grouped_gemm', 'cyten_grouped_gemm')
+    kind_count = grouped_matmul.kinds[kind]
 
     def launch():
         call(fn, args, index, 'grouped_gemm')
         count(grouped_matmul, keep)
+        count(kind_count)
         return outs
 
     launch.operands = (ua, ub, keep)  # alive for as long as launch is
@@ -417,15 +490,29 @@ def grouped_matmul(As, Bs, out_ids=None, n_out=None, pairs=None) -> list:
         is passed once (the abelian backend passes each block once this way).
 
     Returns the ``n_out`` outputs ``[M, N]`` in the common dtype of the operands
-    (bf16 stays bf16, accumulated in f32). CUDA tensors go through one launch of the
-    kernel; CPU tensors through :func:`grouped_matmul_plain`.
+    (bf16 stays bf16, accumulated in f32); an f32 result at the precision of
+    ``config.matmul_precision``. CUDA tensors go through one launch of the kernel;
+    CPU tensors through :func:`grouped_matmul_plain`.
     """
     if not As or not Bs or (As[0].device.type == 'cpu' and not Bs[0].is_cuda):
         # the plain version raises where a list is empty and the other is not, or
         # where a later operand lies elsewhere
-        return grouped_matmul_plain(As, Bs, out_ids, n_out, pairs)
+        return grouped_matmul_plain(As, Bs, out_ids, n_out, pairs, config.matmul_precision)
     _, launch = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)
     return launch()
 
 
 grouped_matmul.launches = 0  # kernel launches, counted where the kernel is launched
+
+
+class _KindCount:
+    """The launches of one kind of the kernel, counted as ``grouped_matmul``'s are
+    (:func:`~cyten_tpu_torch.blocks._kernels.count`; a graph keys its counts by
+    this object)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+#: the launches of each kind of the kernel
+grouped_matmul.kinds = {kind: _KindCount() for kind in _KIND_CODE}

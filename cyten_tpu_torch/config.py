@@ -23,14 +23,15 @@ class Config:
     default_block_backend: str = 'torch'
 
     # --- execution policy ---
-    #: precision of float32 matrix products done by PyTorch itself. Setting it
-    #: calls ``torch.set_float32_matmul_precision`` with 'float32' -> 'highest'
-    #: (full f32), 'tensorfloat32' -> 'high' (TF32 tensor cores) and 'default'
-    #: -> 'medium' (bf16 passes); None leaves torch's setting alone. The default
-    #: is torch's own default, so constructing the config sets nothing. This covers
-    #: the plain torch products of the port (e.g. the MPO channel mixing). The
-    #: grouped-GEMM kernel (blocks/grouped_gemm.py) computes full f32 whatever
-    #: this says: it has no TF32 path yet.
+    #: precision of float32 matrix products. The grouped-GEMM kernel
+    #: (blocks/grouped_gemm.py) reads it when it plans a list with an f32 result:
+    #: 'float32' (and None) exactly, 'tensorfloat32' on the TF32 tensor cores,
+    #: 'default' as one bf16 pass, with f32 sums; f64 and bf16 lists ignore it.
+    #: Setting it also calls ``torch.set_float32_matmul_precision`` with 'float32'
+    #: -> 'highest', 'tensorfloat32' -> 'high' and 'default' -> 'medium' for the
+    #: plain torch products of the port (e.g. the MPO channel mixing); None leaves
+    #: torch's setting alone. The default is torch's own default, so constructing
+    #: the config sets nothing.
     matmul_precision: str | None = 'float32'
     #: bfloat16 blocks: products accumulate in f32 and are cast back to bf16 once.
     #: The grouped-GEMM kernel always accumulates bf16 in f32.

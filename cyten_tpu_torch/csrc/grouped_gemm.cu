@@ -19,9 +19,23 @@
 //         bf16 at the store. 128 x 128 tile, two warpgroups. A is read K-major, B
 //         (row-major [K, N]) MN-major through the transpose flag, both from the
 //         128-byte swizzled layout.
-//   f32   exact, on the FMA pipes (67 TFLOP/s): the port has no TF32 path, and
-//         config.matmul_precision is 'highest'. 128 x 128 tile, 256 threads with
-//         an 8 x 8 register patch and float4 shared-memory reads.
+//   f32   exact, on the FMA pipes (67 TFLOP/s), for config.matmul_precision
+//         'float32'. 128 x 128 tile, 256 threads with an 8 x 8 register patch and
+//         float4 shared-memory reads.
+// Three more kinds write f32 from f32 operands, either of which may be bf16 (a bf16
+// environment against an f32 state): the operand is read from device memory in its
+// own type, so a bf16 block is read once at half width and never copied. Their
+// loads go through registers, since cp.async cannot convert, and round as they
+// stage, per config.matmul_precision (the Hopper forms of the TPU's f32 passes that
+// cyten_tpu/algorithms/dmrg.py::_with_precision describes):
+//   f32w  'float32' with a bf16 operand: widened exactly, then the f32 FMA path.
+//   tf32  'tensorfloat32': each value rounded to TF32 (cvt.rna.tf32.f32, nearest,
+//         ties away from zero), mma.sync.m16n8k8.tf32 with f32 accumulators (495
+//         TFLOP/s). 128 x 128 tile, 8 warps of 64 x 32, BK = 32.
+//   bf16p 'default': each value rounded to bf16 (nearest even), then the bf16 wgmma
+//         core, one pass, f32 accumulators, f32 written.
+// Every product of rounded values is exact in f32, so each kind differs from its
+// plain version (grouped_matmul_plain(precision=)) only by the order of the sum.
 // The operands reach shared memory through a ring of stages filled by cp.async, so
 // the loads of later k slices overlap the products of this one. The ring runs over
 // the concatenated (pair, k slice) stream of a tile: the loads of the next pair
@@ -55,7 +69,8 @@
 // at the chi = 4096 list 1.4x faster than the same kernel reading its tables from
 // device memory, and f64 a few per cent. Larger lists come in device memory.
 //   outs  [n_out, 8]   = c_ptr, M, N, first_tile, tiles_n, pair_begin, pair_end, 0
-//   pairs [n_pairs, 8] = a_ptr, lda, b_ptr, ldb, K, 0, 0, 0
+//   pairs [n_pairs, 8] = a_ptr, lda, b_ptr, ldb, K, a_bf16, b_bf16, 0
+// (a_bf16, b_bf16: the operand is bf16; read by the converting kinds only)
 // A_p is [M, K] with row pitch lda, B_p [K, N] with row pitch ldb (unit stride
 // along a row), C_o contiguous [M, N]. The tiles of output o are first_tile ..
 // first_tile + ceil(M / BM) * tiles_n - 1, tiles_n = ceil(N / BN), row-major.
@@ -70,6 +85,7 @@ namespace {
 constexpr int OUT_COLS = 8;
 constexpr int PAIR_COLS = 8;
 constexpr int PAIR_K = 4;  // the column of K in a pair row
+constexpr int PAIR_A_BF16 = 5, PAIR_B_BF16 = 6;  // the operand is bf16 (converting kinds)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -171,7 +187,7 @@ struct F64 {
   static constexpr int LDB = BN + 4;
   static constexpr int A_BYTES = BM * LDA * 8;
   static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 8;
-  static constexpr bool SWIZZLED = false, ASYNC_MMA = false;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = false;
   struct Acc { double v[4][4][4]; };  // [m16 tile][n8 tile][fragment]
 
   __device__ __forceinline__ static uint32_t a_off(int r, int c) {
@@ -255,7 +271,7 @@ struct F32 {
   static constexpr int LDB = BN + 4;
   static constexpr int A_BYTES = BM * LDA * 4;
   static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 4;
-  static constexpr bool SWIZZLED = false, ASYNC_MMA = false;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = false;
   struct Acc { float v[8][8]; };
 
   __device__ __forceinline__ static uint32_t a_off(int r, int c) { return (r * LDA + c) * 4; }
@@ -367,7 +383,7 @@ struct BF16 {
                        LOAD_UNROLL = 8;
   static constexpr int A_BYTES = BM * BK * 2;  // 16 KiB
   static constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2;
-  static constexpr bool SWIZZLED = true, ASYNC_MMA = true;
+  static constexpr bool SWIZZLED = true, ASYNC_MMA = true, CONVERTS = false;
   struct Acc { float v[64]; };
 
   // 128-byte swizzle (the layout of TMA's SWIZZLE_128B): in each 1024-byte block of
@@ -431,6 +447,166 @@ struct BF16 {
 template <class P> struct Out { using type = typename P::T; };
 template <> struct Out<BF16> { using type = __nv_bfloat16; };
 
+// ---- f32 results of operands rounded as they are staged -------------------------------
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t bits) {  // bf16 -> f32, exact
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
+
+// Copies the ROWS x COLS box at (r0, c0) of a row-major matrix of S (float, or bf16
+// bits; pitch ld, R x C valid) into one stage through registers: two neighbouring
+// elements a thread, widened to f32 and handed to P::store2, which rounds them and
+// writes them at byte off(r, c) of `stage`; what lies outside the matrix is zero.
+template <typename S, class P, int ROWS, int COLS, class Off>
+__device__ __forceinline__ void load_box_cvt(unsigned char* stage, const S* base, int64_t ld,
+                                             int64_t r0, int64_t c0, int64_t R, int64_t C,
+                                             Off off) {
+  constexpr int PER_ROW = COLS / 2;
+  static_assert(P::THREADS % PER_ROW == 0, "a row's pairs must not straddle the threads");
+  constexpr int ROW_STEP = P::THREADS / PER_ROW;
+  static_assert(ROWS % ROW_STEP == 0, "box does not split evenly over the threads");
+  const int r = static_cast<int>(threadIdx.x) / PER_ROW;
+  const int c = (static_cast<int>(threadIdx.x) % PER_ROW) * 2;
+  const bool v0 = c0 + c < C, v1 = c0 + c + 1 < C;
+  const int64_t rows = R - (r0 + r);  // valid rows from this thread's first one
+  const int n_rows = static_cast<int>(rows < 0 ? 0 : (rows > ROWS ? ROWS : rows));
+  const S* src = base + (r0 + r) * ld + c0 + c;
+  const int64_t step = ROW_STEP * ld;
+#pragma unroll P::LOAD_UNROLL
+  for (int i = 0; i < ROWS / ROW_STEP; ++i) {
+    const bool in = i * ROW_STEP < n_rows;
+    const float x0 = in && v0 ? widen(__ldg(src)) : 0.f;
+    const float x1 = in && v1 ? widen(__ldg(src + 1)) : 0.f;
+    P::store2(stage + off(r + i * ROW_STEP, c), x0, x1);
+    src += step;
+  }
+}
+
+// 'float32' with a bf16 operand: widened exactly, then the f32 FMA path
+struct F32W : F32 {
+  static constexpr bool CONVERTS = true;
+  __device__ __forceinline__ static void store2(unsigned char* p, float x0, float x1) {
+    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+  }
+};
+
+// 'default': one bf16 pass on the wgmma core, f32 written
+struct BF16P : BF16 {
+  using T = float;  // the type of C
+  static constexpr bool CONVERTS = true;
+  __device__ __forceinline__ static void store2(unsigned char* p, float x0, float x1) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);  // x0 first
+  }
+  __device__ __forceinline__ static void store(const Acc& acc, float* C, int64_t M, int64_t N,
+                                               int64_t row0, int64_t col0) {
+    const int wg = threadIdx.x / 128, w4 = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int64_t r = row0 + wg * 64 + w4 * 16 + l / 4 + 8 * ((i / 2) % 2);
+      const int64_t c = col0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
+      if (r < M && c < N) C[r * N + c] = acc.v[i];
+    }
+  }
+};
+
+// 'tensorfloat32': mma.sync m16n8k8 .tf32, f32 accumulators
+struct TF32P {
+  using T = float;
+  static constexpr int THREADS = 256, BM = 128, BN = 128, BK = 32, STAGES = 3, MIN_CTAS = 2,
+                       LOAD_UNROLL = 4;
+  // padded rows: the A fragments (rows g, cols t) and the B fragments (rows t, cols g)
+  // of a warp hit 32 distinct banks
+  static constexpr int LDA = BK + 4;
+  static constexpr int LDB = BN + 8;
+  static constexpr int A_BYTES = BM * LDA * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 4;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = true;
+  struct Acc { float v[4][4][4]; };  // [m16 tile][n8 tile][fragment]
+
+  __device__ __forceinline__ static uint32_t a_off(int r, int c) { return (r * LDA + c) * 4; }
+  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
+    return A_BYTES + (r * LDB + c) * 4;
+  }
+
+  __device__ __forceinline__ static uint32_t tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
+  }
+  __device__ __forceinline__ static void store2(unsigned char* p, float x0, float x1) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(tf32(x0), tf32(x1));
+  }
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc.v[i][j][f] = 0.f;
+  }
+
+  __device__ __forceinline__ static void drain(Acc&) {}
+
+  __device__ __forceinline__ static void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                                  const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+
+  // warp w owns rows (w / 4) * 64 .. + 63 and cols (w % 4) * 32 .. + 31 of the tile.
+  // A fragment: rows g, g + 8 and cols t, t + 4; B fragment: rows t, t + 4, col g.
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
+    const uint32_t* sA = reinterpret_cast<const uint32_t*>(stage);
+    const uint32_t* sB = reinterpret_cast<const uint32_t*>(stage + A_BYTES);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t* a_base = sA + ((warp / 4) * 64 + g) * LDA + t;
+    const uint32_t* b_base = sB + t * LDB + (warp % 4) * 32 + g;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i][0] = a_base[(i * 16) * LDA + kk];
+        a[i][1] = a_base[(i * 16 + 8) * LDA + kk];
+        a[i][2] = a_base[(i * 16) * LDA + kk + 4];
+        a[i][3] = a_base[(i * 16 + 8) * LDA + kk + 4];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j][0] = b_base[kk * LDB + j * 8];
+        b[j][1] = b_base[(kk + 4) * LDB + j * 8];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(acc.v[i][j], a[i], b[j]);
+    }
+  }
+
+  // fragment f of an m16n8 tile: row g + 8 * (f / 2), col 2 * t + f % 2
+  __device__ __forceinline__ static void store(const Acc& acc, float* C, int64_t M, int64_t N,
+                                               int64_t row0, int64_t col0) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int64_t r = row0 + (warp / 4) * 64 + i * 16 + g + 8 * (f / 2);
+          const int64_t c = col0 + (warp % 4) * 32 + j * 8 + 2 * t + f % 2;
+          if (r < M && c < N) C[r * N + c] = acc.v[i][j][f];
+        }
+  }
+};
+
 template <class P>
 constexpr int smem_bytes() { return P::STAGES * P::STAGE_BYTES + (P::SWIZZLED ? 1024 : 0); }
 
@@ -456,15 +632,30 @@ __device__ __forceinline__ void load_step(unsigned char* stage, const int64_t* p
                                           int64_t k0, int64_t M, int64_t N,
                                           int64_t row0, int64_t col0) {
   using T = typename P::T;
-  const T* A = reinterpret_cast<const T*>(pr[0]);
-  const T* B = reinterpret_cast<const T*>(pr[2]);
   const int64_t K = pr[PAIR_K];
   const auto a_off = [](int r, int c) { return P::a_off(r, c); };
   const auto b_off = [](int r, int c) { return P::b_off(r, c); };
-  load_box<T, P::BM, P::BK, P::THREADS, P::LOAD_UNROLL>(stage, A, pr[1], row0, k0, M, K,
-                                                        a_off);
-  load_box<T, P::BK, P::BN, P::THREADS, P::LOAD_UNROLL>(stage, B, pr[3], k0, col0, K, N,
-                                                        b_off);
+  if constexpr (P::CONVERTS) {  // each operand in its own type: f32 or bf16 bits
+    if (pr[PAIR_A_BF16])
+      load_box_cvt<uint16_t, P, P::BM, P::BK>(stage, reinterpret_cast<const uint16_t*>(pr[0]),
+                                              pr[1], row0, k0, M, K, a_off);
+    else
+      load_box_cvt<float, P, P::BM, P::BK>(stage, reinterpret_cast<const float*>(pr[0]),
+                                           pr[1], row0, k0, M, K, a_off);
+    if (pr[PAIR_B_BF16])
+      load_box_cvt<uint16_t, P, P::BK, P::BN>(stage, reinterpret_cast<const uint16_t*>(pr[2]),
+                                              pr[3], k0, col0, K, N, b_off);
+    else
+      load_box_cvt<float, P, P::BK, P::BN>(stage, reinterpret_cast<const float*>(pr[2]),
+                                           pr[3], k0, col0, K, N, b_off);
+  } else {
+    const T* A = reinterpret_cast<const T*>(pr[0]);
+    const T* B = reinterpret_cast<const T*>(pr[2]);
+    load_box<T, P::BM, P::BK, P::THREADS, P::LOAD_UNROLL>(stage, A, pr[1], row0, k0, M, K,
+                                                          a_off);
+    load_box<T, P::BK, P::BN, P::THREADS, P::LOAD_UNROLL>(stage, B, pr[3], k0, col0, K, N,
+                                                          b_off);
+  }
 }
 
 // The tables of a launch: in device memory, or, for lists small enough, inside the
@@ -608,6 +799,9 @@ int launch_dtype(int dtype, const Tables& tables, int64_t n_out, int64_t n_tiles
     case 0: return launch<F64>(tables, n_out, n_tiles, s);
     case 1: return launch<F32>(tables, n_out, n_tiles, s);
     case 2: return launch<BF16>(tables, n_out, n_tiles, s);
+    case 3: return launch<F32W>(tables, n_out, n_tiles, s);
+    case 4: return launch<TF32P>(tables, n_out, n_tiles, s);
+    case 5: return launch<BF16P>(tables, n_out, n_tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -628,7 +822,8 @@ int with_device(int device, F&& launch) {
 
 }  // namespace
 
-// dtype: 0 = float64, 1 = float32, 2 = bfloat16. `tables` holds the outs rows and
+// dtype (the kind): 0 = float64, 1 = float32, 2 = bfloat16; f32 results of f32 or
+// bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'). `tables` holds the outs rows and
 // then the pairs rows, n_words int64 in all: in host memory if tables_on_device is 0
 // (then n_words <= INLINE_WORDS; they are copied into the launch's parameters and may
 // be freed on return), else in device memory. Launches on `stream` of CUDA device
@@ -652,7 +847,7 @@ extern "C" int cyten_grouped_gemm(int dtype, const int64_t* tables, int64_t n_wo
   return with_device(device, [&] { return launch_dtype(dtype, inline_tables, n_out, n_tiles, s); });
 }
 
-// The output tile (BM, BN) of each dtype and the capacity of the inline tables in
+// The output tile (BM, BN) of each kind and the capacity of the inline tables in
 // int64 words: the host's table builder takes both from here.
 extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
   bm_bn_words[2] = INLINE_WORDS;
@@ -660,6 +855,9 @@ extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
     case 0: bm_bn_words[0] = F64::BM; bm_bn_words[1] = F64::BN; return 0;
     case 1: bm_bn_words[0] = F32::BM; bm_bn_words[1] = F32::BN; return 0;
     case 2: bm_bn_words[0] = BF16::BM; bm_bn_words[1] = BF16::BN; return 0;
+    case 3: bm_bn_words[0] = F32W::BM; bm_bn_words[1] = F32W::BN; return 0;
+    case 4: bm_bn_words[0] = TF32P::BM; bm_bn_words[1] = TF32P::BN; return 0;
+    case 5: bm_bn_words[0] = BF16P::BM; bm_bn_words[1] = BF16P::BN; return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

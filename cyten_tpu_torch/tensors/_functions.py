@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 
 from ..backends._backend import truncation_mask_from_S
+from ..backends.data import BlockSparseData, DiagonalBlockData
 from ..dtypes import Dtype
 from ..symmetries import (
     ElementarySpace, Leg, LegPipe, Space, SymmetryError, TensorProduct,
@@ -1635,6 +1636,12 @@ def truncate_singular_values(S: DiagonalTensor, chi_max=None, chi_min=None,
         data, small_leg = S.backend.mask_from_block(public, leg)
         mask = Mask(data, space_in=leg, space_out=small_leg,
                     is_projection=True, backend=S.backend, labels=S.labels)
+        # the pattern on the host, by sector: lets a mask be applied and cached by
+        # its content with no device read (_PrefixMask, tensors/adaptive.py)
+        mask._host_bools = tuple(
+            (tuple(int(x) for x in leg.sector_decomposition[i]),
+             np.asarray(m, bool).tobytes())
+            for (i, _), m in zip(per_sector, masks))
     else:  # per-multiplet masks with qdim > 1 (or no dense basis)
         bb = S.backend.block_backend
         mask_by_sector = {tuple(leg.sector_decomposition[i]): m
@@ -1658,6 +1665,74 @@ def svd_apply_mask(U: SymmetricTensor, S: DiagonalTensor, Vh: SymmetricTensor,
     S = apply_mask_DiagonalTensor(S, mask)
     Vh = _compose_with_Mask(Vh, mask, 0)
     return U, S, Vh
+
+
+class _PrefixMask:
+    """A truncation that keeps the first ``k`` values of each sector of an SVD's new
+    leg, resolved to host-side slices once.
+
+    Static mode keeps, per sector, the multiplicity the sector had when the
+    structures froze; a truncation of singular values sorted in each sector keeps a
+    prefix too. A :class:`Mask` says so with boolean blocks on the device, and
+    applying it there (``svd_apply_mask``) makes the host read them on every call.
+    Here they are read once, from the host copy of the pattern where
+    :func:`truncate_singular_values` attached one (``_host_bools``), else from the
+    device: :meth:`apply` then cuts each block to its first ``k`` entries, the same
+    result as ``svd_apply_mask`` with no device read. Raises ``ValueError`` for a
+    mask that keeps more than a prefix of a sector.
+    """
+
+    def __init__(self, mask: Mask):
+        if not mask.is_projection:
+            raise ValueError('a prefix mask is a projection')
+        bb = mask.backend.block_backend
+        self.small_leg = mask.small_leg
+        self.large_leg = mask.large_leg
+        # the pattern on the host where truncate_singular_values left it, by sector
+        host = dict(getattr(mask, '_host_bools', ()))
+        self.keep = {}  # large-leg sector index -> (small-leg sector index, k)
+        for (i_small, i_large), blk in zip(mask.data.block_inds, mask.data.blocks):
+            sector = tuple(int(x) for x in self.large_leg.sector_decomposition[i_large])
+            keep = (np.frombuffer(host[sector], bool) if sector in host
+                    else bb.to_numpy(blk).astype(bool))
+            k = int(keep.sum())
+            if not keep[:k].all():
+                raise ValueError('the mask keeps more than a prefix of a sector')
+            self.keep[int(i_large)] = (int(i_small), k)
+
+    def _cut(self, blocks, block_inds, leg_idx: int):
+        """Blocks on ``large_leg`` at ``leg_idx`` cut to the kept prefix, and their
+        rows with that leg's sector index on ``small_leg``."""
+        out, rows = [], []
+        for blk, row in zip(blocks, block_inds):
+            hit = self.keep.get(int(row[leg_idx]))
+            if hit is None:
+                continue
+            i_small, k = hit
+            idx = [slice(None)] * blk.ndim
+            idx[leg_idx] = slice(0, k)
+            out.append(blk[tuple(idx)])
+            row = row.copy()
+            row[leg_idx] = i_small
+            rows.append(row)
+        return out, np.array(rows, np.intp).reshape(len(rows), np.shape(block_inds)[1])
+
+    def apply(self, U, S, Vh):
+        """``svd_apply_mask(U, S, Vh, mask)`` for the SVD's own new leg."""
+        if not (U.domain.factors[-1] == S.leg == Vh.codomain.factors[0]
+                == self.large_leg):
+            raise ValueError('the mask does not fit the SVD')
+        blocks, rows = self._cut(U.data.blocks, U.data.block_inds, U.num_legs - 1)
+        U = SymmetricTensor(BlockSparseData(blocks, rows, U.data.dtype), U.codomain,
+                            TensorProduct([self.small_leg]), U.backend, U.labels)
+        blocks, rows = self._cut(S.data.blocks, S.data.block_inds[:, None], 0)
+        S = DiagonalTensor(DiagonalBlockData(blocks, rows[:, 0], S.data.dtype),
+                           self.small_leg, S.backend, S.labels)
+        blocks, rows = self._cut(Vh.data.blocks, Vh.data.block_inds, 0)
+        Vh = SymmetricTensor(BlockSparseData(blocks, rows, Vh.data.dtype),
+                             TensorProduct([self.small_leg]), Vh.domain, Vh.backend,
+                             Vh.labels)
+        return U, S, Vh
 
 
 def truncated_svd(tensor: Tensor, new_labels=None, new_leg_dual: bool = False,

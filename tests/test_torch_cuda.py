@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from cyten_tpu_torch import get_backend, u1_symmetry
+from cyten_tpu_torch import Dtype, get_backend, u1_symmetry
 from cyten_tpu_torch.algorithms import (
     DMRGEngine, SimpleMPS, TFIModel, tfi_exact_finite_gs_energy,
 )
@@ -387,13 +387,15 @@ def test_captured_grouped_gemm_keeps_its_pinned_table(card):
     with graph.capture():
         assert _kernels._current_stream(0) == torch.cuda.current_stream().cuda_stream
         outs = grouped_matmul(As, Bs, out_ids)
-    assert graph.launches == {grouped_matmul: 1} and graph.keep
+    # one launch, counted for the wrapper and for its kind (f64)
+    kind = grouped_matmul.kinds['float64']
+    assert graph.launches == {grouped_matmul: 1, kind: 1} and graph.keep
     As2, Bs2 = pair_list()
     other = grouped_matmul(As2, Bs2, out_ids)
-    before = grouped_matmul.launches
+    before, kind_before = grouped_matmul.launches, kind.launches
     graph.replay()
     torch.cuda.synchronize()
-    assert grouped_matmul.launches == before + 1
+    assert grouped_matmul.launches == before + 1 and kind.launches == kind_before + 1
     for got, ref in ((outs, grouped_matmul_plain(As, Bs, out_ids)),
                      (other, grouped_matmul_plain(As2, Bs2, out_ids))):
         for c, r in zip(got, ref):
@@ -425,6 +427,130 @@ def test_kernel_captured_outside_graph_raises(card):
     with pytest.raises(RuntimeError):
         with torch.cuda.graph(g):
             scale2(x)
+
+
+# the kinds that write f32 from rounded operands: (precision, A dtype, B dtype)
+ROUNDED = [('tensorfloat32', torch.float32, torch.float32),
+           ('tensorfloat32', torch.bfloat16, torch.float32),
+           ('default', torch.float32, torch.float32),
+           ('default', torch.float32, torch.bfloat16),
+           ('float32', torch.bfloat16, torch.float32),
+           ('float32', torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(RAGGED))
+@pytest.mark.parametrize('precision, a_dtype, b_dtype', ROUNDED)
+def test_grouped_gemm_rounded_kinds(card, case, precision, a_dtype, b_dtype):
+    """Each converting kind against its plain version: the operands rounded alike and
+    the products exact in f32, so the two differ by the order of their f32 sums
+    alone: K 2^-23 times the product of the rounded operands' magnitudes."""
+    from cyten_tpu_torch.blocks import grouped_gemm
+    from cyten_tpu_torch.config import config
+
+    shapes, out_ids = RAGGED[case]
+    rng = np.random.default_rng(8)
+    As = [torch.from_numpy(rng.normal(size=(M, K))).to(card, a_dtype) for M, K, N in shapes]
+    Bs = [torch.from_numpy(rng.normal(size=(K, N))).to(card, b_dtype) for M, K, N in shapes]
+    kind = precision if precision != 'float32' else 'float32_mixed'
+    before = grouped_matmul.kinds[kind].launches
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        got = grouped_matmul(As, Bs, out_ids)
+    finally:
+        config.matmul_precision = old
+    ref = grouped_matmul_plain(As, Bs, out_ids, precision=precision)
+    torch.cuda.synchronize()
+    assert grouped_matmul.kinds[kind].launches == before + 1
+    mag = grouped_matmul_plain([grouped_gemm._rounded(A, precision).abs().double()
+                                for A in As],
+                               [grouped_gemm._rounded(B, precision).abs().double()
+                                for B in Bs], out_ids)
+    ks = np.zeros(max(out_ids) + 1)
+    np.add.at(ks, out_ids, [K for M, K, N in shapes])
+    for o, (c, r, m) in enumerate(zip(got, ref, mag)):
+        assert c.dtype == torch.float32 and c.shape == r.shape
+        assert bool(((c.double() - r.double()).abs() <= ks[o] * 2. ** -23 * m).all())
+
+
+@pytest.mark.cuda
+def test_mixed_operands_are_read_in_place(card):
+    """A bf16 operand of an f32 list reaches the kernel as it is: the pointers in the
+    launch's table are the bf16 blocks' own, and no copy is made."""
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
+
+    rng = np.random.default_rng(12)
+    As = [torch.from_numpy(rng.normal(size=(64, k))).to(card, torch.bfloat16)
+          for k in (33, 130)]
+    Bs = [torch.from_numpy(rng.normal(size=(k, 90))).to(card, torch.float32)
+          for k in (33, 130)]
+    outs, launch = grouped_matmul_plan(As, Bs, [0, 0])
+    ua, ub, table = launch.operands
+    assert all(a is A for a, A in zip(ua, As)) and all(b is B for b, B in zip(ub, Bs))
+    assert isinstance(table, np.ndarray)  # a table small enough to travel inline
+    n_out = 1
+    assert set(table[n_out:, 0].tolist()) == {A.data_ptr() for A in As}
+    assert set(table[n_out:, 5].tolist()) == {1} and set(table[n_out:, 6].tolist()) == {0}
+    launch()
+    ref = sum(A.double() @ B.double() for A, B in zip(As, Bs))
+    torch.cuda.synchronize()
+    assert outs[0].dtype == torch.float32
+    assert float((outs[0].double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_environments_matvec_reads_them_in_place(card):
+    """The effective-Hamiltonian matvec with bf16 LP/RP and an f32 theta: the grouped
+    GEMM runs its mixed kind, and the result is the CPU's (the bf16 operand widened,
+    f32 sums in another order)."""
+    out = {}
+    for device in ('cuda', 'cpu'):
+        LP, RP, W1, W2, theta = build_workload(get_backend(u1_symmetry, device=device), 64,
+                                               dtype=Dtype.float32)
+        H = HEffective(LP.to_dtype(Dtype.bfloat16), RP.to_dtype(Dtype.bfloat16), W1, W2)
+        before = grouped_matmul.kinds['float32_mixed'].launches
+        out[device] = H.matvec(theta)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            assert grouped_matmul.kinds['float32_mixed'].launches > before
+    got, ref = out['cuda'].to_numpy(), out['cpu'].to_numpy()
+    assert out['cuda'].dtype == Dtype.float32
+    assert np.linalg.norm(got - ref) <= 1e-5 * np.linalg.norm(ref)
+
+
+@pytest.mark.cuda
+def test_static_graphs_keep_bf16_environments(card):
+    """Static mode with env_dtype=bfloat16 through CUDA graphs keeps every interior
+    LP/RP bf16 across replays, and captures anew when matmul_precision or env_dtype
+    changes."""
+    L = 8
+    model = TFIModel(L=L, J=1., g=1.5, conserve='parity')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=16, eps=1e-12, pad_chi_multiple=4,
+                     env_dtype=Dtype.bfloat16)
+    eng.run(n_sweeps=4)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    for _ in range(3):  # the second sweep captures, the third replays
+        E = eng.sweep()
+    graphs = len(eng.static_graphs())
+    assert graphs > 0
+    assert all(t.dtype == Dtype.bfloat16 for t in eng.LPs[1:-1] + eng.RPs[1:-1])
+    E_exact = tfi_exact_finite_gs_energy(L, 1., 1.5)
+    assert abs(E - E_exact) < 0.02 * abs(E_exact)  # the environments' first-order error
+    eng.matmul_precision = 'tensorfloat32'
+    for _ in range(2):
+        eng.sweep()
+    assert len(eng.static_graphs()) > graphs
+    graphs = len(eng.static_graphs())
+    eng.env_dtype, eng.matmul_precision = None, None
+    eng.LPs = [t.to_dtype(Dtype.float64) for t in eng.LPs]
+    eng.RPs = [t.to_dtype(Dtype.float64) for t in eng.RPs]
+    for _ in range(2):
+        E = eng.sweep()
+    assert len(eng.static_graphs()) > graphs
+    assert all(t.dtype == Dtype.float64 for t in eng.LPs[1:-1] + eng.RPs[1:-1])
+    assert abs(E - E_exact) < 1e-8
 
 
 def test_step_flops_matches_cyten_tpu():

@@ -139,16 +139,33 @@ def test_non_finite_sweep_raises_fault_error():
         eng.run(n_sweeps=2)
 
 
-# auto_static is ported (tests/test_torch_static.py); its place checks the other
-# unported dynamic_svd method
-@pytest.mark.parametrize('kwargs', [{'mesh': object()}, {'orthogonal_to': [None]},
-                                    {'dynamic_svd': 'randomized'},
-                                    {'dynamic_svd': 'adaptive'}])
+@pytest.mark.parametrize('kwargs', [{'mesh': object()}, {'orthogonal_to': [None]}])
 def test_unported_engine_options_raise(kwargs):
     model = HeisenbergModel(L=2, conserve='Sz', device='cpu')
     psi = SimpleMPS.from_product_state(model.site_legs, [0, 1], backend=model.backend)
     with pytest.raises(NotImplementedError):
         DMRGEngine(psi, model, **kwargs)
+
+
+# the settings of cyten_tpu's own tests of the two methods: tests/test_dmrg.py
+# (test_dmrg_adaptive_svd) and tests/test_randomized_svd.py (test_dmrg_with_randomized_svd)
+@pytest.mark.parametrize('method', ['randomized', 'adaptive'])
+def test_dynamic_svd_methods_run(method):
+    from cyten_tpu_torch.algorithms import TFIModel, tfi_exact_finite_gs_energy
+
+    if method == 'adaptive':
+        L, tol = 8, 1e-9
+        model = HeisenbergModel(L=L, conserve='Sz', device='cpu')
+        state, chi_max, n_sweeps = [0, 1] * (L // 2), 32, 14
+        E_exact = heisenberg_exact_finite_gs_energy(L, 1.)
+    else:
+        L, tol = 10, 1e-7
+        model = TFIModel(L=L, J=1., g=1.5, conserve='parity', device='cpu')
+        state, chi_max, n_sweeps = [0] * L, 24, 12
+        E_exact = tfi_exact_finite_gs_energy(L, 1., 1.5)
+    psi = SimpleMPS.from_product_state(model.site_legs, state, backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=chi_max, eps=1e-13, dynamic_svd=method)
+    assert abs(eng.run(n_sweeps=n_sweeps) - E_exact) < tol
 
 
 def test_checkpoint_not_ported_raises():
