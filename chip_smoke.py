@@ -7,11 +7,13 @@ Builds the CUDA kernels from the sources in the checkout, holds each against its
 plain PyTorch version on the card, drives the port's main paths (U(1) Heisenberg
 two-site DMRG: HeisenbergModel -> SimpleMPS -> DMRGEngine.run, dynamic and then in
 static mode; and the port's bench step, cyten_tpu_torch.bench) at the full width of
-the repo's production setting, checks the energies, and ends with one JSON line
+the repo's production setting, and SU(2) Heisenberg DMRG on the fusion-tree backend,
+checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
     python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
+    python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
@@ -75,6 +77,20 @@ Phases:
   10. bench.accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=4): polished and raw
      bf16 dE against HEIS24_E_REF beside cyten_tpu's CPU figures (1.04e-5, 2.25e-3);
      the polished dE must stay below 1e-3
+  11. SU(2) Heisenberg on the fusion-tree backend: L=8 against exact diagonalization
+     (1e-9); L=24 at chi_max=512 multiplets, eps=0, N_max=10, from singlet pairs,
+     swept dynamically until the centre bond holds 512 multiplets, against
+     HEIS24_E_REF and phase 4's U(1) energy (1e-8), with the grouped GEMM counted,
+     and one dynamic bond update under torch.profiler; static mode on it: two eager
+     steady sweeps (1e-8, B right-isometric), two sweep_static_batched() sweeps
+     through CUDA graphs (the runs of _static_runs, period 2; graphs captured and
+     capture seconds; grouped-GEMM and tridiagonal launches counted through
+     replays; host syncs of a replayed sweep; one replayed sweep under
+     torch.profiler), one eager sweep that must agree (1e-10); the centre bond's
+     compose pair list (one pair per coupled sector) on the kernel against its plain
+     version in f64, timed as in phase 2; one static bond update at 32 multiplets,
+     card against CPU (E 1e-9 relative, S 1e-8); bench.su2_run and bench.su2_step at
+     512 multiplets, eager and as a graph (ms, capture seconds)
 """
 
 from __future__ import annotations
@@ -344,7 +360,8 @@ def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
 
 def count_syncs(fn) -> int:
     """Host syncs that ``fn()`` makes, as torch.cuda.set_sync_debug_mode('warn')
-    reports them (it sees syncs that PyTorch makes, not those inside a library)."""
+    reports them (it sees syncs that PyTorch makes, not those inside a library).
+    Leaves the source line of each in ``count_syncs.where``."""
     import torch
 
     with warnings.catch_warnings(record=True) as caught:
@@ -352,10 +369,12 @@ def count_syncs(fn) -> int:
         torch.cuda.set_sync_debug_mode('warn')
         try:
             fn()
-            torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode('default')
-    return sum('synchroniz' in str(w.message) for w in caught)
+    torch.cuda.synchronize()  # outside: PyTorch may report this sync once per process
+    syncs = [w for w in caught if 'synchroniz' in str(w.message)]
+    count_syncs.where = [f'{os.path.relpath(w.filename)}:{w.lineno}' for w in syncs]
+    return len(syncs)
 
 
 def assert_right_isometric(psi, tol: float):
@@ -615,10 +634,175 @@ def check_sass(kernels):
         raise AssertionError(f'the grouped GEMM kinds do not run on {SASS_OPS}')
 
 
+def su2_compose_pairs(LP, theta):
+    """The grouped-GEMM operands of the SU(2) matvec's first compose, inside
+    tdot(theta, LP, 'vL', 'vR'), as the fusion-tree backend passes them: the
+    permuted theta's and LP's blocks, ``(As, Bs, pairs, out_id, n_out)`` with one
+    pair and one output per coupled sector."""
+    from cyten_tpu_torch.backends.fusion_tree import _compose_pairs
+    from cyten_tpu_torch.tensors import permute_legs
+
+    t1 = permute_legs(theta, codomain=['p0', 'p1', 'vR'], domain=['vL'])
+    t2 = permute_legs(LP, codomain=['vR'], domain=['wR', 'vR*'])
+    a, b = t1.data.block_inds, t2.data.block_inds
+    ia, ib, rows = _compose_pairs(a.tobytes(), len(a), b.tobytes(), len(b))
+    return t1.data.blocks, t2.data.blocks, (ia, ib), np.arange(len(rows)), len(rows)
+
+
+def su2_phase(E24) -> dict:
+    """Phase 11: SU(2) Heisenberg on the fusion-tree backend (see the module
+    docstring). ``E24``: phase 4's U(1) energy (None where phase 4 did not run).
+    Returns the numbers of its kernels-line entry."""
+    import torch
+    from cyten_tpu_torch import get_backend, su2_symmetry
+    from cyten_tpu_torch.algorithms import (
+        DMRGEngine, HEffective, HeisenbergModel, SimpleMPS,
+        heisenberg_exact_finite_gs_energy,
+    )
+    from cyten_tpu_torch.algorithms.dmrg import _get_static_bond_fn
+    from cyten_tpu_torch.bench import build_step_state, build_su2_workload, su2_run, su2_step
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.torch_backend import _CONSTANTS_MAX
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_ground_state
+
+    # L=8 against exact diagonalization: the BASELINE.md anchor
+    model = HeisenbergModel(L=8, conserve='SU(2)')
+    psi = SimpleMPS.from_singlet_pairs(model.site_leg, 8, backend=model.backend)
+    E8 = DMRGEngine(psi, model, chi_max=16).run(n_sweeps=6)
+    E8_exact = heisenberg_exact_finite_gs_energy(8, 1.)
+    print(f'[SU(2) L=8] E = {E8!r}, exact {E8_exact!r}, |dE| = {abs(E8 - E8_exact):.3e}',
+          flush=True)
+    if not abs(E8 - E8_exact) < 1e-9:
+        raise AssertionError('SU(2) L=8 DMRG energy wrong')
+
+    # L=24 at 512 multiplets from singlet pairs, dynamic until the centre bond is full
+    L, chi_max = 24, 512
+    model = HeisenbergModel(L=L, conserve='SU(2)')
+    psi = SimpleMPS.from_singlet_pairs(model.site_leg, L, backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=chi_max, eps=0., lanczos_options={'N_max': 10})
+    i = L // 2 - 1
+
+    def centre_mult():
+        return int(np.sum(psi.Ss[i + 1].leg.multiplicities))
+
+    grouped_matmul.launches = 0
+    tridiagonal_ground_state.launches = 0
+    E = None
+    dyn_s = []
+    for sweep in range(12):
+        t0 = time.perf_counter()
+        E_new = eng.run(n_sweeps=1)
+        torch.cuda.synchronize()
+        dyn_s.append(time.perf_counter() - t0)
+        print(f'[SU(2) L=24] sweep {sweep + 1}: E = {E_new!r}, {dyn_s[-1]:.2f} s, centre '
+              f'bond {centre_mult()} multiplets, {int(psi.Ss[i + 1].leg.dim)} states',
+              flush=True)
+        converged = E is not None and abs(E_new - E) < 1e-10
+        E = E_new
+        if converged and centre_mult() == chi_max:
+            break
+    launches = grouped_matmul.launches
+    dE_u1 = None if E24 is None else abs(E - E24)
+    print(f'[SU(2) L=24] E = {E!r}, ref {HEIS24_E_REF!r}, |dE| = {abs(E - HEIS24_E_REF):.3e}, '
+          f'|E - E(U(1), phase 4)| = {dE_u1}, grouped-GEMM launches {launches}, sweep s '
+          f'{json.dumps(dyn_s)}', flush=True)
+    if not (abs(E - HEIS24_E_REF) < 1e-8 and (dE_u1 is None or dE_u1 < 1e-8)
+            and launches > 0 and centre_mult() == chi_max):
+        raise AssertionError('SU(2) L=24 DMRG energy, width or kernel launches wrong')
+    profile_run(f'SU(2) dynamic bond {i}', lambda: eng.update_bond(i))
+
+    # static mode: two eager steady sweeps, two through graphs, one eager after
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    eager_s = []
+    for sweep in range(2):
+        t0 = time.perf_counter()
+        E_static = eng.sweep()
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        print(f'[SU(2) static] eager sweep {sweep + 1}: E = {E_static!r}, '
+              f'{eager_s[-1]:.2f} s', flush=True)
+    if not abs(E_static - HEIS24_E_REF) < 1e-8:
+        raise AssertionError('SU(2) static-mode energy wrong')
+    assert_right_isometric(psi, 1e-8)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    print(f'[SU(2) graphs] runs of _static_runs: {eng._static_runs()}', flush=True)
+    graph_s = []
+    for sweep in range(2):
+        grouped_matmul.launches = 0
+        tridiagonal_ground_state.launches = 0
+        t0 = time.perf_counter()
+        E_graph = eng.sweep_static_batched()
+        torch.cuda.synchronize()
+        graph_s.append(time.perf_counter() - t0)
+        sweep_launches = grouped_matmul.launches
+        tridiag_launches = tridiagonal_ground_state.launches
+        print(f'[SU(2) graphs] batched sweep {sweep + 1}: E = {E_graph!r}, '
+              f'{graph_s[-1]:.2f} s, grouped-GEMM launches {sweep_launches}, tridiag '
+              f'launches {tridiag_launches}', flush=True)
+    graphs = eng.static_graphs()
+    syncs = count_syncs(eng.sweep_static_batched)
+    constants = len(model.backend.block_backend._constants)
+    print(f'[SU(2) graphs] {len(graphs)} graphs captured in '
+          f'{sum(g.capture_seconds for g in graphs):.2f} s; device constants held '
+          f'{constants} (cap {_CONSTANTS_MAX}); launches per replayed sweep: '
+          f'grouped GEMM {sweep_launches}, tridiag {tridiag_launches}; host syncs of a '
+          f'replayed sweep {syncs} (at {count_syncs.where}); sweep s eager '
+          f'{json.dumps(eager_s)}, graphs {json.dumps(graph_s)}', flush=True)
+    if not (abs(E_graph - HEIS24_E_REF) < 1e-8 and sweep_launches > 0
+            and tridiag_launches > 0 and graphs and syncs <= 1):
+        raise AssertionError('SU(2) batched static sweeps: energy, launches or syncs wrong')
+    profile_run('SU(2) replayed sweep', eng.sweep_static_batched, top=8)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    E_eager = eng.sweep()
+    print(f'[SU(2) graphs] eager sweep after: E = {E_eager!r}, |E - E_graphs| = '
+          f'{abs(E_eager - E_graph):.3e}', flush=True)
+    if not abs(E_eager - E_graph) < 1e-10:
+        raise AssertionError('the eager SU(2) static sweep disagrees with the graphs')
+    assert_right_isometric(psi, 1e-8)
+
+    # the centre bond's compose pair list on the kernel
+    H = HEffective(eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i], model.H_mpo[i + 1])
+    As, Bs, pairs, out_id, n_out = su2_compose_pairs(H.LP, psi.get_theta2(i))
+    compose = compare_kernel(f'SU(2) L=24 centre compose(theta, LP) {chi_max} multiplets',
+                             As, Bs, out_id, n_out, torch.float64, pairs, rounds=8)
+    del eng, psi, model, H, As, Bs
+    torch.cuda.empty_cache()
+
+    # one SU(2) bond update at small chi: the same host-drawn state on card and CPU
+    out = {}
+    for device in ('cuda', 'cpu'):
+        LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
+            get_backend(su2_symmetry, device=device), 32, workload=build_su2_workload)
+        out[device] = _get_static_bond_fn(10, 'steady')(HEffective(LP, RP, W1, W2), S,
+                                                         B1, B2, tmpl, None)
+    (E_card, _, S_card, *_), (E_cpu, _, S_cpu, *_) = out['cuda'], out['cpu']
+    E_card, E_cpu = float(E_card), float(E_cpu)
+    dE = abs(E_card - E_cpu) / abs(E_cpu)
+    dS = float(np.abs(S_card.to_numpy() - S_cpu.to_numpy()).max())
+    print(f'[SU(2) step 32 multiplets f64] card against CPU: E {E_card!r} vs {E_cpu!r} '
+          f'(relative {dE:.3e}), max |dS| {dS:.3e}', flush=True)
+    if not (dE < 1e-9 and dS < 1e-8):
+        raise AssertionError('the SU(2) static step disagrees between card and CPU')
+
+    # the port's bench: the matvec and the step at 512 multiplets
+    t_mv = su2_run(chi_max)
+    print(f'[SU(2) bench {chi_max} multiplets] matvec {t_mv * 1e3:.3f} ms', flush=True)
+    for graph in (False, True):  # eager steps take 20x longer: a shorter slope
+        setup_s, t_step = su2_step(chi_max, graph=graph,
+                                   lengths=(5, 25) if graph else (2, 6))
+        print(f'[SU(2) bench {chi_max} multiplets{" graph" if graph else ""}] step '
+              f'{t_step * 1e3:.3f} ms, {"capture" if graph else "first call"} '
+              f'{setup_s:.2f} s, E {su2_step.energy!r}, {su2_step.launches_per_step} '
+              f'grouped-GEMM launches/step', flush=True)
+    return {**compose, 'launches': launches, 'sweep_launches': sweep_launches,
+            'tridiag_launches': tridiag_launches}
+
+
 def main() -> int:
     import torch
 
     kernels_only = '--kernels-only' in sys.argv[1:]
+    su2_only = '--su2-only' in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -694,6 +878,10 @@ def main() -> int:
     if kernels_only:
         probe = probe_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (kernels only)', flush=True)
+        return 0
+    if su2_only:
+        su2_phase(None)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (SU(2) only)', flush=True)
         return 0
 
     # --- 3. main path, small: L=12 against exact diagonalization -------------------------
@@ -886,7 +1074,7 @@ def main() -> int:
     print(f'[L=24 graphs] {len(graphs)} graphs captured in '
           f'{sum(g.capture_seconds for g in graphs):.2f} s; launches per replayed sweep: '
           f'grouped GEMM {launches_graph}, tridiag {tridiag_launches}; host syncs of a '
-          f'batched sweep {syncs} (two half sweeps); peak reserved {peak_gb:.2f} GB; '
+          f'batched sweep {syncs} (at {count_syncs.where}); peak reserved {peak_gb:.2f} GB; '
           f'sweep s eager {json.dumps(eager_s)}, graphs {json.dumps(graph_s)}', flush=True)
     if not (abs(E_graph - HEIS24_E_REF) < 1e-8 and launches_graph > 0
             and tridiag_launches > 0 and syncs <= 2 and graphs):
@@ -1046,6 +1234,11 @@ def main() -> int:
     if not dE_pol < 1e-3 or not counts.get('default'):
         raise AssertionError(f'accuracy protocol: polished dE {dE_pol} or kinds {counts}')
     phase_s['10'] = acc_s
+
+    # --- 11. SU(2) Heisenberg on the fusion-tree backend -------------------------------------
+    t_phase = time.perf_counter()
+    su2 = su2_phase(E24)
+    phase_s['11'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -1066,6 +1259,11 @@ def main() -> int:
                  for kind, key in (('tensorfloat32', ('tensorfloat32', torch.float32)),
                                    ('default', ('default', torch.float32)),
                                    ('float32_mixed', (None, torch.bfloat16)))),
+               {'name': 'grouped_gemm[su2_compose]', 'route': 'cuda',
+                'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+                'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+                **{k: su2[k] for k in ('launches', 'max_abs_err', 'ms', 'device_ms',
+                                       'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}},
                {'name': 'probe', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/probe.cu',
                 'replaces': 'scripts/exp_r5_step_decomp.py:59',

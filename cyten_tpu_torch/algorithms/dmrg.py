@@ -3,8 +3,10 @@
 The counterpart of ``cyten_tpu/algorithms/dmrg.py``: the environment updates,
 ``_apply_bond_mixing``, the effective-Hamiltonian matvec, :class:`HEffective`, the
 static bond update ``_get_static_bond_fn`` and :class:`DMRGEngine` with ``sweep``,
-``update_bond``, static mode and ``run``. Every ``tdot`` and ``compose`` on the
-abelian backend runs its block products as one grouped-GEMM kernel launch.
+``update_bond``, static mode and ``run``, on the abelian and the fusion-tree (SU(2))
+backends. Every ``tdot`` and ``compose`` on the abelian backend, and every
+``compose`` on the fusion-tree backend, runs its block products as one grouped-GEMM
+kernel launch.
 
 Precision is set per operator: ``HEffective(matmul_precision=...)`` (and the engine's
 ``matmul_precision``) runs the matvec's f32 products at that precision
@@ -231,7 +233,15 @@ def _apply_bond_mixing(x1, W1, W2):
 
 
 def _heff_matvec_impl(LP, RP, W1, W2, theta):
+    """``theta`` under the two-site effective Hamiltonian, in one of three orders, as
+    ``cyten_tpu``'s (``algorithms/dmrg.py:237-269``): abelian with bond-channel
+    fusion (:func:`_apply_bond_mixing`); abelian or no symmetry in the lhs-small order
+    (the small LP/W on the left of each product); otherwise, as on the fusion-tree
+    backend, the planar order, whose every step is a cyclic rotation or a bend. The
+    lhs-small order moves legs past each other, which is exact only where braiding
+    is symmetric."""
     from ..backends.abelian import AbelianBackend
+    from ..backends.no_symmetry import NoSymmetryBackend
     from ..config import config
 
     if isinstance(theta.backend, AbelianBackend) \
@@ -242,12 +252,17 @@ def _heff_matvec_impl(LP, RP, W1, W2, theta):
         x = tdot(x, RP, ['vR', 'wR'], ['vL', 'wL'])      # [p1, p0, vR*, vL*]
         x = x.relabelled({'vR*': 'vL', 'vL*': 'vR'})
         return permute_legs(x, codomain=['vL', 'p0', 'p1'], domain=['vR'])
-    # the port's backends (abelian, no symmetry) braid symmetrically, so the
-    # lhs-small operand order of cyten_tpu (the small LP/W on the left) is exact
-    x = tdot(LP, theta, 'vR', 'vL')                      # [vR*, wR, p0, p1, vR]
-    x = tdot(W1, x, ['p0*', 'wL'], ['p0', 'wR'])         # [p0, wR, vR*, p1, vR]
-    x = tdot(W2, x, ['p1*', 'wL'], ['p1', 'wR'])         # [p1, wR, p0, vR*, vR]
-    x = tdot(x, RP, ['vR', 'wR'], ['vL', 'wL'])          # [p1, p0, vR*, vL*]
+    if isinstance(theta.backend, (AbelianBackend, NoSymmetryBackend)):
+        x = tdot(LP, theta, 'vR', 'vL')                  # [vR*, wR, p0, p1, vR]
+        x = tdot(W1, x, ['p0*', 'wL'], ['p0', 'wR'])     # [p0, wR, vR*, p1, vR]
+        x = tdot(W2, x, ['p1*', 'wL'], ['p1', 'wR'])     # [p1, wR, p0, vR*, vR]
+        x = tdot(x, RP, ['vR', 'wR'], ['vL', 'wL'])      # [p1, p0, vR*, vL*]
+        x = x.relabelled({'vR*': 'vL', 'vL*': 'vR'})
+        return permute_legs(x, codomain=['vL', 'p0', 'p1'], domain=['vR'])
+    x = tdot(theta, LP, 'vL', 'vR')                      # [p0, p1, vR, vR*, wR]
+    x = tdot(x, W1, ['p0', 'wR'], ['p0*', 'wL'])         # [p1, vR, vR*, p0, wR]
+    x = tdot(x, W2, ['p1', 'wR'], ['p1*', 'wL'])         # [vR, vR*, p0, p1, wR]
+    x = tdot(x, RP, ['vR', 'wR'], ['vL', 'wL'])          # [vR*, p0, p1, vL*]
     x = x.relabelled({'vR*': 'vL', 'vL*': 'vR'})
     return permute_legs(x, codomain=['vL', 'p0', 'p1'], domain=['vR'])
 

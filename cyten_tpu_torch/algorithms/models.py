@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..symmetries import ElementarySpace, u1_symmetry, z2_symmetry, no_symmetry
+from ..symmetries import ElementarySpace, su2_symmetry, u1_symmetry, z2_symmetry, \
+    no_symmetry
 from ..tensors import (
     SymmetricTensor, add_trivial_leg, permute_legs, scale_axis, svd,
     truncate_singular_values, svd_apply_mask,
@@ -30,13 +31,13 @@ _id = np.eye(2)
 def spin_half_site(conserve: str = 'None', backend=None):
     """The spin-1/2 site leg for a given conservation choice.
 
-    conserve in {'Sz', 'parity', 'None'}: U(1) by 2*Sz, Z2 by spin-flip parity of the
-    ordered basis, or no symmetry. Public basis order is (|up>, |down>) in all cases.
-    SU(2) needs the fusion-tree backend, which is not ported yet.
+    conserve in {'SU(2)', 'Sz', 'parity', 'None'}: one spin-1/2 multiplet of SU(2)
+    (the fusion-tree backend), U(1) by 2*Sz, Z2 by spin-flip parity of the ordered
+    basis, or no symmetry. Public basis order is (|up>, |down>) in all cases.
     """
     if conserve in ('SU2', 'SU(2)'):
-        raise NotImplementedError('SU(2): the fusion-tree backend is not ported yet')
-    if conserve == 'Sz':
+        leg = ElementarySpace(su2_symmetry, [[1]])  # one spin-1/2 multiplet
+    elif conserve == 'Sz':
         leg = ElementarySpace.from_basis(u1_symmetry, [[1], [-1]])
     elif conserve == 'parity':
         leg = ElementarySpace.from_basis(z2_symmetry, [[0], [1]])
@@ -143,13 +144,15 @@ def _boundary_selector(W: SymmetricTensor, left: bool) -> SymmetricTensor:
 class HeisenbergModel:
     r"""Spin-1/2 Heisenberg chain: :math:`H = J \sum \vec{S}_i \cdot \vec{S}_{i+1}`.
 
-    ``conserve='Sz'`` uses the U(1) symmetry of total :math:`S^z`. The tensors live
-    on ``device`` (default: the CUDA card) unless a ``backend`` is given.
+    ``conserve='Sz'`` uses the U(1) symmetry of total :math:`S^z`, ``'SU(2)'`` the full
+    spin rotation symmetry on the fusion-tree backend (the MPO from the bond operator,
+    :func:`mpo_from_bond_op`, as in ``cyten_tpu``). The tensors live on ``device``
+    (default: the CUDA card) unless a ``backend`` is given.
     """
 
     def __init__(self, L: int, J: float = 1., conserve: str = 'Sz', backend=None,
                  block_backend=None, bc: str = 'finite', device: str = None):
-        if conserve not in ('Sz', 'parity', 'None', None):
+        if conserve not in ('SU2', 'SU(2)', 'Sz', 'parity', 'None', None):
             raise NotImplementedError(f'conserve={conserve!r} is not ported yet')
         if bc not in ('finite', 'infinite'):
             raise ValueError(f'unknown bc {bc!r}')
@@ -182,6 +185,8 @@ class HeisenbergModel:
         return [op] * (self.L if self.bc == 'infinite' else self.L - 1)
 
     def _build_H_mpo(self):
+        if self.conserve in ('SU2', 'SU(2)'):
+            return mpo_from_bond_op(self.H_bonds[0], self.L, bc=self.bc)
         Sp = np.array([[0., 1.], [0., 0.]])
         Sm = Sp.T
         Sz = 0.5 * _sz

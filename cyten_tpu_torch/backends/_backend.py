@@ -63,7 +63,8 @@ class TensorBackend(metaclass=ABCMeta):
     def __reduce__(self):
         from .factory import get_backend
 
-        names = {'NoSymmetryBackend': 'no_symmetry', 'AbelianBackend': 'abelian'}
+        names = {'NoSymmetryBackend': 'no_symmetry', 'AbelianBackend': 'abelian',
+                 'FusionTreeBackend': 'fusion_tree'}
         return (get_backend, (None, self.block_backend.name,
                               names[type(self).__name__],
                               str(self.block_backend.device)))
@@ -210,6 +211,17 @@ class TensorBackend(metaclass=ABCMeta):
 
     @abstractmethod
     def norm(self, a: SymmetricTensor) -> float: ...
+
+    def block_weights(self, a: SymmetricTensor | DiagonalTensor) -> tuple | None:
+        """The weight of each block of ``a`` in :meth:`norm` and :meth:`inner`; None
+        where every block weighs 1."""
+        return None
+
+    def leg_sector_map(self, leg: ElementarySpace) -> np.ndarray | None:
+        """``map[i]``: the index by which the blocks of a tensor with ``leg`` alone on
+        one side (as U and Vh of an SVD hold its new leg) refer to the sector ``i`` of
+        ``leg``; None where that index is ``i`` itself."""
+        return None
 
     @abstractmethod
     def item(self, a: SymmetricTensor): ...

@@ -1,8 +1,8 @@
 """Backend selection.
 
 The counterpart of ``cyten_tpu/backends/factory.py``: pick the minimal tensor backend for
-a symmetry (no_symmetry ⊂ abelian) and cache instances per (tensor backend, block
-backend, device). The fusion-tree backend is not ported yet.
+a symmetry (no_symmetry ⊂ abelian ⊂ fusion_tree) and cache instances per (tensor
+backend, block backend, device).
 """
 
 from __future__ import annotations
@@ -26,12 +26,13 @@ def get_backend(symmetry: Symmetry = None, block_backend: str = None,
         Select the minimal symmetry backend that supports it. Defaults to no symmetry.
     block_backend : {'torch'}, optional
         The dense-array backend.
-    symmetry_backend : {'no_symmetry', 'abelian'}, optional
+    symmetry_backend : {'no_symmetry', 'abelian', 'fusion_tree'}, optional
         Override the automatic choice (must still support the symmetry).
     device : str, optional
         Where the blocks live. Defaults to the CUDA card; raises without one.
     """
     from .abelian import AbelianBackend
+    from .fusion_tree import FusionTreeBackend
     from .no_symmetry import NoSymmetryBackend
 
     if symmetry_backend is None:
@@ -44,10 +45,8 @@ def get_backend(symmetry: Symmetry = None, block_backend: str = None,
             symmetry_backend = 'abelian'
         else:
             symmetry_backend = 'fusion_tree'
-    if symmetry_backend == 'fusion_tree':
-        raise NotImplementedError(
-            f'{symmetry}: the fusion-tree backend is not ported yet')
-    cls = {'no_symmetry': NoSymmetryBackend, 'abelian': AbelianBackend}[symmetry_backend]
+    cls = {'no_symmetry': NoSymmetryBackend, 'abelian': AbelianBackend,
+           'fusion_tree': FusionTreeBackend}[symmetry_backend]
     bb = get_block_backend(block_backend, device)
     key = (symmetry_backend, bb.name, str(bb.device))
     res = _instances.get(key)

@@ -1,8 +1,10 @@
 """The port's bench: the static DMRG bond update of ``bench.py``, timed on the card.
 
-The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_step_state``
-(:598), ``step_run`` (:649) and ``accuracy_bf16work`` (:1124), and of
-``scripts/exp_r5_step_decomp.py`` (:func:`step_decomposition`). Everything runs on
+The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_su2_workload``
+(:383), ``su2_run`` (:523), ``build_step_state`` (:598), ``step_run`` (:649),
+``accuracy_bf16work`` (:1124) and ``su2_step_with_compile`` (:1188, here
+:func:`su2_step`), and of ``scripts/exp_r5_step_decomp.py``
+(:func:`step_decomposition`). Everything runs on
 ``device`` (default: the CUDA card). Times are host-clock seconds around work that
 ends in ``torch.cuda.synchronize()``, except those of ``step_run(graph=True)``: CUDA
 events around graph steps.
@@ -11,6 +13,8 @@ events around graph steps.
     s_per_step, flops_per_step = step_run(4096)
     s_per_step, _ = step_run(4096, precision='default', env_dtype='bfloat16')
     print(step_decomposition())
+    s_per_matvec = su2_run(512)
+    capture_s, s_per_step = su2_step(512, graph=True)
 
 Not ported: the int8-environment GEMM probe of the script (:67-113).
 """
@@ -32,13 +36,14 @@ from .blocks.grouped_gemm import grouped_matmul
 from .blocks.probe import scale2, scale2_plain
 from .config import config
 from .dtypes import Dtype
-from .symmetries import ElementarySpace, u1_symmetry
+from .symmetries import ElementarySpace, su2_symmetry, u1_symmetry
 from .tensors import DiagonalTensor, SymmetricTensor, scalar_multiply, tdot
 from .tensors.krylov_based import _device_norm
 from .tools.flops import tdot_flops
 
-__all__ = ['build_workload', 'build_step_state', 'step_flops', 'step_run',
-           'step_decomposition', 'accuracy_bf16work', 'HEIS24_E_REF']
+__all__ = ['build_workload', 'build_su2_workload', 'build_step_state', 'step_flops',
+           'step_run', 'step_decomposition', 'accuracy_bf16work', 'su2_run', 'su2_step',
+           'HEIS24_E_REF']
 
 #: f64 DMRG energy of the L=24 U(1) Heisenberg open chain at chi=512, the reference
 #: of the accuracy protocol (``bench.py:1121``, ``HEIS24_E_REF``)
@@ -70,12 +75,43 @@ def build_workload(backend, chi: int, dtype=Dtype.float64, seed: int = 0):
     return LP, RP, W1, W2, theta
 
 
-def build_step_state(backend, chi: int, seed: int = 0, dtype=Dtype.float64):
+def build_su2_workload(backend, chi_mult: int = 512, dtype=Dtype.float64, seed: int = 0):
+    """The SU(2) DMRG bond environment of bench.py:383-415 (build_su2_workload):
+    ``LP, RP, W1, W2, theta`` on the fusion-tree ``backend``, with spins j = 0..2 on
+    the virtual leg. ``chi_mult`` counts multiplets; the state dimension is
+    sum (2j+1) * mult. W is the bulk SU(2) Heisenberg MPO tensor."""
+    rng = np.random.default_rng(seed)
+    jj = np.arange(5)  # 2*j = 0..4
+    weights = np.exp(-0.5 * (jj / 2.0 - 0.5) ** 2)
+    mults = np.maximum(1, np.round(chi_mult * weights / weights.sum()).astype(int))
+    v_leg = ElementarySpace(su2_symmetry, jj[:, None], mults)
+    W = HeisenbergModel(L=2, conserve='SU(2)', backend=backend, bc='infinite').H_mpo[0]
+    if dtype != W.dtype:
+        W = W.to_dtype(dtype)
+    p_leg = W.get_leg_co_domain('p')
+    w_leg = W.get_leg_co_domain('wL')
+    kw = dict(backend=backend, rng=rng, dtype=dtype)
+    LP = SymmetricTensor.from_random_normal([v_leg], [v_leg, w_leg],
+                                            labels=[['vR*'], ['vR', 'wR']], **kw)
+    RP = SymmetricTensor.from_random_normal([v_leg, w_leg], [v_leg],
+                                            labels=[['vL', 'wL'], ['vL*']], **kw)
+    theta = SymmetricTensor.from_random_normal([v_leg, p_leg, p_leg], [v_leg],
+                                               labels=['vL', 'p0', 'p1', 'vR'], **kw)
+    W1 = W.relabelled({'p': 'p0', 'p*': 'p0*'})
+    W2 = W.relabelled({'p': 'p1', 'p*': 'p1*'})
+    return LP, RP, W1, W2, theta
+
+
+def build_step_state(backend, chi: int, seed: int = 0, dtype=Dtype.float64,
+                     workload=None):
     """The static-mode step state of bench.py:598-646 (build_step_state):
     ``LP, RP, W1, W2, S, B1, B2, theta_tmpl, mask``. ``mask`` keeps the full
     multiplicities of the bond leg, so a step returns the state to its own structure.
+    ``workload`` picks the environment: :func:`build_workload` (the default, U(1)) or
+    :func:`build_su2_workload`, where ``chi`` counts multiplets and the mask keeps
+    whole multiplets per sector.
     """
-    LP, RP, W1, W2, theta = build_workload(backend, chi, dtype, seed)
+    LP, RP, W1, W2, theta = (workload or build_workload)(backend, chi, dtype, seed)
     v_leg = theta.get_leg_co_domain('vL')
     p_leg = theta.get_leg_co_domain('p0')
     rng = np.random.default_rng(seed + 1)
@@ -351,3 +387,73 @@ def accuracy_bf16work(chi: int = 1024, L: int = 24, e_ref: float = HEIS24_E_REF,
     print(f'accuracy polish sweep: E={E:.8f}, {time.perf_counter() - t0:.2f} s',
           file=sys.stderr, flush=True)
     return float(E), float(E_b), None if e_ref is None else abs(float(E) - e_ref)
+
+
+def su2_run(chi_mult: int = 512, lengths=(10, 50), repeats: int = 2,
+            precision: str = 'float32', device: str = 'cuda'):
+    """Seconds per fusion-tree effective-Hamiltonian matvec on the
+    :func:`build_su2_workload` environment (f64), slope-timed over ``lengths`` as
+    bench.py:523-560 (su2_run) times it, each output renormalised and fed back.
+    bench.py's second value, a time on its numpy backend, has no counterpart."""
+    backend = get_backend(su2_symmetry, device=device)
+    args = build_su2_workload(backend, chi_mult)
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        return _matvec_slope(args, lengths, repeats)
+    finally:
+        config.matmul_precision = old
+
+
+def su2_step(chi_mult: int = 512, n_lanczos: int = 10, svd_mode: str = 'steady',
+             lengths=(5, 25), graph: bool = False, device: str = 'cuda'):
+    """The static SU(2) bond update of bench.py:1188-1215 (su2_step_with_compile):
+    one step on the :func:`build_step_state` state of :func:`build_su2_workload`
+    (f64), called again and again on the same inputs, slope-timed over ``lengths``.
+
+    Returns ``(setup seconds, seconds per step)``. Eagerly (``graph=False``) the
+    setup is the first call, which builds the tree-move plans and the device
+    constants; with ``graph=True`` (CUDA, ``svd_mode='steady'``) it is the capture of
+    the step as a CUDA graph after that first call (:class:`_GraphedStep`), where
+    ``cyten_tpu`` reports its compile seconds, and the steps are graph replays timed
+    with CUDA events. Leaves the grouped-GEMM launches of one step in
+    ``su2_step.launches_per_step`` and the energy of the first in ``su2_step.energy``.
+    """
+    backend = get_backend(su2_symmetry, device=device)
+    LP, RP, W1, W2, S, B1, B2, theta_tmpl, mask = build_step_state(
+        backend, chi_mult, workload=build_su2_workload)
+    impl = _get_static_bond_fn(n_lanczos, svd_mode)
+    mask = _PrefixMask(mask)
+    if graph and not (torch.device(device).type == 'cuda' and svd_mode == 'steady'):
+        raise ValueError('su2_step(graph=True) needs CUDA and svd_mode="steady"')
+
+    def step(LP, RP, S, B1, B2):
+        return impl(HEffective(LP, RP, W1, W2), S, B1, B2, theta_tmpl, mask)
+
+    inputs = (LP, RP, S, B1, B2)
+    t0 = time.perf_counter()
+    launches = grouped_matmul.launches
+    su2_step.energy = float(step(*inputs)[0])
+    su2_step.launches_per_step = grouped_matmul.launches - launches
+    setup_s = time.perf_counter() - t0
+    if graph:
+        g = _GraphedStep(step, inputs)
+        setup_s = g.capture_seconds
+        su2_step.launches_per_step = g.graph.launches.get(grouped_matmul, 0)
+
+        def run(carry, n):
+            for _ in range(n):
+                g.run(inputs)
+            return carry
+    else:
+        def run(carry, n):
+            for _ in range(n):
+                step(*inputs)
+            backend.block_backend.synchronize()
+            return carry
+
+    return setup_s, _seconds_per_call(run, None, lengths, 1, events=graph)
+
+
+su2_step.launches_per_step = None
+su2_step.energy = None

@@ -176,6 +176,13 @@ def count(wrapper, keep=None) -> None:
         wrapper.launches += 1
 
 
+def keep_alive(obj) -> None:
+    """While a :class:`Graph` is captured, makes it keep ``obj`` (a device buffer the
+    captured work reads) alive for as long as it lives; else nothing."""
+    if _capture is not None:
+        _capture.keep.append(obj)
+
+
 class Graph:
     """A ``torch.cuda.CUDAGraph`` that knows the kernel launches it holds.
 
@@ -190,7 +197,7 @@ class Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.pool = pool
         self.launches: dict = {}  # wrapper -> launches per replay
-        self.keep: list = []      # host buffers the graph's copies read
+        self.keep: list = []      # buffers the graph's copies and kernels read
 
     @contextmanager
     def capture(self):

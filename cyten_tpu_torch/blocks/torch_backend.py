@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..dtypes import Dtype
+from ._kernels import keep_alive
 from .backend import BlockBackend, default_device
 
 __all__ = ['TorchBlockBackend']
@@ -21,6 +22,17 @@ _TO_TORCH = {Dtype.bool: torch.bool, Dtype.bfloat16: torch.bfloat16,
              Dtype.float32: torch.float32, Dtype.float64: torch.float64,
              Dtype.complex64: torch.complex64, Dtype.complex128: torch.complex128}
 _FROM_TORCH = {v: k for k, v in _TO_TORCH.items()}
+_CONSTANTS_MAX = 16384  # device copies of host arrays a backend keeps
+
+
+def _windows(starts, h, w):
+    """Row and column indices ``[n, h, 1]`` and ``[n, 1, w]`` of the windows at
+    ``starts``, which broadcast to the windows' ``[n, h, w]``."""
+    s = torch.as_tensor(starts, dtype=torch.int64)
+    return ((s[:, 0, None] + torch.arange(h))[:, :, None],
+            (s[:, 1, None] + torch.arange(w))[:, None, :])
+
+
 
 
 class _TorchNamespace:
@@ -131,6 +143,8 @@ class TorchBlockBackend(BlockBackend):
     def __init__(self, device: str = None):
         self.device = torch.device(default_device() if device is None else device)
         BlockBackend.__init__(self, _TorchNamespace(self.device))
+        #: device values made from host data (:meth:`cached`), oldest first
+        self._constants: dict = {}
 
     def __repr__(self):
         return f'TorchBlockBackend(device={str(self.device)!r})'
@@ -198,6 +212,65 @@ class TorchBlockBackend(BlockBackend):
 
     def finalize_accumulator(self, acc):
         return acc
+
+    def cached(self, key, build):
+        """The device value that ``build()`` makes, made once per hashable ``key`` and
+        then handed out again: so that a CUDA graph capturing a call copies nothing
+        from the host, as long as an eager call of the same structure ran before it.
+        The backend keeps the ``_CONSTANTS_MAX`` values used last (a hit moves its
+        entry to the end of the order); a graph captured while it reads one keeps that
+        one alive itself (``_kernels.keep_alive``)."""
+        res = self._constants.pop(key, None)
+        if res is None:
+            if len(self._constants) >= _CONSTANTS_MAX:
+                del self._constants[next(iter(self._constants))]
+            res = build()
+        self._constants[key] = res
+        keep_alive(res)
+        return res
+
+    def constant(self, arr, dtype: Dtype):
+        arr = np.ascontiguousarray(arr)
+        return self.cached(('constant', arr.shape, arr.dtype.str, arr.tobytes(), dtype),
+                           lambda: self.as_block(arr, dtype))
+
+    def batched_slice(self, block, starts, shape):
+        """The windows ``block[r:r+h, c:c+w]`` for the rows ``(r, c)`` of ``starts``
+        as one ``[n, h, w]`` gather (a view for one window)."""
+        h, w = shape
+        starts = np.asarray(starts)
+        if len(starts) == 1:
+            r, c = int(starts[0, 0]), int(starts[0, 1])
+            return block[None, r:r + h, c:c + w]
+        rows, cols = self.cached(
+            ('windows', starts.tobytes(), starts.shape, h, w),
+            lambda: tuple(i.to(self.device) for i in _windows(starts, h, w)))
+        return block[rows, cols]
+
+    def batched_accum_add(self, acc, starts, updates):
+        """``acc[r_i:r_i+h, c_i:c_i+w] += updates[i]`` as one ``index_add_`` into the
+        flat accumulator (repeated windows accumulate)."""
+        starts = np.asarray(starts)
+        h, w = updates.shape[1:]
+        if len(starts) == 1:
+            r, c = int(starts[0, 0]), int(starts[0, 1])
+            acc[r:r + h, c:c + w] += updates[0].to(acc.dtype)
+            return acc
+        pitch = acc.shape[1]
+
+        def flat_index():
+            rows, cols = _windows(starts, h, w)
+            return (rows * pitch + cols).reshape(-1).to(self.device)
+
+        flat = self.cached(('flat_windows', starts.tobytes(), starts.shape, h, w, pitch),
+                           flat_index)
+        acc.view(-1).index_add_(0, flat, updates.reshape(-1).to(acc.dtype))
+        return acc
+
+    def take_rows(self, block, idx):
+        idx = np.asarray(idx, np.int64)
+        return torch.index_select(block, 0, self.cached(
+            ('rows', idx.tobytes()), lambda: torch.as_tensor(idx).to(self.device)))
 
     def _set_diagonal(self, block, diag):
         res = block.clone()

@@ -1,19 +1,19 @@
-"""Symmetries and spaces (host-side numpy): the abelian groups of the main path.
+"""Symmetries, spaces and fusion trees (host-side numpy).
 
-The counterpart of ``cyten_tpu/symmetries/`` for trivial, U(1) and Z_N symmetries and
-their products. Fermions, anyons, SU(2)/SU(N) and fusion trees come with the
-fusion-tree slice.
+The counterpart of ``cyten_tpu/symmetries/`` for trivial, U(1), Z_N and SU(2)
+symmetries and their products. Fermions, anyons and SU(N) come with later slices.
 """
 
 from .core import (
     BaseSymmetry, BraidChiralityUnspecifiedError, BraidingStyle, FusionStyle, Sector,
     SectorArray, Symmetry, SymmetryError, SymmetryFactor,
 )
-from .groups import U1, ZN, AbelianGroup, Group, NoSymmetry
+from .groups import SU2, U1, ZN, AbelianGroup, Group, NoSymmetry
 from .spaces import (
     AbelianLegPipe, ElementarySpace, Leg, LegPipe, Space, TensorProduct, swap_gate,
     twist_gate,
 )
+from .trees import FusionTree, fusion_trees
 
 # premade instances (cheap constructors only)
 no_symmetry = NoSymmetry().as_Symmetry()
@@ -21,12 +21,14 @@ z2_symmetry = ZN(N=2).as_Symmetry()
 z3_symmetry = ZN(N=3).as_Symmetry()
 z4_symmetry = ZN(N=4).as_Symmetry()
 u1_symmetry = U1().as_Symmetry()
+su2_symmetry = SU2().as_Symmetry()
 
 __all__ = [
     'BaseSymmetry', 'BraidChiralityUnspecifiedError', 'BraidingStyle', 'FusionStyle',
     'Sector', 'SectorArray', 'Symmetry', 'SymmetryError', 'SymmetryFactor',
-    'Group', 'AbelianGroup', 'NoSymmetry', 'U1', 'ZN',
+    'Group', 'AbelianGroup', 'NoSymmetry', 'U1', 'ZN', 'SU2',
     'Leg', 'LegPipe', 'Space', 'ElementarySpace', 'TensorProduct', 'AbelianLegPipe',
-    'swap_gate', 'twist_gate',
+    'swap_gate', 'twist_gate', 'FusionTree', 'fusion_trees',
     'no_symmetry', 'z2_symmetry', 'z3_symmetry', 'z4_symmetry', 'u1_symmetry',
+    'su2_symmetry',
 ]

@@ -1,5 +1,5 @@
-"""Group symmetries: trivial, U(1), Z_N (a copy of the abelian part of
-``cyten_tpu/symmetries/groups.py``; SU(2) and SU(N) come with the fusion-tree slice).
+"""Group symmetries: trivial, U(1), Z_N and SU(2) (a copy of that part of
+``cyten_tpu/symmetries/groups.py``; SU(N) comes with a later slice).
 """
 
 from __future__ import annotations
@@ -9,12 +9,13 @@ import numpy as np
 
 from ..dtypes import Dtype
 from ..tools.misc import as_immutable_array
+from . import su2_data
 from .core import (
     _ONE_1D, _ONE_2D, _ONE_2D_F, _ONE_4D, _ONE_4D_F, BraidingStyle, FusionStyle, Sector,
     SectorArray, Symmetry, SymmetryError, SymmetryFactor,
 )
 
-__all__ = ['Group', 'AbelianGroup', 'NoSymmetry', 'U1', 'ZN']
+__all__ = ['Group', 'AbelianGroup', 'NoSymmetry', 'U1', 'ZN', 'SU2']
 
 
 class Group(SymmetryFactor):
@@ -227,3 +228,91 @@ class ZN(AbelianGroup):
 
     def _init_args(self) -> dict:
         return {'N': self.N}
+
+
+class SU2(Group):
+    """SU(2) symmetry. Sectors ``[jj]`` with ``jj = 2 * j`` a non-negative integer.
+
+    Topological data comes from exact CG / 6j arithmetic in :mod:`.su2_data`.
+    """
+
+    fusion_tensor_dtype = Dtype.float64
+    spin_zero = as_immutable_array(np.array([0], dtype=int))
+    spin_half = as_immutable_array(np.array([1], dtype=int))
+    spin_one = as_immutable_array(np.array([2], dtype=int))
+
+    def __init__(self, descriptive_name: str | None = None):
+        Group.__init__(self, fusion_style=FusionStyle.multiple_unique,
+                       trivial_sector=np.array([0], dtype=int), group_name='SU(2)',
+                       num_sectors=np.inf, has_complex_topological_data=False,
+                       descriptive_name=descriptive_name)
+
+    def is_valid_sector(self, a: Sector) -> bool:
+        return getattr(a, 'shape', ()) == (1,) and a[0] >= 0
+
+    def are_valid_sectors(self, sectors) -> bool:
+        shape = getattr(sectors, 'shape', ())
+        return len(shape) == 2 and shape[1] == 1 and bool(np.all(sectors >= 0))
+
+    def fusion_outcomes(self, a: Sector, b: Sector) -> SectorArray:
+        lo = abs(int(a[0]) - int(b[0]))
+        hi = int(a[0]) + int(b[0])
+        return np.arange(lo, hi + 2, 2)[:, np.newaxis]
+
+    def can_fuse_to(self, a: Sector, b: Sector, c: Sector) -> bool:
+        return bool((c[0] <= a[0] + b[0]) and (a[0] <= b[0] + c[0])
+                    and (b[0] <= c[0] + a[0]) and ((a[0] + b[0] + c[0]) % 2 == 0))
+
+    def sector_dim(self, a: Sector) -> int:
+        return int(a[0]) + 1
+
+    def batch_sector_dim(self, a: SectorArray) -> np.ndarray:
+        if len(a) == 0:
+            return np.zeros([0], dtype=int)
+        return a[:, 0] + 1
+
+    def sector_str(self, a: Sector) -> str:
+        jj = int(a[0])
+        return f'{jj} (J={jj // 2 if jj % 2 == 0 else f"{jj}/2"})'
+
+    def __repr__(self):
+        name = '' if self.descriptive_name is None else f'"{self.descriptive_name}"'
+        return f'SU2({name})'
+
+    def _is_equivalent_factor(self, other) -> bool:
+        return isinstance(other, SU2)
+
+    def dual_sector(self, a: Sector) -> Sector:
+        return a  # self-dual
+
+    def dual_sectors(self, sectors: SectorArray) -> SectorArray:
+        return sectors
+
+    def _n_symbol(self, a, b, c) -> int:
+        return 1
+
+    def _f_symbol(self, a, b, c, d, e, f) -> np.ndarray:
+        return su2_data.f_symbol(int(a[0]), int(b[0]), int(c[0]), int(d[0]),
+                                 int(e[0]), int(f[0]))
+
+    def frobenius_schur(self, a: Sector) -> int:
+        return 1 - 2 * (int(a[0]) % 2)
+
+    def qdim(self, a: Sector) -> float:
+        return int(a[0]) + 1
+
+    def _r_symbol(self, a, b, c) -> np.ndarray:
+        # (-1)^{j_a + j_b - j_c}: +1 for even integer sum, -1 for odd
+        return 1 - (a + b - c) % 4
+
+    def _fusion_tensor(self, a, b, c, Z_a: bool, Z_b: bool) -> np.ndarray:
+        X = su2_data.fusion_tensor(int(a[0]), int(b[0]), int(c[0]))
+        if Z_a:
+            # compose Z below leg a: [μ, m_a, m_b, m_c] x [m_a, m_ā*] -> move to axis 1
+            X = np.moveaxis(np.tensordot(X, self.Z_iso(self.dual_sector(a)), (1, 0)), -1, 1)
+        if Z_b:
+            X = np.moveaxis(np.tensordot(X, self.Z_iso(self.dual_sector(b)), (2, 0)), -1, 2)
+        return X
+
+    def Z_iso(self, a: Sector) -> np.ndarray:
+        return su2_data.Z_iso(int(a[0]))

@@ -31,17 +31,12 @@ from ..tools.misc import (
     iter_common_sorted_arrays, make_grid, make_stride, rank_data,
 )
 from .core import Sector, SectorArray, Symmetry, SymmetryError, SymmetryFactor
+from .trees import fusion_trees
 
 __all__ = [
     'Leg', 'LegPipe', 'Space', 'ElementarySpace', 'TensorProduct', 'AbelianLegPipe',
     'swap_gate', 'twist_gate',
 ]
-
-
-def fusion_trees(*args, **kwargs):
-    """Fusion trees belong to the non-abelian (fusion-tree) backend, which is not
-    ported yet."""
-    raise NotImplementedError('fusion trees: the fusion-tree backend is not ported yet')
 
 
 def _sort_sectors(sectors: SectorArray, multiplicities: np.ndarray):

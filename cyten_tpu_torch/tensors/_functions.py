@@ -1680,6 +1680,11 @@ class _PrefixMask:
     device: :meth:`apply` then cuts each block to its first ``k`` entries, the same
     result as ``svd_apply_mask`` with no device read. Raises ``ValueError`` for a
     mask that keeps more than a prefix of a sector.
+
+    On the fusion-tree backend a sector's values are its multiplets: the prefix keeps
+    the first ``k`` multiplets of each coupled sector, and the blocks of U and Vh
+    index the new leg in another order than the leg's own where the leg is dual
+    (``TensorBackend.leg_sector_map``).
     """
 
     def __init__(self, mask: Mask):
@@ -1699,13 +1704,22 @@ class _PrefixMask:
             if not keep[:k].all():
                 raise ValueError('the mask keeps more than a prefix of a sector')
             self.keep[int(i_large)] = (int(i_small), k)
+        #: the same, indexed as the blocks of U and Vh index the new leg
+        self.keep_matrix = self.keep
+        large = mask.backend.leg_sector_map(self.large_leg)
+        if large is not None:
+            small = mask.backend.leg_sector_map(self.small_leg)
+            self.keep_matrix = {int(large[i_large]): (int(small[i_small]), k)
+                                for i_large, (i_small, k) in self.keep.items()}
 
-    def _cut(self, blocks, block_inds, leg_idx: int):
-        """Blocks on ``large_leg`` at ``leg_idx`` cut to the kept prefix, and their
-        rows with that leg's sector index on ``small_leg``."""
+    @staticmethod
+    def _cut(blocks, block_inds, leg_idx: int, keep: dict):
+        """Blocks on ``large_leg`` at ``leg_idx`` cut to the kept prefix ``keep`` (by
+        sector index as ``block_inds`` holds it), and their rows with that leg's
+        sector index on ``small_leg``."""
         out, rows = [], []
         for blk, row in zip(blocks, block_inds):
-            hit = self.keep.get(int(row[leg_idx]))
+            hit = keep.get(int(row[leg_idx]))
             if hit is None:
                 continue
             i_small, k = hit
@@ -1722,13 +1736,14 @@ class _PrefixMask:
         if not (U.domain.factors[-1] == S.leg == Vh.codomain.factors[0]
                 == self.large_leg):
             raise ValueError('the mask does not fit the SVD')
-        blocks, rows = self._cut(U.data.blocks, U.data.block_inds, U.num_legs - 1)
+        col = U.data.block_inds.shape[1] - 1  # the new leg's axis and column in U
+        blocks, rows = self._cut(U.data.blocks, U.data.block_inds, col, self.keep_matrix)
         U = SymmetricTensor(BlockSparseData(blocks, rows, U.data.dtype), U.codomain,
                             TensorProduct([self.small_leg]), U.backend, U.labels)
-        blocks, rows = self._cut(S.data.blocks, S.data.block_inds[:, None], 0)
+        blocks, rows = self._cut(S.data.blocks, S.data.block_inds[:, None], 0, self.keep)
         S = DiagonalTensor(DiagonalBlockData(blocks, rows[:, 0], S.data.dtype),
                            self.small_leg, S.backend, S.labels)
-        blocks, rows = self._cut(Vh.data.blocks, Vh.data.block_inds, 0)
+        blocks, rows = self._cut(Vh.data.blocks, Vh.data.block_inds, 0, self.keep_matrix)
         Vh = SymmetricTensor(BlockSparseData(blocks, rows, Vh.data.dtype),
                              TensorProduct([self.small_leg]), Vh.domain, Vh.backend,
                              Vh.labels)

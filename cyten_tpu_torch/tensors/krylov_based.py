@@ -115,16 +115,44 @@ def lanczos(H: LinearOperator, psi0: Tensor, options: dict = None
 # --- fused (static-mode) Lanczos ---------------------------------------------------------
 
 
+def _sqrt_weights(t, dtype: torch.dtype, flat: bool = False):
+    """The square roots of the block weights of ``t`` in ``norm`` and ``inner``
+    (``TensorBackend.block_weights``: on the fusion-tree backend the quantum dimension
+    of each block's coupled sector) as a vector on ``t``'s device, one per block, or
+    (``flat``) one per element of the layout of :func:`_flatten`; None where every
+    block weighs 1. Made once per structure (``TorchBlockBackend.cached``), so that
+    nothing is copied from the host on later calls, in a CUDA graph in particular."""
+    qdims = t.backend.block_weights(t)
+    if qdims is None:
+        return None
+    bb = t.backend.block_backend
+    sizes = tuple(b.numel() for b in t.data.blocks) if flat else None
+
+    def build():
+        w = np.sqrt(np.asarray(qdims))
+        if flat:
+            w = np.repeat(w, sizes)
+        return torch.as_tensor(w, dtype=dtype).to(bb.device)
+
+    return bb.cached(('sqrt_weights', qdims, sizes, dtype), build)
+
+
 def _device_norm(t):
-    """Frobenius norm of an abelian tensor (block-sparse or diagonal) as a 0-d tensor
-    on its device, with no host sync: one ``_foreach_norm`` over the blocks and one
-    norm of the results (bf16 blocks accumulate in f32)."""
+    """Norm of a block-sparse or diagonal tensor as a 0-d tensor on its device, with no
+    host sync: one ``_foreach_norm`` over the blocks and one norm of the results (bf16
+    blocks accumulate in f32). Each block has its weight in ``norm``
+    (:func:`_sqrt_weights`); an abelian tensor's blocks weigh 1 and take no
+    multiply."""
     bb = t.backend.block_backend
     blocks = t.data.blocks
     if not blocks:
         return torch.zeros((), dtype=torch.float64, device=bb.device)
     acc = torch.float32 if blocks[0].dtype == torch.bfloat16 else None
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(blocks, 2, dtype=acc)))
+    norms = torch.stack(torch._foreach_norm(blocks, 2, dtype=acc))
+    weights = _sqrt_weights(t, norms.dtype)
+    if weights is not None:
+        norms = norms * weights
+    return torch.linalg.vector_norm(norms)
 
 
 def _flatten(t) -> torch.Tensor:
@@ -218,6 +246,12 @@ def fused_lanczos_impl(H, psi0, N: int):
     and the Ritz vector rebuilt from the basis with its coefficients. So the whole
     solve can be captured in a CUDA graph.
 
+    On the fusion-tree backend the inner product weighs each block by the quantum
+    dimension of its coupled sector (:func:`_sqrt_weights`). The Krylov vectors are
+    kept scaled by the square roots of those weights, element by element, so that
+    their plain products and norms are the weighted ones; a matvec unscales its
+    input and scales its output. Abelian tensors take no scaling.
+
     ``psi0``'s block structure must be a fixed point of ``H.matvec`` (see
     :func:`_close_structure`). Returns ``(E, theta)``: E a 0-d f64 tensor on the
     device, theta normalised.
@@ -226,6 +260,9 @@ def fused_lanczos_impl(H, psi0, N: int):
         raise ValueError('fused Lanczos of a tensor with no blocks')
     x = _flatten(psi0)
     acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype  # for reductions
+    sw = _sqrt_weights(psi0, x.real.dtype, flat=True)  # None: every block weighs 1
+    if sw is not None:
+        x = x * sw
 
     def dot(a, b, out):
         """Re <a, b> into the 0-d ``out``: a [1, n] by [n] product writes its result
@@ -240,7 +277,10 @@ def fused_lanczos_impl(H, psi0, N: int):
     # the alphas (row 0) and betas (row 1), written where the Ritz kernel reads them
     ab = x.new_empty((2, N), dtype=acc.to_real())
     for k in range(N):
-        w = _flatten(H.matvec(_unflatten(psi0, V[k])))
+        if sw is None:
+            w = _flatten(H.matvec(_unflatten(psi0, V[k])))
+        else:
+            w = _flatten(H.matvec(_unflatten(psi0, V[k] / sw))).mul_(sw)
         alpha, beta = ab[0, k], ab[1, k]
         dot(V[k], w, alpha)
         w.addcmul_(V[k], alpha, value=-1)
@@ -255,4 +295,6 @@ def fused_lanczos_impl(H, psi0, N: int):
     E, coeffs = tridiagonal_ground_state(ab)
     theta = coeffs.to(V.dtype) @ V
     theta = theta / torch.linalg.vector_norm(theta, dtype=acc).clamp_min(1e-30)
+    if sw is not None:
+        theta = theta / sw
     return E, _unflatten(psi0, theta)

@@ -77,6 +77,36 @@ def _rotation_blocks(T, n_jacobi: int, eps: float):
     return R_blocks, diags
 
 
+def _with_kept_sectors(T, V):
+    """``T`` with a zero block for each sector of the kept leg that ``V`` holds and
+    ``T`` lacks.
+
+    A sector of the frozen allocation in which theta has no block (one kept with
+    zero weight: eps=0 keeps zero singular values) gets no block in ``thp V`` and so
+    none in ``T``. Without one there, the sector would drop out of S and of the
+    rotated V, and Vh would stop being an isometry on it. With a zero block its
+    singular values are zero, its rotation the identity and its right vectors V's
+    own. (``cyten_tpu``'s steady SVD, ``tensors/steady.py:126``, drops it.)
+    """
+    from ..backends.data import BlockSparseData
+
+    have = set(T.data.block_inds[:, 0].tolist())
+    missing = {}  # kept-sector index -> multiplicity, as V's blocks index the kept leg
+    for row, blk in zip(V.data.block_inds, V.data.blocks):
+        if int(row[-1]) not in have:
+            missing[int(row[-1])] = blk.shape[-1]
+    if not missing:
+        return T
+    bb = T.backend.block_backend
+    blocks = list(T.data.blocks) + [bb.zeros((m, m), T.data.dtype) for m in missing.values()]
+    rows = np.concatenate([T.data.block_inds,
+                           np.repeat(np.array(list(missing), np.intp)[:, None], 2, axis=1)])
+    order = np.argsort(rows[:, 0], kind='stable')
+    data = BlockSparseData([blocks[k] for k in order], rows[order], T.data.dtype,
+                           is_sorted=True)
+    return SymmetricTensor(data, T.codomain, T.domain, T.backend, T.labels)
+
+
 def steady_truncated_svd(thp, Vh_prev, n_power: int = 1, n_jacobi: int = 2,
                          ns_polish: int = 2, eps: float = 1e-6,
                          new_labels=('vR', 'vL')):
@@ -112,7 +142,7 @@ def steady_truncated_svd(thp, Vh_prev, n_power: int = 1, n_jacobi: int = 2,
         Z = compose(dagger(thp), B)           # [domain | kept]
         V, _ = qr(Z)
     B = compose(thp, V)
-    T = compose(dagger(B), B)                 # [kept | kept], nearly diagonal
+    T = _with_kept_sectors(compose(dagger(B), B), V)  # [kept | kept], nearly diagonal
     R_blocks, diag_vals = _rotation_blocks(T, n_jacobi, eps)
     R_data = BlockSparseData(R_blocks, T.data.block_inds.copy(), T.data.dtype,
                              is_sorted=True)

@@ -4,12 +4,17 @@ The port holds no reference to ``cyten_tpu`` objects. State crosses over as a pl
 spec, which an exporter on the other side writes (the parity tests hold one):
 
 tensor spec
-    ``symmetry``: list of factor names, each ``'NoSymmetry'``, ``'U1'`` or ``'Z<N>'``;
+    ``symmetry``: list of factor names, each ``'NoSymmetry'``, ``'U1'``, ``'Z<N>'``
+    or ``'SU2'``;
     ``codomain`` / ``domain``: lists of leg specs (domain factors in domain order);
     ``labels``: labels in ``legs`` order; ``block_inds``: ``[n_blocks, n_legs]`` int
     array (``[n_blocks]`` for a diagonal tensor); ``blocks``: list of numpy arrays in
     ``legs`` order; ``dtype``: a :class:`~cyten_tpu_torch.dtypes.Dtype` name;
     ``kind``: ``'symmetric'`` or ``'diagonal'`` (codomain == domain == ``[leg]``).
+    On the fusion-tree backend (SU(2)) a block is the matrix of one coupled sector,
+    ``[codomain tree basis, domain tree basis]``, and ``block_inds`` is ``[n_blocks,
+    2]``: the index of that sector in the codomain's and in the domain's sector
+    decomposition (a diagonal tensor's stay ``[n_blocks]``, per sector of its leg).
 leg spec
     ``defining_sectors``, ``multiplicities``, ``is_dual`` and ``basis_perm`` (or None),
     as an ``ElementarySpace`` stores them.
@@ -28,19 +33,21 @@ import numpy as np
 from ..backends.data import BlockSparseData, DenseData, DiagonalBlockData
 from ..backends.no_symmetry import NoSymmetryBackend
 from ..dtypes import Dtype
-from ..symmetries import ElementarySpace, NoSymmetry, Symmetry, U1, ZN
+from ..symmetries import SU2, ElementarySpace, NoSymmetry, Symmetry, U1, ZN
 
 __all__ = ['symmetry_from_names', 'leg_from_spec', 'tensor_from_arrays',
            'mps_from_arrays']
 
 
 def symmetry_from_names(names) -> Symmetry:
-    """``['U1', 'Z2']`` -> ``U1 x Z2``."""
+    """``['U1', 'Z2']`` -> ``U1 x Z2``; ``['SU2']`` -> SU(2)."""
     factors = []
     for name in names:
         m = re.fullmatch(r'Z(\d+)', name)
         if name == 'U1':
             factors.append(U1())
+        elif name == 'SU2':
+            factors.append(SU2())
         elif name == 'NoSymmetry':
             factors.append(NoSymmetry())
         elif m:

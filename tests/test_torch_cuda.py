@@ -572,3 +572,86 @@ def test_step_flops_matches_cyten_tpu():
     ref += tdot_flops(x, RP, ['vR', 'wR'], ['vL', 'wL'])
     args = build_workload(get_backend(u1_symmetry, device='cpu'), 64)
     assert step_flops(*args, n_lanczos=10) == ref * 12
+
+
+@pytest.mark.cuda
+def test_su2_compose_matches_plain(card):
+    """A fusion-tree compose on the card (one grouped-GEMM launch over the pairs of
+    its coupled sectors) against the same compose on the CPU, where the grouped GEMM
+    takes its plain version: the same tensors, f64, to 1e-12."""
+    from cyten_tpu_torch import su2_symmetry
+    from cyten_tpu_torch.bench import build_su2_workload
+    from cyten_tpu_torch.tensors import compose, permute_legs
+
+    out = {}
+    for device in ('cuda', 'cpu'):
+        LP, _, _, _, theta = build_su2_workload(get_backend(su2_symmetry, device=device),
+                                                chi_mult=48)
+        a = permute_legs(theta, codomain=['p0', 'p1', 'vR'], domain=['vL'])
+        b = permute_legs(LP, codomain=['vR'], domain=['wR', 'vR*'])
+        before = grouped_matmul.launches
+        out[device] = compose(a, b)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            assert grouped_matmul.launches == before + 1
+    assert len(out['cuda'].data.blocks) > 1
+    np.testing.assert_allclose(out['cuda'].to_numpy(), out['cpu'].to_numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_captured_su2_static_bond_matches_eager(card):
+    """A steady static SU(2) bond update (build_step_state of build_su2_workload at
+    16 multiplets, f64) captured as a CUDA graph and replayed, against the eager
+    update on the same inputs (1e-12): the tree-move plans' coefficients and indices
+    are device constants by then, so the capture copies nothing from the host."""
+    from cyten_tpu_torch import su2_symmetry
+    from cyten_tpu_torch.bench import build_su2_workload
+
+    LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
+        get_backend(su2_symmetry, device='cuda'), 16, workload=build_su2_workload)
+    impl = _get_static_bond_fn(10, 'steady')
+
+    def fn(LP, RP, S, B1, B2):
+        return impl(HEffective(LP, RP, W1, W2), S, B1, B2, tmpl, None)
+
+    inputs = (LP, RP, S, B1, B2)
+    ref = fn(*inputs)
+    graph = _GraphedStep(fn, inputs)
+    assert graph.graph.launches[grouped_matmul] > 0
+    assert graph.graph.launches[tridiagonal_ground_state] == 1
+    got = graph.run(inputs)
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-12 * abs(float(ref[0]))
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.labels == r.labels
+        np.testing.assert_allclose(g.to_numpy(), r.to_numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_captured_gather_keeps_its_device_index(card):
+    """A batched gather and scatter-add (the fusion-tree plan application's) captured
+    as a graph: the graph keeps the device index tensors it reads, so a replay after
+    the backend has dropped them from its cache is still right."""
+    from cyten_tpu_torch.blocks import get_block_backend
+
+    bb = get_block_backend('torch', 'cuda')
+    block = torch.arange(600., device='cuda').reshape(20, 30)
+    starts = np.array([[0, 1], [5, 7], [12, 20]])
+
+    def fn():
+        acc = bb.accumulator((20, 30), Dtype.float32)
+        windows = bb.batched_slice(block, starts, (4, 6))
+        return bb.batched_accum_add(acc, np.ascontiguousarray(starts[::-1]), windows)
+
+    ref = fn()  # builds the device indices eagerly
+    graph = _kernels.Graph()
+    with graph.capture():
+        out = fn()
+    bb._constants.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int64, device='cuda') for _ in range(8)]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and len(junk) == 8

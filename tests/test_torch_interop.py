@@ -20,7 +20,7 @@ def _factor_name(f) -> str:
     name = type(f).__name__
     if name == 'ZN':
         return f'Z{f.N}'
-    if name in ('U1', 'NoSymmetry'):
+    if name in ('U1', 'NoSymmetry', 'SU2'):
         return name
     raise ValueError(f'no port of symmetry factor {f}')
 
@@ -121,4 +121,4 @@ def test_leg_with_basis_perm_round_trip():
 
 def test_unknown_symmetry_factor_raises():
     with pytest.raises(ValueError, match='unknown symmetry factor'):
-        ctt.tools.interop.symmetry_from_names(['SU2'])
+        ctt.tools.interop.symmetry_from_names(['SU3'])

@@ -64,3 +64,50 @@ def test_default_device_raises_without_cuda():
         HeisenbergModel(L=4, conserve='Sz')
     # an explicit CPU request is honoured
     assert str(get_backend(u1_symmetry, device='cpu').block_backend.device) == 'cpu'
+
+
+_SU2_SCRIPT = """
+import sys
+import cyten_tpu_torch.backends.fusion_tree
+import cyten_tpu_torch.backends.tree_moves
+import cyten_tpu_torch.symmetries.su2_data
+import cyten_tpu_torch.symmetries.trees
+from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
+from cyten_tpu_torch.bench import build_su2_workload, su2_run
+model = HeisenbergModel(L=4, conserve='SU(2)', device='cpu')
+psi = SimpleMPS.from_singlet_pairs(model.site_leg, 4, backend=model.backend)
+eng = DMRGEngine(psi, model, chi_max=8)
+E = eng.run(n_sweeps=2)
+assert abs(E - (-1.6160254037844384)) < 1e-9, E
+eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+E = eng.sweep()
+assert abs(E - (-1.6160254037844384)) < 1e-9, E
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu'))
+print('LEAKED', leaked)
+"""
+
+
+def test_su2_path_runs_without_jax_or_cyten_tpu():
+    """The fusion-tree modules and the SU(2) DMRG path, dynamic and static."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, '-c', _SU2_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert 'LEAKED []' in res.stdout, res.stdout
+
+
+def test_fusion_tree_backend_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from cyten_tpu_torch import get_backend, su2_symmetry
+    from cyten_tpu_torch.algorithms import HeisenbergModel
+    from cyten_tpu_torch.backends import FusionTreeBackend
+
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        get_backend(su2_symmetry)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        HeisenbergModel(L=4, conserve='SU(2)')
+    backend = get_backend(su2_symmetry, device='cpu')
+    assert isinstance(backend, FusionTreeBackend)
+    assert str(backend.block_backend.device) == 'cpu'
