@@ -7,19 +7,22 @@ Builds the CUDA kernels from the sources in the checkout, holds each against its
 plain PyTorch version on the card, drives the port's main paths (U(1) Heisenberg
 two-site DMRG: HeisenbergModel -> SimpleMPS -> DMRGEngine.run, dynamic and then in
 static mode; and the port's bench step, cyten_tpu_torch.bench) at the full width of
-the repo's production setting, and SU(2) Heisenberg DMRG on the fusion-tree backend,
-checks the energies, and ends with one JSON line
+the repo's production setting, SU(2) Heisenberg DMRG and the Fibonacci golden chain on
+the fusion-tree backend, checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
     python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
     python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
+    python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
      report (registers, shared memory, spills); the grouped GEMM's SASS holds
-     DMMA (f64) and HGMMA (bf16, wgmma), checked with cuobjdump where the toolkit
-     has it
+     DMMA (f64, complex128) and HGMMA (bf16, wgmma), checked with cuobjdump where
+     the toolkit has it; the host-sync counter's count on a function that does
+     nothing (the first count in a process holds one sync that PyTorch reports at
+     torch/cuda/__init__.py)
   2. grouped GEMM against its plain version: the pair lists of
      tests/test_pallas_grouped.py, the ragged lists of
      tests/test_torch_grouped_gemm.py, and the chi=4096 tdot(LP, theta) on the
@@ -32,6 +35,12 @@ Phases:
      and mixed bf16 x f32 at each precision, held to K 2^-23 |A||B| (their products
      are exact, their sums in another order); library_ms a per-pair torch.matmul
      under TF32, on bf16-cast operands, or with the bf16 operand widened per call
+  2d. the grouped GEMM's complex128 kind against its plain version, held elementwise
+     to 2 K 2^-52 |A||B|: the ragged lists with random complex operands, real x complex
+     and complex x real (the real operand copied to complex128 by the wrapper), and
+     the chi=4096 tdot(LP, theta) list made complex128; library_ms a per-pair
+     complex128 torch.matmul loop; bound at 8 real operations a complex multiply-add
+     on the f64 tensor cores (67 TFLOP/s)
   2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on the
      Lanczos families of tests/test_torch_tridiag.py (N=1; closing at every k;
      graded like a converged state's; a near-degenerate lowest pair; random N=10,
@@ -51,7 +60,7 @@ Phases:
   6. the probe kernel (csrc/probe.cu) against its plain version, bitwise, also on
      unaligned arrays with a tail; its times and the host cost of each piece of
      one call
-  7. static mode on the converged L=24 engine of phase 4: two eager steady sweeps
+  7. static mode on the converged L=24 engine of phase 4: one eager steady sweep
      against HEIS24_E_REF (1e-8) with every B right-isometric (1e-8); the centre
      bond's static update by stage, its host syncs and one static update under
      torch.profiler, and the tridiagonal kernel on its own Lanczos matrix (as in
@@ -81,8 +90,8 @@ Phases:
      (1e-9); L=24 at chi_max=512 multiplets, eps=0, N_max=10, from singlet pairs,
      swept dynamically until the centre bond holds 512 multiplets, against
      HEIS24_E_REF and phase 4's U(1) energy (1e-8), with the grouped GEMM counted,
-     and one dynamic bond update under torch.profiler; static mode on it: two eager
-     steady sweeps (1e-8, B right-isometric), two sweep_static_batched() sweeps
+     and one dynamic bond update under torch.profiler; static mode on it: one eager
+     steady sweep (1e-8, B right-isometric), two sweep_static_batched() sweeps
      through CUDA graphs (the runs of _static_runs, period 2; graphs captured and
      capture seconds; grouped-GEMM and tridiagonal launches counted through
      replays; host syncs of a replayed sweep; one replayed sweep under
@@ -91,6 +100,19 @@ Phases:
      version in f64, timed as in phase 2; one static bond update at 32 multiplets,
      card against CPU (E 1e-9 relative, S 1e-8); bench.su2_run and bench.su2_step at
      512 multiplets, eager and as a graph (ms, capture seconds)
+  12. the Fibonacci golden chain on the fusion-tree backend, in c128 (its MPO is
+     complex128, so every compose list runs on the complex128 kind): L=6, 8 and 10 at
+     chi_max=16, eps=1e-13, against MPSKit.jl's energies (GoldenChainModel
+     .EXACT_ENERGIES, 1e-9), L=10 then in static mode, two eager sweeps and two through
+     graphs (1e-9); L=28 at chi_max=512 multiplets, eps=0, N_max=10, from fusion
+     pairs, swept dynamically until the centre bond holds 512 multiplets, against
+     GOLDEN28_E_REF (1e-9), one dynamic bond update under torch.profiler; static mode
+     on it: two eager sweeps, two sweep_static_batched() sweeps through graphs (runs,
+     graphs and capture seconds, complex128 and tridiagonal launches through replays,
+     host syncs of a replayed sweep, at most 1; one replayed sweep under
+     torch.profiler), one eager sweep, each within 1e-10 of the dynamic energy (the
+     eager one of the graphs') with every B right-isometric; the centre compose list
+     on the complex128 kind, timed as in phase 2; bench.golden_run at 512 multiplets
 """
 
 from __future__ import annotations
@@ -127,14 +149,16 @@ PALLAS_SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129),
 
 def peak_ops_per_s(dtype, precision: str = None) -> float:
     """Dense peak of one H100 SXM for the kernel's arithmetic: f32 outside the tensor
-    cores (67 TFLOP/s), bf16 tensor cores (989.4), f64 tensor cores (67), and for an
+    cores (67 TFLOP/s), bf16 tensor cores (989.4), f64 tensor cores (67, also for
+    complex128, whose real operations they run), and for an
     f32 result at 'tensorfloat32' the TF32 tensor cores (494.7) and at 'default' the
     bf16 ones (data sheet)."""
     import torch
 
     if dtype == torch.float32 and precision in ('tensorfloat32', 'default'):
         return {'tensorfloat32': 494.7e12, 'default': 989.4e12}[precision]
-    return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989.4e12}[dtype]
+    return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989.4e12,
+            torch.complex128: 67e12}[dtype]
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -159,11 +183,13 @@ def lp_theta_pairs(LP, theta):
                                     [theta.get_leg_idx('vL')])[:5]
 
 
-def work_of(As, Bs, out_id, out_itemsize: int):
+def work_of(As, Bs, out_id, out_itemsize: int, complex_out: bool = False):
     """(operations, bytes) the grouped product of the pair lists ``As``, ``Bs`` must do
     and move: each distinct input matrix read once in its own dtype, each output
-    written once (``out_itemsize`` bytes an element)."""
+    written once (``out_itemsize`` bytes an element). A complex multiply-add counts
+    as 8 real operations (``complex_out``)."""
     flops = sum(2 * A.shape[0] * A.shape[1] * B.shape[1] for A, B in zip(As, Bs))
+    flops *= 4 if complex_out else 1
     inputs = {t.data_ptr(): t.numel() * t.element_size() for t in (*As, *Bs)}
     out_m = {o: (A.shape[0], B.shape[1]) for A, B, o in zip(As, Bs, out_id.tolist())}
     out_bytes = sum(m * n for m, n in out_m.values()) * out_itemsize
@@ -193,6 +219,31 @@ def check_rounded(label, got, ref, As, Bs, out_id, n_out, pairs, precision):
             worst = float((diff - ks[o] * 2. ** -23 * m).max())
             raise AssertionError(f'{label}: kernel disagrees with plain past K 2^-23 |A||B| '
                                  f'(output {o}, by {worst})')
+        err = max(err, float(diff.max()))
+    return err
+
+
+def check_complex(label, got, ref, As, Bs, out_id, n_out, pairs):
+    """Kernel against plain for a complex128 result: each element is held to
+    2 K_o 2^-52 (|A||B|)_ij, K_o the summed depth of the output's pairs and |A||B|
+    the product of the operands' moduli (each side's f64 error is at most half of
+    that). Returns the largest error; raises past the bound."""
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+
+    mag = gg.grouped_matmul_plain([A.abs().double() for A in As],
+                                  [B.abs().double() for B in Bs], out_id, n_out, pairs)
+    ks = np.zeros(n_out)
+    a_idx = range(len(out_id)) if pairs is None else pairs[0].tolist()
+    np.add.at(ks, np.asarray(out_id), [As[i].shape[1] for i in a_idx])
+    err = 0.
+    for o, (c, r, m) in enumerate(zip(got, ref, mag)):
+        if not c.numel():
+            continue
+        diff = (c - r).abs()
+        if not bool((diff <= 2 * ks[o] * 2. ** -52 * m).all()):
+            worst = float((diff - 2 * ks[o] * 2. ** -52 * m).max())
+            raise AssertionError(f'{label}: kernel disagrees with plain past 2 K 2^-52 '
+                                 f'|A||B| (output {o}, by {worst})')
         err = max(err, float(diff.max()))
     return err
 
@@ -235,7 +286,8 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     ``dtype``, those of B ``b_dtype`` where given (a mixed bf16 x f32 list); an f32
     result is computed at ``precision`` (config.matmul_precision while the wrapper
     plans, the plain version's argument) and held to check_rounded's bound, the
-    others to TOLERANCES. Raises if kernel and plain disagree."""
+    others to TOLERANCES, a complex one to check_complex's bound. Raises if kernel
+    and plain disagree."""
     import torch
     from cyten_tpu_torch.blocks.grouped_gemm import (
         grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
@@ -247,6 +299,7 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     Bs = [B.to(b_dtype).contiguous() for B in Bs]
     out_dtype = torch.promote_types(dtype, b_dtype)
     rounded = out_dtype == torch.float32 and (precision is not None or dtype != b_dtype)
+    complex_out = out_dtype.is_complex
     name = ' x '.join(dict.fromkeys(str(t).split('.')[-1] for t in (dtype, b_dtype)))
     if rounded:
         name = f'{precision or "float32"} {name}'
@@ -260,6 +313,10 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
         if rounded:
             err = check_rounded(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs,
                                 precision)
+        elif complex_out:
+            if got and got[0].dtype != out_dtype:
+                raise AssertionError(f'{label} {name}: the kernel gave {got[0].dtype}')
+            err = check_complex(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs)
         else:
             rtol, atol = TOLERANCES[name]
             for c, r in zip(got, ref):
@@ -273,8 +330,13 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
         # the pair lists, for the library loop and the work count
         PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
         PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
-        library = (library_call(PA, PB, precision, b_dtype == torch.bfloat16) if rounded
-                   else lambda: [torch.matmul(A, B) for A, B in zip(PA, PB)])
+        if rounded:
+            library = library_call(PA, PB, precision, b_dtype == torch.bfloat16)
+        elif dtype != b_dtype:  # real x complex: torch.matmul takes one dtype
+            library = lambda: [torch.matmul(A.to(out_dtype), B.to(out_dtype))
+                               for A, B in zip(PA, PB)]
+        else:
+            library = lambda: [torch.matmul(A, B) for A, B in zip(PA, PB)]
         (ms, device_ms, library_ms), spread = turns(
             [lambda: grouped_matmul(As, Bs, out_id, n_out, pairs), launch, library], reps,
             rounds)
@@ -282,7 +344,7 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
                                                         precision))
     finally:
         config.matmul_precision = old
-    flops, nbytes = work_of(PA, PB, out_id, got[0].element_size())
+    flops, nbytes = work_of(PA, PB, out_id, got[0].element_size(), complex_out)
     t_ops = flops / peak_ops_per_s(out_dtype, precision)
     t_bytes = nbytes / HBM_BYTES_PER_S
     res = {'pairs': len(PA), 'outputs': n_out, 'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
@@ -361,7 +423,9 @@ def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
 def count_syncs(fn) -> int:
     """Host syncs that ``fn()`` makes, as torch.cuda.set_sync_debug_mode('warn')
     reports them (it sees syncs that PyTorch makes, not those inside a library).
-    Leaves the source line of each in ``count_syncs.where``."""
+    Leaves the source line of each in ``count_syncs.where``. The first count in a
+    process holds one sync of PyTorch's own (phase 1 counts it on a function that
+    does nothing)."""
     import torch
 
     with warnings.catch_warnings(record=True) as caught:
@@ -609,14 +673,14 @@ def tridiag_phase() -> dict:
 
 # kernel policy (its mangled name) -> the SASS instruction its products must run on
 SASS_OPS = {'3F64': 'DMMA', '4BF16': 'HGMMA', '3F32': 'FFMA', '4F32W': 'FFMA',
-            '5TF32P': 'HMMA.1688.F32.TF32', '5BF16P': 'HGMMA'}
+            '5TF32P': 'HMMA.1688.F32.TF32', '5BF16P': 'HGMMA', '4C128': 'DMMA'}
 
 
 def check_sass(kernels):
     """The SASS of each kind of the grouped GEMM holds the instruction its products
-    must run on (SASS_OPS: DMMA for f64, HGMMA for bf16 and the bf16 pass, HMMA .TF32
-    for TF32, FFMA for f32), by cuobjdump where the toolkit has it; raises if one is
-    missing."""
+    must run on (SASS_OPS: DMMA for f64 and complex128, HGMMA for bf16 and the bf16
+    pass, HMMA .TF32 for TF32, FFMA for f32), by cuobjdump where the toolkit has it;
+    raises if one is missing."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     if not os.path.exists(tool):
         print('[sass] cuobjdump not found: the instructions are not checked', flush=True)
@@ -635,7 +699,8 @@ def check_sass(kernels):
 
 
 def su2_compose_pairs(LP, theta):
-    """The grouped-GEMM operands of the SU(2) matvec's first compose, inside
+    """The grouped-GEMM operands of a fusion-tree matvec's first compose (SU(2) or
+    the golden chain), inside
     tdot(theta, LP, 'vL', 'vR'), as the fusion-tree backend passes them: the
     permuted theta's and LP's blocks, ``(As, Bs, pairs, out_id, n_out)`` with one
     pair and one output per coupled sector."""
@@ -711,16 +776,13 @@ def su2_phase(E24) -> dict:
         raise AssertionError('SU(2) L=24 DMRG energy, width or kernel launches wrong')
     profile_run(f'SU(2) dynamic bond {i}', lambda: eng.update_bond(i))
 
-    # static mode: two eager steady sweeps, two through graphs, one eager after
+    # static mode: one eager steady sweep, two through graphs, one eager after
     eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
-    eager_s = []
-    for sweep in range(2):
-        t0 = time.perf_counter()
-        E_static = eng.sweep()
-        torch.cuda.synchronize()
-        eager_s.append(time.perf_counter() - t0)
-        print(f'[SU(2) static] eager sweep {sweep + 1}: E = {E_static!r}, '
-              f'{eager_s[-1]:.2f} s', flush=True)
+    t0 = time.perf_counter()
+    E_static = eng.sweep()
+    torch.cuda.synchronize()
+    eager_s = [time.perf_counter() - t0]
+    print(f'[SU(2) static] eager sweep 1: E = {E_static!r}, {eager_s[-1]:.2f} s', flush=True)
     if not abs(E_static - HEIS24_E_REF) < 1e-8:
         raise AssertionError('SU(2) static-mode energy wrong')
     assert_right_isometric(psi, 1e-8)
@@ -798,11 +860,176 @@ def su2_phase(E24) -> dict:
             'tridiag_launches': tridiag_launches}
 
 
+def complex_phase(As, Bs, out_id, n_out, pairs, rng) -> dict:
+    """Phase 2d: the grouped GEMM's complex128 kind against its plain version, held
+    to check_complex's bound: the ragged lists with random complex operands, real x
+    complex and complex x real, and the chi=4096 tdot(LP, theta) list ``As``, ``Bs``
+    (f64) made complex128 (its imaginary parts drawn anew). Returns the chi=4096
+    result."""
+    import torch
+
+    c128 = torch.complex128
+
+    def draw(shapes, side: str, cplx: bool):
+        dims = [(M, K) if side == 'A' else (K, N) for M, K, N in shapes]
+        return [torch.from_numpy(rng.normal(size=d) + 1j * rng.normal(size=d) if cplx
+                                 else rng.normal(size=d)).cuda() for d in dims]
+
+    for case, (shapes, out_ids) in RAGGED.items():
+        ids, n = np.array(out_ids), max(out_ids) + 1
+        cA, cB = draw(shapes, 'A', True), draw(shapes, 'B', True)
+        compare_kernel(f'ragged {case}', cA, cB, ids, n, c128, reps=5)
+        compare_kernel(f'ragged {case}', draw(shapes, 'A', False), cB, ids, n,
+                       torch.float64, reps=5, b_dtype=c128)
+        compare_kernel(f'ragged {case}', cA, draw(shapes, 'B', False), ids, n, c128,
+                       reps=5, b_dtype=torch.float64)
+    cAs = [torch.complex(A, torch.randn_like(A)) for A in As]
+    cBs = [torch.complex(B, torch.randn_like(B)) for B in Bs]
+    return compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', cAs, cBs, out_id, n_out, c128,
+                          pairs)
+
+
+def golden_phase() -> dict:
+    """Phase 12: the Fibonacci golden chain on the fusion-tree backend (see the module
+    docstring). Returns the numbers of its kernels-line entry."""
+    import torch
+    from cyten_tpu_torch.algorithms import DMRGEngine, GoldenChainModel, HEffective, SimpleMPS
+    from cyten_tpu_torch.bench import GOLDEN28_E_REF, golden_run
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_ground_state
+
+    c128 = grouped_matmul.kinds['complex128']
+    t_phase = time.perf_counter()
+    # L = 6, 8, 10 against MPSKit.jl's energies: the BASELINE.md anchor
+    for L in (6, 8, 10):
+        model = GoldenChainModel(L)
+        psi = SimpleMPS.from_fusion_pairs(model.site_leg, L, backend=model.backend)
+        eng = DMRGEngine(psi, model, chi_max=16, eps=1e-13)
+        before = c128.launches
+        E = eng.run(n_sweeps=10)
+        exact = model.exact_finite_gs_energy()
+        print(f'[golden L={L}] E = {E!r}, MPSKit {exact!r}, |dE| = {abs(E - exact):.3e}, '
+              f'MPO {model.H_mpo[1].dtype}, B {psi.Bs[1].dtype}, complex128 launches '
+              f'{c128.launches - before}', flush=True)
+        if not (abs(E - exact) < 1e-9 and c128.launches > before):
+            raise AssertionError(f'golden chain L={L}: energy or complex launches wrong')
+    eng.enable_static_mode(n_lanczos=16, svd_mode='steady', cuda_graphs=False)
+    E_eager = [eng.sweep() for _ in range(2)]
+    eng.enable_static_mode(n_lanczos=16, svd_mode='steady')
+    E_graph = [eng.sweep_static_batched() for _ in range(2)]
+    print(f'[golden L=10 static] eager {E_eager}, graphs {E_graph}, '
+          f'{len(eng.static_graphs())} graphs', flush=True)
+    if not all(abs(e - exact) < 1e-9 for e in E_eager + E_graph):
+        raise AssertionError('golden chain L=10 static energy wrong')
+
+    # L=28 at 512 multiplets from fusion pairs, dynamic until the centre bond is full
+    print(f'[golden] L=6/8/10: {time.perf_counter() - t_phase:.1f} s', flush=True)
+    L, chi_max = 28, 512
+    model = GoldenChainModel(L)
+    psi = SimpleMPS.from_fusion_pairs(model.site_leg, L, backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=chi_max, eps=0., lanczos_options={'N_max': 10})
+    i = L // 2 - 1
+
+    def centre_mult():
+        return int(np.sum(psi.Ss[i + 1].leg.multiplicities))
+
+    grouped_matmul.launches = 0
+    c128.launches = 0
+    tridiagonal_ground_state.launches = 0
+    E = None
+    dyn_s = []
+    for sweep in range(12):
+        t0 = time.perf_counter()
+        E_new = eng.run(n_sweeps=1)
+        torch.cuda.synchronize()
+        dyn_s.append(time.perf_counter() - t0)
+        print(f'[golden L=28] sweep {sweep + 1}: E = {E_new!r}, {dyn_s[-1]:.2f} s, centre '
+              f'bond {centre_mult()} multiplets', flush=True)
+        converged = E is not None and abs(E_new - E) < 1e-10
+        E = E_new
+        if converged and centre_mult() == chi_max:
+            break
+    launches, c128_launches = grouped_matmul.launches, c128.launches
+    print(f'[golden L=28] E = {E!r}, ref {GOLDEN28_E_REF!r}, |dE| = '
+          f'{abs(E - GOLDEN28_E_REF):.3e}, grouped-GEMM launches {launches} (complex128 '
+          f'{c128_launches}), sweep s {json.dumps(dyn_s)}', flush=True)
+    if not (abs(E - GOLDEN28_E_REF) < 1e-9 and c128_launches > 0
+            and centre_mult() == chi_max):
+        raise AssertionError('golden L=28 DMRG energy, width or complex launches wrong')
+    profile_run(f'golden dynamic bond {i}', lambda: eng.update_bond(i))
+
+    # static mode: two eager steady sweeps, two through graphs, one eager after
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    eager_s = []
+    for sweep in range(2):
+        t0 = time.perf_counter()
+        E_static = eng.sweep()
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        print(f'[golden static] eager sweep {sweep + 1}: E = {E_static!r}, '
+              f'{eager_s[-1]:.2f} s', flush=True)
+    if not abs(E_static - E) < 1e-10:
+        raise AssertionError('golden static-mode energy disagrees with the dynamic one')
+    assert_right_isometric(psi, 1e-8)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    print(f'[golden graphs] runs of _static_runs: {eng._static_runs()}', flush=True)
+    graph_s = []
+    for sweep in range(2):
+        c128.launches = 0
+        tridiagonal_ground_state.launches = 0
+        t0 = time.perf_counter()
+        E_graph = eng.sweep_static_batched()
+        torch.cuda.synchronize()
+        graph_s.append(time.perf_counter() - t0)
+        sweep_launches = c128.launches
+        tridiag_launches = tridiagonal_ground_state.launches
+        print(f'[golden graphs] batched sweep {sweep + 1}: E = {E_graph!r}, '
+              f'{graph_s[-1]:.2f} s, complex128 launches {sweep_launches}, tridiag '
+              f'launches {tridiag_launches}', flush=True)
+    graphs = eng.static_graphs()
+    syncs = count_syncs(eng.sweep_static_batched)
+    print(f'[golden graphs] {len(graphs)} graphs captured in '
+          f'{sum(g.capture_seconds for g in graphs):.2f} s ({len(eng.static_graphs())} '
+          f'after the counted sweep); launches per replayed sweep: complex128 '
+          f'{sweep_launches}, tridiag {tridiag_launches}; host syncs of a replayed sweep '
+          f'{syncs} (at {count_syncs.where}); sweep s eager {json.dumps(eager_s)}, graphs '
+          f'{json.dumps(graph_s)}', flush=True)
+    if not (abs(E_graph - E) < 1e-10 and sweep_launches > 0 and tridiag_launches > 0
+            and graphs and syncs <= 1):
+        raise AssertionError('golden batched static sweeps: energy, launches or syncs wrong')
+    assert_right_isometric(psi, 1e-8)
+    profile_run('golden replayed sweep', eng.sweep_static_batched, top=8)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    t0 = time.perf_counter()
+    E_after = eng.sweep()
+    torch.cuda.synchronize()
+    print(f'[golden graphs] eager sweep after: E = {E_after!r}, {time.perf_counter() - t0:.2f} '
+          f's, |E - E_graphs| = {abs(E_after - E_graph):.3e}', flush=True)
+    if not abs(E_after - E_graph) < 1e-10:
+        raise AssertionError('the eager golden static sweep disagrees with the graphs')
+    assert_right_isometric(psi, 1e-8)
+
+    # the centre bond's compose pair list on the complex128 kind
+    H = HEffective(eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i], model.H_mpo[i + 1])
+    As, Bs, pairs, out_id, n_out = su2_compose_pairs(H.LP, psi.get_theta2(i))
+    compose = compare_kernel(f'golden L=28 centre compose(theta, LP) {chi_max} multiplets',
+                             As, Bs, out_id, n_out, torch.complex128, pairs, rounds=8)
+    del eng, psi, model, H, As, Bs
+    torch.cuda.empty_cache()
+
+    # the port's bench: the golden matvec at 512 multiplets, eager
+    t_mv = golden_run(chi_max)
+    print(f'[golden bench {chi_max} multiplets] matvec {t_mv * 1e3:.3f} ms; phase '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return {**compose, 'launches': c128_launches}
+
+
 def main() -> int:
     import torch
 
     kernels_only = '--kernels-only' in sys.argv[1:]
     su2_only = '--su2-only' in sys.argv[1:]
+    golden_only = '--golden-only' in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -836,6 +1063,10 @@ def main() -> int:
     print(f'[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)',
           flush=True)
     check_sass(_kernels)
+    # the sync counter's own count, on a function that does nothing (see count_syncs)
+    idle = count_syncs(lambda: None)
+    print(f'[syncs] a function that does nothing counts {idle} (at {count_syncs.where})',
+          flush=True)
 
     # --- 2. kernel against plain ---------------------------------------------------------
     rng = np.random.default_rng(0)
@@ -871,6 +1102,8 @@ def main() -> int:
             rounded[precision, a_dtype] = compare_kernel(
                 f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, a_dtype, pairs,
                 precision=precision, b_dtype=b_dtype)
+    # --- 2d. the complex128 kind ------------------------------------------------------------
+    complex_phase(As, Bs, out_id, n_out, pairs, rng)
     del LP, RP, W1, W2, theta, As, Bs
     torch.cuda.empty_cache()
     # --- 2b. the tridiagonal kernel against its plain version ----------------------------
@@ -882,6 +1115,11 @@ def main() -> int:
     if su2_only:
         su2_phase(None)
         print(f'[total] {time.perf_counter() - t_start:.1f} s (SU(2) only)', flush=True)
+        return 0
+    if golden_only:
+        golden_phase()
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (golden chain only)',
+              flush=True)
         return 0
 
     # --- 3. main path, small: L=12 against exact diagonalization -------------------------
@@ -995,17 +1233,16 @@ def main() -> int:
     eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
     grouped_matmul.launches = 0
     scale2.launches = 0
-    eager_s = []
-    for sweep in range(2):
-        t0 = time.perf_counter()
-        E_static = eng.sweep()
-        torch.cuda.synchronize()
-        eager_s.append(time.perf_counter() - t0)
-        print(f'[L=24 static] eager sweep {sweep + 1}: E = {E_static!r}, '
-              f'{eager_s[-1]:.2f} s', flush=True)
+    # one eager sweep: it gives every bond its static structure, which the graphs
+    # below capture
+    t0 = time.perf_counter()
+    E_static = eng.sweep()
+    torch.cuda.synchronize()
+    eager_s = [time.perf_counter() - t0]
+    print(f'[L=24 static] eager sweep 1: E = {E_static!r}, {eager_s[-1]:.2f} s', flush=True)
     static_launches = grouped_matmul.launches
     print(f'[L=24 static] |dE| = {abs(E_static - HEIS24_E_REF):.3e}, grouped-GEMM '
-          f'launches {static_launches} ({static_launches / (2 * 2 * (L - 1)):.1f} per bond)',
+          f'launches {static_launches} ({static_launches / (2 * (L - 1)):.1f} per bond)',
           flush=True)
     if not abs(E_static - HEIS24_E_REF) < 1e-8 or static_launches == 0:
         raise AssertionError('L=24 static-mode energy or kernel launches wrong')
@@ -1239,6 +1476,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     su2 = su2_phase(E24)
     phase_s['11'] = time.perf_counter() - t_phase
+
+    # --- 12. the Fibonacci golden chain on the fusion-tree backend ---------------------------
+    t_phase = time.perf_counter()
+    golden = golden_phase()
+    phase_s['12'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -1264,6 +1506,12 @@ def main() -> int:
                 'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
                 **{k: su2[k] for k in ('launches', 'max_abs_err', 'ms', 'device_ms',
                                        'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}},
+               {'name': 'grouped_gemm[complex128]', 'route': 'cuda',
+                'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+                'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+                **{k: golden[k] for k in ('launches', 'max_abs_err', 'ms', 'device_ms',
+                                          'plain_ms', 'bound_ms', 'bound_by',
+                                          'library_ms')}},
                {'name': 'probe', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/probe.cu',
                 'replaces': 'scripts/exp_r5_step_decomp.py:59',

@@ -1,17 +1,18 @@
 """Tensor-network algorithms: finite MPS, the Heisenberg and transverse-field Ising
-chains and two-site DMRG (host-driven or static).
+chains, the Fibonacci golden chain and two-site DMRG (host-driven or static).
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
-``HeisenbergModel -> SimpleMPS -> DMRGEngine.run``.
+``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` and its anyonic form
+``GoldenChainModel -> SimpleMPS.from_fusion_pairs -> DMRGEngine``.
 """
 
 from .mps import SimpleMPS, split_truncate_theta
 from .models import (
-    HeisenbergModel, TFIModel, heisenberg_exact_finite_gs_energy, mpo_from_bond_op,
-    spin_half_site, tfi_exact_finite_gs_energy,
+    GoldenChainModel, HeisenbergModel, TFIModel, heisenberg_exact_finite_gs_energy,
+    mpo_from_bond_op, spin_half_site, tfi_exact_finite_gs_energy,
 )
 from .dmrg import DMRGEngine, FaultError, HEffective
 
-__all__ = ['SimpleMPS', 'split_truncate_theta', 'HeisenbergModel', 'TFIModel',
-           'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
+__all__ = ['SimpleMPS', 'split_truncate_theta', 'GoldenChainModel', 'HeisenbergModel',
+           'TFIModel', 'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
            'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective']

@@ -2,16 +2,17 @@
 references.
 
 The counterpart of ``cyten_tpu/algorithms/models.py``'s ``spin_half_site`` (:35),
-``mpo_from_bond_op`` (:99), ``TFIModel`` (:372, finite chains) and ``HeisenbergModel``
-(:471). H_bonds (two-site gates) and H_mpo (MPO tensors) are SymmetricTensors for a
-chosen conserved symmetry. The exact ground-state energies come from sparse exact
-diagonalization.
+``mpo_from_bond_op`` (:99), ``TFIModel`` (:372, finite chains), ``HeisenbergModel``
+(:471) and ``GoldenChainModel`` (:570). H_bonds (two-site gates) and H_mpo (MPO
+tensors) are SymmetricTensors for a chosen conserved symmetry. The exact ground-state
+energies come from sparse exact diagonalization, the golden chain's from MPSKit.jl.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..dtypes import Dtype
 from ..symmetries import ElementarySpace, su2_symmetry, u1_symmetry, z2_symmetry, \
     no_symmetry
 from ..tensors import (
@@ -19,8 +20,9 @@ from ..tensors import (
     truncate_singular_values, svd_apply_mask,
 )
 
-__all__ = ['HeisenbergModel', 'TFIModel', 'spin_half_site', 'mpo_from_bond_op',
-           'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy']
+__all__ = ['GoldenChainModel', 'HeisenbergModel', 'TFIModel', 'spin_half_site',
+           'mpo_from_bond_op', 'heisenberg_exact_finite_gs_energy',
+           'tfi_exact_finite_gs_energy']
 
 # Pauli x and z in the (|up>, |down>) basis
 _sx = np.array([[0., 1.], [1., 0.]])
@@ -320,6 +322,62 @@ class TFIModel:
 
     def exact_finite_gs_energy(self) -> float:
         return tfi_exact_finite_gs_energy(self.L, self.J, self.g)
+
+
+class GoldenChainModel:
+    r"""Golden chain: :math:`H = -J \sum_i P^{\text{vac}}_{i,i+1}` of Fibonacci anyons.
+
+    Each site carries a tau anyon; the Hamiltonian projects neighboring pairs onto
+    their trivial fusion channel. Its MPO comes from the bond operator
+    (:func:`mpo_from_bond_op`), whose SVD across the pair runs in complex128 (the
+    Fibonacci F and R symbols are complex), so every MPO tensor is complex128, as
+    in ``cyten_tpu``. The tensors live on ``device`` (default: the CUDA card) unless
+    a ``backend`` is given. Benchmark energies from MPSKit.jl (``BASELINE.md``).
+    """
+
+    #: exact finite-chain ground energies (J=1) from MPSKit.jl (BASELINE.md)
+    EXACT_ENERGIES = {6: -4.02595560765756, 8: -5.54888659415890,
+                      10: -7.0735949995638}
+
+    def __init__(self, L: int, J: float = 1., backend=None, block_backend=None,
+                 device: str = None):
+        from ..symmetries import fibonacci_anyon_category as fib
+        from ..backends import get_backend
+
+        self.L = L
+        self.J = J
+        self.site_leg = ElementarySpace(fib, [[1]])  # one tau anyon
+        self.backend = backend if backend is not None else \
+            get_backend(fib, block_backend, device=device)
+        self.H_bonds = self._build_H_bonds()
+        self.H_mpo = mpo_from_bond_op(self.H_bonds[0], L)
+
+    @property
+    def site_legs(self):
+        return [self.site_leg] * self.L
+
+    def _build_H_bonds(self):
+        p = self.site_leg
+        sym = p.symmetry
+        bb = self.backend.block_backend
+        J = self.J
+
+        def func(shape, coupled):
+            if np.all(np.asarray(coupled) == sym.trivial_sector):
+                return -J * bb.eye_matrix(shape[0], Dtype.float64)
+            return bb.zeros(shape, Dtype.float64)
+
+        h = SymmetricTensor.from_sector_block_func(
+            func, [p, p], [p, p], backend=self.backend,
+            labels=['p0', 'p1', 'p1*', 'p0*'])
+        return [h] * (self.L - 1)
+
+    def energy(self, psi) -> float:
+        return float(np.real(sum(complex(psi.bond_expectation_value(h, i))
+                                 for i, h in enumerate(self.H_bonds))))
+
+    def exact_finite_gs_energy(self) -> float:
+        return self.EXACT_ENERGIES[self.L] * self.J
 
 
 # --- exact reference (sparse ED) -------------------------------------------------------

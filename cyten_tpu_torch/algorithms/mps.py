@@ -1,8 +1,9 @@
 """Finite matrix-product states in right-canonical (B) form.
 
-The counterpart of ``cyten_tpu/algorithms/mps.py``: ``SimpleMPS`` (product and singlet
-states, two-site wavefunctions) and ``split_truncate_theta`` (:664) with the exact
-per-sector SVD. All contractions are label-based ``tdot`` calls.
+The counterpart of ``cyten_tpu/algorithms/mps.py``: ``SimpleMPS`` (product, singlet
+and fusion-pair states, two-site wavefunctions, bond expectation values) and
+``split_truncate_theta`` (:664) with the exact per-sector SVD. All contractions are
+label-based ``tdot`` and ``compose`` calls.
 
 Conventions:
 
@@ -19,7 +20,9 @@ import numpy as np
 from ..dtypes import Dtype
 from ..backends import get_backend
 from ..symmetries import ElementarySpace
-from ..tensors import DiagonalTensor, SymmetricTensor, permute_legs, scale_axis, tdot
+from ..tensors import (
+    DiagonalTensor, SymmetricTensor, compose, inner, permute_legs, scale_axis, tdot,
+)
 from ..tensors.adaptive import adaptive_truncated_svd, fused_truncated_svd
 from ..tensors.randomized import randomized_truncated_svd
 
@@ -125,6 +128,47 @@ class SimpleMPS:
             Ss.append(S)
         return cls(Bs, Ss, bc=bc)  # singlet cell: trivial outer bonds wrap
 
+    @classmethod
+    def from_fusion_pairs(cls, site_leg, L: int, backend=None,
+                          dtype=Dtype.float64, device: str = None) -> SimpleMPS:
+        """Pairs of neighboring sites fused to the vacuum (works for anyons).
+
+        Without a ``backend`` the tensors live on ``device`` (default: the CUDA card).
+
+        The generalization of :meth:`from_singlet_pairs` to arbitrary symmetries,
+        built sector-wise (no dense detour). Its blocks are ``dtype`` (f64 by
+        default), also for a symmetry with complex topological data, as in
+        ``cyten_tpu``: DMRG makes them complex where the Hamiltonian is.
+        """
+        assert L % 2 == 0
+        symmetry = site_leg.symmetry
+        if backend is None:
+            backend = get_backend(symmetry, device=device)
+        bb = backend.block_backend
+        triv = ElementarySpace(symmetry, symmetry.trivial_sector[None, :])
+        bond = site_leg.as_ket_space() if site_leg.is_dual else site_leg
+
+        def ones_func(shape, coupled):
+            return bb.ones(shape, dtype)
+
+        Bs, Ss = [], []
+        for i in range(L):
+            if i % 2 == 0:
+                B = SymmetricTensor.from_sector_block_func(
+                    ones_func, [triv, site_leg], [bond], backend=backend,
+                    labels=[['vL', 'p'], ['vR']])
+                S = DiagonalTensor.from_eye(triv, backend=backend,
+                                            labels=['vL', 'vL*'], dtype=dtype)
+            else:
+                B = SymmetricTensor.from_sector_block_func(
+                    ones_func, [bond, site_leg], [triv], backend=backend,
+                    labels=[['vL', 'p'], ['vR']])
+                S = DiagonalTensor.from_eye(bond, backend=backend,
+                                            labels=['vL', 'vL*'], dtype=dtype)
+            Bs.append(B)
+            Ss.append(S)
+        return cls(Bs, Ss)
+
     def get_theta1(self, i: int) -> SymmetricTensor:
         """Effective single-site wavefunction ``S_i @ B_i``, labels [vL, p, vR]."""
         i = i % self.L if self.bc == 'infinite' else i
@@ -140,6 +184,15 @@ class SimpleMPS:
         theta = tdot(th, B2, 'vR', 'vL')
         # result: codomain [vL, p0], domain [vR, p1] -> canonical split
         return permute_legs(theta, codomain=['vL', 'p0', 'p1'], domain=['vR'])
+
+    def bond_expectation_value(self, op, i: int):
+        """<psi| op_{i,i+1} |psi> for a 2-site op (codomain [p0,p1], domain [p0,p1])."""
+        theta = self.get_theta2(i)
+        op = op.relabelled(['p0', 'p1', 'p1*', 'p0*'])
+        thp = permute_legs(theta, codomain=['p0', 'p1'], domain=['vL', 'vR'])
+        op_th = compose(op, thp)  # legs [p0, p1, vR, vL]
+        op_th = permute_legs(op_th, codomain=['vL', 'p0', 'p1'], domain=['vR'])
+        return inner(theta, op_th, do_dagger=True)
 
     def bond_dimensions(self) -> list[int]:
         return [int(B.get_leg_co_domain('vL').dim) for B in self.Bs] \

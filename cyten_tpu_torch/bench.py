@@ -1,7 +1,8 @@
 """The port's bench: the static DMRG bond update of ``bench.py``, timed on the card.
 
-The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_su2_workload``
-(:383), ``su2_run`` (:523), ``build_step_state`` (:598), ``step_run`` (:649),
+The counterpart of ``bench.py``'s ``build_workload`` (:190), ``build_golden_workload``
+(:334), ``build_su2_workload`` (:383), ``su2_run`` (:523, and :func:`golden_run`, its
+golden-chain form), ``build_step_state`` (:598), ``step_run`` (:649),
 ``accuracy_bf16work`` (:1124) and ``su2_step_with_compile`` (:1188, here
 :func:`su2_step`), and of ``scripts/exp_r5_step_decomp.py``
 (:func:`step_decomposition`). Everything runs on
@@ -14,6 +15,7 @@ events around graph steps.
     s_per_step, _ = step_run(4096, precision='default', env_dtype='bfloat16')
     print(step_decomposition())
     s_per_matvec = su2_run(512)
+    s_per_matvec = golden_run(512)
     capture_s, s_per_step = su2_step(512, graph=True)
 
 Not ported: the int8-environment GEMM probe of the script (:67-113).
@@ -26,28 +28,40 @@ import time
 import numpy as np
 import torch
 
-from .algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
+from .algorithms import DMRGEngine, GoldenChainModel, HeisenbergModel, SimpleMPS
+from .algorithms.models import mpo_from_bond_op
 from .algorithms.dmrg import (
     HEffective, _GraphedStep, _PrefixMask, _freeze_bond, _get_static_bond_fn,
     _heff_matvec_impl,
 )
 from .backends import get_backend
+from .backends.data import BlockSparseData
 from .blocks.grouped_gemm import grouped_matmul
 from .blocks.probe import scale2, scale2_plain
 from .config import config
 from .dtypes import Dtype
-from .symmetries import ElementarySpace, su2_symmetry, u1_symmetry
+from .symmetries import (
+    ElementarySpace, fibonacci_anyon_category, su2_symmetry, u1_symmetry,
+)
 from .tensors import DiagonalTensor, SymmetricTensor, scalar_multiply, tdot
 from .tensors.krylov_based import _device_norm
 from .tools.flops import tdot_flops
 
-__all__ = ['build_workload', 'build_su2_workload', 'build_step_state', 'step_flops',
-           'step_run', 'step_decomposition', 'accuracy_bf16work', 'su2_run', 'su2_step',
-           'HEIS24_E_REF']
+__all__ = ['build_workload', 'build_golden_workload', 'build_su2_workload',
+           'build_step_state', 'step_flops', 'step_run', 'step_decomposition',
+           'accuracy_bf16work', 'su2_run', 'su2_step', 'golden_run', 'HEIS24_E_REF',
+           'GOLDEN28_E_REF']
 
 #: f64 DMRG energy of the L=24 U(1) Heisenberg open chain at chi=512, the reference
 #: of the accuracy protocol (``bench.py:1121``, ``HEIS24_E_REF``)
 HEIS24_E_REF = -10.45378576040958
+
+#: f64 DMRG energy of the L=28 Fibonacci golden chain (J=1, open) at chi_max=512
+#: multiplets, eps=0, N_max=10: ``cyten_tpu`` on the CPU with its numpy block
+#: backend, the tenth sweep from ``SimpleMPS.from_fusion_pairs`` (the centre bond
+#: holds 512 multiplets from the seventh; sweeps 4-10 within 9e-14 of each other).
+#: Re-taken by ``PYTHONPATH=. python tests/test_torch_golden_chain.py --golden28-ref``.
+GOLDEN28_E_REF = -20.81543265454313
 
 
 def build_workload(backend, chi: int, dtype=Dtype.float64, seed: int = 0):
@@ -68,6 +82,49 @@ def build_workload(backend, chi: int, dtype=Dtype.float64, seed: int = 0):
                                             labels=['vL', 'wL', 'vL*'], **kw)
     W = SymmetricTensor.from_random_normal([w_leg, p_leg], [p_leg, w_leg],
                                            labels=['wL', 'p', 'wR', 'p*'], **kw)
+    theta = SymmetricTensor.from_random_normal([v_leg, p_leg, p_leg], [v_leg],
+                                               labels=['vL', 'p0', 'p1', 'vR'], **kw)
+    W1 = W.relabelled({'p': 'p0', 'p*': 'p0*'})
+    W2 = W.relabelled({'p': 'p1', 'p*': 'p1*'})
+    return LP, RP, W1, W2, theta
+
+
+def build_golden_workload(backend, chi_mult: int = 512, dtype=Dtype.float64,
+                          seed: int = 0):
+    """The Fibonacci golden-chain DMRG bond environment of bench.py:334-380
+    (build_golden_workload): ``LP, RP, W1, W2, theta`` on the fusion-tree ``backend``,
+    the virtual leg holding both sectors (1 and tau) with multiplicities split by
+    quantum dimension (1 : phi), ``chi_mult`` multiplets in all.
+
+    W is the bulk golden-chain MPO tensor, built on the CPU as bench.py builds it on
+    the host, so the workload is the same on every device, and cast to its real part,
+    as there: the factorisation is complex128 with imaginary parts of about 1e-16,
+    the operator real."""
+    rng = np.random.default_rng(seed)
+    cpu = get_backend(fibonacci_anyon_category, device='cpu')
+    model = GoldenChainModel(L=2, backend=cpu)
+    W = mpo_from_bond_op(model.H_bonds[0], 2, bc='infinite')[0]  # bulk tensor
+    if W.dtype.is_complex:
+        W = W.to_dtype(W.dtype.to_real)
+    if dtype != W.dtype:
+        W = W.to_dtype(dtype)
+    if backend is not cpu:
+        bb = backend.block_backend
+        W = W.copy(deep=False)
+        W.backend = backend
+        W.data = BlockSparseData([bb.as_block(b, W.dtype) for b in W.data.blocks],
+                                 W.data.block_inds, W.dtype, is_sorted=True)
+    fib = W.symmetry
+    phi = (1 + 5 ** 0.5) / 2
+    m_tau = max(1, int(round(chi_mult * phi / (1 + phi))))
+    v_leg = ElementarySpace(fib, [[0], [1]], [chi_mult - m_tau, m_tau])
+    p_leg = W.get_leg_co_domain('p')
+    w_leg = W.get_leg_co_domain('wL')
+    kw = dict(backend=backend, rng=rng, dtype=W.dtype)
+    LP = SymmetricTensor.from_random_normal([v_leg], [v_leg, w_leg],
+                                            labels=[['vR*'], ['vR', 'wR']], **kw)
+    RP = SymmetricTensor.from_random_normal([v_leg, w_leg], [v_leg],
+                                            labels=[['vL', 'wL'], ['vL*']], **kw)
     theta = SymmetricTensor.from_random_normal([v_leg, p_leg, p_leg], [v_leg],
                                                labels=['vL', 'p0', 'p1', 'vR'], **kw)
     W1 = W.relabelled({'p': 'p0', 'p*': 'p0*'})
@@ -276,13 +333,16 @@ step_run.out_dtypes = None
 def _matvec_slope(args, lengths=(10, 50), repeats: int = 2) -> float:
     """Seconds per effective-Hamiltonian matvec, each output renormalised (in f32)
     and fed back, from the slope over ``lengths`` (scripts/exp_r5_step_decomp.py
-    :126-156)."""
+    :126-156). A complex output of a real input (anyonic tree plans carry complex
+    twist phases whose sum is real for a real Hamiltonian) is fed back as its real
+    part, as bench.py:560-566 does, so that every matvec sees the input's dtype."""
     LP, RP, W1, W2, theta = args
 
     def run(th, n):
         for _ in range(n):
             out = _heff_matvec_impl(LP, RP, W1, W2, th)
-            th = scalar_multiply(1. / _device_norm(out), out)
+            out = scalar_multiply(1. / _device_norm(out), out)
+            th = out if out.dtype == th.dtype else out.to_dtype(th.dtype)
         LP.backend.block_backend.synchronize()
         return th
 
@@ -390,19 +450,32 @@ def accuracy_bf16work(chi: int = 1024, L: int = 24, e_ref: float = HEIS24_E_REF,
 
 
 def su2_run(chi_mult: int = 512, lengths=(10, 50), repeats: int = 2,
-            precision: str = 'float32', device: str = 'cuda'):
-    """Seconds per fusion-tree effective-Hamiltonian matvec on the
-    :func:`build_su2_workload` environment (f64), slope-timed over ``lengths`` as
-    bench.py:523-560 (su2_run) times it, each output renormalised and fed back.
+            precision: str = 'float32', device: str = 'cuda', builder=None):
+    """Seconds per fusion-tree effective-Hamiltonian matvec on the ``builder``
+    environment (f64; default :func:`build_su2_workload`, and
+    :func:`build_golden_workload` for the golden chain), slope-timed over ``lengths``
+    as bench.py:523-596 (su2_run) times it, each output renormalised and fed back.
     bench.py's second value, a time on its numpy backend, has no counterpart."""
-    backend = get_backend(su2_symmetry, device=device)
-    args = build_su2_workload(backend, chi_mult)
+    builder = builder or build_su2_workload
+    symmetry = (fibonacci_anyon_category if builder is build_golden_workload
+                else su2_symmetry)
+    backend = get_backend(symmetry, device=device)
+    args = builder(backend, chi_mult)
     old = config.matmul_precision
     config.matmul_precision = precision
     try:
         return _matvec_slope(args, lengths, repeats)
     finally:
         config.matmul_precision = old
+
+
+def golden_run(chi_mult: int = 512, lengths=(10, 50), repeats: int = 2,
+               precision: str = 'float32', device: str = 'cuda'):
+    """Seconds per golden-chain matvec at ``chi_mult`` multiplets: :func:`su2_run` on
+    :func:`build_golden_workload`, the counterpart of bench.py's
+    ``golden_matvec_512mult_ms`` (:1376-1380)."""
+    return su2_run(chi_mult, lengths, repeats, precision, device,
+                   builder=build_golden_workload)
 
 
 def su2_step(chi_mult: int = 512, n_lanczos: int = 10, svd_mode: str = 'steady',

@@ -16,12 +16,14 @@ A list whose operands are f32, or f32 and bf16, gives f32 and is computed at the
 precision ``config.matmul_precision`` names when the call is planned: 'float32' (or
 None) exactly, 'tensorfloat32' on TF32 tensor cores, 'default' as one bf16 pass. A
 bf16 operand of such a list is read by the kernel where it lies, in bf16. f64 and
-bf16 lists ignore the setting, as JAX's precision touches only f32 dots. Each kind
-of launch is counted on its own too (``grouped_matmul.kinds``).
+bf16 lists ignore the setting, as JAX's precision touches only f32 dots. A list with
+a complex128 operand gives complex128, computed at full precision by the kernel's
+complex kind; its real operands are copied to complex128 first. Each kind of launch
+is counted on its own too (``grouped_matmul.kinds``).
 
 :func:`grouped_matmul` launches the kernel for CUDA tensors and takes the plain
 version, :func:`grouped_matmul_plain`, only for tensors on the CPU, at the same
-precision. On CUDA it never falls back: an operand it does not take (complex,
+precision. On CUDA it never falls back: an operand it does not take (complex64,
 another dtype, another device) raises. :func:`grouped_matmul_plan` splits a CUDA
 call into its host part and the launch, so that the launch alone can be timed or
 repeated.
@@ -42,13 +44,14 @@ from ._kernels import call, count, function
 
 __all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'round_tf32']
 
-# the kernel's kinds (csrc/grouped_gemm.cu): name -> code. The first three compute in
-# their operands' own dtype; the last three write f32 from f32 or bf16 operands,
-# rounded as config.matmul_precision says
+# the kernel's kinds (csrc/grouped_gemm.cu): name -> code. float64, float32, bfloat16
+# and complex128 compute in their operands' own dtype; float32_mixed, tensorfloat32
+# and default write f32 from f32 or bf16 operands, rounded as config.matmul_precision
+# says
 _KIND_CODE = {'float64': 0, 'float32': 1, 'bfloat16': 2, 'float32_mixed': 3,
-              'tensorfloat32': 4, 'default': 5}
+              'tensorfloat32': 4, 'default': 5, 'complex128': 6}
 _DTYPE_KIND = {torch.float64: 'float64', torch.float32: 'float32',
-               torch.bfloat16: 'bfloat16'}
+               torch.bfloat16: 'bfloat16', torch.complex128: 'complex128'}
 _F32_OPERANDS = frozenset({torch.float32, torch.bfloat16})
 
 
@@ -207,16 +210,21 @@ def _prepare(As, Bs, out_ids, n_out):
 def _as_operands(tensors, info, dtypes, dtype, readable):
     """Copies, in place in ``tensors`` and ``info``, the tensors that the kernel cannot
     read where they lie: a dtype outside ``readable`` (only tested where ``dtypes``,
-    the set of their dtypes, holds one), made ``dtype``, or a row stride other than 1.
-    Returns the bf16 flag of each tensor as the kernel will read it, or None where
-    the kind reads one dtype only."""
+    the set of their dtypes, holds one), made ``dtype``, a row stride other than 1,
+    or a complex view whose conjugate or negative bit is set (its memory holds the
+    values before that operation). Returns the bf16 flag of each tensor as the
+    kernel will read it, or None where the kind reads one dtype only."""
     need = (info[:, 2] != 1) & (info[:, 4] > 1)
     if not dtypes <= readable:
         need |= np.fromiter((t.dtype not in readable for t in tensors), bool, len(tensors))
+    if dtype.is_complex:
+        need |= np.fromiter((t.is_conj() or t.is_neg() for t in tensors), bool,
+                            len(tensors))
     if need.any():
         for i in np.flatnonzero(need).tolist():
             t = tensors[i]
-            t = tensors[i] = (t if t.dtype in readable else t.to(dtype)).contiguous()
+            t = (t if t.dtype in readable else t.to(dtype)).resolve_conj().resolve_neg()
+            t = tensors[i] = t.contiguous()
             info[i, :3] = t.data_ptr(), t.stride(0), 1
     if len(readable) == 1:
         return None
@@ -244,10 +252,11 @@ def grouped_matmul_plain(As, Bs, out_ids=None, n_out=None, pairs=None,
     """The plain PyTorch version: a loop of ``torch.matmul``, then a sum per output.
 
     Same dtype policy as the kernel: bf16 products accumulate in f32 and are cast
-    back once; mixed dtypes are promoted to their common type first. A list with an
-    f32 result is computed at ``precision`` (:func:`_kind`'s names; None is
-    'float32'): each operand rounded as the kernel rounds it (:func:`_rounded`),
-    then multiplied in f32, whose products of rounded values are exact.
+    back once; mixed dtypes (real with complex too) are promoted to their common
+    type first. A list with an f32 result is computed at ``precision``
+    (:func:`_kind`'s names; None is 'float32'): each operand rounded as the kernel
+    rounds it (:func:`_rounded`), then multiplied in f32, whose products of rounded
+    values are exact.
     """
     if pairs is not None:
         As, Bs = _select(As, pairs[0]), _select(Bs, pairs[1])
@@ -442,8 +451,6 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
     index = devices.pop()
     dtypes = a_dt | b_dt
     dtype = _common_dtype(dtypes)
-    if dtype.is_complex:
-        raise NotImplementedError('grouped_matmul: complex operands have no CUDA kernel yet')
     if dtype not in _DTYPE_KIND:
         raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
     kind, readable = _kind(dtypes, dtype)

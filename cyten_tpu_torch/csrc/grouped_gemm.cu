@@ -36,6 +36,16 @@
 //         core, one pass, f32 accumulators, f32 written.
 // Every product of rounded values is exact in f32, so each kind differs from its
 // plain version (grouped_matmul_plain(precision=)) only by the order of the sum.
+// One more kind computes complex128 lists (the Fibonacci golden chain's compose
+// lists, whose MPO is complex), at full precision whatever config.matmul_precision
+// says, as cyten_tpu computes complex products:
+//   c128  DMMA on split parts. A stage holds the interleaved (re, im) tiles as they
+//         lie in device memory, copied by the f64 loads (a complex row is a row of
+//         twice as many doubles); the fragments are read as double2 and split in
+//         registers, and each k4 step runs four DMMAs per m16n8 tile:
+//         Cr += Ar Br + (-Ai) Bi, Ci += Ar Bi + Ai Br (8 real operations a complex
+//         multiply-add, 67 TFLOP/s). 64 x 64 tile, 4 warps of 32 x 32 (the real and
+//         imaginary accumulators take 128 registers a thread), BK = 8.
 // The operands reach shared memory through a ring of stages filled by cp.async, so
 // the loads of later k slices overlap the products of this one. The ring runs over
 // the concatenated (pair, k slice) stream of a tile: the loads of the next pair
@@ -72,13 +82,16 @@
 //   pairs [n_pairs, 8] = a_ptr, lda, b_ptr, ldb, K, a_bf16, b_bf16, 0
 // (a_bf16, b_bf16: the operand is bf16; read by the converting kinds only)
 // A_p is [M, K] with row pitch lda, B_p [K, N] with row pitch ldb (unit stride
-// along a row), C_o contiguous [M, N]. The tiles of output o are first_tile ..
-// first_tile + ceil(M / BM) * tiles_n - 1, tiles_n = ceil(N / BN), row-major.
+// along a row), C_o contiguous [M, N]; pitches count elements (complex ones for
+// c128). The tiles of output o are first_tile .. first_tile + ceil(M / BM) *
+// tiles_n - 1, tiles_n = ceil(N / BN), row-major.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -257,6 +270,100 @@ struct F64 {
           const int64_t r = row0 + (warp / 2) * 64 + i * 16 + g + 8 * (f / 2);
           const int64_t c = col0 + (warp % 2) * 32 + j * 8 + 2 * t + f % 2;
           if (r < M && c < N) C[r * N + c] = acc.v[i][j][f];
+        }
+  }
+};
+
+// ---- c128: DMMA on split (re, im) parts ------------------------------------------------
+
+struct C128 {
+  using T = double;  // the loads copy doubles: a complex element is two of them
+  static constexpr int THREADS = 128, BM = 64, BN = 64, BK = 8, STAGES = 3, MIN_CTAS = 2,
+                       LOAD_UNROLL = 8;
+  // padded rows, in complex elements: the double2 fragment loads of a quarter warp (8
+  // lanes, one 128-byte wavefront) hit 8 distinct 16-byte bank groups
+  static constexpr int LDA = BK + 4;  // A (rows g, col t): g * 12 + t is 4g + t mod 8
+  static constexpr int LDB = BN + 2;  // B (row t, col g): t * 66 + g is 2t + g mod 8
+  static constexpr int A_BYTES = BM * LDA * 16;
+  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 16;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = false;
+  struct Acc { double re[2][4][4], im[2][4][4]; };  // [m16 tile][n8 tile][fragment]
+
+  // c counts doubles: the real part of complex column c / 2 is double c, its imaginary
+  // part double c + 1
+  __device__ __forceinline__ static uint32_t a_off(int r, int c) {
+    return (r * 2 * LDA + c) * 8;
+  }
+  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
+    return A_BYTES + (r * 2 * LDB + c) * 8;
+  }
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc.re[i][j][f] = acc.im[i][j][f] = 0.;
+  }
+
+  __device__ __forceinline__ static void drain(Acc&) {}
+
+  // warp w owns rows (w / 2) * 32 .. + 31 and cols (w % 2) * 32 .. + 31 of the tile
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
+    const double2* sA = reinterpret_cast<const double2*>(stage);
+    const double2* sB = reinterpret_cast<const double2*>(stage + A_BYTES);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const double2* a_base = sA + ((warp / 2) * 32 + g) * LDA + t;
+    const double2* b_base = sB + t * LDB + (warp % 2) * 32 + g;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      // A fragments: rows g and g + 8, col t; B fragment: row t, col g
+      double ar[2][2], ai[2][2], an[2][2], br[4][1], bi[4][1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const double2 v = a_base[(i * 16 + h * 8) * LDA + kk];
+          ar[i][h] = v.x;
+          ai[i][h] = v.y;
+          an[i][h] = -v.y;
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double2 v = b_base[kk * LDB + j * 8];
+        br[j][0] = v.x;
+        bi[j][0] = v.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          F64::dmma(acc.re[i][j], ar[i], br[j]);
+          F64::dmma(acc.re[i][j], an[i], bi[j]);
+          F64::dmma(acc.im[i][j], ar[i], bi[j]);
+          F64::dmma(acc.im[i][j], ai[i], br[j]);
+        }
+    }
+  }
+
+  // fragment f of an m16n8 tile: row g + 8 * (f / 2), col 2 * t + f % 2; C is
+  // interleaved complex128, written as one double2 an element
+  __device__ __forceinline__ static void store(const Acc& acc, double* C, int64_t M, int64_t N,
+                                               int64_t row0, int64_t col0) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    double2* C2 = reinterpret_cast<double2*>(C);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int64_t r = row0 + (warp / 2) * 32 + i * 16 + g + 8 * (f / 2);
+          const int64_t c = col0 + (warp % 2) * 32 + j * 8 + 2 * t + f % 2;
+          if (r < M && c < N) C2[r * N + c] = make_double2(acc.re[i][j][f], acc.im[i][j][f]);
         }
   }
 };
@@ -648,6 +755,16 @@ __device__ __forceinline__ void load_step(unsigned char* stage, const int64_t* p
     else
       load_box_cvt<float, P, P::BK, P::BN>(stage, reinterpret_cast<const float*>(pr[2]),
                                            pr[3], k0, col0, K, N, b_off);
+  } else if constexpr (std::is_same<P, C128>::value) {
+    // a complex [R, C] matrix of pitch ld is a [R, 2C] matrix of doubles of pitch 2 ld:
+    // the f64 loads copy it as it lies, 16 bytes (one element) a copy where the base
+    // allows, else 8
+    const double* A = reinterpret_cast<const double*>(pr[0]);
+    const double* B = reinterpret_cast<const double*>(pr[2]);
+    load_box<double, P::BM, 2 * P::BK, P::THREADS, P::LOAD_UNROLL>(
+        stage, A, 2 * pr[1], row0, 2 * k0, M, 2 * K, a_off);
+    load_box<double, P::BK, 2 * P::BN, P::THREADS, P::LOAD_UNROLL>(
+        stage, B, 2 * pr[3], k0, 2 * col0, K, 2 * N, b_off);
   } else {
     const T* A = reinterpret_cast<const T*>(pr[0]);
     const T* B = reinterpret_cast<const T*>(pr[2]);
@@ -802,6 +919,7 @@ int launch_dtype(int dtype, const Tables& tables, int64_t n_out, int64_t n_tiles
     case 3: return launch<F32W>(tables, n_out, n_tiles, s);
     case 4: return launch<TF32P>(tables, n_out, n_tiles, s);
     case 5: return launch<BF16P>(tables, n_out, n_tiles, s);
+    case 6: return launch<C128>(tables, n_out, n_tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -823,12 +941,12 @@ int with_device(int device, F&& launch) {
 }  // namespace
 
 // dtype (the kind): 0 = float64, 1 = float32, 2 = bfloat16; f32 results of f32 or
-// bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'). `tables` holds the outs rows and
-// then the pairs rows, n_words int64 in all: in host memory if tables_on_device is 0
-// (then n_words <= INLINE_WORDS; they are copied into the launch's parameters and may
-// be freed on return), else in device memory. Launches on `stream` of CUDA device
-// `device`. Returns the cudaError_t of the launch (0 on success); the caller raises
-// on anything else.
+// bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'); 6 =
+// complex128. `tables` holds the outs rows and then the pairs rows, n_words int64 in
+// all: in host memory if tables_on_device is 0 (then n_words <= INLINE_WORDS; they
+// are copied into the launch's parameters and may be freed on return), else in
+// device memory. Launches on `stream` of CUDA device `device`. Returns the
+// cudaError_t of the launch (0 on success); the caller raises on anything else.
 extern "C" int cyten_grouped_gemm(int dtype, const int64_t* tables, int64_t n_words,
                                   int tables_on_device, int64_t n_out, int64_t n_tiles,
                                   int device, void* stream) {
@@ -858,6 +976,7 @@ extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
     case 3: bm_bn_words[0] = F32W::BM; bm_bn_words[1] = F32W::BN; return 0;
     case 4: bm_bn_words[0] = TF32P::BM; bm_bn_words[1] = TF32P::BN; return 0;
     case 5: bm_bn_words[0] = BF16P::BM; bm_bn_words[1] = BF16P::BN; return 0;
+    case 6: bm_bn_words[0] = C128::BM; bm_bn_words[1] = C128::BN; return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
 """Symmetries, spaces and fusion trees (host-side numpy).
 
 The counterpart of ``cyten_tpu/symmetries/`` for trivial, U(1), Z_N and SU(2)
-symmetries and their products. Fermions, anyons and SU(N) come with later slices.
+symmetries, the anyonic categories of ``anyons.py``, and their products. Fermions
+and SU(N) come with later slices.
 """
 
 from .core import (
@@ -9,6 +10,11 @@ from .core import (
     SectorArray, Symmetry, SymmetryError, SymmetryFactor,
 )
 from .groups import SU2, U1, ZN, AbelianGroup, Group, NoSymmetry
+from .anyons import (
+    FibonacciAnyonCategory, IsingAnyonCategory, QuantumDoubleZNAnyonCategory,
+    SU2_kAnyonCategory, SU3_3AnyonCategory, ToricCodeCategory, ZNAnyonCategory,
+    ZNAnyonCategory2,
+)
 from .spaces import (
     AbelianLegPipe, ElementarySpace, Leg, LegPipe, Space, TensorProduct, swap_gate,
     twist_gate,
@@ -22,13 +28,22 @@ z3_symmetry = ZN(N=3).as_Symmetry()
 z4_symmetry = ZN(N=4).as_Symmetry()
 u1_symmetry = U1().as_Symmetry()
 su2_symmetry = SU2().as_Symmetry()
+semion_category = ZNAnyonCategory2(2, 0).as_Symmetry()
+toric_code_category = ToricCodeCategory().as_Symmetry()
+double_semion_category = ZNAnyonCategory2(2, 0) * ZNAnyonCategory2(2, 1)
+fibonacci_anyon_category = FibonacciAnyonCategory(handedness='left').as_Symmetry()
+ising_anyon_category = IsingAnyonCategory(nu=1).as_Symmetry()
 
 __all__ = [
     'BaseSymmetry', 'BraidChiralityUnspecifiedError', 'BraidingStyle', 'FusionStyle',
     'Sector', 'SectorArray', 'Symmetry', 'SymmetryError', 'SymmetryFactor',
     'Group', 'AbelianGroup', 'NoSymmetry', 'U1', 'ZN', 'SU2',
+    'ZNAnyonCategory', 'ZNAnyonCategory2', 'QuantumDoubleZNAnyonCategory',
+    'ToricCodeCategory', 'FibonacciAnyonCategory', 'IsingAnyonCategory',
+    'SU2_kAnyonCategory', 'SU3_3AnyonCategory',
     'Leg', 'LegPipe', 'Space', 'ElementarySpace', 'TensorProduct', 'AbelianLegPipe',
     'swap_gate', 'twist_gate', 'FusionTree', 'fusion_trees',
     'no_symmetry', 'z2_symmetry', 'z3_symmetry', 'z4_symmetry', 'u1_symmetry',
-    'su2_symmetry',
+    'su2_symmetry', 'semion_category', 'toric_code_category', 'double_semion_category',
+    'fibonacci_anyon_category', 'ising_anyon_category',
 ]

@@ -4,14 +4,17 @@ The port holds no reference to ``cyten_tpu`` objects. State crosses over as a pl
 spec, which an exporter on the other side writes (the parity tests hold one):
 
 tensor spec
-    ``symmetry``: list of factor names, each ``'NoSymmetry'``, ``'U1'``, ``'Z<N>'``
-    or ``'SU2'``;
+    ``symmetry``: list of factor names, each ``'NoSymmetry'``, ``'U1'``, ``'Z<N>'``,
+    ``'SU2'``, or the class name of an anyonic category of ``symmetries/anyons.py``
+    with its constructor's arguments (``_init_args``), as in
+    ``'FibonacciAnyonCategory(handedness=right)'`` or ``'ZNAnyonCategory(N=3,n=1)'``;
     ``codomain`` / ``domain``: lists of leg specs (domain factors in domain order);
     ``labels``: labels in ``legs`` order; ``block_inds``: ``[n_blocks, n_legs]`` int
     array (``[n_blocks]`` for a diagonal tensor); ``blocks``: list of numpy arrays in
-    ``legs`` order; ``dtype``: a :class:`~cyten_tpu_torch.dtypes.Dtype` name;
+    ``legs`` order (complex128 blocks for a complex tensor); ``dtype``: a
+    :class:`~cyten_tpu_torch.dtypes.Dtype` name;
     ``kind``: ``'symmetric'`` or ``'diagonal'`` (codomain == domain == ``[leg]``).
-    On the fusion-tree backend (SU(2)) a block is the matrix of one coupled sector,
+    On the fusion-tree backend (SU(2), anyons) a block is the matrix of one coupled sector,
     ``[codomain tree basis, domain tree basis]``, and ``block_inds`` is ``[n_blocks,
     2]``: the index of that sector in the codomain's and in the domain's sector
     decomposition (a diagonal tensor's stay ``[n_blocks]``, per sector of its leg).
@@ -33,14 +36,29 @@ import numpy as np
 from ..backends.data import BlockSparseData, DenseData, DiagonalBlockData
 from ..backends.no_symmetry import NoSymmetryBackend
 from ..dtypes import Dtype
-from ..symmetries import SU2, ElementarySpace, NoSymmetry, Symmetry, U1, ZN
+from ..symmetries import SU2, ElementarySpace, NoSymmetry, Symmetry, U1, ZN, anyons
 
 __all__ = ['symmetry_from_names', 'leg_from_spec', 'tensor_from_arrays',
            'mps_from_arrays']
 
 
+def _anyon_factor(name: str):
+    """The anyonic category named ``'Class'`` or ``'Class(key=value,...)'`` (values
+    int or str), or None if ``name`` names none."""
+    m = re.fullmatch(r'(\w+)(?:\((.*)\))?', name)
+    if m is None or m.group(1) not in anyons.__all__:
+        return None
+    kwargs = {}
+    for item in filter(None, (m.group(2) or '').split(',')):
+        key, _, value = item.partition('=')
+        value = value.strip()
+        kwargs[key.strip()] = int(value) if re.fullmatch(r'-?\d+', value) else value
+    return getattr(anyons, m.group(1))(**kwargs)
+
+
 def symmetry_from_names(names) -> Symmetry:
-    """``['U1', 'Z2']`` -> ``U1 x Z2``; ``['SU2']`` -> SU(2)."""
+    """``['U1', 'Z2']`` -> ``U1 x Z2``; ``['SU2']`` -> SU(2);
+    ``['FibonacciAnyonCategory(handedness=left)']`` -> Fibonacci anyons."""
     factors = []
     for name in names:
         m = re.fullmatch(r'Z(\d+)', name)
@@ -52,6 +70,8 @@ def symmetry_from_names(names) -> Symmetry:
             factors.append(NoSymmetry())
         elif m:
             factors.append(ZN(int(m.group(1))))
+        elif (anyon := _anyon_factor(name)) is not None:
+            factors.append(anyon)
         else:
             raise ValueError(f'unknown symmetry factor {name!r}')
     res = factors[0].as_Symmetry()

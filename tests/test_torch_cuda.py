@@ -142,9 +142,78 @@ def test_scale2_unaligned_tail(card):
 
 @pytest.mark.cuda
 def test_grouped_gemm_refuses_complex(card):
-    a = torch.zeros(3, 3, dtype=torch.complex128, device=card)
+    """complex64, which no path of the port produces, has no kind and raises (a
+    complex64 operand beside an f32 one too); complex128 has one."""
+    a = torch.zeros(3, 3, dtype=torch.complex64, device=card)
     with pytest.raises(NotImplementedError):
         grouped_matmul([a], [a])
+    with pytest.raises(NotImplementedError):
+        grouped_matmul([a], [a.real.contiguous()])
+
+
+def _complex_close(got, ref, As, Bs, out_ids):
+    """Each element of a complex128 result within 2 K 2^-52 (|A||B|)_ij of the plain
+    version's, K the summed depth of the output's pairs (each side's f64 rounding
+    is at most half of that)."""
+    mag = grouped_matmul_plain([A.abs().double() for A in As],
+                               [B.abs().double() for B in Bs], out_ids)
+    ks = np.zeros(len(ref))
+    np.add.at(ks, np.asarray(out_ids), [A.shape[1] for A in As])
+    for c, r, m, k in zip(got, ref, mag, ks):
+        assert c.dtype == torch.complex128 and c.shape == r.shape
+        assert bool(((c - r).abs() <= 2 * k * 2. ** -52 * m).all())
+
+
+def _draw(rng, shape, cplx: bool, device):
+    x = rng.normal(size=shape) + 1j * rng.normal(size=shape) if cplx else rng.normal(size=shape)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(RAGGED))
+@pytest.mark.parametrize('sides', ['complex', 'real_x_complex', 'complex_x_real'])
+def test_grouped_gemm_complex_ragged_lists(card, case, sides):
+    """The complex128 kind on the ragged lists, with both operands complex or one of
+    them real (copied to complex128 by the wrapper): one launch, counted as a
+    complex128 one, within rounding of the plain version."""
+    shapes, out_ids = RAGGED[case]
+    rng = np.random.default_rng(12)
+    a_cplx, b_cplx = sides != 'complex_x_real', sides != 'real_x_complex'
+    As = [_draw(rng, (M, K), a_cplx, card) for M, K, N in shapes]
+    Bs = [_draw(rng, (K, N), b_cplx, card) for M, K, N in shapes]
+    kind = grouped_matmul.kinds['complex128']
+    before, kind_before = grouped_matmul.launches, kind.launches
+    got = grouped_matmul(As, Bs, out_ids)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1 and kind.launches == kind_before + 1
+    _complex_close(got, grouped_matmul_plain(As, Bs, out_ids), As, Bs, out_ids)
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_complex_empty_lists(card):
+    """An empty list gives no outputs; outputs with no rows are complex128 and
+    launch nothing."""
+    assert grouped_matmul([], []) == []
+    A = torch.zeros(0, 5, dtype=torch.complex128, device=card)
+    B = torch.ones(5, 7, dtype=torch.complex128, device=card)
+    before = grouped_matmul.launches
+    (c,) = grouped_matmul([A], [B])
+    assert c.shape == (0, 7) and c.dtype == torch.complex128 and c.is_cuda
+    assert grouped_matmul.launches == before
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_complex_reads_conjugate_views(card):
+    """A conjugate or negative view (its memory holds the values before that
+    operation) and a transposed complex operand give what their values give."""
+    rng = np.random.default_rng(13)
+    A = _draw(rng, (40, 70), True, card)
+    B = _draw(rng, (33, 70), True, card)
+    for a, b in ((A.conj(), B.t()), (-A.conj(), B.mH), (A.conj().t().mH, B.t().conj())):
+        (c,) = grouped_matmul([a], [b])
+        torch.cuda.synchronize()
+        ref = a.resolve_conj().resolve_neg() @ b.resolve_conj().resolve_neg()
+        assert float((c - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 @pytest.mark.cuda
@@ -626,6 +695,65 @@ def test_captured_su2_static_bond_matches_eager(card):
     for g, r in zip(got[1:], ref[1:]):
         assert g.labels == r.labels
         np.testing.assert_allclose(g.to_numpy(), r.to_numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_golden_compose_matches_plain(card):
+    """A golden-chain compose on the card (one complex128 grouped-GEMM launch over
+    its coupled sectors, real LP against a complex theta) against the same compose
+    on the CPU, to 1e-12."""
+    from cyten_tpu_torch import fibonacci_anyon_category
+    from cyten_tpu_torch.bench import build_golden_workload
+    from cyten_tpu_torch.tensors import compose, permute_legs
+
+    out = {}
+    kind = grouped_matmul.kinds['complex128']
+    for device in ('cuda', 'cpu'):
+        LP, _, _, _, theta = build_golden_workload(
+            get_backend(fibonacci_anyon_category, device=device), chi_mult=48)
+        theta = theta.to_dtype(Dtype.complex128) * (1 + 2j)
+        a = permute_legs(theta, codomain=['p0', 'p1', 'vR'], domain=['vL'])
+        b = permute_legs(LP, codomain=['vR'], domain=['wR', 'vR*'])
+        before = kind.launches
+        out[device] = compose(a, b)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            assert kind.launches == before + 1
+    assert out['cuda'].dtype == Dtype.complex128 and len(out['cuda'].data.blocks) > 1
+    for g, r in zip(out['cuda'].data.blocks, out['cpu'].data.blocks):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_captured_golden_static_bond_matches_eager(card):
+    """A steady static golden-chain bond update (build_step_state of
+    build_golden_workload at 16 multiplets, its state complex128) captured as a CUDA
+    graph and replayed, against the eager update on the same inputs (1e-12)."""
+    from cyten_tpu_torch import fibonacci_anyon_category
+    from cyten_tpu_torch.bench import build_golden_workload
+
+    LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
+        get_backend(fibonacci_anyon_category, device='cuda'), 16,
+        workload=build_golden_workload)
+    B1, B2, tmpl = (t.to_dtype(Dtype.complex128) for t in (B1, B2, tmpl))
+    impl = _get_static_bond_fn(10, 'steady')
+
+    def fn(LP, RP, S, B1, B2):
+        return impl(HEffective(LP, RP, W1, W2), S, B1, B2, tmpl, None)
+
+    inputs = (LP, RP, S, B1, B2)
+    ref = fn(*inputs)
+    graph = _GraphedStep(fn, inputs)
+    assert graph.graph.launches[grouped_matmul.kinds['complex128']] > 0
+    assert graph.graph.launches[tridiagonal_ground_state] == 1
+    got = graph.run(inputs)
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-12 * abs(float(ref[0]))
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.labels == r.labels and g.dtype == r.dtype
+        for gb, rb in zip(g.data.blocks, r.data.blocks):
+            np.testing.assert_allclose(gb.cpu().numpy(), rb.cpu().numpy(), rtol=0,
+                                       atol=1e-12)
 
 
 @pytest.mark.cuda

@@ -88,9 +88,10 @@ def test_dtype_policy():
     assert c.dtype == torch.bfloat16
     ref = a.bfloat16().float() @ b.bfloat16().float()
     assert torch.equal(c, ref.bfloat16())
-    # bf16 with f32 promotes to f32; f32 with f64 to f64
+    # bf16 with f32 promotes to f32; f32 with f64 to f64; any with complex128 to it
     assert grouped_matmul([a.bfloat16()], [b.float()])[0].dtype == torch.float32
     assert grouped_matmul([a.float()], [b])[0].dtype == torch.float64
+    assert grouped_matmul([a], [b.to(torch.complex128)])[0].dtype == torch.complex128
 
 
 # ragged lists: name -> (shapes (M, K, N), out_ids); the same cases run on the card
@@ -120,6 +121,50 @@ def test_ragged_lists_against_numpy(case):
         # f64 sums of <= 20 products of depth <= 1462 in another order
         np.testing.assert_allclose(c.numpy(), ref[o] + np.zeros(c.shape), rtol=1e-12,
                                    atol=1e-12)
+
+
+def _complex(rng, shape, cplx: bool):
+    x = rng.normal(size=shape)
+    return x + 1j * rng.normal(size=shape) if cplx else x
+
+
+@pytest.mark.parametrize('case', list(RAGGED))
+@pytest.mark.parametrize('sides', ['complex', 'real_x_complex', 'complex_x_real'])
+def test_complex_lists_against_numpy(case, sides):
+    """complex128 lists, and real x complex ones (promoted to complex128, as the
+    kernel's complex kind takes them), against numpy's products."""
+    shapes, out_ids = RAGGED[case]
+    rng = np.random.default_rng(14)
+    As = [_complex(rng, (M, K), sides != 'complex_x_real') for M, K, N in shapes]
+    Bs = [_complex(rng, (K, N), sides != 'real_x_complex') for M, K, N in shapes]
+    got = grouped_matmul([torch.from_numpy(a) for a in As], [torch.from_numpy(b) for b in Bs],
+                         out_ids)
+    ref = {}
+    for a, b, o in zip(As, Bs, out_ids):
+        ref[o] = ref.get(o, 0) + a @ b
+    for o, c in enumerate(got):
+        assert c.dtype == torch.complex128
+        np.testing.assert_allclose(c.numpy(), ref[o] + np.zeros(c.shape), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_complex_operands_are_prepared_for_the_kernel():
+    """What the complex128 kind cannot read where it lies is copied once: a real
+    operand (made complex128), a conjugate or negative view (resolved) and a
+    transposed one (made row-contiguous); a plain complex128 matrix is read in place."""
+    rng = np.random.default_rng(15)
+    z = torch.from_numpy(_complex(rng, (6, 6), True))
+    ts = [z, z.conj(), -z.conj(), z.t(), z.real.contiguous()]
+    tensors, _, info, _, dtypes = grouped_gemm._gather(ts)
+    assert grouped_gemm._as_operands(tensors, info, dtypes, torch.complex128,
+                                     frozenset({torch.complex128})) is None
+    assert tensors[0] is z
+    for t, orig in zip(tensors, ts):
+        assert t.dtype == torch.complex128 and t.stride(1) == 1
+        assert not (t.is_conj() or t.is_neg())
+        assert torch.equal(t, orig.resolve_conj().resolve_neg().to(torch.complex128))
+    np.testing.assert_array_equal(info[:, 0], [t.data_ptr() for t in tensors])
+    np.testing.assert_array_equal(info[:, 2], 1)
 
 
 def _launch_table(a_ptrs, b_ptrs, K, lda, ldb, out_ids, M, N, c_ptrs, tile):

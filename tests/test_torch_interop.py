@@ -22,6 +22,9 @@ def _factor_name(f) -> str:
         return f'Z{f.N}'
     if name in ('U1', 'NoSymmetry', 'SU2'):
         return name
+    if name in ct.symmetries.anyons.__all__:
+        args = ','.join(f'{k}={v}' for k, v in f._init_args().items())
+        return f'{name}({args})' if args else name
     raise ValueError(f'no port of symmetry factor {f}')
 
 
