@@ -15,14 +15,16 @@ fails. Imports nothing of JAX or cyten_tpu.
     python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
     python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
     python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
+    python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
+                                           # of it in turns (ab_run), then stop
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
      report (registers, shared memory, spills); the grouped GEMM's SASS holds
-     DMMA (f64, complex128) and HGMMA (bf16, wgmma), checked with cuobjdump where
-     the toolkit has it; the host-sync counter's count on a function that does
-     nothing (the first count in a process holds one sync that PyTorch reports at
-     torch/cuda/__init__.py)
+     DMMA (f64, complex128) and HGMMA (bf16, TF32 and the bf16 pass: wgmma), and no
+     HMMA in TF32, checked with cuobjdump where the toolkit has it; the host-sync
+     counter's count on a function that does nothing (the first count in a process
+     holds one sync that PyTorch reports at torch/cuda/__init__.py)
   2. grouped GEMM against its plain version: the pair lists of
      tests/test_pallas_grouped.py, the ragged lists of
      tests/test_torch_grouped_gemm.py, and the chi=4096 tdot(LP, theta) on the
@@ -34,7 +36,15 @@ Phases:
      lists and the chi=4096 list: TF32 ('tensorfloat32'), one bf16 pass ('default')
      and mixed bf16 x f32 at each precision, held to K 2^-23 |A||B| (their products
      are exact, their sums in another order); library_ms a per-pair torch.matmul
-     under TF32, on bf16-cast operands, or with the bf16 operand widened per call
+     under TF32, on bf16-cast operands, or with the bf16 operand widened per call.
+     TF32 and the bf16 pass also on the lists their raw staging must get right
+     (staged_hard_lists: unaligned bases with odd pitches, ragged K with K = 0 pairs
+     and shared outputs, TF32 operands just above the rounding midpoint), at each of
+     their two tiles (STAGED_WIDTHS), and at the chi=4096 list beside their device_ms
+     of the register-staged form they replace (STAGED_BEFORE_MS); then each list of
+     the chi=4096 bench step at 'tensorfloat32' and 'default', LP in f32 and in bf16,
+     as the main path plans it (step_list_phase): the tile picked and the time at
+     each tile, and those run at the narrow tile held against their plain versions
   2d. the grouped GEMM's complex128 kind against its plain version, held elementwise
      to 2 K 2^-52 |A||B|: the ragged lists with random complex operands, real x complex
      and complex x real (the real operand copied to complex128 by the wrapper), and
@@ -73,7 +83,8 @@ Phases:
      f32, through graphs: every interior LP/RP bf16 after replayed sweeps; graphs
      captured anew after matmul_precision='default', and again after env_dtype=None
      with f32 environments (|dE| < 0.02 relative with bf16 environments, 1e-3 with
-     f32 ones)
+     f32 ones); then the 'default' sweeps again from the state they started from,
+     eager, on the kernel and with every list on its plain version (lists_on_plain)
   8. the bench step (cyten_tpu_torch.bench.step_run) at chi=4096: steady in f32 and
      f64, eager and as a CUDA graph (CUDA-event times), exact in f32; one chi=1024
      f64 static step, card against CPU (E 1e-9 relative, S 1e-8); then
@@ -117,6 +128,7 @@ Phases:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -278,7 +290,8 @@ def library_call(PA, PB, precision, b_bf16: bool):
 
 
 def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 20,
-                   rounds: int = 2, precision: str = None, b_dtype=None):
+                   rounds: int = 2, precision: str = None, b_dtype=None,
+                   as_given: bool = False, width: str = None):
     """Kernel against plain on the card, then times in turns: the wrapper (``ms``),
     the kernel alone (``device_ms``: the C entry point launched on tables built
     once) and a per-pair torch.matmul loop (``library_ms``, see library_call); then
@@ -286,8 +299,11 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     ``dtype``, those of B ``b_dtype`` where given (a mixed bf16 x f32 list); an f32
     result is computed at ``precision`` (config.matmul_precision while the wrapper
     plans, the plain version's argument) and held to check_rounded's bound, the
-    others to TOLERANCES, a complex one to check_complex's bound. Raises if kernel
-    and plain disagree."""
+    others to TOLERANCES, a complex one to check_complex's bound. With ``as_given``
+    the operands, already of those dtypes, are used as they lie (views whose rows
+    start anywhere); ``width`` runs TF32 and the bf16 pass at that tile ('wide' or
+    'narrow', grouped_matmul_plan's argument) in place of the one the wrapper picks.
+    Raises if kernel and plain disagree."""
     import torch
     from cyten_tpu_torch.blocks.grouped_gemm import (
         grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
@@ -295,18 +311,24 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     from cyten_tpu_torch.config import config
 
     b_dtype = dtype if b_dtype is None else b_dtype
-    As = [A.to(dtype).contiguous() for A in As]
-    Bs = [B.to(b_dtype).contiguous() for B in Bs]
+    if not as_given:
+        As = [A.to(dtype).contiguous() for A in As]
+        Bs = [B.to(b_dtype).contiguous() for B in Bs]
     out_dtype = torch.promote_types(dtype, b_dtype)
     rounded = out_dtype == torch.float32 and (precision is not None or dtype != b_dtype)
     complex_out = out_dtype.is_complex
     name = ' x '.join(dict.fromkeys(str(t).split('.')[-1] for t in (dtype, b_dtype)))
     if rounded:
         name = f'{precision or "float32"} {name}'
+    def wrapper():
+        if width is None:
+            return grouped_matmul(As, Bs, out_id, n_out, pairs)
+        return grouped_matmul_plan(As, Bs, out_id, n_out, pairs, width)[1]()
+
     old = config.matmul_precision
     config.matmul_precision = precision or 'float32'
     try:
-        got = grouped_matmul(As, Bs, out_id, n_out, pairs)
+        got = wrapper()
         ref = grouped_matmul_plain(As, Bs, out_id, n_out, pairs, precision)
         torch.cuda.synchronize()
         err = 0.
@@ -326,7 +348,7 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
                     raise AssertionError(f'{label} {name}: kernel disagrees with plain: '
                                          f'{e} > {atol} + {rtol} * {scale}')
                 err = max(err, e)
-        _, launch = grouped_matmul_plan(As, Bs, out_id, n_out, pairs)
+        _, launch = grouped_matmul_plan(As, Bs, out_id, n_out, pairs, width)
         # the pair lists, for the library loop and the work count
         PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
         PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
@@ -337,9 +359,7 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
                                for A, B in zip(PA, PB)]
         else:
             library = lambda: [torch.matmul(A, B) for A, B in zip(PA, PB)]
-        (ms, device_ms, library_ms), spread = turns(
-            [lambda: grouped_matmul(As, Bs, out_id, n_out, pairs), launch, library], reps,
-            rounds)
+        (ms, device_ms, library_ms), spread = turns([wrapper, launch, library], reps, rounds)
         plain_ms = cuda_ms(lambda: grouped_matmul_plain(As, Bs, out_id, n_out, pairs,
                                                         precision))
     finally:
@@ -347,7 +367,8 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     flops, nbytes = work_of(PA, PB, out_id, got[0].element_size(), complex_out)
     t_ops = flops / peak_ops_per_s(out_dtype, precision)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    res = {'pairs': len(PA), 'outputs': n_out, 'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
+    res = {'pairs': len(PA), 'outputs': n_out, 'tile': getattr(launch, 'tile', None),
+           'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
            'max_abs_err': err, 'ms': ms, 'device_ms': device_ms, 'plain_ms': plain_ms,
            'library_ms': library_ms, 'spread': dict(zip(('ms', 'device_ms', 'library_ms'),
                                                         spread)),
@@ -368,6 +389,59 @@ def rounded_cases():
             ('default', f32, bf16), (None, bf16, f32), (None, f32, bf16)]
 
 
+# device_ms of the TF32 and bf16-pass kinds in their register-staged form, which the
+# warp-specialised one replaced (PERF.md §6, this script's run of that form), at the
+# chi=4096 list: (precision, A dtype name) -> ms
+STAGED_BEFORE_MS = {('tensorfloat32', 'float32'): 1.627, ('tensorfloat32', 'bfloat16'): 1.751,
+                 ('default', 'float32'): 1.037, ('default', 'bfloat16'): 1.337}
+# ... and at the L=24 centre list (chi=1024), LP bf16
+CENTRE_BEFORE_MS = {('tensorfloat32', 'bfloat16'): 0.050, ('default', 'bfloat16'): 0.042}
+
+
+def misaligned(rng, rows, cols, pitch, dtype):
+    """A [rows, cols] view on the card with row pitch ``pitch`` whose first element
+    lies one element past an aligned address."""
+    import torch
+
+    buf = torch.from_numpy(rng.normal(size=rows * pitch + 1)).cuda().to(dtype)
+    return buf[1:].view(rows, pitch)[:, :cols]
+
+
+# the staged kinds' two tiles, as grouped_matmul_plan(width=) names them
+STAGED_WIDTHS = ('wide', 'narrow')
+
+
+def staged_hard_lists(rng, a_dtype, b_dtype, precision):
+    """The lists the TF32 and bf16-pass kinds' raw staging must get right (as in
+    tests/test_torch_cuda.py): name -> (As, Bs, out_ids). Odd pitches with bases one
+    element past alignment (K = 295); K not a multiple of BK = 32, K = 0 pairs,
+    shared outputs, M < 64 and N < BN; for TF32 with f32 operands, values just above
+    the rounding midpoint (low 13 bits 0x1001), where truncation would miss the
+    bound."""
+    import torch
+
+    def dense(shapes):
+        return ([torch.from_numpy(rng.normal(size=(M, K))).cuda().to(a_dtype)
+                 for M, K, N in shapes],
+                [torch.from_numpy(rng.normal(size=(K, N))).cuda().to(b_dtype)
+                 for M, K, N in shapes])
+
+    lists = {'odd_pitches': ([misaligned(rng, 150, 295, 297, a_dtype),
+                              misaligned(rng, 37, 131, 133, a_dtype)],
+                             [misaligned(rng, 295, 140, 143, b_dtype),
+                              misaligned(rng, 131, 65, 67, b_dtype)], [0, 1])}
+    shapes = [(40, 33, 100), (40, 0, 100), (40, 95, 100), (5, 1, 7), (5, 0, 7),
+              (130, 64, 129)]
+    lists['ragged'] = (*dense(shapes), [0, 0, 0, 1, 1, 2])
+    if precision == 'tensorfloat32' and a_dtype == b_dtype == torch.float32:
+        def midpoint(X):
+            bits = X.abs().view(torch.int32)
+            return ((bits & ~0x1FFF) | 0x1001).view(torch.float32)
+        As, Bs = dense([(150, 295, 140), (70, 40, 90)])
+        lists['midpoint'] = ([midpoint(A) for A in As], [midpoint(B) for B in Bs], [0, 1])
+    return lists
+
+
 def turns(fns, reps: int, rounds: int = 2):
     """CUDA-event ms per call of each of ``fns``, timed in ``rounds`` turns (the list,
     then the list reversed, and so on): the median of each over the turns, and its
@@ -379,6 +453,203 @@ def turns(fns, reps: int, rounds: int = 2):
             times[i].append(cuda_ms(fns[i], reps))
     medians = [float(np.median(t)) for t in times]
     return medians, [(max(t) - min(t)) / m for t, m in zip(times, medians)]
+
+
+def step_lists(precision: str, env_dtype=None) -> list:
+    """The distinct grouped-GEMM lists that the bench step at chi=CHI_BENCH plans at
+    ``precision`` (bench.step_run's warm-up and one step; LP and RP in ``env_dtype``),
+    in the order first planned: ``[(matmul_precision then, As, Bs, out_ids, n_out,
+    pairs), count]``, the operands as the step made them."""
+    from cyten_tpu_torch import bench
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+    from cyten_tpu_torch.config import config
+
+    lists, plan = {}, gg.grouped_matmul_plan
+
+    def recording(As, Bs, out_ids=None, n_out=None, pairs=None, width=None):
+        PA = As if pairs is None else [As[i] for i in pairs[0]]
+        PB = Bs if pairs is None else [Bs[i] for i in pairs[1]]
+        ids = np.arange(len(PA)) if out_ids is None else np.asarray(out_ids)
+        key = (config.matmul_precision, ids.tobytes(),
+               tuple((*A.shape, A.dtype, *B.shape, B.dtype) for A, B in zip(PA, PB)))
+        if key not in lists:
+            lists[key] = [(config.matmul_precision, list(As), list(Bs), ids,
+                           int(ids.max()) + 1 if n_out is None else n_out,
+                           None if pairs is None else tuple(map(np.asarray, pairs))), 0]
+        lists[key][1] += 1
+        return plan(As, Bs, out_ids, n_out, pairs, width)
+
+    gg.grouped_matmul_plan = recording
+    try:
+        bench.step_run(CHI_BENCH, lengths=(1,), repeats=1, precision=precision,
+                       env_dtype=env_dtype)
+    finally:
+        gg.grouped_matmul_plan = plan
+    return list(lists.values())
+
+
+def list_name(As, Bs, pairs, count) -> str:
+    """A pair list by its pairs, largest M, K and N, and operand dtypes."""
+    PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
+    PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
+    return (f'x{count} {len(PA)} pairs, M {max(A.shape[0] for A in PA)}, K '
+            f'{max(A.shape[1] for A in PA)}, N {max(B.shape[1] for B in PB)}, '
+            f'{str(PA[0].dtype)[6:]} x {str(PB[0].dtype)[6:]}')
+
+
+def step_list_phase() -> None:
+    """Each distinct list of the chi=CHI_BENCH bench step at 'tensorfloat32' and
+    'default', LP and RP in f32 and in bf16, as the main path plans it ([step list]
+    lines): the tile the wrapper picks and the kernel's device ms at each of the two
+    tiles (the data behind blocks/grouped_gemm.py::_WIDE_STEP_COST); each list it
+    runs at the narrow tile (the W contractions) held against its plain version by
+    compare_kernel at that tile, device_ms beside bound_ms and library_ms."""
+    import torch
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
+    from cyten_tpu_torch.config import config
+
+    for precision in ('tensorfloat32', 'default'):
+        for env_dtype in (None, 'bfloat16'):
+            for (prec, As, Bs, out_ids, n_out, pairs), count in step_lists(precision,
+                                                                         env_dtype):
+                if prec != precision:  # an operator run at another precision
+                    continue
+                name = f'{prec} env {env_dtype or "float32"} {list_name(As, Bs, pairs, count)}'
+                old = config.matmul_precision
+                config.matmul_precision = prec
+                try:
+                    picked = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1].tile
+                    launches = [grouped_matmul_plan(As, Bs, out_ids, n_out, pairs, w)[1]
+                                for w in STAGED_WIDTHS]
+                    times, spread = turns(launches, 20)
+                finally:
+                    config.matmul_precision = old
+                print(f'[step list] {name}: tile {picked}, device ms wide {times[0]:.4f}, '
+                      f'narrow {times[1]:.4f} (spreads {spread[0]:.3f}, {spread[1]:.3f})',
+                      flush=True)
+                if picked == (128, 128):
+                    res = compare_kernel(f'step list {name}', As, Bs, out_ids, n_out,
+                                         As[0].dtype, pairs, precision=prec,
+                                         b_dtype=Bs[0].dtype, as_given=True)
+                    print(f'[step list] {name}: at the tile picked {tuple(res["tile"])}, '
+                          f'device_ms {res["device_ms"]:.4f}, bound {res["bound_ms"]:.4f} '
+                          f'({res["bound_by"]}), library_ms {res["library_ms"]:.4f}',
+                          flush=True)
+            torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def lists_on_plain():
+    """Inside the block every grouped-GEMM list runs its plain version
+    (grouped_matmul_plain, at the precision configured when it is planned) in place
+    of the kernel: the sums in another order, the products the same."""
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+    from cyten_tpu_torch.config import config
+
+    plan = gg.grouped_matmul_plan
+
+    def plain_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None):
+        precision = config.matmul_precision
+        return None, lambda: gg.grouped_matmul_plain(As, Bs, out_ids, n_out, pairs,
+                                                     precision)
+
+    gg.grouped_matmul_plan = plain_plan
+    try:
+        yield
+    finally:
+        gg.grouped_matmul_plan = plan
+
+
+def route_grouped_gemm(lib) -> None:
+    """Plans made from now on launch the grouped GEMM of the ctypes library ``lib``
+    (None: this tree's build). A build without the staged kinds' narrow codes states
+    its one tile for them, so that every list runs at it."""
+    import ctypes
+    from cyten_tpu_torch.blocks import _kernels, grouped_gemm as gg
+
+    lib = lib or _kernels.library('grouped_gemm')
+    fns = {}
+    for symbol, (argtypes, restype) in _kernels._SIGNATURES['grouped_gemm'].items():
+        fn = fns[symbol] = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+    info = fns['cyten_grouped_gemm_info']
+    probe = (ctypes.c_int64 * 3)()
+    if info(gg._NARROW_CODE['default'], ctypes.addressof(probe)) != 0:
+        wide = {gg._NARROW_CODE[k]: gg._KIND_CODE[k] for k in gg._NARROW_CODE}
+        fns['cyten_grouped_gemm_info'] = lambda code, out: info(wide.get(code, code), out)
+    for symbol, fn in fns.items():
+        _kernels._functions['grouped_gemm', symbol] = fn
+    gg._kernel_info.cache_clear()
+    gg._LAYOUTS.clear()
+
+
+def ab_run(against: str) -> int:
+    """``--against OLD.cu``: this tree's grouped GEMM against another version of
+    csrc/grouped_gemm.cu with the same C interface (for example the parent commit's,
+    ``git show HEAD~1:cyten_tpu_torch/csrc/grouped_gemm.cu > build/old.cu``), in one
+    process: at 'tensorfloat32' and 'default', the chi=CHI_BENCH bench step as a CUDA
+    graph on each build in turns (old, new, new, old; [ab step], ms), then each
+    distinct list of such a step ([ab list]) and the bench's chi=1024 and
+    chi=CHI_BENCH tdot(LP, theta) lists, LP in f32 and in bf16 ([ab tdot]), on each
+    build in four turns (device ms, medians, spreads)."""
+    import ctypes
+    import torch
+    from cyten_tpu_torch import Dtype, get_backend, u1_symmetry
+    from cyten_tpu_torch.bench import build_workload, step_run
+    from cyten_tpu_torch.blocks import _kernels
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
+    from cyten_tpu_torch.config import config
+
+    out = _kernels.BUILD_DIR.parent / 'ab' / 'libgrouped_gemm_against.so'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, '-o', str(out),
+                             against], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    _kernels.build()
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f'nvcc failed for {against}:\n{log}')
+    builds = {'old': ctypes.PyDLL(str(out)), 'new': None}
+
+    def timed(As, Bs, out_ids, n_out, pairs, precision):
+        launches, old = {}, config.matmul_precision
+        config.matmul_precision = precision
+        try:
+            for name, lib in builds.items():
+                route_grouped_gemm(lib)
+                launches[name] = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1]
+        finally:
+            config.matmul_precision = old
+        times, spread = turns(list(launches.values()), 20, 4)
+        return ', '.join(f'{k} {t:.4f} ({s:.3f})' for k, t, s in zip(builds, times, spread))
+
+    for precision in ('tensorfloat32', 'default'):
+        step_ms = {'old': [], 'new': []}
+        for name in ('old', 'new', 'new', 'old'):
+            route_grouped_gemm(builds[name])
+            step_ms[name].append(step_run(CHI_BENCH, precision=precision, graph=True)[0]
+                                 * 1e3)
+        print(f'[ab step] chi={CHI_BENCH} {precision} graph, ms: ' + ', '.join(
+            f'{k} {np.mean(v):.3f} {[round(t, 3) for t in v]}' for k, v in step_ms.items()),
+            flush=True)
+        route_grouped_gemm(None)
+        for (prec, As, Bs, out_ids, n_out, pairs), count in step_lists(precision):
+            if prec == precision:
+                print(f'[ab list] {prec} {list_name(As, Bs, pairs, count)}, device ms '
+                      f'(spread): {timed(As, Bs, out_ids, n_out, pairs, prec)}', flush=True)
+        torch.cuda.empty_cache()
+    backend = get_backend(u1_symmetry, device='cuda')
+    for chi in (1024, CHI_BENCH):
+        LP, RP, W1, W2, theta = build_workload(backend, chi, Dtype.float32)
+        As, Bs, pairs, out_id, n_out = lp_theta_pairs(LP, theta)
+        for precision in ('tensorfloat32', 'default'):
+            for a_dtype in (torch.float32, torch.bfloat16):
+                row = timed([A.to(a_dtype) for A in As], Bs, out_id, n_out, pairs, precision)
+                print(f'[ab tdot] chi={chi} tdot(LP, theta) {precision} {str(a_dtype)[6:]} '
+                      f'x float32, device ms (spread): {row}', flush=True)
+        del LP, RP, W1, W2, theta, As, Bs
+    route_grouped_gemm(None)
+    return 0
 
 
 def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
@@ -398,9 +669,8 @@ def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
         (ua, ia, a, _, a_dt), (ub, ib, b, _, b_dt) = gg._pair_list(As, Bs, pairs)
         dtype = gg._common_dtype(a_dt | b_dt)
         kind, readable = gg._kind(a_dt | b_dt, dtype)
-        tile, inline_words = gg._kernel_info(kind)
-        n, out_layout, table_layout = gg._layouts(a, ia, b, ib, out_id, n_out, dtype, tile,
-                                                  kind)
+        code, inline_words, n, out_layout, table_layout = gg._kind_layouts(
+            a, ia, b, ib, out_id, n_out, dtype, kind, 0)
         marks.append(time.perf_counter())
         a_bf16 = gg._as_operands(ua, a, a_dt, dtype, readable)
         b_bf16 = gg._as_operands(ub, b, b_dt, dtype, readable)
@@ -411,7 +681,7 @@ def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
         marks.append(time.perf_counter())
         table_args, _ = gg._table_args(table, flat.device, inline_words)
         marks.append(time.perf_counter())
-        call(fn, (gg._KIND_CODE[kind], *table_args, n, table_layout.n_tiles),
+        call(fn, (code, *table_args, n, table_layout.n_tiles),
              flat.get_device(), 'grouped_gemm')
         marks.append(time.perf_counter())
         for step, t0, t1 in zip(steps, marks, marks[1:]):
@@ -672,15 +942,19 @@ def tridiag_phase() -> dict:
 
 
 # kernel policy (its mangled name) -> the SASS instruction its products must run on
+# (TF32 and the bf16 pass at each width: TF32Pass<256>, TF32Pass<128>, ...)
 SASS_OPS = {'3F64': 'DMMA', '4BF16': 'HGMMA', '3F32': 'FFMA', '4F32W': 'FFMA',
-            '5TF32P': 'HMMA.1688.F32.TF32', '5BF16P': 'HGMMA', '4C128': 'DMMA'}
+            '8TF32PassILi256': 'HGMMA', '8TF32PassILi128': 'HGMMA',
+            '8BF16PassILi256': 'HGMMA', '8BF16PassILi128': 'HGMMA', '4C128': 'DMMA'}
+# ... and the instructions it must not hold: TF32 runs on wgmma, not mma.sync (HMMA)
+SASS_ABSENT = {'8TF32PassILi256': 'HMMA', '8TF32PassILi128': 'HMMA'}
 
 
 def check_sass(kernels):
     """The SASS of each kind of the grouped GEMM holds the instruction its products
-    must run on (SASS_OPS: DMMA for f64 and complex128, HGMMA for bf16 and the bf16
-    pass, HMMA .TF32 for TF32, FFMA for f32), by cuobjdump where the toolkit has it;
-    raises if one is missing."""
+    must run on (SASS_OPS: DMMA for f64 and complex128, HGMMA for bf16, TF32 and the
+    bf16 pass, FFMA for f32) and none of SASS_ABSENT's (no HMMA in TF32), by
+    cuobjdump where the toolkit has it; raises if one is missing or one is found."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     if not os.path.exists(tool):
         print('[sass] cuobjdump not found: the instructions are not checked', flush=True)
@@ -692,10 +966,12 @@ def check_sass(kernels):
         name = part.split(None, 1)[0]
         for policy, op in SASS_OPS.items():
             if policy in name:
-                found[policy] = (op, op in part)
+                absent = SASS_ABSENT.get(policy)
+                found[policy] = (op, op in part and not (absent and absent in part))
     print(f'[sass] {json.dumps(found)}', flush=True)
     if sorted(found) != sorted(SASS_OPS) or not all(ok for _, ok in found.values()):
-        raise AssertionError(f'the grouped GEMM kinds do not run on {SASS_OPS}')
+        raise AssertionError(f'the grouped GEMM kinds do not run on {SASS_OPS} '
+                             f'without {SASS_ABSENT}')
 
 
 def su2_compose_pairs(LP, theta):
@@ -1030,6 +1306,7 @@ def main() -> int:
     kernels_only = '--kernels-only' in sys.argv[1:]
     su2_only = '--su2-only' in sys.argv[1:]
     golden_only = '--golden-only' in sys.argv[1:]
+    against = sys.argv[sys.argv.index('--against') + 1] if '--against' in sys.argv else None
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1058,6 +1335,10 @@ def main() -> int:
     print(smi, flush=True)
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.get_device_name(0)}', flush=True)
+    if against:
+        ab_run(against)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (A/B)', flush=True)
+        return 0
     t0 = time.perf_counter()
     seconds = _kernels.build(verbose=True)  # prints each kernel's -Xptxas -v report
     print(f'[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)',
@@ -1098,13 +1379,30 @@ def main() -> int:
             rB = [torch.from_numpy(rng.normal(size=(K, N))).cuda() for M, K, N in shapes]
             compare_kernel(f'ragged {case}', rA, rB, np.array(out_ids), max(out_ids) + 1,
                            a_dtype, reps=5, precision=precision, b_dtype=b_dtype)
+        if precision is not None:  # TF32, the bf16 pass: the lists their staging must get right
+            for case, (hA, hB, ids) in staged_hard_lists(rng, a_dtype, b_dtype,
+                                                         precision).items():
+                for width in STAGED_WIDTHS:
+                    compare_kernel(f'staged {case} {width}', hA, hB, np.array(ids),
+                                   max(ids) + 1, a_dtype, reps=5, precision=precision,
+                                   b_dtype=b_dtype, as_given=True, width=width)
         if b_dtype == torch.float32:  # LP as the bf16 operand: the env_dtype matvec
-            rounded[precision, a_dtype] = compare_kernel(
+            res = rounded[precision, a_dtype] = compare_kernel(
                 f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, a_dtype, pairs,
                 precision=precision, b_dtype=b_dtype)
+            before = STAGED_BEFORE_MS.get((precision, str(a_dtype).split('.')[-1]))
+            if before is not None:
+                print(f'[kernel] chi={CHI_BENCH} tdot(LP, theta) {precision} '
+                      f'{str(a_dtype).split(".")[-1]} x float32: device_ms '
+                      f'{res["device_ms"]:.4f} against {before} in the register-staged form, '
+                      f'bound {res["bound_ms"]:.4f}, library_ms {res["library_ms"]:.4f}',
+                      flush=True)
+    del LP, RP, W1, W2, theta
+    torch.cuda.empty_cache()
+    step_list_phase()  # the bench step's own lists, the narrow ones held to plain
     # --- 2d. the complex128 kind ------------------------------------------------------------
     complex_phase(As, Bs, out_id, n_out, pairs, rng)
-    del LP, RP, W1, W2, theta, As, Bs
+    del As, Bs
     torch.cuda.empty_cache()
     # --- 2b. the tridiagonal kernel against its plain version ----------------------------
     tridiag = tridiag_phase()
@@ -1188,8 +1486,15 @@ def main() -> int:
     main = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
                           out_id, n_out, torch.float64, pairs, rounds=8)
     for precision, a_dtype, b_dtype in rounded_cases():
-        compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs, out_id,
-                       n_out, a_dtype, pairs, precision=precision, b_dtype=b_dtype)
+        res = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
+                             out_id, n_out, a_dtype, pairs, precision=precision,
+                             b_dtype=b_dtype, rounds=8 if precision else 2)
+        before = CENTRE_BEFORE_MS.get((precision, str(a_dtype).split('.')[-1]))
+        if before is not None and b_dtype == torch.float32:
+            print(f'[kernel] L=24 centre tdot(LP, theta) {precision} '
+                  f'{str(a_dtype).split(".")[-1]} x float32: device_ms '
+                  f'{res["device_ms"]:.4f} (spread {res["spread"]["device_ms"]:.3f}) against '
+                  f'{before} in the register-staged form', flush=True)
     breakdown = wrapper_breakdown(As, Bs, out_id, n_out, pairs)
     print(f'[breakdown] wrapper host ms per call, {len(out_id)} pairs of {len(As)} + '
           f'{len(Bs)} operands, {n_out} outputs of {len({B.shape[1] for B in Bs})} widths: '
@@ -1346,6 +1651,7 @@ def main() -> int:
                               ('env f32, float32', 2)):
         if setting == 'env bf16, default':
             eng.matmul_precision = 'default'
+            before_default = (list(psi.Bs), list(psi.Ss), list(eng.LPs), list(eng.RPs))
         elif setting == 'env f32, float32':
             eng.env_dtype, eng.matmul_precision = None, 'float32'
             eng.LPs = [t.to_dtype(Dtype.float32) for t in eng.LPs]
@@ -1371,8 +1677,27 @@ def main() -> int:
         bound = 1e-3 if want == 'float32' else 0.02 * abs(HEIS24_E_REF)
         if env_dtypes != [want] or not abs(E_env - HEIS24_E_REF) < bound:
             raise AssertionError(f'static mode {setting}: environments or energy wrong')
+        if setting == 'env bf16, default':
+            E_default = E_env
     if not captured[0] < captured[1] < captured[2]:
         raise AssertionError(f'static graphs were not captured anew: {captured}')
+    # the 'env bf16, default' sweeps again from the state they started from, eager,
+    # on the kernel and with every list on its plain version at 'default' (the same
+    # products, the sums in another order): how far the order of the sums alone
+    # moves this setting's energy
+    for lists, routing in (('kernel', contextlib.nullcontext), ('plain', lists_on_plain)):
+        psi.Bs, psi.Ss, eng.LPs, eng.RPs = (list(x) for x in before_default)
+        eng.env_dtype, eng.matmul_precision = Dtype.bfloat16, 'default'
+        eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+        with routing():
+            for sweep in range(2):
+                E_eager = eng.sweep()
+        print(f'[L=24 static env] env bf16, default, eager, {lists} lists: E = '
+              f'{E_eager!r}, |dE| = {abs(E_eager - HEIS24_E_REF):.3e}, |E - E_graphs| = '
+              f'{abs(E_eager - E_default):.3e}', flush=True)
+        if not abs(E_eager - HEIS24_E_REF) < 0.02 * abs(HEIS24_E_REF):
+            raise AssertionError(f'static mode env bf16, default, eager on {lists} lists: '
+                                 'energy wrong')
     del eng, psi, model, H
     torch.cuda.empty_cache()
     phase_s['7b'] = time.perf_counter() - t_phase

@@ -50,6 +50,15 @@ __all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'rou
 # says
 _KIND_CODE = {'float64': 0, 'float32': 1, 'bfloat16': 2, 'float32_mixed': 3,
               'tensorfloat32': 4, 'default': 5, 'complex128': 6}
+# the staged kinds come in two widths: the codes above run 128 x 256 tiles, these
+# 128 x 128 ones; _staged_tile picks one per list
+_NARROW_CODE = {'tensorfloat32': 7, 'default': 8}
+# the staged kinds' k slice (csrc/grouped_gemm.cu, Staged::BK) and what a step of
+# their wide tile costs against one of their narrow tile on the H100: 1.4 to 1.6 as
+# chip_smoke.py times each list of a bench step at both tiles (PERF.md §6), 1.4 so
+# that the bench's chi=1024 list, faster wide, is taken wide
+_STAGED_BK = 32
+_WIDE_STEP_COST = 1.4
 _DTYPE_KIND = {torch.float64: 'float64', torch.float32: 'float32',
                torch.bfloat16: 'bfloat16', torch.complex128: 'complex128'}
 _F32_OPERANDS = frozenset({torch.float32, torch.bfloat16})
@@ -114,16 +123,40 @@ def _gather(ts, index=None):
 
 
 @functools.cache
-def _kernel_info(kind: str) -> tuple[tuple[int, int], int]:
-    """The kernel's output tile ``(BM, BN)`` for ``kind`` and the most int64 table
-    words it takes inside the launch's parameters, as the kernel states them."""
+def _kernel_info(code: int) -> tuple[tuple[int, int], int]:
+    """The kernel's output tile ``(BM, BN)`` for the kind of ``code`` and the most
+    int64 table words it takes inside the launch's parameters, as the kernel states
+    them."""
     import ctypes
 
     info = (ctypes.c_int64 * 3)()
-    if function('grouped_gemm', 'cyten_grouped_gemm_info')(_KIND_CODE[kind],
+    if function('grouped_gemm', 'cyten_grouped_gemm_info')(code,
                                                            ctypes.addressof(info)) != 0:
-        raise RuntimeError(f'grouped_gemm: the kernel has no tile for {kind}')
+        raise RuntimeError(f'grouped_gemm: the kernel has no tile for kind {code}')
     return (info[0], info[1]), info[2]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _staged_tile(MN: np.ndarray, K, out_ids, wide, narrow, n_sm: int):
+    """The tile, ``wide`` or ``narrow``, at which a staged kind (TF32, the bf16 pass)
+    runs the list of outputs ``MN [n_out, 2]`` whose pairs have depths ``K`` and
+    output indices ``out_ids``: the one whose modelled time is least. A step (a
+    k slice of a tile) costs 1 at the narrow tile and ``_WIDE_STEP_COST`` at the wide
+    one; the time is the larger of all tile steps spread over ``n_sm`` CTAs and the
+    steps of the deepest tile. So the wide tile takes lists whose outputs are wide
+    and many, the narrow one lists of narrow outputs (N at most 128: the wide tile
+    would do as many steps, each dearer) and lists too small to fill the card."""
+    steps = np.bincount(out_ids, weights=-(-np.asarray(K) // _STAGED_BK), minlength=len(MN))
+
+    def cost(tile, step_cost):
+        tiles = (-(-MN[:, 0] // tile[0])) * (-(-MN[:, 1] // tile[1]))
+        return step_cost * max(float(tiles @ steps) / n_sm, float(steps.max(initial=0.)))
+
+    return wide if cost(wide, _WIDE_STEP_COST) < cost(narrow, 1.) else narrow
 
 
 def _check(X: np.ndarray, out_ids, n_out):
@@ -280,6 +313,7 @@ class _TableLayout(NamedTuple):
     c_offsets: np.ndarray   # of output row r of the table: its byte offset from C's base
     pair_order: np.ndarray  # pair row r of the table is pair pair_order[r] of the list
     n_tiles: int
+    tile: tuple             # the (BM, BN) that numbers the tiles
 
 
 def _table_layout(K, out_ids, M, N, c_offsets, tile) -> _TableLayout:
@@ -316,7 +350,7 @@ def _table_layout(K, out_ids, M, N, c_offsets, tile) -> _TableLayout:
     outs[:, 6] = end
     table[n_out:, 4] = np.asarray(K)[pair_order]
     return _TableLayout(table, np.asarray(c_offsets, np.int64)[by_work], pair_order,
-                        int(first[-1]) if n_out else 0)
+                        int(first[-1]) if n_out else 0, tuple(tile))
 
 
 def _fill_table(layout: _TableLayout, a, ia, b, ib, c_base: int, a_bf16=None,
@@ -384,25 +418,32 @@ _LAYOUTS: dict = {}
 _LAYOUTS_MAX = 1024
 
 
-def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None):
+def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None, narrow=None,
+             width=None):
     """``(n_out, output layout, table layout)`` of a pair list: ``a``, ``b`` the
     ``_gather`` rows of its operands, ``ia``, ``ib`` those of each pair, ``dtype`` that
     of the outputs, ``tile`` the kernel's ``(BM, BN)`` for its ``kind`` (default: the
-    kind of ``dtype`` itself).
+    kind of ``dtype`` itself). For a staged kind, ``narrow`` is ``(its narrow tile,
+    the card's SM count)``, and the table is laid out at the tile ``width`` names
+    ('wide': ``tile``, 'narrow') or, by default, at the one :func:`_staged_tile`
+    picks (``table layout.tile``).
 
     They follow from the shapes of the pairs, ``out_ids``, ``n_out``, the dtype, the
-    kind and the tile alone, so each distinct list is checked (:func:`_check`) and
+    kind and the tiles alone, so each distinct list is checked (:func:`_check`) and
     laid out once and then taken from ``_LAYOUTS``: the DMRG path contracts the same
     block structure on every iteration of a solve and every sweep, with new blocks
     each time.
     """
     key = (a[ia, 3:5].tobytes(), b[ib, 3:5].tobytes(),
            None if out_ids is None else np.asarray(out_ids, np.int64).tobytes(),
-           n_out, dtype, kind or _DTYPE_KIND[dtype], tile)
+           n_out, dtype, kind or _DTYPE_KIND[dtype], tile, narrow, width)
     found = _LAYOUTS.get(key)
     if found is None:
         out_ids, n_out, MN = _check(np.concatenate((a[ia], b[ib]), axis=1), out_ids, n_out)
         out_layout = _output_layout(MN)
+        if narrow is not None and width != 'wide':
+            tile = (narrow[0] if width == 'narrow'
+                    else _staged_tile(MN, a[ia, 4], out_ids, tile, *narrow))
         found = (n_out, out_layout,
                  _table_layout(a[ia, 4], out_ids, MN[:, 0], MN[:, 1],
                                out_layout.offsets * dtype.itemsize, tile))
@@ -410,6 +451,25 @@ def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None):
             del _LAYOUTS[next(iter(_LAYOUTS))]
         _LAYOUTS[key] = found
     return found
+
+
+def _kind_layouts(a, ia, b, ib, out_ids, n_out, dtype, kind, index, width=None):
+    """``(kind code, inline table words, n_out, output layout, table layout)`` of a
+    pair list run by ``kind`` on card ``index``: :func:`_layouts` at the kernel's tile,
+    and the code of the staged kind's narrow form where the list is laid out at its
+    narrow tile. ``width`` as in :func:`grouped_matmul_plan`."""
+    code = _KIND_CODE[kind]
+    tile, inline_words = _kernel_info(code)
+    narrow = None
+    if kind in _NARROW_CODE:
+        narrow = (_kernel_info(_NARROW_CODE[kind])[0], _sm_count(index))
+    elif width is not None:
+        raise ValueError(f'grouped_matmul: the {kind} kind has one tile, not {width!r}')
+    n_out, out_layout, table_layout = _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile,
+                                               kind, narrow, width)
+    if table_layout.tile != tile:
+        code = _NARROW_CODE[kind]
+    return code, inline_words, n_out, out_layout, table_layout
 
 
 def _table_args(table: np.ndarray, device, inline_words: int):
@@ -429,13 +489,17 @@ def _table_args(table: np.ndarray, device, inline_words: int):
     return (tables.data_ptr(), table.size, 1), (host, tables)
 
 
-def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
+def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None):
     """The host part of :func:`grouped_matmul` for CUDA operands.
 
     Returns ``(outs, launch)``: the ``n_out`` output tensors, allocated but not yet
     written, and a function that launches the kernel filling them. ``launch()`` may
     be called again; it reads the operands as they are then. The operands (and any
     copies made of them here) stay alive as long as ``launch`` does.
+
+    TF32 and the bf16 pass run each list at the tile :func:`_staged_tile` picks, or
+    at the one ``width`` names, 'wide' (128 x 256) or 'narrow' (128 x 128), whatever
+    the list (for tests and measurements; another kind raises ``ValueError``).
 
     The host reads each operand once (with ``pairs``, once however many pairs read
     it), and what follows from the shapes alone once per distinct pair list
@@ -454,9 +518,8 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
     if dtype not in _DTYPE_KIND:
         raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
     kind, readable = _kind(dtypes, dtype)
-    tile, inline_words = _kernel_info(kind)
-    n_out, out_layout, table_layout = _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile,
-                                               kind)
+    code, inline_words, n_out, out_layout, table_layout = _kind_layouts(
+        a, ia, b, ib, out_ids, n_out, dtype, kind, index, width)
     a_bf16 = _as_operands(ua, a, a_dt, dtype, readable)
     b_bf16 = _as_operands(ub, b, b_dt, dtype, readable)
     outs, flat = _outputs(out_layout, dtype, torch.device('cuda', index))
@@ -464,7 +527,7 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
         return outs, lambda: outs
     table = _fill_table(table_layout, a, ia, b, ib, flat.data_ptr(), a_bf16, b_bf16)
     table_args, keep = _table_args(table, flat.device, inline_words)
-    args = (_KIND_CODE[kind], *table_args, n_out, table_layout.n_tiles)
+    args = (code, *table_args, n_out, table_layout.n_tiles)
     fn = function('grouped_gemm', 'cyten_grouped_gemm')
     kind_count = grouped_matmul.kinds[kind]
 
@@ -475,6 +538,7 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None):
         return outs
 
     launch.operands = (ua, ub, keep)  # alive for as long as launch is
+    launch.tile = table_layout.tile
     return outs, launch
 
 

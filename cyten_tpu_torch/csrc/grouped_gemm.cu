@@ -24,18 +24,50 @@
 //         float4 shared-memory reads.
 // Three more kinds write f32 from f32 operands, either of which may be bf16 (a bf16
 // environment against an f32 state): the operand is read from device memory in its
-// own type, so a bf16 block is read once at half width and never copied. Their
-// loads go through registers, since cp.async cannot convert, and round as they
-// stage, per config.matmul_precision (the Hopper forms of the TPU's f32 passes that
+// own type, so a bf16 block is read once at half width and never copied. They round
+// as config.matmul_precision says (the Hopper forms of the TPU's f32 passes that
 // cyten_tpu/algorithms/dmrg.py::_with_precision describes):
-//   f32w  'float32' with a bf16 operand: widened exactly, then the f32 FMA path.
-//   tf32  'tensorfloat32': each value rounded to TF32 (cvt.rna.tf32.f32, nearest,
-//         ties away from zero), mma.sync.m16n8k8.tf32 with f32 accumulators (495
-//         TFLOP/s). 128 x 128 tile, 8 warps of 64 x 32, BK = 32.
-//   bf16p 'default': each value rounded to bf16 (nearest even), then the bf16 wgmma
-//         core, one pass, f32 accumulators, f32 written.
+//   f32w  'float32' with a bf16 operand: staged through registers, widened exactly,
+//         then the f32 FMA path.
+//   tf32  'tensorfloat32': each value rounded to TF32 (nearest, ties away from zero,
+//         as cvt.rna.tf32.f32 and round_tf32 round), wgmma.m64nNk8.tf32 with f32
+//         accumulators (495 TFLOP/s).
+//   bf16p 'default': each value rounded to bf16 (nearest even), then
+//         wgmma.m64nNk16 bf16, one pass, f32 written.
+//   Both on 128 x 256 tiles (N = 256), or 128 x 128 (N = 128) for the lists whose
+//   outputs are narrow or too few to fill the card: the host picks the width of each
+//   list from its shapes (see cyten_grouped_gemm_info).
 // Every product of rounded values is exact in f32, so each kind differs from its
 // plain version (grouped_matmul_plain(precision=)) only by the order of the sum.
+//
+// tf32 and bf16p are warp-specialised (grouped_gemm_staged). cp.async cannot
+// convert, and wgmma .tf32 would truncate raw f32 bits (dropping the low 13 bits,
+// up to one TF32 unit from round_tf32, far past the K 2^-23 |A||B| bound), so the
+// conversion is a pass of its own between two rings in shared memory:
+//   - a producer warpgroup copies each k slice raw, in the operand's own dtype, by
+//     16-byte cp.async from the 16-byte-aligned span that holds each row (one
+//     chunk wider; the row's first element sits at byte address & 15 of its span,
+//     so odd bf16 pitches and unaligned f32 rows need no narrow copies), a warp
+//     instruction asking for whole rows, into a ring of raw stages; a stage's full
+//     mbarrier gets one arrival a producer warp once cp.async.wait_group shows the
+//     warp's copies landed, RAW_STAGES - 2 steps after they started;
+//   - two consumer warpgroups read a raw stage into registers (and release it on
+//     its empty mbarrier), widen and round each value as the plain version does,
+//     write it into the 128-byte-swizzled layout the wgmma descriptors read (tf32:
+//     A and B K-major, B transposed by the pass, since wgmma takes no transpose
+//     flag for 32-bit types; bf16p: A K-major, B MN-major), fence the async proxy
+//     and start the products. Two rounded buffers alternate: the reads and the
+//     rounding of one k slice run while the products of the slice before are in
+//     flight. setmaxnreg moves registers from the producer (56) to them (224).
+// What bounds them is not the tensor cores, which they keep busy about a fifth (tf32)
+// and an eighth (bf16p) of the time on the chi = 4096 list (PERF.md §6). Development
+// builds that took one part out at a time pointed at the copies: their L2 reads of the
+// raw slices, and the shared-memory pipe that the copies, the pass and wgmma's operand
+// reads all use, which lets the copies overlap the pass little. The 128 x 256 tile
+// reads A from L2 half as often per product as a 128 x 128 one and halves the steps
+// and their waits.
+// The rounded buffers leave room for two raw stages (tf32) or three (bf16p) at
+// 128 x 256, four and five at 128 x 128.
 // One more kind computes complex128 lists (the Fibonacci golden chain's compose
 // lists, whose MPO is complex), at full precision whatever config.matmul_precision
 // says, as cyten_tpu computes complex products:
@@ -46,14 +78,14 @@
 //         Cr += Ar Br + (-Ai) Bi, Ci += Ar Bi + Ai Br (8 real operations a complex
 //         multiply-add, 67 TFLOP/s). 64 x 64 tile, 4 warps of 32 x 32 (the real and
 //         imaginary accumulators take 128 registers a thread), BK = 8.
-// The operands reach shared memory through a ring of stages filled by cp.async, so
-// the loads of later k slices overlap the products of this one. The ring runs over
-// the concatenated (pair, k slice) stream of a tile: the loads of the next pair
-// overlap the last products of this one.
+// The other kinds' operands reach shared memory through a ring of stages filled by
+// cp.async, so the loads of later k slices overlap the products of this one (tf32
+// and bf16p: above). Every ring runs over the concatenated (pair, k slice) stream of
+// a tile: the loads of the next pair overlap the last products of this one.
 //
 // Alignment. Sector sizes are arbitrary (1462, 980, 295, 40, 2 at chi = 4096), so a
-// row of A or B starts on a 16-byte boundary only by chance. The kernel picks one
-// copy width per operand of a pair (copy_bytes), the widest of 16, 8 and 4 bytes
+// row of A or B starts on a 16-byte boundary only by chance. The other kinds pick
+// one copy width per operand of a pair (copy_bytes), the widest of 16, 8 and 4 bytes
 // that divides both the base address and the row pitch; a bf16 operand with an odd
 // pitch is copied one element at a time through registers.
 //
@@ -61,15 +93,17 @@
 // fully unrolled, the 16-32 narrow bf16 copies of a stage held their addresses in
 // registers and pushed the wgmma accumulators out to local memory.
 //
-// Why not TMA yet. A tensor map needs row pitches that are multiples of 16 bytes,
-// which these operands rarely have, and it needs one descriptor per operand per
-// call: host work of the kind this design removes. Narrower cp.async copies serve
-// every pitch. TMA with warp-specialised producers, and operand strides read by the
-// kernel (so that the abelian backend stops copying permuted blocks), are later steps.
+// Why not TMA. A tensor map needs row pitches that are multiples of 16 bytes, which
+// these operands rarely have, and it needs one descriptor per operand per call:
+// host work of the kind this design removes. cp.async serves every pitch: the
+// cp.async kinds by copy width, the staged kinds by aligned spans. Operand strides
+// read by the kernel (so that the abelian backend stops copying permuted blocks)
+// are a later step.
 //
-// Schedule. The grid is persistent, a few CTAs per SM. CTA b takes the tile ids b,
-// b + gridDim.x, ... and finds the output of a tile by a binary search over the
-// outputs' first tile ids. The host orders the outputs by work (the sum of K over
+// Schedule. The grid is persistent, a few CTAs per SM (one for the staged kinds, whose
+// rings take most of its shared memory). CTA b takes the tile ids b, b + gridDim.x,
+// ... and finds the output of a tile by a binary search over the outputs' first tile
+// ids. The host orders the outputs by work (the sum of K over
 // their pairs, largest first), so the heaviest tiles are taken first.
 //
 // Tables (int64, built by cyten_tpu_torch/blocks/grouped_gemm.py). Up to
@@ -554,7 +588,7 @@ struct BF16 {
 template <class P> struct Out { using type = typename P::T; };
 template <> struct Out<BF16> { using type = __nv_bfloat16; };
 
-// ---- f32 results of operands rounded as they are staged -------------------------------
+// ---- f32w: a bf16 operand widened as it is staged through registers ------------------
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(uint16_t bits) {  // bf16 -> f32, exact
@@ -563,8 +597,8 @@ __device__ __forceinline__ float widen(uint16_t bits) {  // bf16 -> f32, exact
 
 // Copies the ROWS x COLS box at (r0, c0) of a row-major matrix of S (float, or bf16
 // bits; pitch ld, R x C valid) into one stage through registers: two neighbouring
-// elements a thread, widened to f32 and handed to P::store2, which rounds them and
-// writes them at byte off(r, c) of `stage`; what lies outside the matrix is zero.
+// elements a thread, widened to f32 and handed to P::store2, which writes them at
+// byte off(r, c) of `stage`; what lies outside the matrix is zero. (f32w only.)
 template <typename S, class P, int ROWS, int COLS, class Off>
 __device__ __forceinline__ void load_box_cvt(unsigned char* stage, const S* base, int64_t ld,
                                              int64_t r0, int64_t c0, int64_t R, int64_t C,
@@ -598,124 +632,526 @@ struct F32W : F32 {
   }
 };
 
-// 'default': one bf16 pass on the wgmma core, f32 written
-struct BF16P : BF16 {
-  using T = float;  // the type of C
-  static constexpr bool CONVERTS = true;
-  __device__ __forceinline__ static void store2(unsigned char* p, float x0, float x1) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);  // x0 first
+// ---- tf32 and bf16p: raw staging, a rounding pass, wgmma ------------------------------
+
+// One output tile of the persistent walk: its output's row of the table, read.
+struct Tile {
+  int64_t c, M, N, row0, col0, p_begin, p_end;
+};
+
+// One pair's row of the table, read: operand addresses and pitches, K, the bf16 flags.
+struct Pair {
+  uint64_t a, b;
+  int64_t lda, ldb, K, a_bf16, b_bf16;
+};
+
+// The (pair, k slice) steps of one tile, as Cursor walks them (pairs with K = 0
+// skipped), with the current pair's row read once into registers, not at every step.
+struct Stream {
+  const int64_t* rows;
+  int64_t p, end, k0;
+  Pair pr;
+
+  __device__ __forceinline__ void enter() {  // the first pair from p on with K > 0
+    for (; p < end; ++p) {
+      const int64_t* r = rows + PAIR_COLS * p;
+      pr.K = r[PAIR_K];
+      if (pr.K > 0) {
+        pr = {static_cast<uint64_t>(r[0]), static_cast<uint64_t>(r[2]), r[1], r[3], pr.K,
+              r[PAIR_A_BF16], r[PAIR_B_BF16]};
+        return;
+      }
+    }
   }
+  __device__ __forceinline__ bool more() const { return p < end; }
+  __device__ __forceinline__ void next(int bk) {
+    k0 += bk;
+    if (k0 >= pr.K) {
+      ++p;
+      k0 = 0;
+      enter();
+    }
+  }
+};
+
+__device__ __forceinline__ Stream stream_of(const int64_t* pairs, const Tile& w) {
+  Stream s{pairs, w.p_begin, w.p_end, 0, {}};
+  s.enter();
+  return s;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the mbarrier at `bar` has completed. A
+// wait of 2^30 tries (seconds) is a fault of the protocol: the kernel traps, and the
+// launch fails, rather than holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 30)) __trap();
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// The f32 bits of value e of a raw row whose first value lies at `row`: f32, or bf16
+// widened exactly.
+template <int E>
+__device__ __forceinline__ uint32_t raw_bits(const unsigned char* row, int e) {
+  if constexpr (E == 4) return *reinterpret_cast<const uint32_t*>(row + 4 * e);
+  else return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(row + 2 * e)) << 16;
+}
+
+// f32 bits rounded to TF32 as round_tf32 computes it (to nearest, ties away from
+// zero: the bits of cvt.rna.tf32.f32 for finite values), in two integer operations.
+__device__ __forceinline__ uint32_t tf32_bits(uint32_t x) { return (x + 0x1000u) & ~0x1FFFu; }
+
+// A warpgroup's m64nN accumulators: N / 2 floats a thread (wgmma's fragment layout).
+template <int N>
+struct WgAcc {
+  float v[N / 2];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) v[i] = 0.f;
+  }
+  // keeps the compiler from moving reads or writes of the accumulators across a wgmma
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(v[i]) :: "memory");
+  }
+  __device__ __forceinline__ void drain() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence();
+  }
+};
+
+// The layout the staged kinds share. Threads 0-255 are the two consumer warpgroups
+// (warpgroup w owns rows 64 w .. 64 w + 63 of the tile), threads 256-383 the
+// producer warpgroup. Shared memory, from a 1 KiB boundary: two rounded buffers
+// (ROUND_BYTES each, laid out for wgmma), RAW_STAGES raw stages, then the full and
+// empty mbarriers of the raw stages. A raw stage holds the BM x BK box of A and the
+// BK x BN box of B, one row of each per pitch, as the aligned spans stage_box copies.
+template <int RAW_STAGES_, int ROUND_BYTES_, int BN_>
+struct Staged {
+  using T = float;  // the type of C
+  using Acc = WgAcc<BN_>;
+  static constexpr int THREADS = 384, CONSUMERS = 256, PRODUCERS = 128, MIN_CTAS = 1;
+  static constexpr int BM = 128, BN = BN_, BK = 32;
+  static constexpr int RAW_STAGES = RAW_STAGES_, ROUND_BYTES = ROUND_BYTES_;
+  // a row's span: its BK (BN) values in f32, the widest dtype read, and one chunk
+  static constexpr int A_PITCH = BK * 4 + 16, B_PITCH = BN * 4 + 16;
+  static constexpr int A_RAW = BM * A_PITCH;
+  static constexpr int RAW_BYTES = A_RAW + BK * B_PITCH;
+  static constexpr int SMEM_BYTES = 1024 + 2 * ROUND_BYTES + RAW_STAGES * (RAW_BYTES + 16);
+  static_assert(SMEM_BYTES <= 232448, "more shared memory than an H100 block can have");
+  static_assert(ROUND_BYTES % 1024 == 0, "the swizzle is a function of the address");
+
+  // the byte of its aligned span at which a row starts: (address of the row's first
+  // value) mod 16, from the low 32 bits of base + row * pitch + col
+  __device__ __forceinline__ static uint32_t shift(uint32_t base, uint32_t pitch, uint32_t row,
+                                                   uint32_t col) {
+    return (base + row * pitch + col) & 15;
+  }
+
+  // accumulators i, i + 1 (i even) are neighbours in a row: written as one float2
+  // where the row's pitch and the output's base allow, so that a warp writes whole
+  // 32-byte sectors (the staged kinds' epilogue does not overlap another CTA's loop)
   __device__ __forceinline__ static void store(const Acc& acc, float* C, int64_t M, int64_t N,
                                                int64_t row0, int64_t col0) {
     const int wg = threadIdx.x / 128, w4 = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+    const bool pairs = ((reinterpret_cast<uintptr_t>(C) | (N * 4)) & 7) == 0;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < BN / 2; i += 2) {
       const int64_t r = row0 + wg * 64 + w4 * 16 + l / 4 + 8 * ((i / 2) % 2);
-      const int64_t c = col0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
-      if (r < M && c < N) C[r * N + c] = acc.v[i];
+      const int64_t c = col0 + 8 * (i / 4) + 2 * (l % 4);
+      if (r >= M) continue;
+      if (pairs && c + 1 < N) {
+        *reinterpret_cast<float2*>(C + r * N + c) = make_float2(acc.v[i], acc.v[i + 1]);
+      } else {
+        if (c < N) C[r * N + c] = acc.v[i];
+        if (c + 1 < N) C[r * N + c + 1] = acc.v[i + 1];
+      }
     }
   }
 };
 
-// 'tensorfloat32': mma.sync m16n8k8 .tf32, f32 accumulators
-struct TF32P {
-  using T = float;
-  static constexpr int THREADS = 256, BM = 128, BN = 128, BK = 32, STAGES = 3, MIN_CTAS = 2,
-                       LOAD_UNROLL = 4;
-  // padded rows: the A fragments (rows g, cols t) and the B fragments (rows t, cols g)
-  // of a warp hit 32 distinct banks
-  static constexpr int LDA = BK + 4;
-  static constexpr int LDB = BN + 8;
-  static constexpr int A_BYTES = BM * LDA * 4;
-  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 4;
-  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = true;
-  struct Acc { float v[4][4][4]; };  // [m16 tile][n8 tile][fragment]
-
-  __device__ __forceinline__ static uint32_t a_off(int r, int c) { return (r * LDA + c) * 4; }
-  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
-    return A_BYTES + (r * LDB + c) * 4;
-  }
-
-  __device__ __forceinline__ static uint32_t tf32(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r;
-  }
-  __device__ __forceinline__ static void store2(unsigned char* p, float x0, float x1) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(tf32(x0), tf32(x1));
-  }
-
-  __device__ __forceinline__ static void zero(Acc& acc) {
+// Copies the ROWS x COLS box at (r0, c0) of a row-major matrix of E-byte values
+// (address `base`, pitch ld values, R rows, `cols` >= 1 values from c0 on) into a raw
+// stage: row r of the box goes to byte r * PITCH of `dst` as the 16-byte-aligned span
+// that holds it, so the row's first value lands at byte (its address & 15). Each copy
+// is 16 bytes; bytes past the row's values, and every byte of a row past R, read as
+// zero (a copy of source size 0 reads nothing); an aligned row takes one chunk less.
+// T neighbouring threads copy a row, chunk c by thread c mod T, so one warp
+// instruction asks for whole rows (each sector of a span once); a thread steps its
+// row's address from turn to turn.
+template <int E, int ROWS, int COLS, int PITCH, int THREADS, int T>
+__device__ __forceinline__ void stage_box(unsigned char* dst, uint64_t base, int64_t ld,
+                                          int64_t r0, int64_t c0, int64_t R, int64_t cols,
+                                          int t) {
+  constexpr int CHUNKS = COLS * E / 16 + 1, STEP = THREADS / T;  // rows a turn
+  static_assert(CHUNKS * 16 <= PITCH, "a span does not fit its row");
+  static_assert(THREADS % T == 0 && ROWS % STEP == 0, "rows do not split evenly");
+  const int64_t row = r0 + t / T;
+  uint64_t first = base + static_cast<uint64_t>((row * ld + c0) * E);
+  const uint64_t step = static_cast<uint64_t>(STEP * ld * E);
+  const int64_t rows = R - row;  // rows of the matrix from this thread's first one
+  const int values = static_cast<int>(cols) * E;
+  uint32_t to = smem_u32(dst + (t / T) * PITCH) + 16 * (t % T);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int turn = 0; turn < ROWS / STEP; ++turn) {
+    const int head = static_cast<int>(first & 15);
+    const int left = rows > turn * STEP ? head + values : 0;  // bytes from the span's start
+    const int n_chunks = head ? CHUNKS : CHUNKS - 1;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) acc.v[i][j][f] = 0.f;
-  }
-
-  __device__ __forceinline__ static void drain(Acc&) {}
-
-  __device__ __forceinline__ static void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                                  const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-
-  // warp w owns rows (w / 4) * 64 .. + 63 and cols (w % 4) * 32 .. + 31 of the tile.
-  // A fragment: rows g, g + 8 and cols t, t + 4; B fragment: rows t, t + 4, col g.
-  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
-    const uint32_t* sA = reinterpret_cast<const uint32_t*>(stage);
-    const uint32_t* sB = reinterpret_cast<const uint32_t*>(stage + A_BYTES);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const uint32_t* a_base = sA + ((warp / 4) * 64 + g) * LDA + t;
-    const uint32_t* b_base = sB + t * LDB + (warp % 4) * 32 + g;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i][0] = a_base[(i * 16) * LDA + kk];
-        a[i][1] = a_base[(i * 16 + 8) * LDA + kk];
-        a[i][2] = a_base[(i * 16) * LDA + kk + 4];
-        a[i][3] = a_base[(i * 16 + 8) * LDA + kk + 4];
+    for (int i = 0; i < (CHUNKS + T - 1) / T; ++i) {
+      const int ch = t % T + i * T;
+      if (ch < n_chunks) {
+        const int bytes = left - 16 * ch;
+        cp_async<16>(to + 16 * T * i, reinterpret_cast<const void*>(first - head + 16 * ch),
+                     bytes <= 0 ? 0 : (bytes >= 16 ? 16 : bytes));
       }
+    }
+    first += step;
+    to += STEP * PITCH;
+  }
+}
+
+// The producer warpgroup's copies of one (pair, k slice) step into raw stage `stage`,
+// in one cp.async group: the A box eight threads a row, the B box a warp a row.
+template <class P, int EA, int EB>
+__device__ __forceinline__ void stage_step(unsigned char* stage, const Pair& pr, int64_t k0,
+                                           const Tile& w) {
+  const int t = threadIdx.x - P::CONSUMERS;
+  const int64_t ka = pr.K - k0 < P::BK ? pr.K - k0 : P::BK;
+  const int64_t nb = w.N - w.col0 < P::BN ? w.N - w.col0 : P::BN;
+  stage_box<EA, P::BM, P::BK, P::A_PITCH, P::PRODUCERS, 8>(stage, pr.a, pr.lda, w.row0, k0,
+                                                           w.M, ka, t);
+  stage_box<EB, P::BK, P::BN, P::B_PITCH, P::PRODUCERS, 32>(stage + P::A_RAW, pr.b, pr.ldb, k0,
+                                                            w.col0, pr.K, nb, t);
+  cp_async_commit();
+}
+
+// D[64 x 128] += A[64 x 8] (K-major) * B[8 x 128] (K-major: .tf32 takes no transpose)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (MN-major: trans-b = 1)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 8] (K-major) * B[8 x 256] (K-major: .tf32 takes no transpose)
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 'tensorfloat32', on a 128 x 256 tile (as the bf16 pass: it halves the steps and the
+// reads of A from L2 per product; its two rounded buffers leave room for two raw
+// stages). Rounded buffer: A [128 rows x 32 k] then B [256 n x 32 k], both K-major,
+// 128-byte rows (32 values) with the 128-byte swizzle: in each 1024-byte block of
+// eight rows, the 16-byte chunk c of row r sits at chunk c ^ r.
+template <int BN_>
+struct TF32Pass : Staged<BN_ == 256 ? 2 : 4, 16384 + BN_ * 128, BN_> {
+  using Base = Staged<BN_ == 256 ? 2 : 4, 16384 + BN_ * 128, BN_>;
+  using typename Base::Acc;
+  using Base::BN, Base::BK, Base::A_PITCH, Base::B_PITCH, Base::A_RAW, Base::shift;
+  static constexpr int B_OFF = 16384;
+  struct Slice { uint32_t a[16], b[4 * BN / 32]; };  // a thread's values, f32 bits
+
+  __device__ __forceinline__ static uint32_t sw(int r, int c) {  // K-major: row r, k c
+    return (r / 8) * 1024 + (r % 8) * 128 + (((c / 4) ^ (r % 8)) * 16) + (c % 4) * 4;
+  }
+
+  // load reads a thread's values of a raw slice into registers, write rounds them into
+  // the buffer. A: warp q of warpgroup w takes rows 64 w + 16 q .. + 15, lane l k = l
+  // (one row a warp instruction: reads of 32 neighbouring values, writes of one
+  // 128-byte row). B, transposed: thread t takes n row t % BN, its 16-byte chunks of
+  // four k number t / BN + (256 / BN) i: reads of 32 neighbouring n, conflict-free
+  // writes.
+  static constexpr int B_CHUNKS = BN / 32;  // chunks of four k a thread writes
+  __device__ __forceinline__ static int b_chunk(int i) {
+    return static_cast<int>(threadIdx.x) / BN + (256 / BN) * i;
+  }
+  template <int EA, int EB>
+  __device__ __forceinline__ static void load(Slice& v, const unsigned char* raw,
+                                              const Pair& pr, int64_t k0, const Tile& w) {
+    const int wg = threadIdx.x / 128, q = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+    const uint32_t a = static_cast<uint32_t>(pr.a), lda = static_cast<uint32_t>(pr.lda) * EA;
+    const uint32_t b = static_cast<uint32_t>(pr.b), ldb = static_cast<uint32_t>(pr.ldb) * EB;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = wg * 64 + q * 16 + i;
+      const uint32_t s = shift(a, lda, static_cast<uint32_t>(w.row0 + r),
+                               static_cast<uint32_t>(k0) * EA);
+      v.a[i] = raw_bits<EA>(raw + r * A_PITCH + s, l);
+    }
+    const int n = threadIdx.x % BN;
+#pragma unroll
+    for (int i = 0; i < B_CHUNKS; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        b[j][0] = b_base[kk * LDB + j * 8];
-        b[j][1] = b_base[(kk + 4) * LDB + j * 8];
+        const int k = 4 * b_chunk(i) + j;
+        const uint32_t s = shift(b, ldb, static_cast<uint32_t>(k0 + k),
+                                 static_cast<uint32_t>(w.col0) * EB);
+        v.b[4 * i + j] = raw_bits<EB>(raw + A_RAW + k * B_PITCH + s, n);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(acc.v[i][j], a[i], b[j]);
-    }
   }
 
-  // fragment f of an m16n8 tile: row g + 8 * (f / 2), col 2 * t + f % 2
-  __device__ __forceinline__ static void store(const Acc& acc, float* C, int64_t M, int64_t N,
-                                               int64_t row0, int64_t col0) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
+  __device__ __forceinline__ static void write(unsigned char* dst, const Slice& v) {
+    const int wg = threadIdx.x / 128, q = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<uint32_t*>(dst + sw(wg * 64 + q * 16 + i, l)) = tf32_bits(v.a[i]);
+    const int n = threadIdx.x % BN;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < B_CHUNKS; ++i)
+      *reinterpret_cast<uint4*>(dst + B_OFF + sw(n, 4 * b_chunk(i))) =
+          make_uint4(tf32_bits(v.b[4 * i]), tf32_bits(v.b[4 * i + 1]),
+                     tf32_bits(v.b[4 * i + 2]), tf32_bits(v.b[4 * i + 3]));
+  }
+
+  // warpgroup w runs its 64 rows, the four k8 steps of the slice, in one group
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf) {
+    const uint32_t a = smem_u32(buf) + (threadIdx.x / 128) * 8192;
+    const uint32_t b = smem_u32(buf) + B_OFF;
+    acc.fence();
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const int64_t r = row0 + (warp / 4) * 64 + i * 16 + g + 8 * (f / 2);
-          const int64_t c = col0 + (warp % 4) * 32 + j * 8 + 2 * t + f % 2;
-          if (r < M && c < N) C[r * N + c] = acc.v[i][j][f];
-        }
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t da = wgmma_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = wgmma_desc(b + kk * 32, 16, 1024);
+      if constexpr (BN == 256) wgmma_m64n256k8_tf32(acc.v, da, db);
+      else wgmma_m64n128k8_tf32(acc.v, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
 };
 
+// 'default', on a 128 x 256 tile as TF32. Rounded buffer: A [128 rows x 32 k]
+// K-major in the bf16 kind's layout (BF16::a_off: 128-byte rows, of which the 64 bytes
+// of k < 32 are written and read), then B [32 k x 256 n] MN-major, its four 64-column
+// atoms 4 KiB apart.
+template <int BN_>
+struct BF16Pass : Staged<BN_ == 256 ? 3 : 5, 16384 + BN_ * 64, BN_> {
+  using Base = Staged<BN_ == 256 ? 3 : 5, 16384 + BN_ * 64, BN_>;
+  using typename Base::Acc;
+  using Base::BN, Base::BK, Base::A_PITCH, Base::B_PITCH, Base::A_RAW, Base::shift;
+  static constexpr int B_OFF = 16384;
+  struct Slice { uint32_t a[16], b[BN / 8]; };  // a thread's values, f32 bits
+
+  __device__ __forceinline__ static uint32_t b_off(int r, int c) {  // MN-major: k r, n c
+    return B_OFF + (c / 64) * 4096 + (r / 8) * 1024 + (r % 8) * 128
+         + ((((c % 64) / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
+  }
+  // load and write as TF32P's. A: warp q of warpgroup w takes rows 64 w + 16 q .. + 15,
+  // two rows r and r + 4 a warp instruction (their swizzled chunks fall in disjoint
+  // banks), lane l the pair of k = 2 (l % 16), + 1. B: thread t takes the n pair
+  // 2 (t % (BN / 2)), + 1 of k rows b_row(i) = t / (BN / 2) + (512 / BN) i: a warp
+  // writes 64 neighbouring n, one 128-byte row.
+  __device__ __forceinline__ static int b_row(int i) {
+    return static_cast<int>(threadIdx.x) / (BN / 2) + (512 / BN) * i;
+  }
+  __device__ __forceinline__ static int a_row(int i) {
+    const int q = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+    return (threadIdx.x / 128) * 64 + q * 16 + (i / 4) * 8 + (l / 16) * 4 + i % 4;
+  }
+
+  template <int EA, int EB>
+  __device__ __forceinline__ static void load(Slice& v, const unsigned char* raw,
+                                              const Pair& pr, int64_t k0, const Tile& w) {
+    const uint32_t a = static_cast<uint32_t>(pr.a), lda = static_cast<uint32_t>(pr.lda) * EA;
+    const uint32_t b = static_cast<uint32_t>(pr.b), ldb = static_cast<uint32_t>(pr.ldb) * EB;
+    const int c = 2 * (threadIdx.x % 16), n = 2 * (threadIdx.x % (BN / 2));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = a_row(i);
+      const uint32_t s = shift(a, lda, static_cast<uint32_t>(w.row0 + r),
+                               static_cast<uint32_t>(k0) * EA);
+      v.a[2 * i] = raw_bits<EA>(raw + r * A_PITCH + s, c);
+      v.a[2 * i + 1] = raw_bits<EA>(raw + r * A_PITCH + s, c + 1);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i) {
+      const int k = b_row(i);
+      const uint32_t s = shift(b, ldb, static_cast<uint32_t>(k0 + k),
+                               static_cast<uint32_t>(w.col0) * EB);
+      v.b[2 * i] = raw_bits<EB>(raw + A_RAW + k * B_PITCH + s, n);
+      v.b[2 * i + 1] = raw_bits<EB>(raw + A_RAW + k * B_PITCH + s, n + 1);
+    }
+  }
+
+  __device__ __forceinline__ static __nv_bfloat162 bf16x2(uint32_t lo, uint32_t hi) {
+    return __floats2bfloat162_rn(__uint_as_float(lo), __uint_as_float(hi));  // lo first
+  }
+
+  __device__ __forceinline__ static void write(unsigned char* dst, const Slice& v) {
+    const int c = 2 * (threadIdx.x % 16), n = 2 * (threadIdx.x % (BN / 2));
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + BF16::a_off(a_row(i), c)) =
+          bf16x2(v.a[2 * i], v.a[2 * i + 1]);
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + b_off(b_row(i), n)) =
+          bf16x2(v.b[2 * i], v.b[2 * i + 1]);
+  }
+
+  // warpgroup w runs its 64 rows, the two k16 steps of the slice, in one group
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf) {
+    const uint32_t a = smem_u32(buf) + (threadIdx.x / 128) * 8192;
+    const uint32_t b = smem_u32(buf) + B_OFF;
+    acc.fence();
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = wgmma_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = wgmma_desc(b + kk * 2048, 4096, 1024);
+      if constexpr (BN == 256) wgmma_m64n256k16(acc.v, da, db);
+      else wgmma_m64n128k16(acc.v, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+};
+
+using TF32P = TF32Pass<256>;
+using BF16P = BF16Pass<256>;
+using TF32PN = TF32Pass<128>;  // narrow: see cyten_grouped_gemm_info
+using BF16PN = BF16Pass<128>;
+
+// A consumer's load of the slice in raw stage `stage` for pair `pr` at k0: the values
+// in registers, then the stage released to the producer.
 template <class P>
-constexpr int smem_bytes() { return P::STAGES * P::STAGE_BYTES + (P::SWIZZLED ? 1024 : 0); }
+__device__ __forceinline__ void load_slice(typename P::Slice& v, const unsigned char* stage,
+                                           uint32_t empty_bar, const Pair& pr, int64_t k0,
+                                           const Tile& w) {
+  if (pr.a_bf16) {
+    if (pr.b_bf16) P::template load<2, 2>(v, stage, pr, k0, w);
+    else P::template load<2, 4>(v, stage, pr, k0, w);
+  } else {
+    if (pr.b_bf16) P::template load<4, 2>(v, stage, pr, k0, w);
+    else P::template load<4, 4>(v, stage, pr, k0, w);
+  }
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty_bar);  // its reads are done (release)
+}
+
+template <class P, class = void> struct is_staged : std::false_type {};
+template <class P>
+struct is_staged<P, std::void_t<decltype(P::RAW_STAGES)>> : std::true_type {};
+
+template <class P>
+constexpr int smem_bytes() {
+  if constexpr (is_staged<P>::value) return P::SMEM_BYTES;
+  else return P::STAGES * P::STAGE_BYTES + (P::SWIZZLED ? 1024 : 0);
+}
 
 // The (pair, k0) cursor over a tile's concatenated k-slice stream; pairs with K = 0
 // are skipped.
@@ -795,6 +1231,26 @@ struct InlineTables {
   }
 };
 
+// The tile `tile` of P's tiling: in the last output whose first tile is <= tile
+// (outputs with no tiles are skipped), by a binary search over first_tile.
+template <class P>
+__device__ __forceinline__ Tile find_tile(const int64_t* outs, int n_out, int tile,
+                                          int* hint = nullptr) {
+  int lo = 0, hi = n_out - 1;
+  if (hint) {  // a CTA's tiles only grow: its output is the one before's, or later
+    lo = *hint;
+    if (lo < hi && outs[OUT_COLS * (lo + 1) + 3] > tile) hi = lo;
+  }
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (outs[OUT_COLS * mid + 3] <= tile) lo = mid; else hi = mid - 1;
+  }
+  if (hint) *hint = lo;
+  const int64_t* o = outs + OUT_COLS * lo;
+  const int64_t local = tile - o[3], tiles_n = o[4];
+  return {o[0], o[1], o[2], (local / tiles_n) * P::BM, (local % tiles_n) * P::BN, o[5], o[6]};
+}
+
 template <class P, class Tables>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_CTAS)
 grouped_gemm_kernel(const __grid_constant__ Tables tables, int n_out, int n_tiles) {
@@ -806,17 +1262,10 @@ grouped_gemm_kernel(const __grid_constant__ Tables tables, int n_out, int n_tile
     smem += (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    // the last output whose first tile is <= tile (outputs with no tiles are skipped)
-    int lo = 0, hi = n_out - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) / 2;
-      if (outs[OUT_COLS * mid + 3] <= tile) lo = mid; else hi = mid - 1;
-    }
-    const int64_t* o = outs + OUT_COLS * lo;
-    auto* C = reinterpret_cast<typename Out<P>::type*>(o[0]);
-    const int64_t M = o[1], N = o[2], local = tile - o[3], tiles_n = o[4];
-    const int64_t p_begin = o[5], p_end = o[6];
-    const int64_t row0 = (local / tiles_n) * P::BM, col0 = (local % tiles_n) * P::BN;
+    const Tile w = find_tile<P>(outs, n_out, tile);
+    auto* C = reinterpret_cast<typename Out<P>::type*>(w.c);
+    const int64_t M = w.M, N = w.N, p_begin = w.p_begin, p_end = w.p_end;
+    const int64_t row0 = w.row0, col0 = w.col0;
 
     int64_t steps = 0;
     for (int64_t p = p_begin; p < p_end; ++p)
@@ -869,7 +1318,122 @@ grouped_gemm_kernel(const __grid_constant__ Tables tables, int n_out, int n_tile
   }
 }
 
+// The staged kinds (tf32, bf16p; see the header): the producer warpgroup fills the raw
+// ring, the consumer warpgroups round each slice into a wgmma buffer and multiply. Both walk
+// the same tiles and (pair, k slice) steps; step g of a CTA uses raw stage g mod
+// RAW_STAGES, in its round g / RAW_STAGES, and rounded buffer g mod 2.
+template <class P, class Tables>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_CTAS)
+grouped_gemm_staged(const __grid_constant__ Tables tables, int n_out, int n_tiles) {
+  const int64_t* __restrict__ outs = tables.out_rows();
+  const int64_t* __restrict__ pairs = tables.pair_rows(n_out);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* rounded = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* raw = rounded + 2 * P::ROUND_BYTES;
+  const uint32_t full = smem_u32(raw + P::RAW_STAGES * P::RAW_BYTES);  // 8 bytes each
+  const uint32_t empty = full + 8 * P::RAW_STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::RAW_STAGES; ++i) {
+      mbar_init(full + 8 * i, P::PRODUCERS / 32);   // one arrival a producer warp
+      mbar_init(empty + 8 * i, P::CONSUMERS / 32);  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= P::CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    // A step's stage is announced LAG steps after its copies started, once this
+    // warp's copies of it have landed (cp.async.wait_group): one arrival a warp, not a
+    // thread, on the full mbarrier.
+    constexpr int LAG = P::RAW_STAGES - 2;
+    int slot = 0, ready = 0, pending = 0, out = 0;  // ready: the slot announced next
+    uint32_t round = 0;
+    const auto announce = [&] {
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive(full + 8 * ready);
+      ready = ready + 1 == P::RAW_STAGES ? 0 : ready + 1;
+      --pending;
+    };
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile w = find_tile<P>(outs, n_out, tile, &out);
+#pragma unroll 1
+      for (Stream st = stream_of(pairs, w); st.more(); st.next(P::BK)) {
+        mbar_wait(empty + 8 * slot, (round & 1) ^ 1);  // the first round finds it empty
+        unsigned char* stage = raw + slot * P::RAW_BYTES;
+        if (st.pr.a_bf16) {
+          if (st.pr.b_bf16) stage_step<P, 2, 2>(stage, st.pr, st.k0, w);
+          else stage_step<P, 2, 4>(stage, st.pr, st.k0, w);
+        } else {
+          if (st.pr.b_bf16) stage_step<P, 4, 2>(stage, st.pr, st.k0, w);
+          else stage_step<P, 4, 4>(stage, st.pr, st.k0, w);
+        }
+        if (++pending > LAG) {
+          cp_async_wait<LAG>();
+          announce();
+        }
+        if (++slot == P::RAW_STAGES) {
+          slot = 0;
+          ++round;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    while (pending > 0) announce();
+  } else {  // the two consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    int slot = 0, buf = 0, out = 0;
+    uint32_t round = 0;
+    const auto next_slot = [&] {
+      if (++slot == P::RAW_STAGES) {
+        slot = 0;
+        ++round;
+      }
+    };
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile w = find_tile<P>(outs, n_out, tile, &out);
+      typename P::Acc acc;
+      acc.zero();
+      typename P::Slice v;
+      Stream st = stream_of(pairs, w);
+      if (st.more()) {
+        mbar_wait(full + 8 * slot, round & 1);
+        load_slice<P>(v, raw + slot * P::RAW_BYTES, empty + 8 * slot, st.pr, st.k0, w);
+        next_slot();
+      }
+#pragma unroll 1
+      while (st.more()) {
+        unsigned char* dst = rounded + buf * P::ROUND_BYTES;
+        P::write(dst, v);
+        // the rounded values, written by the generic proxy, become visible to wgmma's
+        // async proxy; this warpgroup's products of the step before are done, and past
+        // the barrier every consumer's are: the buffer they read is the next store's
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" :: "n"(P::CONSUMERS) : "memory");
+        P::mma(acc, dst);
+        buf ^= 1;
+        // the next slice's reads, while the products run
+        st.next(P::BK);
+        if (st.more()) {
+          mbar_wait(full + 8 * slot, round & 1);
+          load_slice<P>(v, raw + slot * P::RAW_BYTES, empty + 8 * slot, st.pr, st.k0, w);
+          next_slot();
+        }
+      }
+      acc.drain();
+      P::store(acc, reinterpret_cast<float*>(w.c), w.M, w.N, w.row0, w.col0);
+    }
+  }
+}
+
 constexpr int MAX_DEVICES = 64;
+
+template <class P, class Tables>
+auto kernel_of() {
+  if constexpr (is_staged<P>::value) return grouped_gemm_staged<P, Tables>;
+  else return grouped_gemm_kernel<P, Tables>;
+}
 
 // Sets the kernel's shared-memory limit and returns its grid cap (resident CTAs per
 // SM times SMs) on the current device, once per device.
@@ -880,7 +1444,7 @@ int grid_cap(int& err) {
   err = static_cast<int>(cudaGetDevice(&dev));
   if (err) return 0;
   if (dev < MAX_DEVICES && cap[dev] > 0) return cap[dev];
-  auto kernel = grouped_gemm_kernel<P, Tables>;
+  const auto kernel = kernel_of<P, Tables>();
   err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<P>()));
   if (err) return 0;
@@ -904,8 +1468,9 @@ int launch(const Tables& tables, int64_t n_out, int64_t n_tiles, cudaStream_t st
   const int cap = grid_cap<P, Tables>(err);
   if (err) return err;
   const int grid = static_cast<int>(n_tiles < cap ? n_tiles : cap);
-  grouped_gemm_kernel<P, Tables><<<grid, P::THREADS, smem_bytes<P>(), stream>>>(
-      tables, static_cast<int>(n_out), static_cast<int>(n_tiles));
+  const auto kernel = kernel_of<P, Tables>();
+  kernel<<<grid, P::THREADS, smem_bytes<P>(), stream>>>(tables, static_cast<int>(n_out),
+                                                        static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -920,6 +1485,8 @@ int launch_dtype(int dtype, const Tables& tables, int64_t n_out, int64_t n_tiles
     case 4: return launch<TF32P>(tables, n_out, n_tiles, s);
     case 5: return launch<BF16P>(tables, n_out, n_tiles, s);
     case 6: return launch<C128>(tables, n_out, n_tiles, s);
+    case 7: return launch<TF32PN>(tables, n_out, n_tiles, s);
+    case 8: return launch<BF16PN>(tables, n_out, n_tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -941,12 +1508,14 @@ int with_device(int device, F&& launch) {
 }  // namespace
 
 // dtype (the kind): 0 = float64, 1 = float32, 2 = bfloat16; f32 results of f32 or
-// bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'); 6 =
-// complex128. `tables` holds the outs rows and then the pairs rows, n_words int64 in
-// all: in host memory if tables_on_device is 0 (then n_words <= INLINE_WORDS; they
-// are copied into the launch's parameters and may be freed on return), else in
-// device memory. Launches on `stream` of CUDA device `device`. Returns the
-// cudaError_t of the launch (0 on success); the caller raises on anything else.
+// bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'), on 128 x 256
+// tiles, 7 = tf32 and 8 = bf16p on 128 x 128 tiles (the host picks the width of a
+// list from its shapes); 6 = complex128. `tables` holds the outs rows and then the
+// pairs rows, n_words int64 in all: in host memory if tables_on_device is 0 (then
+// n_words <= INLINE_WORDS; they are copied into the launch's parameters and may be
+// freed on return), else in device memory. Launches on `stream` of CUDA device
+// `device`. Returns the cudaError_t of the launch (0 on success); the caller raises
+// on anything else.
 extern "C" int cyten_grouped_gemm(int dtype, const int64_t* tables, int64_t n_words,
                                   int tables_on_device, int64_t n_out, int64_t n_tiles,
                                   int device, void* stream) {
@@ -966,7 +1535,10 @@ extern "C" int cyten_grouped_gemm(int dtype, const int64_t* tables, int64_t n_wo
 }
 
 // The output tile (BM, BN) of each kind and the capacity of the inline tables in
-// int64 words: the host's table builder takes both from here.
+// int64 words: the host lays out its tables by both. For the staged kinds
+// it picks the tile of each list (blocks/grouped_gemm.py::_staged_tile): a wide step
+// does twice the products of a narrow one for less than twice the time, but on lists
+// whose N is at most 128 both widths run the same tiles.
 extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
   bm_bn_words[2] = INLINE_WORDS;
   switch (dtype) {
@@ -977,6 +1549,8 @@ extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
     case 4: bm_bn_words[0] = TF32P::BM; bm_bn_words[1] = TF32P::BN; return 0;
     case 5: bm_bn_words[0] = BF16P::BM; bm_bn_words[1] = BF16P::BN; return 0;
     case 6: bm_bn_words[0] = C128::BM; bm_bn_words[1] = C128::BN; return 0;
+    case 7: bm_bn_words[0] = TF32PN::BM; bm_bn_words[1] = TF32PN::BN; return 0;
+    case 8: bm_bn_words[0] = BF16PN::BM; bm_bn_words[1] = BF16PN::BN; return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

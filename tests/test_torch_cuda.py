@@ -20,7 +20,9 @@ from cyten_tpu_torch.algorithms import (
 from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn, _GraphedStep
 from cyten_tpu_torch.blocks import _kernels
 from cyten_tpu_torch.bench import build_step_state, build_workload, step_flops
-from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul, grouped_matmul_plain
+from cyten_tpu_torch.blocks.grouped_gemm import (
+    grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
+)
 from cyten_tpu_torch.blocks.probe import scale2, scale2_plain
 from cyten_tpu_torch.blocks.tridiag import (
     tridiagonal_ground_state, tridiagonal_ground_state_plain,
@@ -514,7 +516,6 @@ def test_grouped_gemm_rounded_kinds(card, case, precision, a_dtype, b_dtype):
     """Each converting kind against its plain version: the operands rounded alike and
     the products exact in f32, so the two differ by the order of their f32 sums
     alone: K 2^-23 times the product of the rounded operands' magnitudes."""
-    from cyten_tpu_torch.blocks import grouped_gemm
     from cyten_tpu_torch.config import config
 
     shapes, out_ids = RAGGED[case]
@@ -532,15 +533,169 @@ def test_grouped_gemm_rounded_kinds(card, case, precision, a_dtype, b_dtype):
     ref = grouped_matmul_plain(As, Bs, out_ids, precision=precision)
     torch.cuda.synchronize()
     assert grouped_matmul.kinds[kind].launches == before + 1
+    assert_within_sum_order(got, ref, As, Bs, out_ids, precision)
+
+
+def assert_within_sum_order(got, ref, As, Bs, out_ids, precision):
+    """Kernel (``got``) against plain (``ref``) for an f32 result of operands rounded
+    for ``precision``: each element within K_o 2^-23 times the product of the rounded
+    operands' magnitudes (K_o the summed depth of output o's pairs)."""
+    from cyten_tpu_torch.blocks import grouped_gemm
+
     mag = grouped_matmul_plain([grouped_gemm._rounded(A, precision).abs().double()
                                 for A in As],
                                [grouped_gemm._rounded(B, precision).abs().double()
                                 for B in Bs], out_ids)
-    ks = np.zeros(max(out_ids) + 1)
-    np.add.at(ks, out_ids, [K for M, K, N in shapes])
+    ks = np.zeros(len(ref))
+    np.add.at(ks, out_ids, [A.shape[1] for A in As])
     for o, (c, r, m) in enumerate(zip(got, ref, mag)):
         assert c.dtype == torch.float32 and c.shape == r.shape
         assert bool(((c.double() - r.double()).abs() <= ks[o] * 2. ** -23 * m).all())
+
+
+def _misaligned(rng, rows, cols, pitch, dtype, device):
+    """A [rows, cols] view with row pitch ``pitch`` whose first element lies one
+    element past an aligned address: the staged kinds copy its rows from the aligned
+    spans that hold them."""
+    buf = torch.from_numpy(rng.normal(size=rows * pitch + 1)).to(device, dtype)
+    return buf[1:].view(rows, pitch)[:, :cols]
+
+
+# the lists the staged kinds' raw staging must get right: name -> a function of (rng,
+# A dtype, B dtype, device) giving (As, Bs, out_ids)
+def _hard_odd_pitches(rng, a_dtype, b_dtype, device):
+    # K = 295 (the chi=4096 list's), odd pitches, bases one element past alignment
+    As = [_misaligned(rng, 150, 295, 297, a_dtype, device),
+          _misaligned(rng, 37, 131, 133, a_dtype, device)]
+    Bs = [_misaligned(rng, 295, 140, 143, b_dtype, device),
+          _misaligned(rng, 131, 65, 67, b_dtype, device)]
+    return As, Bs, [0, 1]
+
+
+def _hard_ragged(rng, a_dtype, b_dtype, device):
+    # K not a multiple of BK = 32, K = 0 pairs, shared outputs, M < 64 and N < BN
+    shapes = [(40, 33, 100), (40, 0, 100), (40, 95, 100), (5, 1, 7), (5, 0, 7), (130, 64, 129)]
+    As = [torch.from_numpy(rng.normal(size=(M, K))).to(device, a_dtype) for M, K, N in shapes]
+    Bs = [torch.from_numpy(rng.normal(size=(K, N))).to(device, b_dtype) for M, K, N in shapes]
+    return As, Bs, [0, 0, 0, 1, 1, 2]
+
+
+HARD = {'odd_pitches': _hard_odd_pitches, 'ragged': _hard_ragged}
+
+
+STAGED_TILES = {'wide': (128, 256), 'narrow': (128, 128)}
+
+
+@pytest.fixture(params=list(STAGED_TILES))
+def width(request):
+    """One of the staged kinds' two tiles, which ``grouped_matmul_plan(width=)``
+    forces whatever the list."""
+    return request.param
+STAGED = [('tensorfloat32', torch.float32, torch.float32),
+          ('tensorfloat32', torch.bfloat16, torch.float32),
+          ('tensorfloat32', torch.float32, torch.bfloat16),
+          ('default', torch.float32, torch.float32),
+          ('default', torch.bfloat16, torch.float32),
+          ('default', torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(HARD))
+@pytest.mark.parametrize('precision, a_dtype, b_dtype', STAGED)
+def test_staged_kinds_hard_lists(card, width, case, precision, a_dtype, b_dtype):
+    """TF32 and the bf16 pass, at each of their tiles, on lists whose rows start
+    anywhere: the views reach the kernel as they lie (the table holds their own
+    pointers and pitches) and the result is the plain version's to within the order
+    of the sums."""
+    from cyten_tpu_torch.config import config
+
+    As, Bs, out_ids = HARD[case](np.random.default_rng(14), a_dtype, b_dtype, card)
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        outs, launch = grouped_matmul_plan(As, Bs, out_ids, width=width)
+    finally:
+        config.matmul_precision = old
+    table = launch.operands[2]
+    n_out = max(out_ids) + 1
+    assert launch.tile == STAGED_TILES[width]
+    assert {(A.data_ptr(), A.stride(0)) for A in As} == set(map(tuple, table[n_out:, 0:2]))
+    assert {(B.data_ptr(), B.stride(0)) for B in Bs} == set(map(tuple, table[n_out:, 2:4]))
+    before = grouped_matmul.kinds[precision].launches
+    launch()
+    torch.cuda.synchronize()
+    assert grouped_matmul.kinds[precision].launches == before + 1
+    ref = grouped_matmul_plain(As, Bs, out_ids, precision=precision)
+    assert_within_sum_order(outs, ref, As, Bs, out_ids, precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['tensorfloat32', 'default'])
+def test_staged_kinds_replay_in_a_graph(card, width, precision):
+    """A staged kind captured in a CUDA graph reads its operands anew at each replay."""
+    from cyten_tpu_torch.config import config
+
+    rng = np.random.default_rng(15)
+    As, Bs, out_ids = _hard_odd_pitches(rng, torch.float32, torch.float32, card)
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        grouped_matmul_plan(As, Bs, out_ids, width=width)[1]()  # set up before the capture
+        graph = _kernels.Graph()
+        with graph.capture():
+            outs = grouped_matmul_plan(As, Bs, out_ids, width=width)[1]()
+    finally:
+        config.matmul_precision = old
+    assert graph.launches == {grouped_matmul: 1, grouped_matmul.kinds[precision]: 1}
+    for _ in range(2):
+        for X in (*As, *Bs):
+            X.copy_(torch.from_numpy(rng.normal(size=tuple(X.shape))))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = grouped_matmul_plain(As, Bs, out_ids, precision=precision)
+        assert_within_sum_order(outs, ref, As, Bs, out_ids, precision)
+
+
+def midpoint_operands(rng, shapes):
+    """f32 operands whose 13 bits below TF32's last kept bit are 0x1001, just above the
+    rounding midpoint, all of one sign: rounding to nearest (cvt.rna, round_tf32) and
+    truncation (what wgmma .tf32 does to raw f32 bits) differ by about one TF32 unit
+    in every value, the same way."""
+    def draw(r, c):
+        bits = torch.from_numpy(np.abs(rng.normal(size=(r, c)))).float().view(torch.int32)
+        return ((bits & ~0x1FFF) | 0x1001).view(torch.float32)
+    return [draw(M, K) for M, K, N in shapes], [draw(K, N) for M, K, N in shapes]
+
+
+@pytest.mark.cuda
+def test_tf32_rounds_above_the_midpoint(card, width):
+    """The TF32 kind rounds each operand to nearest before its products: on operands
+    just above the midpoint it holds the plain version's bound, which truncated
+    operands miss by far (checked here on the CPU), so a kernel that skipped its
+    rounding pass fails."""
+    from cyten_tpu_torch.blocks import grouped_gemm
+    from cyten_tpu_torch.config import config
+
+    shapes = [(150, 295, 140), (70, 40, 90)]
+    As, Bs = midpoint_operands(np.random.default_rng(16), shapes)
+    out_ids = [0, 1]
+    ref = grouped_matmul_plain(As, Bs, out_ids, precision='tensorfloat32')
+    truncated = grouped_matmul_plain([(A.view(torch.int32) & ~0x1FFF).view(torch.float32)
+                                      for A in As],
+                                     [(B.view(torch.int32) & ~0x1FFF).view(torch.float32)
+                                      for B in Bs], out_ids)
+    with pytest.raises(AssertionError):
+        assert_within_sum_order(truncated, ref, As, Bs, out_ids, 'tensorfloat32')
+    old = config.matmul_precision
+    config.matmul_precision = 'tensorfloat32'
+    try:
+        got = grouped_matmul_plan([A.to(card) for A in As], [B.to(card) for B in Bs], out_ids,
+                                  width=width)[1]()
+    finally:
+        config.matmul_precision = old
+    torch.cuda.synchronize()
+    assert grouped_gemm.round_tf32(As[0]).ne(As[0]).all()
+    assert_within_sum_order([c.cpu() for c in got], ref, As, Bs, out_ids, 'tensorfloat32')
 
 
 @pytest.mark.cuda

@@ -24,6 +24,10 @@ from cyten_tpu_torch.blocks.grouped_gemm import (  # noqa: E402
 # an output tile (BM, BN): the table builder numbers tiles of whatever size it is given
 # (the kernel states its own per dtype, cyten_grouped_gemm_info)
 TILE = (128, 64)
+# the tiles of the kernel's kinds, as cyten_grouped_gemm_info states them: f64 128 x 64,
+# f32, bf16, mixed and TF32 128 x 128, the bf16 pass ('default') 128 x 256, complex128
+# 64 x 64
+KIND_TILES = [(128, 64), (128, 128), (128, 256), (64, 64)]
 
 # the shapes of tests/test_pallas_grouped.py:15-19
 PALLAS_SHAPES = [
@@ -203,16 +207,17 @@ def _walk(outs, n_tiles, grid):
             yield lo, local // outs[lo, 4], local % outs[lo, 4]
 
 
+@pytest.mark.parametrize('tile', KIND_TILES)
 @pytest.mark.parametrize('grid', [1, 3, 264])
-def test_work_table_covers_every_output_tile_once(grid):
+def test_work_table_covers_every_output_tile_once(grid, tile):
     """The per-output table walked as the kernel walks it visits every tile of every
-    output exactly once, whatever the grid; outputs with no tiles are never visited;
-    rows are ordered by work."""
+    output exactly once, whatever the grid and whichever kind's tile; outputs with no
+    tiles are never visited; rows are ordered by work."""
     M = np.array([1, 128, 129, 300, 0, 7])
-    N = np.array([1, 64, 200, 7, 5, 0])
+    N = np.array([1, 64, 260, 7, 5, 0])  # 260: wider than one 256-column tile
     K = np.array([5, 3, 40, 1, 2, 9, 0])
     out_ids = np.array([0, 1, 2, 3, 4, 5, 2])
-    bm, bn = TILE
+    bm, bn = tile
     table, n_tiles = _launch_table(np.arange(7) * 64, np.arange(7) * 64, K, K, N[out_ids],
                                    out_ids, M, N, np.arange(6) * 64, (bm, bn))
     outs, pairs = table[:len(M)], table[len(M):]
@@ -228,26 +233,29 @@ def test_work_table_covers_every_output_tile_once(grid):
         assert np.all(c == 1)
 
 
-def test_launch_tables_drive_the_kernel_walk():
+@pytest.mark.parametrize('tile', KIND_TILES)
+def test_launch_tables_drive_the_kernel_walk(tile):
     """The tables the wrapper hands the CUDA kernel, walked as the kernel walks them
     (a strided tile id, a binary search over first_tile, the pair range and the
-    pointers, K and pitches of each pair), compute what the plain version computes."""
+    pointers, K and pitches of each pair), compute what the plain version computes,
+    whichever kind's tile numbers them."""
     rng = np.random.default_rng(4)
-    shapes = [(130, 17, 70), (12, 9, 3), (130, 64, 70), (5, 200, 129), (130, 1, 70),
+    shapes = [(130, 17, 70), (12, 9, 3), (130, 64, 70), (5, 200, 290), (130, 1, 70),
               (12, 0, 3)]
     out_ids = np.array([2, 0, 2, 1, 2, 0])  # output 2 sums three pairs, out of order
     As, Bs = _pairs(rng, shapes)
     As, Bs = [torch.from_numpy(a) for a in As], [torch.from_numpy(b) for b in Bs]
     As[0] = torch.from_numpy(rng.normal(size=(130, 20)))[:, :17]  # row pitch 20, not 17
-    M, N = np.array([12, 5, 130]), np.array([3, 129, 70])
+    M, N = np.array([12, 5, 130]), np.array([3, 290, 70])
     outs = [torch.full((int(m), int(n)), np.nan, dtype=torch.float64) for m, n in zip(M, N)]
-    o_tab, p_tab, n_tiles = _tables(As, Bs, out_ids, M, N, outs, (64, 64))
+    o_tab, p_tab, n_tiles = _tables(As, Bs, out_ids, M, N, outs, tile)
     by_ptr = {t.data_ptr(): t for t in (*As, *Bs, *outs)}
+    bm, bn = tile
     for o, tr, tc in _walk(o_tab, n_tiles, 5):
         c_ptr, m, n, _, _, begin, end, _ = o_tab[o].tolist()
         C = by_ptr[c_ptr]
         assert tuple(C.shape) == (m, n)
-        r, c = slice(tr * 64, tr * 64 + 64), slice(tc * 64, tc * 64 + 64)
+        r, c = slice(tr * bm, tr * bm + bm), slice(tc * bn, tc * bn + bn)
         acc = torch.zeros_like(C[r, c])
         for a_ptr, lda, b_ptr, ldb, k, *rest in p_tab[begin:end].tolist():
             assert rest == [0, 0, 0]
@@ -330,6 +338,62 @@ def test_layouts_are_kept_by_shape():
     np.testing.assert_array_equal(table, ref)
     with pytest.raises(ValueError):  # a list that fails its checks is never kept
         grouped_gemm._layouts(a, ia, b, ib, [0, 1, 1], None, torch.float64, TILE)
+
+
+# lists for the staged kinds' choice of tile: name -> ((M, K, N) per pair, out_ids,
+# the tile expected of 128 x 256 and 128 x 128 on 132 SMs)
+STAGED_LISTS = {
+    # wide outputs, many tiles (the bench's chi=4096 tdot(LP, theta) is of this kind)
+    'wide_and_many': ([(4386, 1462, 1462), (2940, 980, 980), (1462, 295, 1462)] * 3,
+                      list(range(9)), (128, 256)),
+    # N of at most 3 (the matvec's W contractions): the wide tile does as many steps
+    'narrow_outputs': ([(m, 3, 3) for m in (1432760, 11800, 1960, 80)], [0, 1, 2, 3],
+                       (128, 128)),
+    # M of at most 3, N up to 1.4 M: the wide tile does half the steps
+    'short_and_wide': ([(3, 3, n) for n in (1432760, 11800, 1960, 80)], [0, 1, 2, 3],
+                       (128, 256)),
+    # too few tiles to fill the card: the narrow tile spreads them over more SMs
+    'few_tiles': ([(365, 365, 365), (245, 245, 245)], [0, 1], (128, 128)),
+}
+
+
+@pytest.mark.parametrize('case', list(STAGED_LISTS))
+def test_staged_tile_choice(case):
+    """TF32 and the bf16 pass run a list at the tile whose modelled time is least,
+    and the layout cache keeps the table at that tile, numbered by it."""
+    shapes, out_ids, expected = STAGED_LISTS[case]
+    MN = np.array([(m, n) for m, k, n in shapes])
+    K = np.array([k for m, k, n in shapes])
+    assert grouped_gemm._staged_tile(MN, K, np.array(out_ids), (128, 256), (128, 128),
+                                     132) == expected
+    a = np.array([(64 * i, k, 1, m, k) for i, (m, k, n) in enumerate(shapes)])
+    b = np.array([(64 * i + 8, n, 1, k, n) for i, (m, k, n) in enumerate(shapes)])
+    ia = ib = np.arange(len(shapes))
+    args = (a, ia, b, ib, out_ids, None, torch.float32, (128, 256), 'default',
+            ((128, 128), 132))
+    n_out, _, layout = grouped_gemm._layouts(*args)
+    assert layout.tile == expected and grouped_gemm._layouts(*args)[2] is layout
+    bm, bn = expected
+    assert layout.n_tiles == sum(-(-m // bm) * -(-n // bn) for m, k, n in shapes)
+
+
+@pytest.mark.parametrize('width, case', [('wide', 'few_tiles'), ('narrow', 'wide_and_many')])
+def test_staged_width_forces_the_tile(width, case):
+    """``width`` lays a staged kind's list out at the tile it names, here the one the
+    list would not take on its own, and the cache keeps that layout apart from the
+    list's own."""
+    shapes, out_ids, own = STAGED_LISTS[case]
+    a = np.array([(64 * i, k, 1, m, k) for i, (m, k, n) in enumerate(shapes)])
+    b = np.array([(64 * i + 8, n, 1, k, n) for i, (m, k, n) in enumerate(shapes)])
+    ia = ib = np.arange(len(shapes))
+    args = (a, ia, b, ib, out_ids, None, torch.float32, (128, 256), 'default',
+            ((128, 128), 132))
+    forced = grouped_gemm._layouts(*args, width)[2]
+    bm, bn = {'wide': (128, 256), 'narrow': (128, 128)}[width]
+    assert forced.tile == (bm, bn) != own
+    assert forced.n_tiles == sum(-(-m // bm) * -(-n // bn) for m, k, n in shapes)
+    assert grouped_gemm._layouts(*args)[2].tile == own
+    assert grouped_gemm._layouts(*args, width)[2] is forced
 
 
 @pytest.mark.parametrize('case', ['length', 'inner_dim', 'shared_shape', 'empty_output',

@@ -251,6 +251,25 @@ def test_rounding_of_each_kind_against_numpy():
                                       b16.float().numpy())
 
 
+@pytest.mark.parametrize('k', [40, 295])
+def test_tf32_truncation_misses_the_kernels_bound(k):
+    """On operands whose dropped TF32 bits are 0x1001, just above the midpoint, the
+    TF32 kind's plain version (rounding to nearest) and products of truncated
+    operands (what wgmma .tf32 makes of raw f32 bits) differ by far more than the
+    K 2^-23 |A||B| the kernel is held to on the card: that check finds a kernel
+    that skips its rounding pass."""
+    rng = np.random.default_rng(17)
+    bits = np.abs(rng.normal(size=(2, 30, k))).astype(np.float32).view(np.int32)
+    A, Bt = ((bits & ~0x1FFF) | 0x1001).view(np.float32)
+    A, B = torch.from_numpy(A), torch.from_numpy(np.ascontiguousarray(Bt.T))
+    (ref,) = grouped_matmul_plain([A], [B], precision='tensorfloat32')
+    truncated = [(t.view(torch.int32) & ~0x1FFF).view(torch.float32) for t in (A, B)]
+    (trunc,) = grouped_matmul_plain(truncated[:1], truncated[1:])
+    mag = grouped_gemm.round_tf32(A).double() @ grouped_gemm.round_tf32(B).double()
+    gap = (trunc.double() - ref.double()).abs() / (k * 2. ** -23 * mag)
+    assert float(gap.min()) > 10
+
+
 @pytest.mark.parametrize('precision', PRECISIONS + [None])
 @pytest.mark.parametrize('mixed', [False, True])
 def test_plain_kinds_against_numpy(precision, mixed):
