@@ -16,13 +16,15 @@ fails. Imports nothing of JAX or cyten_tpu.
     python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
     python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
     python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
-                                           # of it in turns (ab_run), then stop
+                                           # of it in turns (ab_run: lists, bench
+                                           # steps, replayed sweeps), then stop
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
      report (registers, shared memory, spills); the grouped GEMM's SASS holds
-     DMMA (f64, complex128) and HGMMA (bf16, TF32 and the bf16 pass: wgmma), and no
-     HMMA in TF32, checked with cuobjdump where the toolkit has it; the host-sync
+     DMMA (f64, complex128 at both tiles) and HGMMA (bf16, TF32 and the bf16 pass:
+     wgmma), and no HMMA in TF32, and every thin form FFMA or DFMA and no tensor-core
+     instruction, checked with cuobjdump where the toolkit has it; the host-sync
      counter's count on a function that does nothing (the first count in a process
      holds one sync that PyTorch reports at torch/cuda/__init__.py)
   2. grouped GEMM against its plain version: the pair lists of
@@ -42,13 +44,20 @@ Phases:
      and shared outputs, TF32 operands just above the rounding midpoint), at each of
      their two tiles (STAGED_WIDTHS), and at the chi=4096 list beside their device_ms
      of the register-staged form they replace (STAGED_BEFORE_MS); then each list of
-     the chi=4096 bench step at 'tensorfloat32' and 'default', LP in f32 and in bf16,
-     as the main path plans it (step_list_phase): the tile picked and the time at
-     each tile, and those run at the narrow tile held against their plain versions
+     the chi=4096 bench step at every precision setting ('float32', 'tensorfloat32',
+     'default', each with LP and RP in f32 and in bf16; f64; bf16 work) and of one
+     static SU(2) (f64) and golden-chain (complex128) bond update at 512 multiplets, as
+     the main path plans it (step_list_phase): each thin list (the environment
+     updates' contractions with W) held against its plain version, its device_ms
+     beside bound_ms, library_ms and the kind's tiled form on the same list; at
+     'tensorfloat32' and 'default' the other lists' tile picked and time at each tile
+     Then the thin form against the tiled kinds on lists of growing depth and narrow
+     side, f32, f64 and complex128 (thin_crossover)
   2d. the grouped GEMM's complex128 kind against its plain version, held elementwise
      to 2 K 2^-52 |A||B|: the ragged lists with random complex operands, real x complex
-     and complex x real (the real operand copied to complex128 by the wrapper), and
-     the chi=4096 tdot(LP, theta) list made complex128; library_ms a per-pair
+     and complex x real (the real operand copied to complex128 by the wrapper), each at
+     the tile (or thin form) picked and at both tiles, and the chi=4096 tdot(LP,
+     theta) list made complex128; the form or tile of each list; library_ms a per-pair
      complex128 torch.matmul loop; bound at 8 real operations a complex multiply-add
      on the f64 tensor cores (67 TFLOP/s)
   2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on the
@@ -368,6 +377,7 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     t_ops = flops / peak_ops_per_s(out_dtype, precision)
     t_bytes = nbytes / HBM_BYTES_PER_S
     res = {'pairs': len(PA), 'outputs': n_out, 'tile': getattr(launch, 'tile', None),
+           'form': getattr(launch, 'form', None),
            'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
            'max_abs_err': err, 'ms': ms, 'device_ms': device_ms, 'plain_ms': plain_ms,
            'library_ms': library_ms, 'spread': dict(zip(('ms', 'device_ms', 'library_ms'),
@@ -455,12 +465,10 @@ def turns(fns, reps: int, rounds: int = 2):
     return medians, [(max(t) - min(t)) / m for t, m in zip(times, medians)]
 
 
-def step_lists(precision: str, env_dtype=None) -> list:
-    """The distinct grouped-GEMM lists that the bench step at chi=CHI_BENCH plans at
-    ``precision`` (bench.step_run's warm-up and one step; LP and RP in ``env_dtype``),
-    in the order first planned: ``[(matmul_precision then, As, Bs, out_ids, n_out,
-    pairs), count]``, the operands as the step made them."""
-    from cyten_tpu_torch import bench
+def recorded_lists(run) -> list:
+    """The distinct grouped-GEMM lists that ``run()`` plans, in the order first
+    planned: ``[(matmul_precision then, As, Bs, out_ids, n_out, pairs), count]``, the
+    operands as the run made them."""
     from cyten_tpu_torch.blocks import grouped_gemm as gg
     from cyten_tpu_torch.config import config
 
@@ -481,11 +489,34 @@ def step_lists(precision: str, env_dtype=None) -> list:
 
     gg.grouped_matmul_plan = recording
     try:
-        bench.step_run(CHI_BENCH, lengths=(1,), repeats=1, precision=precision,
-                       env_dtype=env_dtype)
+        run()
     finally:
         gg.grouped_matmul_plan = plan
     return list(lists.values())
+
+
+def step_lists(precision: str, **kw) -> list:
+    """The distinct grouped-GEMM lists that the bench step at chi=CHI_BENCH plans at
+    ``precision`` (bench.step_run's warm-up and one step, with ``kw``: env_dtype,
+    work_dtype, dtype), as recorded_lists gives them."""
+    from cyten_tpu_torch import bench
+
+    return recorded_lists(lambda: bench.step_run(CHI_BENCH, lengths=(1,), repeats=1,
+                                                 precision=precision, **kw))
+
+
+def fusion_step_lists(symmetry, workload, dtype) -> list:
+    """The distinct grouped-GEMM lists of one static bond update on the fusion-tree
+    backend at 512 multiplets (bench.build_step_state of ``workload``, in ``dtype``),
+    as recorded_lists gives them."""
+    from cyten_tpu_torch import get_backend
+    from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn
+    from cyten_tpu_torch.bench import build_step_state
+
+    LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
+        get_backend(symmetry, device='cuda'), 512, dtype=dtype, workload=workload)
+    return recorded_lists(lambda: _get_static_bond_fn(10, 'steady')(
+        HEffective(LP, RP, W1, W2), S, B1, B2, tmpl, None))
 
 
 def list_name(As, Bs, pairs, count) -> str:
@@ -497,45 +528,128 @@ def list_name(As, Bs, pairs, count) -> str:
             f'{str(PA[0].dtype)[6:]} x {str(PB[0].dtype)[6:]}')
 
 
-def step_list_phase() -> None:
-    """Each distinct list of the chi=CHI_BENCH bench step at 'tensorfloat32' and
-    'default', LP and RP in f32 and in bf16, as the main path plans it ([step list]
-    lines): the tile the wrapper picks and the kernel's device ms at each of the two
-    tiles (the data behind blocks/grouped_gemm.py::_WIDE_STEP_COST); each list it
-    runs at the narrow tile (the W contractions) held against its plain version by
-    compare_kernel at that tile, device_ms beside bound_ms and library_ms."""
+def step_settings():
+    """The settings of the bench step whose lists step_list_phase reads: (name,
+    matmul_precision, step_run keywords)."""
+    from cyten_tpu_torch import Dtype
+
+    bf16 = {'env_dtype': 'bfloat16'}
+    return [('float32', 'float32', {}), ('tensorfloat32', 'tensorfloat32', {}),
+            ('default', 'default', {}), ('env bf16, float32', 'float32', bf16),
+            ('env bf16, tensorfloat32', 'tensorfloat32', bf16),
+            ('env bf16, default', 'default', bf16),
+            ('float64', 'float32', {'dtype': Dtype.float64}),
+            ('work bf16', 'float32', {'work_dtype': 'bfloat16'})]
+
+
+def step_list_phase() -> dict:
+    """Each distinct list of the chi=CHI_BENCH bench step at every setting of
+    step_settings, and of one static SU(2) (f64) and golden-chain (complex128) bond
+    update at 512 multiplets, as the main path plans it ([step list] lines). A thin
+    list is held against its plain version by compare_kernel, its device_ms beside
+    bound_ms, library_ms and the device ms of the kind's tiled form on the same list;
+    at 'tensorfloat32' and 'default' the other lists give the tile picked and the
+    kernel's device ms at each of the two tiles (the data behind
+    blocks/grouped_gemm.py::_TILE_MODEL). Returns the compare_kernel results of the
+    thin lists, by '<setting> <form>': of a form's lists, the one planned most often
+    (a step's W contractions, not a list of the state's set-up), then the largest."""
+    import torch
+    from cyten_tpu_torch import fibonacci_anyon_category, su2_symmetry, Dtype
+    from cyten_tpu_torch.bench import build_golden_workload, build_su2_workload
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
+    from cyten_tpu_torch.config import config
+
+    thin = {}
+    sources = [(name, prec, lambda prec=prec, kw=kw: step_lists(prec, **kw))
+               for name, prec, kw in step_settings()]
+    sources += [('SU(2)', None, lambda: fusion_step_lists(su2_symmetry, build_su2_workload,
+                                                          Dtype.float64)),
+                ('golden', None, lambda: fusion_step_lists(
+                    fibonacci_anyon_category, build_golden_workload, Dtype.complex128))]
+    for setting, precision, lists in sources:
+        for (prec, As, Bs, out_ids, n_out, pairs), count in lists():
+            if precision is not None and prec != precision:  # an operator run at another
+                continue                                     # precision
+            name = f'{setting} {list_name(As, Bs, pairs, count)}'
+            old = config.matmul_precision
+            config.matmul_precision = prec
+            try:
+                launch = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1]
+                if launch.form is not None:
+                    tiled = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs, 'tiled')[1]
+                    times, spread = turns([launch, tiled], 20)
+                elif prec in ('tensorfloat32', 'default'):
+                    launches = [grouped_matmul_plan(As, Bs, out_ids, n_out, pairs, w)[1]
+                                for w in STAGED_WIDTHS]
+                    times, spread = turns(launches, 20)
+            finally:
+                config.matmul_precision = old
+            if launch.form is None:
+                if prec in ('tensorfloat32', 'default'):
+                    print(f'[step list] {name}: tile {launch.tile}, device ms wide '
+                          f'{times[0]:.4f}, narrow {times[1]:.4f} (spreads {spread[0]:.3f}, '
+                          f'{spread[1]:.3f})', flush=True)
+                continue
+            rounded = prec in ('tensorfloat32', 'default')
+            res = compare_kernel(f'step list {name}', As, Bs, out_ids, n_out, As[0].dtype,
+                                 pairs, precision=prec if rounded else None,
+                                 b_dtype=Bs[0].dtype, as_given=True)
+            res['tiled_ms'], res['tiled_tile'] = times[1], tiled.tile
+            print(f'[step list] {name}: thin {launch.form}, device_ms {res["device_ms"]:.4f} '
+                  f'(as timed beside the tiled form {times[0]:.4f}, spread {spread[0]:.3f}), '
+                  f'bound {res["bound_ms"]:.4f} ({res["bound_by"]}), library_ms '
+                  f'{res["library_ms"]:.4f}, tiled {tiled.tile} {times[1]:.4f} (spread '
+                  f'{spread[1]:.3f})', flush=True)
+            key = f'{setting} {launch.form}'
+            res['count'] = count
+            if key not in thin or (count, res['mbytes']) > (thin[key]['count'],
+                                                            thin[key]['mbytes']):
+                thin[key] = res
+        torch.cuda.empty_cache()
+    return thin
+
+
+# (K, narrow side) of the lists thin_crossover times
+CROSSOVER = [(3, 3), (4, 4), (8, 8), (16, 16), (3, 16), (16, 3)]
+
+
+def thin_crossover() -> None:
+    """Where the thin form stops beating the tiled kinds ([crossover] lines: the data
+    behind blocks/grouped_gemm.py::THIN_PICK_K and THIN_PICK_S): in f32 at 'float32',
+    f64 and complex128, a tall list of two pairs [2^20, K] @ [K, S] summed into one
+    output, and the wide list [S, K] @ [K, 2^20] alike, for each (K, S) of CROSSOVER:
+    the device ms of the thin form and of the kind's tiled form, in turns, and the
+    form the wrapper picks."""
     import torch
     from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
     from cyten_tpu_torch.config import config
 
-    for precision in ('tensorfloat32', 'default'):
-        for env_dtype in (None, 'bfloat16'):
-            for (prec, As, Bs, out_ids, n_out, pairs), count in step_lists(precision,
-                                                                         env_dtype):
-                if prec != precision:  # an operator run at another precision
-                    continue
-                name = f'{prec} env {env_dtype or "float32"} {list_name(As, Bs, pairs, count)}'
-                old = config.matmul_precision
-                config.matmul_precision = prec
-                try:
-                    picked = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1].tile
-                    launches = [grouped_matmul_plan(As, Bs, out_ids, n_out, pairs, w)[1]
-                                for w in STAGED_WIDTHS]
-                    times, spread = turns(launches, 20)
-                finally:
-                    config.matmul_precision = old
-                print(f'[step list] {name}: tile {picked}, device ms wide {times[0]:.4f}, '
-                      f'narrow {times[1]:.4f} (spreads {spread[0]:.3f}, {spread[1]:.3f})',
-                      flush=True)
-                if picked == (128, 128):
-                    res = compare_kernel(f'step list {name}', As, Bs, out_ids, n_out,
-                                         As[0].dtype, pairs, precision=prec,
-                                         b_dtype=Bs[0].dtype, as_given=True)
-                    print(f'[step list] {name}: at the tile picked {tuple(res["tile"])}, '
-                          f'device_ms {res["device_ms"]:.4f}, bound {res["bound_ms"]:.4f} '
-                          f'({res["bound_by"]}), library_ms {res["library_ms"]:.4f}',
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    big = 1 << 20
+    old = config.matmul_precision
+    config.matmul_precision = 'float32'
+    try:
+        for dtype in (torch.float32, torch.float64, torch.complex128):
+            for K, S in CROSSOVER:
+                for form in ('tall', 'wide'):
+                    a, b = ((big, K), (K, S)) if form == 'tall' else ((S, K), (K, big))
+                    As = [torch.randn(a, dtype=dtype, device='cuda', generator=gen)
+                          for _ in range(2)]
+                    Bs = [torch.randn(b, dtype=dtype, device='cuda', generator=gen)
+                          for _ in range(2)]
+                    ids = np.zeros(2, np.int64)
+                    picked = grouped_matmul_plan(As, Bs, ids)[1].form
+                    thin, tiled = (grouped_matmul_plan(As, Bs, ids, width=w)[1]
+                                   for w in ('thin', 'tiled'))
+                    times, spread = turns([thin, tiled], 10)
+                    print(f'[crossover] {str(dtype)[6:]} {form} K={K} S={S}: thin '
+                          f'{times[0]:.4f}, tiled {tiled.tile} {times[1]:.4f} (spreads '
+                          f'{spread[0]:.3f}, {spread[1]:.3f}); picked {picked or "tiled"}',
                           flush=True)
+                    del As, Bs, thin, tiled
             torch.cuda.empty_cache()
+    finally:
+        config.matmul_precision = old
 
 
 @contextlib.contextmanager
@@ -560,13 +674,20 @@ def lists_on_plain():
         gg.grouped_matmul_plan = plan
 
 
+_THIN_FORM = None  # blocks/grouped_gemm.py::_thin_form, while another build is routed
+
+
 def route_grouped_gemm(lib) -> None:
     """Plans made from now on launch the grouped GEMM of the ctypes library ``lib``
-    (None: this tree's build). A build without the staged kinds' narrow codes states
-    its one tile for them, so that every list runs at it."""
+    (None: this tree's build). A build without the narrow codes runs a list of a kind
+    of two widths at its wide tile; a build without the thin forms runs every list at
+    its kind's tile (no list is taken to be thin)."""
     import ctypes
     from cyten_tpu_torch.blocks import _kernels, grouped_gemm as gg
 
+    global _THIN_FORM
+    if _THIN_FORM is None:
+        _THIN_FORM = gg._thin_form
     lib = lib or _kernels.library('grouped_gemm')
     fns = {}
     for symbol, (argtypes, restype) in _kernels._SIGNATURES['grouped_gemm'].items():
@@ -574,27 +695,94 @@ def route_grouped_gemm(lib) -> None:
         fn.argtypes, fn.restype = argtypes, restype
     info = fns['cyten_grouped_gemm_info']
     probe = (ctypes.c_int64 * 3)()
-    if info(gg._NARROW_CODE['default'], ctypes.addressof(probe)) != 0:
-        wide = {gg._NARROW_CODE[k]: gg._KIND_CODE[k] for k in gg._NARROW_CODE}
-        fns['cyten_grouped_gemm_info'] = lambda code, out: info(wide.get(code, code), out)
+
+    def has(code):
+        return info(code, ctypes.addressof(probe)) == 0
+
+    lacks = {narrow: gg._KIND_CODE[kind] for kind, narrow in gg._NARROW_CODE.items()
+             if not has(narrow)}
+    thin = has(gg._THIN_BASE['tall'])
+    gg._thin_form = _THIN_FORM if thin else (lambda *args: None)
+    if lacks or not thin:
+        def routed_info(code, out):
+            if code >= gg._THIN_BASE['tall'] and not thin:  # bounds of no use
+                return 0
+            return info(lacks.get(code, code), out)
+        fns['cyten_grouped_gemm_info'] = routed_info
     for symbol, fn in fns.items():
         _kernels._functions['grouped_gemm', symbol] = fn
     gg._kernel_info.cache_clear()
     gg._LAYOUTS.clear()
 
 
+def converged(eng, full, max_sweeps: int) -> float:
+    """Dynamic sweeps of ``eng`` until its energy moves by less than 1e-10 with
+    ``full()`` true (the centre bond at chi_max), at most ``max_sweeps``; then one
+    eager static sweep, which gives every bond the structure the graphs capture.
+    Returns the dynamic energy."""
+    E = None
+    for _ in range(max_sweeps):
+        E_new = eng.run(n_sweeps=1)
+        done = E is not None and abs(E_new - E) < 1e-10 and full()
+        E = E_new
+        if done:
+            break
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    eng.sweep()
+    return E
+
+
+def ab_sweeps(builds: dict, label: str, eng, n: int = 2) -> None:
+    """Replayed static sweeps of ``eng`` on each build of ``builds`` in turns (old,
+    new, new, old; [ab sweep]): per turn the graphs captured anew on that build, then
+    ``n`` sweeps replayed and timed on the host clock, ended by a sync; the energy and
+    the launches of the last sweep by kind (thin: the thin forms)."""
+    import torch
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+
+    seconds, energy, counts = {k: [] for k in builds}, {}, {}
+    for name in ('old', 'new', 'new', 'old'):
+        route_grouped_gemm(builds[name])
+        eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+        eng.sweep_static_batched()  # captures this build's graphs
+        torch.cuda.synchronize()
+        for _ in range(n):
+            for k in (*grouped_matmul.kinds.values(), grouped_matmul.thin):
+                k.launches = 0
+            t0 = time.perf_counter()
+            energy[name] = eng.sweep_static_batched()
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+        counts[name] = {k: v.launches for k, v in grouped_matmul.kinds.items() if v.launches}
+        counts[name]['thin'] = grouped_matmul.thin.launches
+    route_grouped_gemm(None)
+    print(f'[ab sweep] {label}: replayed sweep s ' + ', '.join(
+        f'{k} {np.median(v):.4f} {[round(t, 4) for t in v]}' for k, v in seconds.items())
+        + f'; E old {energy["old"]!r}, new {energy["new"]!r}; launches by kind old '
+        f'{json.dumps(counts["old"])}, new {json.dumps(counts["new"])}', flush=True)
+
+
 def ab_run(against: str) -> int:
     """``--against OLD.cu``: this tree's grouped GEMM against another version of
     csrc/grouped_gemm.cu with the same C interface (for example the parent commit's,
-    ``git show HEAD~1:cyten_tpu_torch/csrc/grouped_gemm.cu > build/old.cu``), in one
-    process: at 'tensorfloat32' and 'default', the chi=CHI_BENCH bench step as a CUDA
-    graph on each build in turns (old, new, new, old; [ab step], ms), then each
-    distinct list of such a step ([ab list]) and the bench's chi=1024 and
-    chi=CHI_BENCH tdot(LP, theta) lists, LP in f32 and in bf16 ([ab tdot]), on each
-    build in four turns (device ms, medians, spreads)."""
+    ``git show HEAD~1:cyten_tpu_torch/csrc/grouped_gemm.cu > chip_checkout/old.cu``), in
+    one process, each measurement on the builds in turns (old, new, new, old):
+    - at 'tensorfloat32' and 'default', the chi=CHI_BENCH bench step as a CUDA graph
+      ([ab step], ms), then each distinct list of such a step ([ab list]);
+    - each thin list of the bench step at every other setting of step_settings
+      ([ab list]), the bench's chi=1024 and chi=CHI_BENCH tdot(LP, theta) lists, LP
+      in f32 and in bf16 ([ab tdot]), and the chi=CHI_BENCH list made complex128
+      ([ab complex]): device ms, medians over four turns, spreads;
+    - replayed static sweeps (ab_sweeps): U(1) L=24 at chi_max=1024 in f64, then in
+      f32 with bf16 environments at 'float32' and 'default' (phase 7b's settings),
+      SU(2) L=24 and the golden chain L=28 at 512 multiplets, and the golden centre
+      compose list ([ab complex])."""
     import ctypes
     import torch
     from cyten_tpu_torch import Dtype, get_backend, u1_symmetry
+    from cyten_tpu_torch.algorithms import (
+        DMRGEngine, GoldenChainModel, HEffective, HeisenbergModel, SimpleMPS,
+    )
     from cyten_tpu_torch.bench import build_workload, step_run
     from cyten_tpu_torch.blocks import _kernels
     from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
@@ -620,8 +808,11 @@ def ab_run(against: str) -> int:
                 launches[name] = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1]
         finally:
             config.matmul_precision = old
+            route_grouped_gemm(None)
         times, spread = turns(list(launches.values()), 20, 4)
-        return ', '.join(f'{k} {t:.4f} ({s:.3f})' for k, t, s in zip(builds, times, spread))
+        form = launches['new'].form or launches['new'].tile
+        return ', '.join(f'{k} {t:.4f} ({s:.3f})' for k, t, s in zip(builds, times, spread)) + (
+            f', new as {form}')
 
     for precision in ('tensorfloat32', 'default'):
         step_ms = {'old': [], 'new': []}
@@ -633,9 +824,17 @@ def ab_run(against: str) -> int:
             f'{k} {np.mean(v):.3f} {[round(t, 3) for t in v]}' for k, v in step_ms.items()),
             flush=True)
         route_grouped_gemm(None)
-        for (prec, As, Bs, out_ids, n_out, pairs), count in step_lists(precision):
-            if prec == precision:
-                print(f'[ab list] {prec} {list_name(As, Bs, pairs, count)}, device ms '
+    for setting, precision, kw in step_settings():
+        for (prec, As, Bs, out_ids, n_out, pairs), count in step_lists(precision, **kw):
+            old = config.matmul_precision
+            config.matmul_precision = prec
+            try:
+                form = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1].form
+            finally:
+                config.matmul_precision = old
+            if prec == precision and (form is not None or (
+                    not kw and prec in ('tensorfloat32', 'default'))):
+                print(f'[ab list] {setting} {list_name(As, Bs, pairs, count)}, device ms '
                       f'(spread): {timed(As, Bs, out_ids, n_out, pairs, prec)}', flush=True)
         torch.cuda.empty_cache()
     backend = get_backend(u1_symmetry, device='cuda')
@@ -647,8 +846,53 @@ def ab_run(against: str) -> int:
                 row = timed([A.to(a_dtype) for A in As], Bs, out_id, n_out, pairs, precision)
                 print(f'[ab tdot] chi={chi} tdot(LP, theta) {precision} {str(a_dtype)[6:]} '
                       f'x float32, device ms (spread): {row}', flush=True)
+        if chi == CHI_BENCH:
+            cAs = [torch.complex(A.double(), torch.randn_like(A.double())) for A in As]
+            cBs = [torch.complex(B.double(), torch.randn_like(B.double())) for B in Bs]
+            print(f'[ab complex] chi={chi} tdot(LP, theta) complex128, device ms (spread): '
+                  f'{timed(cAs, cBs, out_id, n_out, pairs, None)}', flush=True)
+            del cAs, cBs
         del LP, RP, W1, W2, theta, As, Bs
-    route_grouped_gemm(None)
+    torch.cuda.empty_cache()
+
+    # replayed static sweeps: U(1) L=24 f64, then phase 7b's bf16 environments
+    L = 24
+    model = HeisenbergModel(L=L, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2))
+    eng = DMRGEngine(psi, model, chi_max=1024, eps=0., lanczos_options={'N_max': 10})
+    converged(eng, lambda: psi.max_chi() == 1024, 6)
+    ab_sweeps(builds, 'U(1) L=24 chi_max=1024 f64', eng)
+    model.H_mpo = [W.to_dtype(Dtype.float32) for W in model.H_mpo]
+    psi.Bs = [B.to_dtype(Dtype.float32) for B in psi.Bs]
+    psi.Ss = [S.to_dtype(Dtype.float32) for S in psi.Ss]
+    eng.env_dtype = Dtype.bfloat16
+    eng.LPs = [eng.LPs[0].to_dtype(Dtype.float32),
+               *(t.to_dtype(Dtype.bfloat16) for t in eng.LPs[1:])]
+    eng.RPs = [*(t.to_dtype(Dtype.bfloat16) for t in eng.RPs[:-1]),
+               eng.RPs[-1].to_dtype(Dtype.float32)]
+    for precision in ('float32', 'default'):
+        eng.matmul_precision = precision
+        ab_sweeps(builds, f'U(1) L=24 env bf16, {precision}', eng)
+    del eng, psi, model
+    torch.cuda.empty_cache()
+    # SU(2) L=24 and the golden chain L=28 at 512 multiplets
+    for label, L, make in (('SU(2) L=24', 24, lambda: HeisenbergModel(L=24, conserve='SU(2)')),
+                           ('golden L=28', 28, lambda: GoldenChainModel(28))):
+        model = make()
+        psi = (SimpleMPS.from_singlet_pairs(model.site_leg, L, backend=model.backend)
+               if label.startswith('SU') else
+               SimpleMPS.from_fusion_pairs(model.site_leg, L, backend=model.backend))
+        eng = DMRGEngine(psi, model, chi_max=512, eps=0., lanczos_options={'N_max': 10})
+        i = L // 2 - 1
+        converged(eng, lambda: int(np.sum(psi.Ss[i + 1].leg.multiplicities)) == 512, 12)
+        ab_sweeps(builds, f'{label} 512 multiplets', eng)
+        if label.startswith('golden'):
+            H = HEffective(eng.LPs[i], eng.RPs[i + 1], model.H_mpo[i], model.H_mpo[i + 1])
+            As, Bs, pairs, out_id, n_out = su2_compose_pairs(H.LP, psi.get_theta2(i))
+            print(f'[ab complex] golden L=28 centre compose(theta, LP), device ms (spread): '
+                  f'{timed(As, Bs, out_id, n_out, pairs, None)}', flush=True)
+        del eng, psi, model
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -669,7 +913,7 @@ def wrapper_breakdown(As, Bs, out_id, n_out, pairs, reps: int = 50) -> dict:
         (ua, ia, a, _, a_dt), (ub, ib, b, _, b_dt) = gg._pair_list(As, Bs, pairs)
         dtype = gg._common_dtype(a_dt | b_dt)
         kind, readable = gg._kind(a_dt | b_dt, dtype)
-        code, inline_words, n, out_layout, table_layout = gg._kind_layouts(
+        code, inline_words, n, out_layout, table_layout, _ = gg._kind_layouts(
             a, ia, b, ib, out_id, n_out, dtype, kind, 0)
         marks.append(time.perf_counter())
         a_bf16 = gg._as_operands(ua, a, a_dt, dtype, readable)
@@ -942,18 +1186,25 @@ def tridiag_phase() -> dict:
 
 
 # kernel policy (its mangled name) -> the SASS instruction its products must run on
-# (TF32 and the bf16 pass at each width: TF32Pass<256>, TF32Pass<128>, ...)
+# (TF32 and the bf16 pass at each width: TF32Pass<256>, TF32Pass<128>, ...; complex128
+# at each tile: ComplexTile<128>, ComplexTile<64>)
 SASS_OPS = {'3F64': 'DMMA', '4BF16': 'HGMMA', '3F32': 'FFMA', '4F32W': 'FFMA',
             '8TF32PassILi256': 'HGMMA', '8TF32PassILi128': 'HGMMA',
-            '8BF16PassILi256': 'HGMMA', '8BF16PassILi128': 'HGMMA', '4C128': 'DMMA'}
+            '8BF16PassILi256': 'HGMMA', '8BF16PassILi128': 'HGMMA',
+            '11ComplexTileILi128E': 'DMMA', '11ComplexTileILi64E': 'DMMA'}
 # ... and the instructions it must not hold: TF32 runs on wgmma, not mma.sync (HMMA)
 SASS_ABSENT = {'8TF32PassILi256': 'HMMA', '8TF32PassILi128': 'HMMA'}
+# the thin forms (seven kinds, two forms, two table paths) run on the CUDA cores' FMA
+# pipes and hold no tensor-core instruction
+THIN_KERNELS = 28
+TENSOR_CORE_OPS = ('DMMA', 'HGMMA', 'HMMA')
 
 
 def check_sass(kernels):
     """The SASS of each kind of the grouped GEMM holds the instruction its products
     must run on (SASS_OPS: DMMA for f64 and complex128, HGMMA for bf16, TF32 and the
-    bf16 pass, FFMA for f32) and none of SASS_ABSENT's (no HMMA in TF32), by
+    bf16 pass, FFMA for f32) and none of SASS_ABSENT's (no HMMA in TF32), and each of
+    the THIN_KERNELS thin forms FFMA or DFMA and no tensor-core instruction, by
     cuobjdump where the toolkit has it; raises if one is missing or one is found."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     if not os.path.exists(tool):
@@ -961,17 +1212,23 @@ def check_sass(kernels):
         return
     sass = subprocess.run([tool, '-sass', str(kernels._lib_path('grouped_gemm'))],
                           capture_output=True, text=True, check=True).stdout
-    found = {}
+    found, thin = {}, []
     for part in sass.split('Function : ')[1:]:
         name = part.split(None, 1)[0]
+        if 'grouped_gemm_thin' in name:
+            thin.append(('FFMA' in part or 'DFMA' in part)
+                        and not any(op in part for op in TENSOR_CORE_OPS))
+            continue
         for policy, op in SASS_OPS.items():
             if policy in name:
                 absent = SASS_ABSENT.get(policy)
                 found[policy] = (op, op in part and not (absent and absent in part))
-    print(f'[sass] {json.dumps(found)}', flush=True)
-    if sorted(found) != sorted(SASS_OPS) or not all(ok for _, ok in found.values()):
+    print(f'[sass] {json.dumps(found)}; thin forms on FFMA or DFMA without tensor cores: '
+          f'{sum(thin)} of {len(thin)}', flush=True)
+    if (sorted(found) != sorted(SASS_OPS) or not all(ok for _, ok in found.values())
+            or len(thin) != THIN_KERNELS or not all(thin)):
         raise AssertionError(f'the grouped GEMM kinds do not run on {SASS_OPS} '
-                             f'without {SASS_ABSENT}')
+                             f'without {SASS_ABSENT}, or a thin form on tensor cores')
 
 
 def su2_compose_pairs(LP, theta):
@@ -1067,6 +1324,7 @@ def su2_phase(E24) -> dict:
     graph_s = []
     for sweep in range(2):
         grouped_matmul.launches = 0
+        grouped_matmul.thin.launches = 0
         tridiagonal_ground_state.launches = 0
         t0 = time.perf_counter()
         E_graph = eng.sweep_static_batched()
@@ -1075,8 +1333,9 @@ def su2_phase(E24) -> dict:
         sweep_launches = grouped_matmul.launches
         tridiag_launches = tridiagonal_ground_state.launches
         print(f'[SU(2) graphs] batched sweep {sweep + 1}: E = {E_graph!r}, '
-              f'{graph_s[-1]:.2f} s, grouped-GEMM launches {sweep_launches}, tridiag '
-              f'launches {tridiag_launches}', flush=True)
+              f'{graph_s[-1]:.2f} s, grouped-GEMM launches {sweep_launches} (thin form '
+              f'{grouped_matmul.thin.launches}), tridiag launches {tridiag_launches}',
+              flush=True)
     graphs = eng.static_graphs()
     syncs = count_syncs(eng.sweep_static_batched)
     constants = len(model.backend.block_backend._constants)
@@ -1151,18 +1410,26 @@ def complex_phase(As, Bs, out_id, n_out, pairs, rng) -> dict:
         return [torch.from_numpy(rng.normal(size=d) + 1j * rng.normal(size=d) if cplx
                                  else rng.normal(size=d)).cuda() for d in dims]
 
+    tiles = {}  # the form or tile the kind picks for each list
     for case, (shapes, out_ids) in RAGGED.items():
         ids, n = np.array(out_ids), max(out_ids) + 1
         cA, cB = draw(shapes, 'A', True), draw(shapes, 'B', True)
-        compare_kernel(f'ragged {case}', cA, cB, ids, n, c128, reps=5)
+        res = compare_kernel(f'ragged {case}', cA, cB, ids, n, c128, reps=5)
+        tiles[case] = res['form'] or res['tile']
         compare_kernel(f'ragged {case}', draw(shapes, 'A', False), cB, ids, n,
                        torch.float64, reps=5, b_dtype=c128)
         compare_kernel(f'ragged {case}', cA, draw(shapes, 'B', False), ids, n, c128,
                        reps=5, b_dtype=torch.float64)
+        for width in ('wide', 'narrow'):  # each tile, whatever the list
+            compare_kernel(f'ragged {case} {width}', cA, cB, ids, n, c128, reps=5,
+                           width=width)
     cAs = [torch.complex(A, torch.randn_like(A)) for A in As]
     cBs = [torch.complex(B, torch.randn_like(B)) for B in Bs]
-    return compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', cAs, cBs, out_id, n_out, c128,
-                          pairs)
+    res = compare_kernel(f'chi={CHI_BENCH} tdot(LP, theta)', cAs, cBs, out_id, n_out, c128,
+                         pairs)
+    tiles[f'chi={CHI_BENCH} tdot(LP, theta)'] = res['tile']
+    print(f'[complex tile] the form or tile of each list: {json.dumps(tiles)}', flush=True)
+    return res
 
 
 def golden_phase() -> dict:
@@ -1252,6 +1519,7 @@ def golden_phase() -> dict:
     graph_s = []
     for sweep in range(2):
         c128.launches = 0
+        grouped_matmul.thin.launches = 0
         tridiagonal_ground_state.launches = 0
         t0 = time.perf_counter()
         E_graph = eng.sweep_static_batched()
@@ -1260,8 +1528,9 @@ def golden_phase() -> dict:
         sweep_launches = c128.launches
         tridiag_launches = tridiagonal_ground_state.launches
         print(f'[golden graphs] batched sweep {sweep + 1}: E = {E_graph!r}, '
-              f'{graph_s[-1]:.2f} s, complex128 launches {sweep_launches}, tridiag '
-              f'launches {tridiag_launches}', flush=True)
+              f'{graph_s[-1]:.2f} s, complex128 launches {sweep_launches} (thin form '
+              f'{grouped_matmul.thin.launches}, every kind), tridiag launches '
+              f'{tridiag_launches}', flush=True)
     graphs = eng.static_graphs()
     syncs = count_syncs(eng.sweep_static_batched)
     print(f'[golden graphs] {len(graphs)} graphs captured in '
@@ -1399,7 +1668,8 @@ def main() -> int:
                       flush=True)
     del LP, RP, W1, W2, theta
     torch.cuda.empty_cache()
-    step_list_phase()  # the bench step's own lists, the narrow ones held to plain
+    thin = step_list_phase()  # the bench step's own lists, the thin ones held to plain
+    thin_crossover()
     # --- 2d. the complex128 kind ------------------------------------------------------------
     complex_phase(As, Bs, out_id, n_out, pairs, rng)
     del As, Bs
@@ -1440,6 +1710,7 @@ def main() -> int:
     eng = DMRGEngine(psi, model, chi_max=chi_max, eps=0., lanczos_options={'N_max': 10})
     layouts = len(_LAYOUTS)
     grouped_matmul.launches = 0
+    grouped_matmul.thin.launches = 0
     E24 = None
     n_sweeps = 0
     for sweep in range(6):
@@ -1454,11 +1725,14 @@ def main() -> int:
         if converged and psi.max_chi() == chi_max:
             break
     launches = grouped_matmul.launches
+    thin_launches = grouped_matmul.thin.launches
     bonds = n_sweeps * 2 * (L - 1)
     print(f'[L=24] E = {E24!r}, ref {HEIS24_E_REF!r}, |dE| = {abs(E24 - HEIS24_E_REF):.3e}, '
-          f'launches {launches} ({launches / bonds:.1f} per bond over {bonds} bonds), '
-          f'pair lists laid out anew {len(_LAYOUTS) - layouts}', flush=True)
-    if not abs(E24 - HEIS24_E_REF) < 1e-8 or launches == 0 or psi.max_chi() != chi_max:
+          f'launches {launches} ({launches / bonds:.1f} per bond over {bonds} bonds; thin '
+          f'form {thin_launches}), pair lists laid out anew {len(_LAYOUTS) - layouts}',
+          flush=True)
+    if not (abs(E24 - HEIS24_E_REF) < 1e-8 and launches > 0 and thin_launches > 0
+            and psi.max_chi() == chi_max):
         raise AssertionError('L=24 DMRG energy, width or kernel launches wrong')
 
     # the centre bond of the converged state: where the time of a bond goes, and the
@@ -1599,6 +1873,7 @@ def main() -> int:
     graph_s = []
     for sweep in range(2):
         grouped_matmul.launches = 0
+        grouped_matmul.thin.launches = 0
         tridiagonal_ground_state.launches = 0
         t0 = time.perf_counter()
         E_graph = eng.sweep_static_batched()
@@ -1608,8 +1883,9 @@ def main() -> int:
         tridiag_launches = tridiagonal_ground_state.launches
         print(f'[L=24 graphs] batched sweep {sweep + 1}: E = {E_graph!r}, '
               f'{graph_s[-1]:.2f} s, |dE| = {abs(E_graph - HEIS24_E_REF):.3e}, '
-              f'grouped-GEMM launches {launches_graph}, tridiag launches '
-              f'{tridiag_launches}', flush=True)
+              f'grouped-GEMM launches {launches_graph} (thin form '
+              f'{grouped_matmul.thin.launches}), tridiag launches {tridiag_launches}',
+              flush=True)
     graphs = eng.static_graphs()
     syncs = count_syncs(eng.sweep_static_batched)
     peak_gb = torch.cuda.max_memory_reserved() / 1e9
@@ -1656,7 +1932,7 @@ def main() -> int:
             eng.env_dtype, eng.matmul_precision = None, 'float32'
             eng.LPs = [t.to_dtype(Dtype.float32) for t in eng.LPs]
             eng.RPs = [t.to_dtype(Dtype.float32) for t in eng.RPs]
-        for k in kinds.values():
+        for k in (*kinds.values(), grouped_matmul.thin):
             k.launches = 0
         sweep_s = []
         for sweep in range(n_sweeps):
@@ -1667,6 +1943,7 @@ def main() -> int:
         captured.append(len(eng.static_graphs()))
         env_dtypes = sorted({t.dtype.name for t in eng.LPs[1:-1] + eng.RPs[1:-1]})
         counts = {k: v.launches for k, v in kinds.items() if v.launches}
+        counts['thin'] = grouped_matmul.thin.launches
         print(f'[L=24 static env] {setting}: E = {E_env!r}, |dE| = '
               f'{abs(E_env - HEIS24_E_REF):.3e}, sweep s {json.dumps(sweep_s)}, graphs '
               f'{captured[-1]}, interior LP/RP {env_dtypes}, grouped-GEMM launches by '
@@ -1759,13 +2036,14 @@ def main() -> int:
                            ('env bf16', {'env_dtype': 'bfloat16'}, 'float32_mixed'),
                            ('work bf16', {'work_dtype': 'bfloat16'}, 'bfloat16')):
         for graph in (False, True):
-            for k in kinds.values():
+            for k in (*kinds.values(), grouped_matmul.thin):
                 k.launches = 0
             t_step, flops = step_run(CHI_BENCH, svd_mode='steady', graph=graph,
                                      lengths=(2, 6) if graph else lengths,
                                      repeats=repeats, **kw)
             counts = {k: v.launches for k, v in kinds.items() if v.launches}
             kind_launches[kind] = kind_launches.get(kind, 0) + counts.get(kind, 0)
+            counts['thin'] = grouped_matmul.thin.launches
             dE = abs(step_run.energy - E_step32) / abs(E_step32)
             out_dtypes = [d.name for d in step_run.out_dtypes]
             print(f'[step chi={CHI_BENCH} steady float32 {name}'
@@ -1773,8 +2051,10 @@ def main() -> int:
                   f'{flops / t_step / 1e12:.3f} TFLOP/s, E {step_run.energy!r} against '
                   f'the float32 step {E_step32!r} (relative {dE:.3e}), outputs '
                   f'{out_dtypes}, launches by kind {json.dumps(counts)}', flush=True)
-            if not counts.get(kind) or not np.isfinite(step_run.energy) or not dE < 0.05:
-                raise AssertionError(f'step {name}: kind {kind} not run, or E off')
+            if not (counts.get(kind) and counts['thin'] and np.isfinite(step_run.energy)
+                    and dE < 0.05):
+                raise AssertionError(f'step {name}: kind {kind} or the thin form not run, '
+                                     'or E off')
             if 'work_dtype' in kw and set(out_dtypes) != {'bfloat16'}:
                 raise AssertionError(f'the bf16-work step promoted: {out_dtypes}')
     phase_s['9'] = time.perf_counter() - t_phase
@@ -1826,6 +2106,13 @@ def main() -> int:
                  for kind, key in (('tensorfloat32', ('tensorfloat32', torch.float32)),
                                    ('default', ('default', torch.float32)),
                                    ('float32_mixed', (None, torch.bfloat16)))),
+               {'name': 'grouped_gemm[thin]', 'route': 'cuda',
+                'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+                'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+                'launches': thin_launches,
+                **{k: thin['float32 tall'][k] for k in ('max_abs_err', 'ms', 'device_ms',
+                                                         'plain_ms', 'bound_ms', 'bound_by',
+                                                         'library_ms')}},
                {'name': 'grouped_gemm[su2_compose]', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
                 'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',

@@ -21,6 +21,12 @@ a complex128 operand gives complex128, computed at full precision by the kernel'
 complex kind; its real operands are copied to complex128 first. Each kind of launch
 is counted on its own too (``grouped_matmul.kinds``).
 
+A thin list (every pair of depth at most ``THIN_PICK_K``, and every output at most
+``THIN_PICK_S`` columns wide, or at most that many rows tall: the environment
+updates' contractions with an MPO tensor) runs in the kernel's thin form of its kind,
+a streaming pass with the same numerics; its launches are also counted in
+``grouped_matmul.thin``.
+
 :func:`grouped_matmul` launches the kernel for CUDA tensors and takes the plain
 version, :func:`grouped_matmul_plain`, only for tensors on the CPU, at the same
 precision. On CUDA it never falls back: an operand it does not take (complex64,
@@ -50,15 +56,35 @@ __all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'rou
 # says
 _KIND_CODE = {'float64': 0, 'float32': 1, 'bfloat16': 2, 'float32_mixed': 3,
               'tensorfloat32': 4, 'default': 5, 'complex128': 6}
-# the staged kinds come in two widths: the codes above run 128 x 256 tiles, these
-# 128 x 128 ones; _staged_tile picks one per list
-_NARROW_CODE = {'tensorfloat32': 7, 'default': 8}
-# the staged kinds' k slice (csrc/grouped_gemm.cu, Staged::BK) and what a step of
-# their wide tile costs against one of their narrow tile on the H100: 1.4 to 1.6 as
-# chip_smoke.py times each list of a bench step at both tiles (PERF.md §6), 1.4 so
-# that the bench's chi=1024 list, faster wide, is taken wide
-_STAGED_BK = 32
-_WIDE_STEP_COST = 1.4
+# the staged kinds and the complex one come in two widths: the codes above run their
+# wide tiles (128 x 256; complex128 128 x 64), these their narrow ones (128 x 128;
+# 64 x 64); _staged_tile picks one per list
+_NARROW_CODE = {'tensorfloat32': 7, 'default': 8, 'complex128': 9}
+# per kind of _NARROW_CODE: its k slice (csrc/grouped_gemm.cu: Staged::BK,
+# ComplexTile::BK) and what a step of its wide tile costs against one of its narrow
+# tile on the H100. The staged kinds: 1.4 to 1.6 as chip_smoke.py times each list of
+# a bench step at both tiles (PERF.md §6), 1.4 so that the bench's chi=1024 list,
+# faster wide, is taken wide. complex128: a wide step does twice the products of a
+# narrow one with the same eight consumer warps
+_TILE_MODEL = {'tensorfloat32': (32, 1.4), 'default': (32, 1.4), 'complex128': (16, 1.8)}
+# the thin forms of every kind: code = base + the kind's code; 'tall' lists have
+# outputs at most THIN_S columns wide, 'wide' ones outputs at most THIN_S rows tall,
+# and every pair of either a depth of at most THIN_K (csrc/grouped_gemm.cu, THIN_S
+# and THIN_K: what the kernel takes)
+_THIN_BASE = {'tall': 16, 'wide': 32}
+THIN_K = 16
+THIN_S = 16
+# ... and the lists the wrapper runs thin unless told otherwise: depth and narrow side
+# at most 4, where the thin form beat the tiled kinds at every dtype on the H100; at
+# 16 the tiled f64 kind is faster (chip_smoke.py's crossover, PERF.md §6). The
+# environment updates' contractions with W have 3 (U(1)) or 4 (SU(2), the golden
+# chain)
+THIN_PICK_K = 4
+THIN_PICK_S = 4
+# the bytes of an operand value of each kind, at most: what a thin form's unit is
+# sized by (_thin_unit)
+_VALUE_BYTES = {'float64': 8, 'float32': 4, 'bfloat16': 2, 'float32_mixed': 4,
+                'tensorfloat32': 4, 'default': 4, 'complex128': 16}
 _DTYPE_KIND = {torch.float64: 'float64', torch.float32: 'float32',
                torch.bfloat16: 'bfloat16', torch.complex128: 'complex128'}
 _F32_OPERANDS = frozenset({torch.float32, torch.bfloat16})
@@ -124,9 +150,9 @@ def _gather(ts, index=None):
 
 @functools.cache
 def _kernel_info(code: int) -> tuple[tuple[int, int], int]:
-    """The kernel's output tile ``(BM, BN)`` for the kind of ``code`` and the most
-    int64 table words it takes inside the launch's parameters, as the kernel states
-    them."""
+    """The kernel's output tile ``(BM, BN)`` for the kind of ``code`` (for a thin
+    form, the bounds on its units: :func:`_thin_unit`) and the most int64 table words
+    it takes inside the launch's parameters, as the kernel states them."""
     import ctypes
 
     info = (ctypes.c_int64 * 3)()
@@ -141,22 +167,52 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _staged_tile(MN: np.ndarray, K, out_ids, wide, narrow, n_sm: int):
-    """The tile, ``wide`` or ``narrow``, at which a staged kind (TF32, the bf16 pass)
-    runs the list of outputs ``MN [n_out, 2]`` whose pairs have depths ``K`` and
-    output indices ``out_ids``: the one whose modelled time is least. A step (a
-    k slice of a tile) costs 1 at the narrow tile and ``_WIDE_STEP_COST`` at the wide
-    one; the time is the larger of all tile steps spread over ``n_sm`` CTAs and the
-    steps of the deepest tile. So the wide tile takes lists whose outputs are wide
-    and many, the narrow one lists of narrow outputs (N at most 128: the wide tile
-    would do as many steps, each dearer) and lists too small to fill the card."""
-    steps = np.bincount(out_ids, weights=-(-np.asarray(K) // _STAGED_BK), minlength=len(MN))
+def _staged_tile(MN: np.ndarray, K, out_ids, wide, narrow, n_sm: int,
+                 kind: str = 'default'):
+    """The tile, ``wide`` or ``narrow``, at which a kind of two widths (TF32, the
+    bf16 pass, complex128) runs the list of outputs ``MN [n_out, 2]`` whose pairs have
+    depths ``K`` and output indices ``out_ids``: the one whose modelled time is least.
+    A step (a k slice of a tile) costs 1 at the narrow tile and the kind's wide step
+    cost (``_TILE_MODEL``) at the wide one; the time is the larger of all tile steps
+    spread over ``n_sm`` CTAs and the steps of the deepest tile. So the wide tile
+    takes lists whose outputs are wide and many, the narrow one lists of narrow
+    outputs (N at most 128 for the staged kinds: the wide tile would do as many
+    steps, each dearer) and lists too small to fill the card."""
+    bk, wide_cost = _TILE_MODEL[kind]
+    steps = np.bincount(out_ids, weights=-(-np.asarray(K) // bk), minlength=len(MN))
 
     def cost(tile, step_cost):
         tiles = (-(-MN[:, 0] // tile[0])) * (-(-MN[:, 1] // tile[1]))
         return step_cost * max(float(tiles @ steps) / n_sm, float(steps.max(initial=0.)))
 
-    return wide if cost(wide, _WIDE_STEP_COST) < cost(narrow, 1.) else narrow
+    return wide if cost(wide, wide_cost) < cost(narrow, 1.) else narrow
+
+
+def _thin_unit(form: str, MN: np.ndarray, K, value_bytes: int, bounds) -> int:
+    """The rows (tall) or columns (wide) of one unit of a thin list: the largest
+    power of two whose unit holds at most ``bounds[0]`` outputs of the widest output
+    (tall; the tallest, wide) and at most ``bounds[1]`` bytes of the large operand for
+    the deepest pair (``value_bytes`` a value). ``bounds`` as the kernel states them
+    (``_kernel_info`` of the thin form: 256 PER, THIN_STAGE)."""
+    small = int(MN[:, 1 if form == 'tall' else 0].max(initial=1))
+    deep = int(np.max(K, initial=1))
+    unit = min(bounds[0] // max(small, 1), bounds[1] // (max(deep, 1) * value_bytes))
+    return 1 << (max(unit, 1).bit_length() - 1)
+
+
+def _thin_form(MN: np.ndarray, K, k_max: int = THIN_PICK_K, s_max: int = THIN_PICK_S):
+    """'tall', 'wide' or None: the thin form that runs the list of outputs ``MN
+    [n_out, 2]`` whose pairs have depths ``K``. A list is thin when no pair is deeper
+    than ``k_max`` and every output is at most ``s_max`` columns wide ('tall': the
+    kernel streams the rows of A) or, failing that, at most ``s_max`` rows tall
+    ('wide': it streams the columns of B)."""
+    if len(MN) == 0 or np.max(K, initial=0) > k_max:
+        return None
+    if MN[:, 1].max() <= s_max:
+        return 'tall'
+    if MN[:, 0].max() <= s_max:
+        return 'wide'
+    return None
 
 
 def _check(X: np.ndarray, out_ids, n_out):
@@ -250,7 +306,8 @@ def _as_operands(tensors, info, dtypes, dtype, readable):
     need = (info[:, 2] != 1) & (info[:, 4] > 1)
     if not dtypes <= readable:
         need |= np.fromiter((t.dtype not in readable for t in tensors), bool, len(tensors))
-    if dtype.is_complex:
+    if dtype.is_complex:  # the complex kinds copy 16-byte elements: bases 16-byte aligned
+        need |= (info[:, 0] & 15) != 0
         need |= np.fromiter((t.is_conj() or t.is_neg() for t in tensors), bool,
                             len(tensors))
     if need.any():
@@ -314,6 +371,7 @@ class _TableLayout(NamedTuple):
     pair_order: np.ndarray  # pair row r of the table is pair pair_order[r] of the list
     n_tiles: int
     tile: tuple             # the (BM, BN) that numbers the tiles
+    form: str = None        # the thin form the table is laid out for, if any
 
 
 def _table_layout(K, out_ids, M, N, c_offsets, tile) -> _TableLayout:
@@ -419,14 +477,20 @@ _LAYOUTS_MAX = 1024
 
 
 def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None, narrow=None,
-             width=None):
+             width=None, thin=None):
     """``(n_out, output layout, table layout)`` of a pair list: ``a``, ``b`` the
     ``_gather`` rows of its operands, ``ia``, ``ib`` those of each pair, ``dtype`` that
     of the outputs, ``tile`` the kernel's ``(BM, BN)`` for its ``kind`` (default: the
-    kind of ``dtype`` itself). For a staged kind, ``narrow`` is ``(its narrow tile,
-    the card's SM count)``, and the table is laid out at the tile ``width`` names
-    ('wide': ``tile``, 'narrow') or, by default, at the one :func:`_staged_tile`
-    picks (``table layout.tile``).
+    kind of ``dtype`` itself). ``thin`` is the bounds on the units of the kind's thin
+    forms (:func:`_thin_unit`), or None: a thin list (:func:`_thin_form`) is laid out
+    for its form unless ``width`` says otherwise, its units numbered as tiles of
+    ``(unit, THIN_S)`` (tall) or ``(THIN_S, unit)`` (wide) and the unit written into
+    column 7 of the output rows. For a kind of two widths, ``narrow`` is
+    ``(its narrow tile, the card's SM count)``, and a list that is not run thin is
+    laid out at the tile ``width`` names ('wide': ``tile``, 'narrow') or, by default
+    (or 'tiled'), at the one :func:`_staged_tile` picks. ``width='thin'`` asks for the
+    thin form (``ValueError`` for a list that is not thin), 'tiled' for the tiled one.
+    The tile chosen is ``table layout.tile``.
 
     They follow from the shapes of the pairs, ``out_ids``, ``n_out``, the dtype, the
     kind and the tiles alone, so each distinct list is checked (:func:`_check`) and
@@ -436,17 +500,32 @@ def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None, narrow=None,
     """
     key = (a[ia, 3:5].tobytes(), b[ib, 3:5].tobytes(),
            None if out_ids is None else np.asarray(out_ids, np.int64).tobytes(),
-           n_out, dtype, kind or _DTYPE_KIND[dtype], tile, narrow, width)
+           n_out, dtype, kind or _DTYPE_KIND[dtype], tile, narrow, width, thin)
     found = _LAYOUTS.get(key)
     if found is None:
         out_ids, n_out, MN = _check(np.concatenate((a[ia], b[ib]), axis=1), out_ids, n_out)
         out_layout = _output_layout(MN)
-        if narrow is not None and width != 'wide':
+        form = None
+        if thin is not None and width is None:
+            form = _thin_form(MN, a[ia, 4])
+        elif thin is not None and width == 'thin':  # whatever the kernel takes
+            form = _thin_form(MN, a[ia, 4], THIN_K, THIN_S)
+        if width == 'thin' and form is None:
+            raise ValueError('grouped_matmul: the list is not thin')
+        if form is not None:
+            unit = _thin_unit(form, MN, a[ia, 4], _VALUE_BYTES[kind or _DTYPE_KIND[dtype]],
+                              thin)
+            tile = (unit, THIN_S) if form == 'tall' else (THIN_S, unit)
+        elif narrow is not None and width != 'wide':
             tile = (narrow[0] if width == 'narrow'
-                    else _staged_tile(MN, a[ia, 4], out_ids, tile, *narrow))
-        found = (n_out, out_layout,
-                 _table_layout(a[ia, 4], out_ids, MN[:, 0], MN[:, 1],
-                               out_layout.offsets * dtype.itemsize, tile))
+                    else _staged_tile(MN, a[ia, 4], out_ids, tile, *narrow,
+                                      kind=kind or 'default'))
+        table_layout = _table_layout(a[ia, 4], out_ids, MN[:, 0], MN[:, 1],
+                                     out_layout.offsets * dtype.itemsize, tile)
+        if form is not None:
+            table_layout.table[:n_out, 7] = unit
+            table_layout = table_layout._replace(form=form)
+        found = (n_out, out_layout, table_layout)
         if len(_LAYOUTS) >= _LAYOUTS_MAX:
             del _LAYOUTS[next(iter(_LAYOUTS))]
         _LAYOUTS[key] = found
@@ -454,22 +533,29 @@ def _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile, kind=None, narrow=None,
 
 
 def _kind_layouts(a, ia, b, ib, out_ids, n_out, dtype, kind, index, width=None):
-    """``(kind code, inline table words, n_out, output layout, table layout)`` of a
-    pair list run by ``kind`` on card ``index``: :func:`_layouts` at the kernel's tile,
-    and the code of the staged kind's narrow form where the list is laid out at its
-    narrow tile. ``width`` as in :func:`grouped_matmul_plan`."""
+    """``(kind code, inline table words, n_out, output layout, table layout, form)``
+    of a pair list run by ``kind`` on card ``index``: :func:`_layouts` at the kernel's
+    tiles, and the code of the form the list is laid out for: the kind's thin form
+    ('tall' or 'wide', also returned as ``form``; else None), its narrow tile or its
+    own. ``width`` as in :func:`grouped_matmul_plan`."""
     code = _KIND_CODE[kind]
     tile, inline_words = _kernel_info(code)
+    thin = _kernel_info(_THIN_BASE['tall'] + code)[0]  # the bounds on its units
     narrow = None
     if kind in _NARROW_CODE:
         narrow = (_kernel_info(_NARROW_CODE[kind])[0], _sm_count(index))
-    elif width is not None:
+    elif width in ('wide', 'narrow'):
         raise ValueError(f'grouped_matmul: the {kind} kind has one tile, not {width!r}')
+    if width not in (None, 'thin', 'tiled', 'wide', 'narrow'):
+        raise ValueError(f'grouped_matmul: no form {width!r}')
     n_out, out_layout, table_layout = _layouts(a, ia, b, ib, out_ids, n_out, dtype, tile,
-                                               kind, narrow, width)
-    if table_layout.tile != tile:
+                                               kind, narrow, width, thin)
+    form = table_layout.form
+    if form is not None:
+        code += _THIN_BASE[form]
+    elif table_layout.tile != tile:
         code = _NARROW_CODE[kind]
-    return code, inline_words, n_out, out_layout, table_layout
+    return code, inline_words, n_out, out_layout, table_layout, form
 
 
 def _table_args(table: np.ndarray, device, inline_words: int):
@@ -497,9 +583,13 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None
     be called again; it reads the operands as they are then. The operands (and any
     copies made of them here) stay alive as long as ``launch`` does.
 
-    TF32 and the bf16 pass run each list at the tile :func:`_staged_tile` picks, or
-    at the one ``width`` names, 'wide' (128 x 256) or 'narrow' (128 x 128), whatever
-    the list (for tests and measurements; another kind raises ``ValueError``).
+    A thin list (:func:`_thin_form`) runs in the thin form of its kind. TF32, the bf16
+    pass and complex128 run any other list at the tile :func:`_staged_tile` picks.
+    ``width`` forces a form whatever the list (for tests and measurements): 'thin'
+    (``ValueError`` for a list that is not thin), 'tiled' (the kind's tiled form, its
+    tile picked as without ``width``), or, for those three kinds ('wide' and 'narrow'
+    raise ``ValueError`` for another), 'wide' (128 x 256; complex128 128 x 64) or
+    'narrow' (128 x 128; complex128 64 x 64).
 
     The host reads each operand once (with ``pairs``, once however many pairs read
     it), and what follows from the shapes alone once per distinct pair list
@@ -518,7 +608,7 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None
     if dtype not in _DTYPE_KIND:
         raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
     kind, readable = _kind(dtypes, dtype)
-    code, inline_words, n_out, out_layout, table_layout = _kind_layouts(
+    code, inline_words, n_out, out_layout, table_layout, form = _kind_layouts(
         a, ia, b, ib, out_ids, n_out, dtype, kind, index, width)
     a_bf16 = _as_operands(ua, a, a_dt, dtype, readable)
     b_bf16 = _as_operands(ub, b, b_dt, dtype, readable)
@@ -530,15 +620,19 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None
     args = (code, *table_args, n_out, table_layout.n_tiles)
     fn = function('grouped_gemm', 'cyten_grouped_gemm')
     kind_count = grouped_matmul.kinds[kind]
+    thin_count = grouped_matmul.thin if form is not None else None
 
     def launch():
         call(fn, args, index, 'grouped_gemm')
         count(grouped_matmul, keep)
         count(kind_count)
+        if thin_count is not None:
+            count(thin_count)
         return outs
 
     launch.operands = (ua, ub, keep)  # alive for as long as launch is
     launch.tile = table_layout.tile
+    launch.form = form
     return outs, launch
 
 
@@ -587,3 +681,5 @@ class _KindCount:
 
 #: the launches of each kind of the kernel
 grouped_matmul.kinds = {kind: _KindCount() for kind in _KIND_CODE}
+#: the launches of the thin forms, whatever their kind (counted in the kind's too)
+grouped_matmul.thin = _KindCount()

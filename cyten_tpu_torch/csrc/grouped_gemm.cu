@@ -71,23 +71,23 @@
 // One more kind computes complex128 lists (the Fibonacci golden chain's compose
 // lists, whose MPO is complex), at full precision whatever config.matmul_precision
 // says, as cyten_tpu computes complex products:
-//   c128  DMMA on split parts. A stage holds the interleaved (re, im) tiles as they
-//         lie in device memory, copied by the f64 loads (a complex row is a row of
-//         twice as many doubles); the fragments are read as double2 and split in
-//         registers, and each k4 step runs four DMMAs per m16n8 tile:
-//         Cr += Ar Br + (-Ai) Bi, Ci += Ar Bi + Ai Br (8 real operations a complex
-//         multiply-add, 67 TFLOP/s). 64 x 64 tile, 4 warps of 32 x 32 (the real and
-//         imaginary accumulators take 128 registers a thread), BK = 8.
+//   c128  DMMA on split parts, four real DMMAs a complex multiply-add, warp-
+//         specialised (grouped_gemm_complex: a producer warpgroup, eight consumer
+//         warps, an mbarrier ring), on 128 x 64 or 64 x 64 tiles picked per list.
+// And every kind has a thin form (grouped_gemm_thin) for lists of small depth whose
+// outputs are narrow or short (the environment updates' contractions with an MPO
+// tensor): a streaming pass on the CUDA cores, bound by memory.
 // The other kinds' operands reach shared memory through a ring of stages filled by
-// cp.async, so the loads of later k slices overlap the products of this one (tf32
-// and bf16p: above). Every ring runs over the concatenated (pair, k slice) stream of
-// a tile: the loads of the next pair overlap the last products of this one.
+// cp.async, so the loads of later k slices overlap the products of this one (tf32,
+// bf16p and c128: above). Every ring runs over the concatenated (pair, k slice)
+// stream of a tile: the loads of the next pair overlap the last products of this one.
 //
 // Alignment. Sector sizes are arbitrary (1462, 980, 295, 40, 2 at chi = 4096), so a
-// row of A or B starts on a 16-byte boundary only by chance. The other kinds pick
-// one copy width per operand of a pair (copy_bytes), the widest of 16, 8 and 4 bytes
-// that divides both the base address and the row pitch; a bf16 operand with an odd
-// pitch is copied one element at a time through registers.
+// row of A or B starts on a 16-byte boundary only by chance. The f64, f32, bf16 and
+// f32w kinds pick one copy width per operand of a pair (copy_bytes), the widest of
+// 16, 8 and 4 bytes that divides both the base address and the row pitch; a bf16
+// operand with an odd pitch is copied one element at a time through registers. A
+// complex128 element is 16 bytes: the wrapper hands the kernel 16-byte-aligned bases.
 //
 // Each thread issues its copies of a stage in a loop unrolled LOAD_UNROLL times:
 // fully unrolled, the 16-32 narrow bf16 copies of a stage held their addresses in
@@ -112,7 +112,8 @@
 // per-step pair rows through the constant cache. On the H100 that made the bf16 path
 // at the chi = 4096 list 1.4x faster than the same kernel reading its tables from
 // device memory, and f64 a few per cent. Larger lists come in device memory.
-//   outs  [n_out, 8]   = c_ptr, M, N, first_tile, tiles_n, pair_begin, pair_end, 0
+//   outs  [n_out, 8]   = c_ptr, M, N, first_tile, tiles_n, pair_begin, pair_end, unit
+// (unit: the rows or columns of a thin form's unit, 0 for the tiled kinds)
 //   pairs [n_pairs, 8] = a_ptr, lda, b_ptr, ldb, K, a_bf16, b_bf16, 0
 // (a_bf16, b_bf16: the operand is bf16; read by the converting kinds only)
 // A_p is [M, K] with row pitch lda, B_p [K, N] with row pitch ldb (unit stride
@@ -304,100 +305,6 @@ struct F64 {
           const int64_t r = row0 + (warp / 2) * 64 + i * 16 + g + 8 * (f / 2);
           const int64_t c = col0 + (warp % 2) * 32 + j * 8 + 2 * t + f % 2;
           if (r < M && c < N) C[r * N + c] = acc.v[i][j][f];
-        }
-  }
-};
-
-// ---- c128: DMMA on split (re, im) parts ------------------------------------------------
-
-struct C128 {
-  using T = double;  // the loads copy doubles: a complex element is two of them
-  static constexpr int THREADS = 128, BM = 64, BN = 64, BK = 8, STAGES = 3, MIN_CTAS = 2,
-                       LOAD_UNROLL = 8;
-  // padded rows, in complex elements: the double2 fragment loads of a quarter warp (8
-  // lanes, one 128-byte wavefront) hit 8 distinct 16-byte bank groups
-  static constexpr int LDA = BK + 4;  // A (rows g, col t): g * 12 + t is 4g + t mod 8
-  static constexpr int LDB = BN + 2;  // B (row t, col g): t * 66 + g is 2t + g mod 8
-  static constexpr int A_BYTES = BM * LDA * 16;
-  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 16;
-  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = false;
-  struct Acc { double re[2][4][4], im[2][4][4]; };  // [m16 tile][n8 tile][fragment]
-
-  // c counts doubles: the real part of complex column c / 2 is double c, its imaginary
-  // part double c + 1
-  __device__ __forceinline__ static uint32_t a_off(int r, int c) {
-    return (r * 2 * LDA + c) * 8;
-  }
-  __device__ __forceinline__ static uint32_t b_off(int r, int c) {
-    return A_BYTES + (r * 2 * LDB + c) * 8;
-  }
-
-  __device__ __forceinline__ static void zero(Acc& acc) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) acc.re[i][j][f] = acc.im[i][j][f] = 0.;
-  }
-
-  __device__ __forceinline__ static void drain(Acc&) {}
-
-  // warp w owns rows (w / 2) * 32 .. + 31 and cols (w % 2) * 32 .. + 31 of the tile
-  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
-    const double2* sA = reinterpret_cast<const double2*>(stage);
-    const double2* sB = reinterpret_cast<const double2*>(stage + A_BYTES);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const double2* a_base = sA + ((warp / 2) * 32 + g) * LDA + t;
-    const double2* b_base = sB + t * LDB + (warp % 2) * 32 + g;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      // A fragments: rows g and g + 8, col t; B fragment: row t, col g
-      double ar[2][2], ai[2][2], an[2][2], br[4][1], bi[4][1];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const double2 v = a_base[(i * 16 + h * 8) * LDA + kk];
-          ar[i][h] = v.x;
-          ai[i][h] = v.y;
-          an[i][h] = -v.y;
-        }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const double2 v = b_base[kk * LDB + j * 8];
-        br[j][0] = v.x;
-        bi[j][0] = v.y;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          F64::dmma(acc.re[i][j], ar[i], br[j]);
-          F64::dmma(acc.re[i][j], an[i], bi[j]);
-          F64::dmma(acc.im[i][j], ar[i], bi[j]);
-          F64::dmma(acc.im[i][j], ai[i], br[j]);
-        }
-    }
-  }
-
-  // fragment f of an m16n8 tile: row g + 8 * (f / 2), col 2 * t + f % 2; C is
-  // interleaved complex128, written as one double2 an element
-  __device__ __forceinline__ static void store(const Acc& acc, double* C, int64_t M, int64_t N,
-                                               int64_t row0, int64_t col0) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    double2* C2 = reinterpret_cast<double2*>(C);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const int64_t r = row0 + (warp / 2) * 32 + i * 16 + g + 8 * (f / 2);
-          const int64_t c = col0 + (warp % 2) * 32 + j * 8 + 2 * t + f % 2;
-          if (r < M && c < N) C2[r * N + c] = make_double2(acc.re[i][j][f], acc.im[i][j][f]);
         }
   }
 };
@@ -1147,11 +1054,6 @@ template <class P, class = void> struct is_staged : std::false_type {};
 template <class P>
 struct is_staged<P, std::void_t<decltype(P::RAW_STAGES)>> : std::true_type {};
 
-template <class P>
-constexpr int smem_bytes() {
-  if constexpr (is_staged<P>::value) return P::SMEM_BYTES;
-  else return P::STAGES * P::STAGE_BYTES + (P::SWIZZLED ? 1024 : 0);
-}
 
 // The (pair, k0) cursor over a tile's concatenated k-slice stream; pairs with K = 0
 // are skipped.
@@ -1191,16 +1093,6 @@ __device__ __forceinline__ void load_step(unsigned char* stage, const int64_t* p
     else
       load_box_cvt<float, P, P::BK, P::BN>(stage, reinterpret_cast<const float*>(pr[2]),
                                            pr[3], k0, col0, K, N, b_off);
-  } else if constexpr (std::is_same<P, C128>::value) {
-    // a complex [R, C] matrix of pitch ld is a [R, 2C] matrix of doubles of pitch 2 ld:
-    // the f64 loads copy it as it lies, 16 bytes (one element) a copy where the base
-    // allows, else 8
-    const double* A = reinterpret_cast<const double*>(pr[0]);
-    const double* B = reinterpret_cast<const double*>(pr[2]);
-    load_box<double, P::BM, 2 * P::BK, P::THREADS, P::LOAD_UNROLL>(
-        stage, A, 2 * pr[1], row0, 2 * k0, M, 2 * K, a_off);
-    load_box<double, P::BK, 2 * P::BN, P::THREADS, P::LOAD_UNROLL>(
-        stage, B, 2 * pr[3], k0, 2 * col0, K, 2 * N, b_off);
   } else {
     const T* A = reinterpret_cast<const T*>(pr[0]);
     const T* B = reinterpret_cast<const T*>(pr[2]);
@@ -1427,11 +1319,630 @@ grouped_gemm_staged(const __grid_constant__ Tables tables, int n_out, int n_tile
   }
 }
 
+// ---- c128: DMMA on split (re, im) parts, warp-specialised ------------------------------
+//
+// complex128 lists (the Fibonacci golden chain's compose lists, whose MPO is complex),
+// at full precision whatever config.matmul_precision says. Each complex multiply-add
+// is four real DMMAs, Cr += Ar Br + (-Ai) Bi, Ci += Ar Bi + Ai Br (8 real operations,
+// 67 TFLOP/s on the f64 tensor cores), so the bound is the f64 tensor cores' and,
+// for a tile of BM x BN complex outputs, the L2 reads of its operands: a 64 x 64 tile
+// reads a byte per 16 operations, which near the card's rate asks the L2 for about
+// 4 TB/s. Hence a 128 x 64 tile (22 operations a byte) for lists that fill the card
+// and a 64 x 64 one, with twice the tiles, for lists that do not; the host picks one
+// per list (blocks/grouped_gemm.py::_staged_tile). Both run one CTA an SM:
+//   - a producer warpgroup copies each k slice of BK = 16 complex values as it lies
+//     (an element is 16 bytes, so every copy is one 16-byte cp.async, zero-filled
+//     past the matrix) into a ring of stages of padded rows; each thread's copies of a
+//     stage arrive on the stage's full mbarrier when they land
+//     (cp.async.mbarrier.arrive.noinc), so no thread waits for its own copies;
+//   - eight consumer warps, 32 x 32 complex (128 x 64) or 32 x 16 (64 x 64) outputs
+//     each, wait for a stage, read their double2 fragments from it (the padding puts a
+//     quarter warp's 16-byte reads in 8 distinct bank groups), release it on its empty
+//     mbarrier, one arrival a warp, and run the DMMAs. No barrier spans the CTA: a
+//     warp waits only for the stage it reads next.
+// setmaxnreg gives the consumers 224 registers (the 32 x 32 tile's accumulators take
+// 128) and leaves the producer 56.
+template <int BM_>
+struct ComplexTile {
+  static constexpr int THREADS = 384, CONSUMERS = 256, PRODUCERS = 128, MIN_CTAS = 1;
+  static constexpr int BM = BM_, BN = 64, BK = 16;
+  static constexpr int WARPS_M = BM / 32, WARPS_N = 8 / WARPS_M;
+  static constexpr int WN = BN / WARPS_N, NJ = WN / 8;  // a warp's columns, its n8 tiles
+  // padded rows, in complex elements: a double2 fragment read of a quarter warp (lanes
+  // g = 0, 1 and t = 0..3) hits 8 distinct 16-byte bank groups: A (row g, col t) at
+  // 20 g + t, 4 g + t mod 8; B (row t, col g) at 66 t + g, 2 t + g mod 8
+  static constexpr int LDA = BK + 4, LDB = BN + 2;
+  static constexpr int A_BYTES = BM * LDA * 16;
+  static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 16;
+  static constexpr int STAGES = (232448 - 1024) / STAGE_BYTES;  // 4 at 128 x 64, 6 at 64 x 64
+  static constexpr int SMEM_BYTES = STAGES * (STAGE_BYTES + 16);
+  static_assert(SMEM_BYTES <= 232448, "more shared memory than an H100 block can have");
+  static_assert(WARPS_M * WARPS_N == 8 && NJ >= 1, "eight consumer warps");
+  struct Acc { double re[2][NJ][4], im[2][NJ][4]; };  // [m16 tile][n8 tile][fragment]
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc.re[i][j][f] = acc.im[i][j][f] = 0.;
+  }
+
+  // the products of one stage: warp w owns rows (w / WARPS_N) * 32 .. + 31 and cols
+  // (w % WARPS_N) * WN .. + WN - 1 of the tile
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* stage) {
+    const double2* sA = reinterpret_cast<const double2*>(stage);
+    const double2* sB = reinterpret_cast<const double2*>(stage + A_BYTES);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const double2* a_base = sA + ((warp / WARPS_N) * 32 + g) * LDA + t;
+    const double2* b_base = sB + t * LDB + (warp % WARPS_N) * WN + g;
+#pragma unroll 1
+    for (int kk = 0; kk < BK; kk += 4) {
+      // A fragments: rows g and g + 8, col t; B fragment: row t, col g
+      double ar[2][2], ai[2][2], an[2][2], br[NJ][1], bi[NJ][1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const double2 v = a_base[(i * 16 + h * 8) * LDA + kk];
+          ar[i][h] = v.x;
+          ai[i][h] = v.y;
+          an[i][h] = -v.y;
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const double2 v = b_base[kk * LDB + j * 8];
+        br[j][0] = v.x;
+        bi[j][0] = v.y;
+      }
+      // the two products into one accumulator 4 NJ DMMAs apart: each waits for the
+      // one before it (the asm statements keep their order)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          F64::dmma(acc.re[i][j], ar[i], br[j]);
+          F64::dmma(acc.im[i][j], ar[i], bi[j]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          F64::dmma(acc.re[i][j], an[i], bi[j]);
+          F64::dmma(acc.im[i][j], ai[i], br[j]);
+        }
+    }
+  }
+
+  // fragment f of an m16n8 tile: row g + 8 * (f / 2), col 2 * t + f % 2; C is
+  // interleaved complex128, written as one double2 an element
+  __device__ __forceinline__ static void store(const Acc& acc, double2* C, int64_t M, int64_t N,
+                                               int64_t row0, int64_t col0) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int64_t r = row0 + (warp / WARPS_N) * 32 + i * 16 + g + 8 * (f / 2);
+          const int64_t c = col0 + (warp % WARPS_N) * WN + j * 8 + 2 * t + f % 2;
+          if (r < M && c < N) C[r * N + c] = make_double2(acc.re[i][j][f], acc.im[i][j][f]);
+        }
+  }
+
+  // The producer's copies of one (pair, k slice) step into `stage`: the BM x BK box of
+  // A and the BK x BN box of B, one complex element a copy, 16 neighbouring threads a
+  // row of A and 64 a row of B; what lies outside a matrix is zero.
+  __device__ __forceinline__ static void copy_step(unsigned char* stage, const Pair& pr,
+                                                   int64_t k0, const Tile& w) {
+    const int t = threadIdx.x - CONSUMERS;
+    {
+      const int r = t / BK, c = t % BK;
+      const bool col_in = k0 + c < pr.K;
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(pr.a) + ((w.row0 + r) * pr.lda + k0 + c) * 16;
+      const int64_t step = (PRODUCERS / BK) * pr.lda * 16;
+      uint32_t dst = smem_u32(stage) + (r * LDA + c) * 16;
+#pragma unroll 4
+      for (int i = 0; i < BM * BK / PRODUCERS; ++i) {
+        const bool in = col_in && w.row0 + r + i * (PRODUCERS / BK) < w.M;
+        cp_async<16>(dst, src, in ? 16 : 0);
+        src += step;
+        dst += (PRODUCERS / BK) * LDA * 16;
+      }
+    }
+    {
+      const int r = t / BN, c = t % BN;
+      const bool col_in = w.col0 + c < w.N;
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(pr.b) + ((k0 + r) * pr.ldb + w.col0 + c) * 16;
+      const int64_t step = (PRODUCERS / BN) * pr.ldb * 16;
+      uint32_t dst = smem_u32(stage) + A_BYTES + (r * LDB + c) * 16;
+#pragma unroll 4
+      for (int i = 0; i < BK * BN / PRODUCERS; ++i) {
+        const bool in = col_in && k0 + r + i * (PRODUCERS / BN) < pr.K;
+        cp_async<16>(dst, src, in ? 16 : 0);
+        src += step;
+        dst += (PRODUCERS / BN) * LDB * 16;
+      }
+    }
+  }
+};
+
+using C128 = ComplexTile<128>;
+using C128N = ComplexTile<64>;  // narrow: see cyten_grouped_gemm_info
+
+template <class P, class = void> struct is_complex_tile : std::false_type {};
+template <class P>
+struct is_complex_tile<P, std::void_t<decltype(P::LDB), decltype(P::WARPS_N)>>
+    : std::true_type {};
+
+// The complex kind's walk: producer and consumers take the same tiles and (pair, k
+// slice) steps; step g of a CTA uses stage g mod STAGES, in its round g / STAGES.
+template <class P, class Tables>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_CTAS)
+grouped_gemm_complex(const __grid_constant__ Tables tables, int n_out, int n_tiles) {
+  const int64_t* __restrict__ outs = tables.out_rows();
+  const int64_t* __restrict__ pairs = tables.pair_rows(n_out);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t full = smem_u32(smem_raw + P::STAGES * P::STAGE_BYTES);  // 8 bytes each
+  const uint32_t empty = full + 8 * P::STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::STAGES; ++i) {
+      mbar_init(full + 8 * i, P::PRODUCERS);        // one arrival a producer thread
+      mbar_init(empty + 8 * i, P::CONSUMERS / 32);  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int slot = 0, out = 0;
+  uint32_t round = 0;
+  const auto next_slot = [&] {
+    if (++slot == P::STAGES) {
+      slot = 0;
+      ++round;
+    }
+  };
+  if (threadIdx.x >= P::CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile w = find_tile<P>(outs, n_out, tile, &out);
+#pragma unroll 1
+      for (Stream st = stream_of(pairs, w); st.more(); st.next(P::BK)) {
+        mbar_wait(empty + 8 * slot, (round & 1) ^ 1);  // the first round finds it empty
+        P::copy_step(smem_raw + slot * P::STAGE_BYTES, st.pr, st.k0, w);
+        // arrives on the full mbarrier once this thread's copies so far have landed
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                     :: "r"(full + 8 * slot) : "memory");
+        next_slot();
+      }
+    }
+    cp_async_wait<0>();
+  } else {  // the consumer warps
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile w = find_tile<P>(outs, n_out, tile, &out);
+      typename P::Acc acc;
+      P::zero(acc);
+#pragma unroll 1
+      for (Stream st = stream_of(pairs, w); st.more(); st.next(P::BK)) {
+        mbar_wait(full + 8 * slot, round & 1);
+        P::mma(acc, smem_raw + slot * P::STAGE_BYTES);
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) mbar_arrive(empty + 8 * slot);  // its reads are done
+        next_slot();
+      }
+      P::store(acc, reinterpret_cast<double2*>(w.c), w.M, w.N, w.row0, w.col0);
+    }
+  }
+}
+
+// ---- thin lists: a streaming pass -------------------------------------------------------
+//
+// A list is thin when no pair is deeper than THIN_K and every output is at most THIN_S
+// columns wide ('tall': the environment updates' tdot(t, W), M up to 1.4 M rows at
+// chi = 4096, K and N at most 3) or at most THIN_S rows tall ('wide': their
+// compose(W, tp), M and K at most 3, N up to 1.4 M). Such a list moves a few bytes per
+// operation (0.2 GFLOP against 233 MB at chi = 4096), so the bound is the card's
+// memory, and a tile of 128 x 128 would spend its steps on empty boxes. The thin form
+// of a kind is a pass over the large operand on the CUDA cores:
+//   - a work unit is `unit` rows of one output (tall) or `unit` columns (wide), the
+//     host's choice per list, stored in column 7 of the output rows: at most 256 PER
+//     outputs (PER a thread: 32 for f32 sums, 16 for f64, 8 for complex128) and
+//     THIN_STAGE bytes of the large operand for the deepest pair;
+//   - a step is one (unit, pair) of the CTA's units, taken in turn. Its operands are
+//     copied raw, as they lie, by 16-byte cp.async from the 16-byte-aligned spans that
+//     hold them (the span's first value at byte address & 15; bytes past its end read
+//     as zero): the tall form's rows of A, one flat span where lda == K (the usual
+//     contiguous block; a K = 3 f32 row is 12 bytes, so rows are not aligned one by
+//     one), the wide form's K rows of B from col0 on, and the small operand's rows
+//     (B in the tall form, A in the wide one). A ring of THIN_STAGES steps keeps the
+//     copies of the next steps, across units, in flight while this one computes;
+//   - each thread computes the unit's outputs t, t + 256, ..., flat and row-major, so
+//     that a warp writes consecutive addresses, converting each value as it reads it
+//     from shared memory; the pairs that share an output are summed in registers, and
+//     each output is written once.
+// The numerics are the kind's: each operand rounded as the kind rounds it (TF32, bf16),
+// bf16 operands read in place, f32 (bf16 kind: f32, written as bf16), f64 or complex
+// (four real FMAs a multiply-add) sums. Offsets are 64-bit.
+constexpr int THIN_K = 16, THIN_S = 16, THIN_THREADS = 256;
+constexpr int THIN_STAGE = 32768;  // bytes of a step's large operand, at most
+constexpr int THIN_STAGES = 3;
+// a stage: the large operand (a span, or K row spans of up to 31 bytes more each),
+// then THIN_S rows of the small operand
+constexpr int THIN_LARGE_BYTES = THIN_STAGE + THIN_K * 32;
+constexpr int THIN_SMALL_PITCH = THIN_S * 16 + 32;
+constexpr int THIN_STAGE_BYTES = THIN_LARGE_BYTES + THIN_S * THIN_SMALL_PITCH;
+enum { THIN_TALL = 0, THIN_WIDE = 1 };
+// the kind codes of the thin forms: these plus the kind's own (0-6)
+constexpr int THIN_TALL_CODE = 16, THIN_WIDE_CODE = 32;
+
+__device__ __forceinline__ void mad(float& c, float a, float b) { c = fmaf(a, b, c); }
+__device__ __forceinline__ void mad(double& c, double a, double b) { c = fma(a, b, c); }
+__device__ __forceinline__ void mad(double2& c, double2 a, double2 b) {
+  c.x = fma(a.x, b.x, c.x);
+  c.x = fma(-a.y, b.y, c.x);
+  c.y = fma(a.x, b.y, c.y);
+  c.y = fma(a.y, b.x, c.y);
+}
+__device__ __forceinline__ void zero_of(float& x) { x = 0.f; }
+__device__ __forceinline__ void zero_of(double& x) { x = 0.; }
+__device__ __forceinline__ void zero_of(double2& x) { x = make_double2(0., 0.); }
+
+// A thin kind: V the type of its sums, O that of C, E the bytes of an operand value
+// (0: f32 or bf16, as the pair's flags say), ROUND what each operand value becomes
+// (0 as it is, 1 TF32, 2 bf16).
+template <typename V_, typename O_, int E_, int ROUND_>
+struct Thin {
+  using V = V_;
+  using O = O_;
+  static constexpr int E = E_, ROUND = ROUND_;
+  // a thread's outputs of a unit, at most, and the CTAs an SM whose registers the
+  // kernel is compiled to fit: of the forms development builds timed on the H100 at
+  // the chi = 4096 W lists (16 or 32 outputs, 16 or 32 KB steps, 1 to 3 CTAs), the
+  // fastest for each (PERF.md §6)
+  static constexpr int PER = sizeof(V) == 16 ? 8 : (sizeof(V) == 8 ? 16 : 32);
+  static constexpr int MIN_CTAS = sizeof(V) == 8 ? 3 : 2;
+
+  // the value of E bytes at `p` (shared memory), as the kind computes with it
+  template <int EV>
+  __device__ __forceinline__ static V value(const unsigned char* p) {
+    if constexpr (EV == 2) {
+      return fix(widen(*reinterpret_cast<const uint16_t*>(p)));
+    } else if constexpr (EV == 4) {
+      return fix(*reinterpret_cast<const float*>(p));
+    } else if constexpr (EV == 8) {
+      return *reinterpret_cast<const double*>(p);
+    } else {
+      return *reinterpret_cast<const double2*>(p);
+    }
+  }
+  __device__ __forceinline__ static float fix(float x) {
+    if constexpr (ROUND == 1) return __uint_as_float(tf32_bits(__float_as_uint(x)));
+    else if constexpr (ROUND == 2) return __bfloat162float(__float2bfloat16_rn(x));
+    else return x;
+  }
+  __device__ __forceinline__ static O out(V x) {
+    if constexpr (std::is_same<O, __nv_bfloat16>::value) return __float2bfloat16(x);
+    else return x;
+  }
+};
+
+using ThinF64 = Thin<double, double, 8, 0>;
+using ThinF32 = Thin<float, float, 4, 0>;
+using ThinBF16 = Thin<float, __nv_bfloat16, 2, 0>;
+using ThinF32W = Thin<float, float, 0, 0>;
+using ThinTF32 = Thin<float, float, 0, 1>;
+using ThinBF16P = Thin<float, float, 0, 2>;
+using ThinC128 = Thin<double2, double2, 16, 0>;
+
+// The kernel's view of a thin kind in one form.
+template <class P_, int FORM_>
+struct ThinForm {
+  using P = P_;
+  static constexpr int FORM = FORM_, THREADS = THIN_THREADS, MIN_CTAS = P::MIN_CTAS;
+  static constexpr int SMEM_BYTES = THIN_STAGES * THIN_STAGE_BYTES;
+  static constexpr int THIN = 1;
+  static_assert(SMEM_BYTES <= 232448, "more shared memory than an H100 block can have");
+};
+
+// One unit: its output, rows row0 .. (tall) or columns col0 .. (wide), and its size.
+struct ThinUnit {
+  Tile w;
+  int64_t unit;
+};
+
+// The unit `tile` of the walk (outputs with no units are skipped; `hint` as in
+// find_tile): tall units are (unit, THIN_S) tiles, wide ones (THIN_S, unit).
+template <int FORM>
+__device__ __forceinline__ ThinUnit find_unit(const int64_t* outs, int n_out, int tile,
+                                              int* hint) {
+  int lo = *hint, hi = n_out - 1;
+  if (lo < hi && outs[OUT_COLS * (lo + 1) + 3] > tile) hi = lo;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (outs[OUT_COLS * mid + 3] <= tile) lo = mid; else hi = mid - 1;
+  }
+  *hint = lo;
+  const int64_t* o = outs + OUT_COLS * lo;
+  const int64_t local = tile - o[3], tiles_n = o[4], unit = o[7];
+  const int64_t bm = FORM == THIN_TALL ? unit : THIN_S, bn = FORM == THIN_TALL ? THIN_S : unit;
+  return {{o[0], o[1], o[2], (local / tiles_n) * bm, (local % tiles_n) * bn, o[5], o[6]}, unit};
+}
+
+__device__ __forceinline__ Pair pair_at(const int64_t* pairs, int64_t p) {
+  const int64_t* r = pairs + PAIR_COLS * p;
+  return {static_cast<uint64_t>(r[0]), static_cast<uint64_t>(r[2]), r[1], r[3], r[PAIR_K],
+          r[PAIR_A_BF16], r[PAIR_B_BF16]};
+}
+
+// The first pair from p on with K > 0 (`end` if none).
+__device__ __forceinline__ int64_t nonempty(const int64_t* pairs, int64_t p, int64_t end) {
+  while (p < end && pairs[PAIR_COLS * p + PAIR_K] == 0) ++p;
+  return p;
+}
+
+// Copies the `bytes` bytes from global address `src` into shared memory at `dst` as
+// the 16-byte-aligned span that holds them: the first lands at dst + (src & 15); the
+// bytes past the last read as zero. One 16-byte cp.async a thread a chunk.
+__device__ __forceinline__ void thin_span(unsigned char* dst, uint64_t src, int64_t bytes) {
+  const uint64_t first = src & ~uint64_t(15), end = src + bytes;
+  const int chunks = static_cast<int>((end - first + 15) / 16);
+  const uint32_t to = smem_u32(dst);
+  for (int c = threadIdx.x; c < chunks; c += THIN_THREADS) {
+    const uint64_t at = first + 16 * static_cast<uint64_t>(c);
+    const int64_t left = static_cast<int64_t>(end - at);
+    cp_async<16>(to + 16 * c, reinterpret_cast<const void*>(at),
+                 left >= 16 ? 16 : static_cast<int>(left));
+  }
+}
+
+// One value of E bytes from global `src` to shared `dst`, through registers.
+__device__ __forceinline__ void thin_copy(unsigned char* dst, uint64_t src, int E) {
+  if (E == 2) *reinterpret_cast<uint16_t*>(dst) = __ldg(reinterpret_cast<const unsigned short*>(src));
+  else if (E == 4) *reinterpret_cast<uint32_t*>(dst) = __ldg(reinterpret_cast<const unsigned int*>(src));
+  else if (E == 8) *reinterpret_cast<uint64_t*>(dst) = __ldg(reinterpret_cast<const unsigned long long*>(src));
+  else *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+// The value bytes of each operand of a pair.
+template <class P>
+__device__ __forceinline__ int bytes_a(const Pair& pr) {
+  return P::E ? P::E : (pr.a_bf16 ? 2 : 4);
+}
+template <class P>
+__device__ __forceinline__ int bytes_b(const Pair& pr) {
+  return P::E ? P::E : (pr.b_bf16 ? 2 : 4);
+}
+
+// The copies of one step (unit u, pair pr) into `stage`, in the calling thread's
+// cp.async group. Tall: A's rows at byte (A's first address & 15), B's row k at
+// THIN_LARGE_BYTES + k THIN_SMALL_PITCH + (its address & 15); rows of A that are not
+// one contiguous span (lda != K) are copied a value at a time through registers, from
+// byte 0. Wide: B's row k from col0 on at k pitch + (its address & 15), pitch the
+// unit's row bytes rounded up; A's row m as B's row k of the tall form.
+template <class P, int FORM>
+__device__ __forceinline__ void thin_issue(unsigned char* stage, const ThinUnit& u,
+                                          const Pair& pr) {
+  const int EA = bytes_a<P>(pr), EB = bytes_b<P>(pr);
+  const int64_t K = pr.K;
+  if constexpr (FORM == THIN_TALL) {
+    const int64_t rows_left = u.w.M - u.w.row0;
+    const int64_t rows = rows_left < u.unit ? rows_left : u.unit;
+    if (pr.lda == K) {
+      thin_span(stage, pr.a + u.w.row0 * K * EA, rows * K * EA);
+    } else {
+      for (int64_t r = threadIdx.x; r < rows; r += THIN_THREADS)
+        for (int64_t k = 0; k < K; ++k)
+          thin_copy(stage + (r * K + k) * EA, pr.a + ((u.w.row0 + r) * pr.lda + k) * EA, EA);
+    }
+    for (int64_t k = 0; k < K; ++k)
+      thin_span(stage + THIN_LARGE_BYTES + k * THIN_SMALL_PITCH, pr.b + k * pr.ldb * EB,
+                u.w.N * EB);
+  } else {
+    const int64_t cols_left = u.w.N - u.w.col0;
+    const int64_t cols = cols_left < u.unit ? cols_left : u.unit;
+    const int64_t pitch = (cols * EB + 31) & ~int64_t(15);
+    for (int64_t k = 0; k < K; ++k)
+      thin_span(stage + k * pitch, pr.b + (k * pr.ldb + u.w.col0) * EB, cols * EB);
+    for (int64_t m = 0; m < u.w.M; ++m)
+      thin_span(stage + THIN_LARGE_BYTES + m * THIN_SMALL_PITCH, pr.a + m * pr.lda * EA,
+                K * EA);
+  }
+}
+
+// The products of one step into the thread's outputs e = t + i THREADS of the unit,
+// (row, col) = rc[i] >> 14, rc[i] & 16383 of its flat row-major [rows, n_cols] part
+// (i < n_active). The k loop runs outside the loop over the outputs, whose offsets
+// into the stage are found once a step: per k and output two shared-memory reads
+// and a multiply-add.
+template <class P, int FORM, int EA, int EB>
+__device__ __forceinline__ void thin_compute(typename P::V (&acc)[P::PER],
+                                             const int (&rc)[P::PER], int n_active,
+                                             const unsigned char* stage, const ThinUnit& u,
+                                             const Pair& pr, int n_cols) {
+  const int K = static_cast<int>(pr.K);
+  const unsigned char* small = stage + THIN_LARGE_BYTES;
+  int ao[P::PER], bo[P::PER];  // the byte of each output's A row and B column
+  const unsigned char* a;      // tall: A's rows; wide: A's rows are in `small`
+  const unsigned char* b;      // tall: B's rows are in `small`; wide: B's row 0
+  int a_k = EA, b_k;           // bytes from k to k + 1 along A's row and B's column
+  uint32_t b_head = 0, b_ld = 0;  // tall: the shift of B's row k is (b_head + k b_ld) & 15
+  if constexpr (FORM == THIN_TALL) {
+    a = stage + (pr.lda == K ? ((pr.a + u.w.row0 * K * EA) & 15) : 0);
+    b = small;
+    b_k = THIN_SMALL_PITCH;
+    b_head = static_cast<uint32_t>(pr.b);
+    b_ld = static_cast<uint32_t>(pr.ldb) * EB;
+#pragma unroll
+    for (int i = 0; i < P::PER; ++i) {
+      ao[i] = (rc[i] >> 14) * K * EA;
+      bo[i] = (rc[i] & 16383) * EB;
+    }
+  } else {
+    const int pitch = (n_cols * EB + 31) & ~15;
+    const uint32_t a0 = static_cast<uint32_t>(pr.a), lda = static_cast<uint32_t>(pr.lda) * EA;
+    const uint32_t shift = static_cast<uint32_t>(pr.b + u.w.col0 * EB) & 15;
+    a = small;
+    b = stage + shift;
+    b_k = pitch;
+    b_ld = static_cast<uint32_t>(pr.ldb) * EB;
+    b_head = static_cast<uint32_t>(pr.b + u.w.col0 * EB);
+#pragma unroll
+    for (int i = 0; i < P::PER; ++i) {
+      const int m = rc[i] >> 14;
+      ao[i] = m * THIN_SMALL_PITCH + static_cast<int>((a0 + m * lda) & 15);
+      bo[i] = (rc[i] & 16383) * EB;
+    }
+  }
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    // B's row k: tall, row k of `small` at its own shift; wide, k pitches on, at the
+    // shift of row k less that of row 0
+    const unsigned char* bk;
+    if constexpr (FORM == THIN_TALL) bk = b + k * b_k + ((b_head + k * b_ld) & 15);
+    else bk = b + k * b_k + (((b_head + k * b_ld) & 15) - (b_head & 15));
+#pragma unroll
+    for (int i = 0; i < P::PER; ++i) {
+      if (i >= n_active) break;
+      mad(acc[i], P::template value<EA>(a + ao[i] + k * a_k),
+          P::template value<EB>(bk + bo[i]));
+    }
+  }
+}
+
+template <class P, int FORM>
+__device__ __forceinline__ void thin_step(typename P::V (&acc)[P::PER],
+                                          const int (&rc)[P::PER], int n_active,
+                                          const unsigned char* stage, const ThinUnit& u,
+                                          const Pair& pr, int n_cols) {
+  if constexpr (P::E != 0) {
+    thin_compute<P, FORM, P::E, P::E>(acc, rc, n_active, stage, u, pr, n_cols);
+  } else if (pr.a_bf16) {
+    if (pr.b_bf16) thin_compute<P, FORM, 2, 2>(acc, rc, n_active, stage, u, pr, n_cols);
+    else thin_compute<P, FORM, 2, 4>(acc, rc, n_active, stage, u, pr, n_cols);
+  } else {
+    if (pr.b_bf16) thin_compute<P, FORM, 4, 2>(acc, rc, n_active, stage, u, pr, n_cols);
+    else thin_compute<P, FORM, 4, 4>(acc, rc, n_active, stage, u, pr, n_cols);
+  }
+}
+
+// The CTA's units b, b + gridDim.x, ...; its steps (unit, pair with K > 0) in that
+// order, step g in stage g mod THIN_STAGES, copied THIN_STAGES - 1 steps ahead.
+template <class F, class Tables>
+__global__ void __launch_bounds__(THIN_THREADS, F::MIN_CTAS)
+grouped_gemm_thin(const __grid_constant__ Tables tables, int n_out, int n_tiles) {
+  using P = typename F::P;
+  constexpr int FORM = F::FORM;
+  const int64_t* __restrict__ outs = tables.out_rows();
+  const int64_t* __restrict__ pairs = tables.pair_rows(n_out);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the copying cursor: its unit, pair and the stage of its next step
+  int l_tile = blockIdx.x, l_hint = 0, l_slot = 0;
+  ThinUnit lu{};
+  int64_t lp = 0;
+  const auto l_find = [&] {  // the first step from unit l_tile on
+    for (; l_tile < n_tiles; l_tile += gridDim.x) {
+      lu = find_unit<FORM>(outs, n_out, l_tile, &l_hint);
+      lp = nonempty(pairs, lu.w.p_begin, lu.w.p_end);
+      if (lp < lu.w.p_end) return;
+    }
+  };
+  const auto issue = [&] {  // the copies of the next step, one cp.async group
+    if (l_tile < n_tiles) {
+      thin_issue<P, FORM>(smem_raw + l_slot * THIN_STAGE_BYTES, lu, pair_at(pairs, lp));
+      l_slot = l_slot + 1 == THIN_STAGES ? 0 : l_slot + 1;
+      lp = nonempty(pairs, lp + 1, lu.w.p_end);
+      if (lp >= lu.w.p_end) {
+        l_tile += gridDim.x;
+        l_find();
+      }
+    }
+    cp_async_commit();
+  };
+  l_find();
+#pragma unroll 1
+  for (int s = 0; s < THIN_STAGES - 1; ++s) issue();
+
+  int hint = 0, slot = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const ThinUnit u = find_unit<FORM>(outs, n_out, tile, &hint);
+    const int64_t left = FORM == THIN_TALL ? u.w.M - u.w.row0 : u.w.N - u.w.col0;
+    const int size = static_cast<int>(left < u.unit ? left : u.unit);
+    // tall: [size rows, N]; wide: [M, size columns]
+    const int n_cols = FORM == THIN_TALL ? static_cast<int>(u.w.N) : size;
+    const int n_el = (FORM == THIN_TALL ? size : static_cast<int>(u.w.M)) * n_cols;
+    // the thread's outputs e = t + i THREADS < n_el, their (row, col) packed as
+    // row << 14 | col (a unit has at most 8192 rows or columns), stepped from one
+    // division; the last ones past n_el take
+    // (0, 0), whose products are never written
+    const int t = threadIdx.x;
+    const int n_active = n_el <= t ? 0 : (n_el - t + THIN_THREADS - 1) / THIN_THREADS;
+    int rc[P::PER];
+    {
+      int r = t / n_cols, n = t - r * n_cols;
+      const int dr = THIN_THREADS / n_cols, dn = THIN_THREADS - dr * n_cols;
+#pragma unroll
+      for (int i = 0; i < P::PER; ++i) {
+        rc[i] = i < n_active ? (r << 14 | n) : 0;
+        r += dr;
+        n += dn;
+        if (n >= n_cols) {
+          n -= n_cols;
+          ++r;
+        }
+      }
+    }
+    typename P::V acc[P::PER];
+#pragma unroll
+    for (int i = 0; i < P::PER; ++i) zero_of(acc[i]);
+#pragma unroll 1
+    for (int64_t p = nonempty(pairs, u.w.p_begin, u.w.p_end); p < u.w.p_end;
+         p = nonempty(pairs, p + 1, u.w.p_end)) {
+      cp_async_wait<THIN_STAGES - 2>();
+      __syncthreads();  // this step's copies have landed; every thread is past the last
+      issue();          // into the stage of the step before
+      thin_step<P, FORM>(acc, rc, n_active, smem_raw + slot * THIN_STAGE_BYTES, u,
+                         pair_at(pairs, p), n_cols);
+      slot = slot + 1 == THIN_STAGES ? 0 : slot + 1;
+    }
+    auto* C = reinterpret_cast<typename P::O*>(u.w.c);
+#pragma unroll
+    for (int i = 0; i < P::PER; ++i) {
+      if (i >= n_active) break;
+      if constexpr (FORM == THIN_TALL)
+        C[u.w.row0 * u.w.N + i * THIN_THREADS + t] = P::out(acc[i]);
+      else
+        C[(rc[i] >> 14) * u.w.N + u.w.col0 + (rc[i] & 16383)] = P::out(acc[i]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <class P, class = void> struct is_thin : std::false_type {};
+template <class P>
+struct is_thin<P, std::void_t<decltype(P::THIN)>> : std::true_type {};
+
+
 constexpr int MAX_DEVICES = 64;
+
+template <class P>
+constexpr int smem_bytes() {
+  if constexpr (is_staged<P>::value || is_complex_tile<P>::value || is_thin<P>::value)
+    return P::SMEM_BYTES;
+  else return P::STAGES * P::STAGE_BYTES + (P::SWIZZLED ? 1024 : 0);
+}
 
 template <class P, class Tables>
 auto kernel_of() {
   if constexpr (is_staged<P>::value) return grouped_gemm_staged<P, Tables>;
+  else if constexpr (is_complex_tile<P>::value) return grouped_gemm_complex<P, Tables>;
+  else if constexpr (is_thin<P>::value) return grouped_gemm_thin<P, Tables>;
   else return grouped_gemm_kernel<P, Tables>;
 }
 
@@ -1474,21 +1985,45 @@ int launch(const Tables& tables, int64_t n_out, int64_t n_tiles, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
+// Calls f(P()) with the policy P that runs kind `dtype` (see cyten_grouped_gemm) and
+// returns what it returns; cudaErrorInvalidValue for a code the kernel has not.
+template <class F>
+int with_kind(int dtype, F&& f) {
+  switch (dtype) {
+    case 0: return f(F64());
+    case 1: return f(F32());
+    case 2: return f(BF16());
+    case 3: return f(F32W());
+    case 4: return f(TF32P());
+    case 5: return f(BF16P());
+    case 6: return f(C128());
+    case 7: return f(TF32PN());
+    case 8: return f(BF16PN());
+    case 9: return f(C128N());
+    default: break;
+  }
+  const bool wide = dtype >= THIN_WIDE_CODE;
+  switch (dtype - (wide ? THIN_WIDE_CODE : THIN_TALL_CODE)) {
+#define THIN_CASE(code, P) \
+    case code: return wide ? f(ThinForm<P, THIN_WIDE>()) : f(ThinForm<P, THIN_TALL>());
+    THIN_CASE(0, ThinF64)
+    THIN_CASE(1, ThinF32)
+    THIN_CASE(2, ThinBF16)
+    THIN_CASE(3, ThinF32W)
+    THIN_CASE(4, ThinTF32)
+    THIN_CASE(5, ThinBF16P)
+    THIN_CASE(6, ThinC128)
+#undef THIN_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <class Tables>
 int launch_dtype(int dtype, const Tables& tables, int64_t n_out, int64_t n_tiles,
                  cudaStream_t s) {
-  switch (dtype) {
-    case 0: return launch<F64>(tables, n_out, n_tiles, s);
-    case 1: return launch<F32>(tables, n_out, n_tiles, s);
-    case 2: return launch<BF16>(tables, n_out, n_tiles, s);
-    case 3: return launch<F32W>(tables, n_out, n_tiles, s);
-    case 4: return launch<TF32P>(tables, n_out, n_tiles, s);
-    case 5: return launch<BF16P>(tables, n_out, n_tiles, s);
-    case 6: return launch<C128>(tables, n_out, n_tiles, s);
-    case 7: return launch<TF32PN>(tables, n_out, n_tiles, s);
-    case 8: return launch<BF16PN>(tables, n_out, n_tiles, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_kind(dtype, [&](auto policy) {
+    return launch<decltype(policy)>(tables, n_out, n_tiles, s);
+  });
 }
 
 // Runs launch() with CUDA device `device` current and gives the caller's thread its
@@ -1510,7 +2045,9 @@ int with_device(int device, F&& launch) {
 // dtype (the kind): 0 = float64, 1 = float32, 2 = bfloat16; f32 results of f32 or
 // bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'), on 128 x 256
 // tiles, 7 = tf32 and 8 = bf16p on 128 x 128 tiles (the host picks the width of a
-// list from its shapes); 6 = complex128. `tables` holds the outs rows and then the
+// list from its shapes); 6 = complex128 on 128 x 64 tiles, 9 on 64 x 64; the thin
+// forms of kinds 0-6: THIN_TALL_CODE + kind (tall), THIN_WIDE_CODE + kind (wide).
+// `tables` holds the outs rows and then the
 // pairs rows, n_words int64 in all: in host memory if tables_on_device is 0 (then
 // n_words <= INLINE_WORDS; they are copied into the launch's parameters and may be
 // freed on return), else in device memory. Launches on `stream` of CUDA device
@@ -1535,22 +2072,25 @@ extern "C" int cyten_grouped_gemm(int dtype, const int64_t* tables, int64_t n_wo
 }
 
 // The output tile (BM, BN) of each kind and the capacity of the inline tables in
-// int64 words: the host lays out its tables by both. For the staged kinds
+// int64 words: the host lays out its tables by both. For the kinds of two widths
 // it picks the tile of each list (blocks/grouped_gemm.py::_staged_tile): a wide step
 // does twice the products of a narrow one for less than twice the time, but on lists
-// whose N is at most 128 both widths run the same tiles.
+// whose N is at most 128 both widths run the same tiles. For a thin form, in place of
+// a tile, the two bounds on its units, 256 PER outputs and THIN_STAGE: the host picks the
+// unit of each list (blocks/grouped_gemm.py::_thin_unit), numbers the units as tiles
+// of (unit, THIN_S) (tall) or (THIN_S, unit) (wide) and writes the unit into column 7
+// of the output rows.
 extern "C" int cyten_grouped_gemm_info(int dtype, int64_t* bm_bn_words) {
   bm_bn_words[2] = INLINE_WORDS;
-  switch (dtype) {
-    case 0: bm_bn_words[0] = F64::BM; bm_bn_words[1] = F64::BN; return 0;
-    case 1: bm_bn_words[0] = F32::BM; bm_bn_words[1] = F32::BN; return 0;
-    case 2: bm_bn_words[0] = BF16::BM; bm_bn_words[1] = BF16::BN; return 0;
-    case 3: bm_bn_words[0] = F32W::BM; bm_bn_words[1] = F32W::BN; return 0;
-    case 4: bm_bn_words[0] = TF32P::BM; bm_bn_words[1] = TF32P::BN; return 0;
-    case 5: bm_bn_words[0] = BF16P::BM; bm_bn_words[1] = BF16P::BN; return 0;
-    case 6: bm_bn_words[0] = C128::BM; bm_bn_words[1] = C128::BN; return 0;
-    case 7: bm_bn_words[0] = TF32PN::BM; bm_bn_words[1] = TF32PN::BN; return 0;
-    case 8: bm_bn_words[0] = BF16PN::BM; bm_bn_words[1] = BF16PN::BN; return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_kind(dtype, [&](auto policy) {
+    using P = decltype(policy);
+    if constexpr (is_thin<P>::value) {  // the outputs of a unit, its large operand's bytes
+      bm_bn_words[0] = THIN_THREADS * P::P::PER;
+      bm_bn_words[1] = THIN_STAGE;
+    } else {
+      bm_bn_words[0] = P::BM;
+      bm_bn_words[1] = P::BN;
+    }
+    return 0;
+  });
 }

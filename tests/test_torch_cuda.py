@@ -938,3 +938,150 @@ def test_captured_gather_keeps_its_device_index(card):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and len(junk) == 8
+
+
+# --- the thin form of every kind -------------------------------------------------------
+
+# the kinds, as (matmul_precision, A dtype, B dtype, the kind that runs them)
+THIN_KINDS = [('float32', torch.float64, torch.float64, 'float64'),
+              ('float32', torch.float32, torch.float32, 'float32'),
+              ('float32', torch.bfloat16, torch.bfloat16, 'bfloat16'),
+              ('float32', torch.bfloat16, torch.float32, 'float32_mixed'),
+              ('tensorfloat32', torch.float32, torch.float32, 'tensorfloat32'),
+              ('tensorfloat32', torch.float32, torch.bfloat16, 'tensorfloat32'),
+              ('default', torch.bfloat16, torch.float32, 'default'),
+              ('default', torch.float32, torch.float32, 'default'),
+              ('float32', torch.complex128, torch.complex128, 'complex128'),
+              ('float32', torch.float64, torch.complex128, 'complex128')]
+
+
+def _thin_list(rng, form, a_dtype, b_dtype, device, deep=True):
+    """A ragged thin list: (As, Bs, out_ids). Outputs share pairs; one pair has K = 0
+    and one output no rows (tall) or columns (wide); rows of K = 3 values, 12 bytes in
+    f32, from bases one value past alignment; odd pitches on the large operand (for
+    A, rows that are not one span: lda > K). With
+    ``deep``, also pairs up to the kernel's bounds (K = 16, 16 columns or rows), which
+    the wrapper runs thin only when asked (``width='thin'``); without, K and the
+    narrow side are at most 3, as in the environment updates' contractions with W."""
+    def draw(shape, dtype, misaligned=False, pitch=None):
+        rows, cols = shape
+        pitch = cols if pitch is None else pitch
+        x = rng.normal(size=rows * pitch + 1)
+        if dtype.is_complex:
+            x = x + 1j * rng.normal(size=rows * pitch + 1)
+        buf = torch.from_numpy(x).to(device, dtype)
+        return (buf[1:] if misaligned else buf[:-1]).view(rows, pitch)[:, :cols]
+
+    # (M, K, N) of each pair, out_ids
+    shapes = [(1300, 3, 3), (1300, 1, 3), (700, 3, 1), (5, 2, 16), (1300, 0, 3),
+              (9, 16, 16), (700, 4, 1), (0, 3, 2)]
+    out_ids = [0, 0, 1, 2, 0, 3, 1, 4]
+    if not deep:
+        shapes, out_ids = [(1300, 3, 3), (1300, 1, 3), (700, 3, 1), (1300, 0, 3),
+                           (700, 2, 1), (0, 3, 2)], [0, 0, 1, 0, 1, 2]
+    As, Bs = [], []
+    for i, (m, k, n) in enumerate(shapes):
+        if form == 'wide':  # the transposed list: M and K small, N large
+            m, n = n, m
+        odd = i % 2 == 0
+        big_a = form == 'tall'
+        As.append(draw((m, k), a_dtype, misaligned=odd and big_a,
+                       pitch=k + 1 if odd and big_a and i % 4 == 0 else None))
+        Bs.append(draw((k, n), b_dtype, misaligned=odd and not big_a,
+                       pitch=n + 1 if odd and not big_a else None))
+    return As, Bs, out_ids
+
+
+def _assert_kind_close(got, ref, As, Bs, out_ids, precision, kind):
+    """The thin form against its plain version at its kind's tolerance: the converting
+    kinds to K 2^-23 |A||B|, complex128 to 2 K 2^-52 |A||B| (elementwise), f64, f32
+    and bf16 as test_grouped_gemm_matches_plain."""
+    if kind in ('float32_mixed', 'tensorfloat32', 'default'):
+        assert_within_sum_order(got, ref, As, Bs, out_ids, precision)
+    elif kind == 'complex128':
+        _complex_close(got, ref, As, Bs, out_ids)
+    else:
+        rtol, atol = TOL[As[0].dtype]
+        for c, r in zip(got, ref):
+            assert c.dtype == As[0].dtype and c.shape == r.shape
+            if r.numel():
+                err = float((c.double() - r.double()).abs().max())
+                assert err <= atol + rtol * float(r.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['tall', 'wide'])
+@pytest.mark.parametrize('precision, a_dtype, b_dtype, kind', THIN_KINDS)
+def test_thin_form_matches_plain(card, form, precision, a_dtype, b_dtype, kind):
+    """Every kind's thin form on a ragged thin list (shared outputs, K = 0 pairs, an
+    empty output, unaligned bases, 12-byte rows, odd pitches, bf16 operands read in
+    place, real x complex): one launch, counted for its kind and the thin forms, and
+    its plain version's result."""
+    from cyten_tpu_torch.config import config
+
+    As, Bs, out_ids = _thin_list(np.random.default_rng(18), form, a_dtype, b_dtype, card)
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        outs, launch = grouped_matmul_plan(As, Bs, out_ids, width='thin')
+        assert grouped_matmul_plan(As, Bs, out_ids)[1].form is None  # past the pick
+    finally:
+        config.matmul_precision = old
+    assert launch.form == form
+    if kind != 'complex128':  # bf16 and f32 operands are read where they lie
+        table = launch.operands[2]
+        assert {A.data_ptr() for A in As} == set(table[5:, 0])
+    before = (grouped_matmul.kinds[kind].launches, grouped_matmul.thin.launches)
+    launch()
+    torch.cuda.synchronize()
+    assert (grouped_matmul.kinds[kind].launches, grouped_matmul.thin.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = grouped_matmul_plain(As, Bs, out_ids, precision=precision)
+    _assert_kind_close(outs, ref, As, Bs, out_ids, precision, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['tall', 'wide'])
+def test_thin_form_replays_in_a_graph(card, form):
+    """A list shaped as the environment updates' contractions with W is run thin by
+    default; captured in a CUDA graph, it reads its operands anew at each replay."""
+    from cyten_tpu_torch.config import config
+
+    rng = np.random.default_rng(19)
+    As, Bs, out_ids = _thin_list(rng, form, torch.float32, torch.float32, card, deep=False)
+    old = config.matmul_precision
+    config.matmul_precision = 'tensorfloat32'
+    try:
+        grouped_matmul_plan(As, Bs, out_ids)[1]()  # set up before the capture
+        graph = _kernels.Graph()
+        with graph.capture():
+            outs = grouped_matmul_plan(As, Bs, out_ids)[1]()
+    finally:
+        config.matmul_precision = old
+    assert graph.launches == {grouped_matmul: 1, grouped_matmul.kinds['tensorfloat32']: 1,
+                              grouped_matmul.thin: 1}
+    for _ in range(2):
+        for X in (*As, *Bs):
+            X.copy_(torch.from_numpy(rng.normal(size=tuple(X.shape))))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = grouped_matmul_plain(As, Bs, out_ids, precision='tensorfloat32')
+        assert_within_sum_order(outs, ref, As, Bs, out_ids, 'tensorfloat32')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width', ['wide', 'narrow'])
+@pytest.mark.parametrize('case', list(RAGGED))
+def test_complex_kind_at_each_tile(card, case, width):
+    """The complex128 kind at its 128 x 64 and its 64 x 64 tile (the one it takes for
+    lists too small to fill the card), whatever the list, on the ragged lists and on
+    conjugate views: the plain version's result within 2 K 2^-52 |A||B|."""
+    shapes, out_ids = RAGGED[case]
+    rng = np.random.default_rng(20)
+    As = [_draw(rng, (M, K), True, card) for M, K, N in shapes]
+    Bs = [_draw(rng, (N, K), True, card).mH for M, K, N in shapes]  # conjugate views
+    outs, launch = grouped_matmul_plan(As, Bs, out_ids, width=width)
+    assert launch.tile == {'wide': (128, 64), 'narrow': (64, 64)}[width]
+    launch()
+    torch.cuda.synchronize()
+    _complex_close(outs, grouped_matmul_plain(As, Bs, out_ids), As, Bs, out_ids)

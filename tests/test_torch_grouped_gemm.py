@@ -25,9 +25,11 @@ from cyten_tpu_torch.blocks.grouped_gemm import (  # noqa: E402
 # (the kernel states its own per dtype, cyten_grouped_gemm_info)
 TILE = (128, 64)
 # the tiles of the kernel's kinds, as cyten_grouped_gemm_info states them: f64 128 x 64,
-# f32, bf16, mixed and TF32 128 x 128, the bf16 pass ('default') 128 x 256, complex128
-# 64 x 64
-KIND_TILES = [(128, 64), (128, 128), (128, 256), (64, 64)]
+# f32, bf16 and mixed 128 x 128, TF32 and the bf16 pass ('default') 128 x 256 or
+# 128 x 128, complex128 128 x 64 or 64 x 64; and tiles that number the units of thin
+# forms, (rows, 16) tall and (16, columns) wide (_thin_unit picks them per list)
+KIND_TILES = [(128, 64), (128, 128), (128, 256), (64, 64), (1024, 16), (64, 16),
+              (16, 1024), (16, 256)]
 
 # the shapes of tests/test_pallas_grouped.py:15-19
 PALLAS_SHAPES = [
@@ -375,6 +377,220 @@ def test_staged_tile_choice(case):
     assert layout.tile == expected and grouped_gemm._layouts(*args)[2] is layout
     bm, bn = expected
     assert layout.n_tiles == sum(-(-m // bm) * -(-n // bn) for m, k, n in shapes)
+
+
+# lists for the complex128 kind's choice of tile: name -> ((M, K, N) per pair, out_ids,
+# the tile expected of 128 x 64 and 64 x 64 on 132 SMs)
+COMPLEX_LISTS = {
+    # the bench's chi=4096 tdot(LP, theta) made complex: many tiles, the wide one
+    'wide_and_many': ([(4386, 1462, 1462), (2940, 980, 980), (1462, 295, 1462)] * 3,
+                      list(range(9)), (128, 64)),
+    # two pairs too few for the card at 128 x 64: twice the tiles at 64 x 64
+    'few_tiles': ([(320, 200, 200), (200, 120, 320)], [0, 1], (64, 64)),
+}
+
+
+@pytest.mark.parametrize('case', list(COMPLEX_LISTS))
+def test_complex_tile_choice(case):
+    """The complex128 kind runs a list at the tile of least modelled time, its k
+    slice and the cost of a wide step its own (``_TILE_MODEL``)."""
+    shapes, out_ids, expected = COMPLEX_LISTS[case]
+    MN = np.array([(m, n) for m, k, n in shapes])
+    K = np.array([k for m, k, n in shapes])
+    assert grouped_gemm._staged_tile(MN, K, np.array(out_ids), (128, 64), (64, 64), 132,
+                                     kind='complex128') == expected
+
+
+# thin lists: name -> ((M, K, N) per pair, out_ids, form); outputs share pairs, some
+# pairs have K = 0, and K is even and odd
+THIN_LISTS = {
+    # the environment update's tdot(t, W): K and N at most 3, M large
+    'tall': ([(1300, 3, 3), (1300, 1, 3), (700, 3, 1), (5, 2, 16), (1300, 0, 3),
+              (9, 16, 16), (700, 4, 1)], [0, 0, 1, 2, 0, 3, 1], 'tall'),
+    # its transposes, compose(W, tp): M and K at most 3, N large
+    'wide': ([(3, 3, 1300), (3, 1, 1300), (1, 3, 700), (16, 2, 5), (3, 0, 1300),
+              (16, 16, 600), (1, 4, 700)], [0, 0, 1, 2, 0, 3, 1], 'wide'),
+}
+
+
+# the thin kernel's bounds on a unit of an f64 list (csrc/grouped_gemm.cu: 256 PER
+# outputs, THIN_STAGE bytes), its threads and their outputs, and the layout of a stage
+THIN_BOUNDS = (4096, 32768)
+THIN_THREADS, THIN_PER = 256, 16
+THIN_LARGE_BYTES, THIN_SMALL_PITCH = 32768 + 16 * 32, 16 * 16 + 32
+
+
+def _span(stage, at, t, off, nbytes):
+    """thin_span: the ``nbytes`` bytes of tensor ``t`` from byte ``off`` into ``stage``
+    at ``at`` + (their address & 15); returns that byte of ``stage``."""
+    head = (t.data_ptr() + off) & 15
+    stage[at + head:at + head + nbytes] = t.numpy().reshape(-1).view(np.uint8)[off:off + nbytes]
+    return at + head
+
+
+def _thin_kernel_walk(outs, pairs, n_tiles, form, by_ptr):
+    """The thin kernel in numpy, for f64 lists: the strided walk over units (the unit
+    read from column 7 of the output rows), per unit and pair the raw copies of its
+    operands into a stage of shared memory, as bytes where the kernel puts them (the
+    bytes it never copies hold NaN), and each thread's outputs t, t + 256, ..., flat
+    and row-major in the unit, their (row, col) stepped as the kernel steps them.
+    Returns how often each output element was written."""
+    E = 8
+    written = {}
+    for o, tr, tc in _walk(outs, n_tiles, 7):
+        c_ptr, M, N, _, tiles_n, begin, end, unit = outs[o].tolist()
+        C = by_ptr[c_ptr]
+        hits = written.setdefault(c_ptr, np.zeros((M, N), int))
+        bm, bn = (unit, 16) if form == 'tall' else (16, unit)
+        row0, col0 = tr * bm, tc * bn
+        size = min(unit, (M - row0) if form == 'tall' else (N - col0))
+        n_cols = N if form == 'tall' else size
+        n_el = (size if form == 'tall' else M) * n_cols
+        assert n_el <= THIN_THREADS * THIN_PER
+        acc = np.zeros(THIN_THREADS * THIN_PER)
+        for a_ptr, lda, b_ptr, ldb, K, *_ in pairs[begin:end].tolist():
+            if K == 0:
+                continue
+            A, B = by_ptr[a_ptr], by_ptr[b_ptr]
+            stage = np.full(THIN_LARGE_BYTES + 16 * THIN_SMALL_PITCH, 0xFF, np.uint8)
+            value = lambda at: stage[at:at + E].view(np.float64)[0]  # noqa: E731
+            if form == 'tall':
+                assert lda == K and size * K * E <= THIN_BOUNDS[1]
+                a_at = _span(stage, 0, A, row0 * K * E, size * K * E)
+                b_at = [_span(stage, THIN_LARGE_BYTES + k * THIN_SMALL_PITCH, B, k * ldb * E,
+                              N * E) for k in range(K)]
+            else:
+                pitch = (size * E + 31) & ~15
+                assert K * pitch <= THIN_LARGE_BYTES
+                b_at = [_span(stage, k * pitch, B, (k * ldb + col0) * E, size * E)
+                        for k in range(K)]
+                a_at = [_span(stage, THIN_LARGE_BYTES + m * THIN_SMALL_PITCH, A, m * lda * E,
+                              K * E) for m in range(M)]
+            for t in range(THIN_THREADS):
+                dr, dn = divmod(THIN_THREADS, n_cols)
+                r, n = divmod(t, n_cols)
+                for i in range(THIN_PER):
+                    e = t + i * THIN_THREADS
+                    if e < n_el:
+                        for k in range(K):
+                            if form == 'tall':
+                                a, b = value(a_at + (r * K + k) * E), value(b_at[k] + n * E)
+                            else:
+                                a, b = value(a_at[r] + k * E), value(b_at[k] + n * E)
+                            acc[e] += a * b
+                    r, n = r + dr, n + dn
+                    if n >= n_cols:
+                        n, r = n - n_cols, r + 1
+        flat = acc[:n_el].reshape(-1, n_cols)
+        if form == 'tall':
+            C[row0:row0 + size] = torch.from_numpy(flat)
+            hits[row0:row0 + size] += 1
+        else:
+            C[:, col0:col0 + size] = torch.from_numpy(flat)
+            hits[:, col0:col0 + size] += 1
+    return written
+
+
+@pytest.mark.parametrize('form', list(THIN_LISTS))
+def test_thin_tables_drive_the_kernel_walk(form):
+    """A thin list takes its form, and its tables, walked as the thin kernel walks
+    them (units of rows or columns, the raw copies of each pair's operands, each
+    thread's outputs), write every output element once and compute what the plain
+    version computes, the pairs that share an output summed."""
+    shapes, out_ids, expected = THIN_LISTS[form]
+    rng = np.random.default_rng(17)
+    As, Bs = _pairs(rng, shapes)
+    As, Bs = [torch.from_numpy(a) for a in As], [torch.from_numpy(b) for b in Bs]
+    ia = ib = np.arange(len(shapes))
+    a = np.array([(A.data_ptr(), A.stride(0), 1, *A.shape) for A in As])
+    b = np.array([(B.data_ptr(), B.stride(0), 1, *B.shape) for B in Bs])
+    n_out, out_layout, layout = grouped_gemm._layouts(
+        a, ia, b, ib, np.array(out_ids), None, torch.float64, (128, 64), 'float64', None,
+        'thin', THIN_BOUNDS)
+    assert layout.form == expected
+    # the unit: its outputs and the deepest pair's bytes within the kernel's bounds
+    MN = np.zeros((n_out, 2), np.int64)
+    for (m, k, n), o in zip(shapes, out_ids):
+        MN[o] = m, n
+    unit = grouped_gemm._thin_unit(form, MN, [k for m, k, n in shapes], 8, THIN_BOUNDS)
+    assert layout.tile == ((unit, 16) if form == 'tall' else (16, unit))
+    flat = torch.full((out_layout.size,), np.nan, dtype=torch.float64)
+    table = grouped_gemm._fill_table(layout, a, ia, b, ib, flat.data_ptr())
+    outs = [flat[s:s + m * n].view(m, n) for s, (m, n) in zip(out_layout.offsets, MN)]
+    by_ptr = {t.data_ptr(): t for t in (*As, *Bs, *outs)}
+    written = _thin_kernel_walk(table[:n_out], table[n_out:], layout.n_tiles, form, by_ptr)
+    assert all(np.all(h == 1) for h in written.values()) and len(written) == n_out
+    for c, r in zip(outs, grouped_matmul_plain(As, Bs, out_ids)):
+        # f64, the same products summed per unit and pair
+        np.testing.assert_allclose(c.numpy(), r.numpy(), rtol=1e-12, atol=1e-12)
+
+
+# the bounds on a unit of each kind of sums: f32 (32 outputs a thread), f64 (16),
+# complex128 (8); 32 KB of the large operand a step
+KIND_BOUNDS = {'f32': (8192, 32768), 'f64': (4096, 32768), 'c128': (2048, 32768)}
+
+
+@pytest.mark.parametrize('form, small, deep, kind, value_bytes, unit', [
+    ('tall', 3, 3, 'f32', 4, 2048),    # the chi=4096 W list in f32: 24 KB a step
+    ('tall', 3, 3, 'f64', 8, 1024),    # ... in f64
+    ('tall', 3, 3, 'c128', 16, 512),   # ... in complex128
+    ('wide', 1, 1, 'f32', 2, 8192),    # the most outputs a unit holds
+    ('wide', 16, 16, 'c128', 16, 128), # the deepest, widest complex128 list
+])
+def test_thin_unit_size(form, small, deep, kind, value_bytes, unit):
+    """A thin unit is the largest power of two within the kernel's bounds for the
+    kind: its outputs, and the bytes of the large operand for the deepest pair."""
+    MN = np.array([(50000, small)] if form == 'tall' else [(small, 50000)])
+    assert grouped_gemm._thin_unit(form, MN, [deep], value_bytes, KIND_BOUNDS[kind]) == unit
+
+
+@pytest.mark.parametrize('case', ['deep', 'both_large', 'tall', 'wide', 'both_small', 'empty',
+                                  'w_list', 'w_transposes', 'golden_w', 'past_the_pick'])
+def test_thin_form_predicate(case):
+    """A list is thin only when no pair is deeper than ``k_max`` and every output is at
+    most ``s_max`` columns wide (tall) or, failing that, rows tall (wide): at the
+    kernel's bounds (THIN_K, THIN_S), and by default at the wrapper's (THIN_PICK_K,
+    THIN_PICK_S), which take the environment updates' contractions with W."""
+    cap = (grouped_gemm.THIN_K, grouped_gemm.THIN_S)
+    MN, K, bounds, expected = {
+        'deep': ([(1000, 3)], [17], cap, None),
+        'both_large': ([(1000, 3), (17, 17)], [3, 3], cap, None),
+        'tall': ([(1000, 3), (2, 16)], [16, 0], cap, 'tall'),
+        'wide': ([(3, 1000), (16, 17)], [3, 16], cap, 'wide'),
+        'both_small': ([(16, 16)], [16], cap, 'tall'),
+        'empty': (np.zeros((0, 2), int), [], cap, None),
+        'w_list': ([(1432760, 3), (11800, 1)], [3, 1], (), 'tall'),
+        'w_transposes': ([(3, 1432760), (1, 11800)], [3, 3], (), 'wide'),
+        'golden_w': ([(362000, 4)], [4], (), 'tall'),
+        'past_the_pick': ([(1000, 3), (2, 5)], [3, 3], (), None)}[case]
+    assert grouped_gemm._thin_form(np.array(MN, np.int64).reshape(-1, 2), K,
+                                   *bounds) == expected
+
+
+def test_thin_width_forces_the_form():
+    """``width='thin'`` lays a thin list out at its thin tile and refuses a list that is
+    not thin; ``width='tiled'`` lays a thin list out at the kind's tile."""
+    def rows(shapes):
+        a = np.array([(64 * i, k, 1, m, k) for i, (m, k, n) in enumerate(shapes)])
+        b = np.array([(64 * i + 8, n, 1, k, n) for i, (m, k, n) in enumerate(shapes)])
+        return a, np.arange(len(shapes)), b, np.arange(len(shapes))
+
+    args = (None, None, torch.float32, (128, 128), 'float32', None)
+    a, ia, b, ib = rows([(5000, 3, 3), (700, 1, 3)])
+    for width in (None, 'thin'):
+        layout = grouped_gemm._layouts(a, ia, b, ib, *args, width, THIN_BOUNDS)[2]
+        assert (layout.tile, layout.form) == ((1024, 16), 'tall')
+        assert (layout.table[:2, 7] == 1024).all()
+    layout = grouped_gemm._layouts(a, ia, b, ib, *args, 'tiled', THIN_BOUNDS)[2]
+    assert (layout.tile, layout.form) == ((128, 128), None)
+    a, ia, b, ib = rows([(3, 3, 5000)])
+    layout = grouped_gemm._layouts(a, ia, b, ib, *args, None, THIN_BOUNDS)[2]
+    assert (layout.tile, layout.form) == ((16, 1024), 'wide')
+    a, ia, b, ib = rows([(300, 30, 300)])
+    layout = grouped_gemm._layouts(a, ia, b, ib, *args, None, THIN_BOUNDS)[2]
+    assert (layout.tile, layout.form) == ((128, 128), None)
+    with pytest.raises(ValueError):
+        grouped_gemm._layouts(a, ia, b, ib, *args, 'thin', THIN_BOUNDS)
 
 
 @pytest.mark.parametrize('width, case', [('wide', 'few_tiles'), ('narrow', 'wide_and_many')])
