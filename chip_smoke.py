@@ -22,8 +22,9 @@ fails. Imports nothing of JAX or cyten_tpu.
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
      report (registers, shared memory, spills); the grouped GEMM's SASS holds
-     DMMA (f64, complex128 at both tiles) and HGMMA (bf16, TF32 and the bf16 pass:
-     wgmma), and no HMMA in TF32, and every thin form FFMA or DFMA and no tensor-core
+     DMMA (f64, complex128 at both tiles) and HGMMA (bf16, TF32, the bf16 pass and
+     the mixed kind's three bf16 passes: wgmma), and no HMMA in TF32 and no FFMA in
+     the mixed kind, and every thin form FFMA or DFMA and no tensor-core
      instruction, checked with cuobjdump where the toolkit has it; the host-sync
      counter's count on a function that does nothing (the first count in a process
      holds one sync that PyTorch reports at torch/cuda/__init__.py)
@@ -37,22 +38,33 @@ Phases:
   2c. the grouped GEMM's converting kinds against their plain versions on the ragged
      lists and the chi=4096 list: TF32 ('tensorfloat32'), one bf16 pass ('default')
      and mixed bf16 x f32 at each precision, held to K 2^-23 |A||B| (their products
-     are exact, their sums in another order); library_ms a per-pair torch.matmul
-     under TF32, on bf16-cast operands, or with the bf16 operand widened per call.
-     TF32 and the bf16 pass also on the lists their raw staging must get right
-     (staged_hard_lists: unaligned bases with odd pitches, ragged K with K = 0 pairs
-     and shared outputs, TF32 operands just above the rounding midpoint), at each of
-     their two tiles (STAGED_WIDTHS), and at the chi=4096 list beside their device_ms
-     of the register-staged form they replace (STAGED_BEFORE_MS); then each list of
-     the chi=4096 bench step at every precision setting ('float32', 'tensorfloat32',
-     'default', each with LP and RP in f32 and in bf16; f64; bf16 work) and of one
-     static SU(2) (f64) and golden-chain (complex128) bond update at 512 multiplets, as
-     the main path plans it (step_list_phase): each thin list (the environment
-     updates' contractions with W) held against its plain version, its device_ms
-     beside bound_ms, library_ms and the kind's tiled form on the same list; at
-     'tensorfloat32' and 'default' the other lists' tile picked and time at each tile
-     Then the thin form against the tiled kinds on lists of growing depth and narrow
-     side, f32, f64 and complex128 (thin_crossover)
+     are exact, their sums in another order; bias and rms: the kernel's and the
+     plain version's sums against the exact f64 sums, sum_bias); the bound of the
+     mixed kind its bf16 passes on the tensor cores (mixed_ops_s); library_ms a
+     per-pair torch.matmul under TF32, on bf16-cast operands, or with the bf16
+     operand widened per call.
+     TF32, the bf16 pass and the mixed kind also on the lists their raw staging
+     must get right (staged_hard_lists: unaligned bases with odd pitches, ragged K
+     with K = 0 pairs and shared outputs, TF32 operands just above the rounding
+     midpoint; the mixed kind's mixed_lists: f32 values whose low bits only its mid
+     and lo pieces carry, K of 4100 and 5000, every mix of f32 and bf16 pair by
+     pair, values from 2^-118 to 2^-108; a list with an f32 x f32 pair runs the f32
+     kind), TF32 and the bf16 pass at each of their two tiles (STAGED_WIDTHS), the
+     mixed kind at its one, whose sums may lean toward zero by at most MIXED_LEAN
+     of their size (sum_bias, here and on every list of the kind), and at the
+     chi=4096 list beside their
+     device_ms of the register-staged form they replace (STAGED_BEFORE_MS); then
+     each list of the chi=4096 bench step at every precision setting ('float32',
+     'tensorfloat32', 'default', each with LP and RP in f32 and in bf16; f64; bf16
+     work) and of one static SU(2) (f64) and golden-chain (complex128) bond update
+     at 512 multiplets, as the main path plans it (step_list_phase): each thin list
+     (the environment updates' contractions with W) held against its plain version,
+     its device_ms beside bound_ms, library_ms and the kind's tiled form on the same
+     list; at 'tensorfloat32' and 'default' the other lists' tile picked and time at
+     each tile; the mixed kind's lists (at 'float32' with LP and RP bf16) held against
+     their plain version at its one tile. Then the thin form against the
+     tiled kinds on lists of growing depth and narrow side, f32, f64 and complex128
+     (thin_crossover)
   2d. the grouped GEMM's complex128 kind against its plain version, held elementwise
      to 2 K 2^-52 |A||B|: the ragged lists with random complex operands, real x complex
      and complex x real (the real operand copied to complex128 by the wrapper), each at
@@ -92,14 +104,18 @@ Phases:
      f32, through graphs: every interior LP/RP bf16 after replayed sweeps; graphs
      captured anew after matmul_precision='default', and again after env_dtype=None
      with f32 environments (|dE| < 0.02 relative with bf16 environments, 1e-3 with
-     f32 ones); then the 'default' sweeps again from the state they started from,
-     eager, on the kernel and with every list on its plain version (lists_on_plain)
+     f32 ones; each bf16 setting's |dE| beside the parent kernel's, PARENT_7B_DE);
+     then the 'default' sweeps again from the state they started from, eager, on
+     the kernel, with the mixed kind's lists on their plain version, and with every
+     list on its plain version (lists_on_plain)
   8. the bench step (cyten_tpu_torch.bench.step_run) at chi=4096: steady in f32 and
      f64, eager and as a CUDA graph (CUDA-event times), exact in f32; one chi=1024
      f64 static step, card against CPU (E 1e-9 relative, S 1e-8); then
      step_decomposition()
   9. the bench step at chi=4096 in f32 at 'tensorfloat32' and at 'default', with
-     env_dtype='bfloat16' and with work_dtype='bfloat16', eager and as a graph: ms,
+     env_dtype='bfloat16' (the mixed kind, at 'float32') and with
+     work_dtype='bfloat16', eager and as a graph (each graph beside phase 8's f32
+     graph step): ms,
      TFLOP/s, launches of each kind, E against the f32 'float32' step (within 0.05
      relative; every output of the bf16-work step bf16); the LP/RP bytes a matvec
      reads in f32 and in bf16
@@ -164,6 +180,9 @@ RAGGED = {
     # more table rows than fit in the launch's parameters
     'six_hundred_pairs': ([(9, 1 + k % 7, 5) for k in range(600)], [k // 2 for k in range(600)]),
 }
+# |dE| of phase 7b's settings with the parent kernel (PERF.md §5); ab_sweeps holds
+# the two kernels' energies in one call
+PARENT_7B_DE = {'env bf16, float32': 4.855e-3, 'env bf16, default': 6.010e-2}
 PALLAS_SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129),
                  (128, 128, 128), (128, 128, 128), (128, 128, 128), (1, 1, 1), (2, 300, 2)]
 
@@ -173,13 +192,25 @@ def peak_ops_per_s(dtype, precision: str = None) -> float:
     cores (67 TFLOP/s), bf16 tensor cores (989.4), f64 tensor cores (67, also for
     complex128, whose real operations they run), and for an
     f32 result at 'tensorfloat32' the TF32 tensor cores (494.7) and at 'default' the
-    bf16 ones (data sheet)."""
+    bf16 ones (data sheet). The mixed kind's rate depends on its pairs: mixed_ops_s."""
     import torch
 
     if dtype == torch.float32 and precision in ('tensorfloat32', 'default'):
         return {'tensorfloat32': 494.7e12, 'default': 989.4e12}[precision]
     return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989.4e12,
             torch.complex128: 67e12}[dtype]
+
+
+def mixed_ops_s(PA, PB) -> float:
+    """The least time of the mixed kind's products on the pair lists PA, PB: each
+    pair's 2 M K N operations once for each bf16 pass it runs (three where one
+    operand is f32, one where both are bf16) on the bf16 tensor cores (989.4
+    TFLOP/s)."""
+    import torch
+
+    ops = sum(2 * A.shape[0] * A.shape[1] * B.shape[1]
+              * (1 if A.dtype == B.dtype == torch.bfloat16 else 3) for A, B in zip(PA, PB))
+    return ops / 989.4e12
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -244,6 +275,28 @@ def check_rounded(label, got, ref, As, Bs, out_id, n_out, pairs, precision):
     return err
 
 
+# how far the mixed kind's sums may lean toward zero, relative to their size (sum_bias):
+# one accumulator over the whole depth leans by some K 2^-26 (-1.3e-5 at K = 4386 on
+# the card, PERF.md §6), the kernel's sum of k slices by that of one slice (~1e-7)
+MIXED_LEAN = 2. ** -20
+
+
+def sum_bias(outs, As, Bs, out_id, n_out, pairs, precision):
+    """``(bias, rms)`` of an f32 result ``outs`` against the f64 product of the same
+    rounded operands (the exact sums): sum((C - exact) sign(exact)) / sum|exact|, below
+    zero for sums that lean toward zero, and the relative root-mean-square error."""
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+
+    exact = gg.grouped_matmul_plain([gg._rounded(A, precision).double() for A in As],
+                                    [gg._rounded(B, precision).double() for B in Bs],
+                                    out_id, n_out, pairs)
+    lean = sum(float(((c.double() - r) * r.sign()).sum()) for c, r in zip(outs, exact))
+    err2 = sum(float(((c.double() - r) ** 2).sum()) for c, r in zip(outs, exact))
+    size = sum(float(r.abs().sum()) for r in exact)
+    norm2 = sum(float((r ** 2).sum()) for r in exact)
+    return lean / size if size else 0., (err2 / norm2) ** 0.5 if norm2 else 0.
+
+
 def check_complex(label, got, ref, As, Bs, out_id, n_out, pairs):
     """Kernel against plain for a complex128 result: each element is held to
     2 K_o 2^-52 (|A||B|)_ij, K_o the summed depth of the output's pairs and |A||B|
@@ -269,11 +322,11 @@ def check_complex(label, got, ref, As, Bs, out_id, n_out, pairs):
     return err
 
 
-def library_call(PA, PB, precision, b_bf16: bool):
+def library_call(PA, PB, precision):
     """One PyTorch call per pair computing what the kernel's kind computes, as the
     yardstick (``library_ms``): a per-pair torch.matmul loop, under TF32 for
     'tensorfloat32', on operands cast to bf16 once with an f32 result for 'default',
-    and with the bf16 operand widened per call for a mixed list."""
+    and with the bf16 operand widened per call for a mixed list ('float32')."""
     import torch
 
     if precision == 'tensorfloat32':
@@ -293,9 +346,7 @@ def library_call(PA, PB, precision, b_bf16: bool):
             return lambda: [torch.mm(A, B, out_dtype=torch.float32) for A, B in zip(A16, B16)]
         except (TypeError, NotImplementedError, RuntimeError):  # no out_dtype: bf16 widened
             return lambda: [torch.mm(A, B).float() for A, B in zip(A16, B16)]
-    if b_bf16:
-        return lambda: [torch.matmul(A, B.float()) for A, B in zip(PA, PB)]
-    return lambda: [torch.matmul(A.float(), B) for A, B in zip(PA, PB)]
+    return lambda: [torch.matmul(A.float(), B.float()) for A, B in zip(PA, PB)]
 
 
 def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 20,
@@ -344,6 +395,8 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
         if rounded:
             err = check_rounded(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs,
                                 precision)
+            bias = (*sum_bias(got, As, Bs, out_id, n_out, pairs, precision),
+                    *sum_bias(ref, As, Bs, out_id, n_out, pairs, precision))
         elif complex_out:
             if got and got[0].dtype != out_dtype:
                 raise AssertionError(f'{label} {name}: the kernel gave {got[0].dtype}')
@@ -358,11 +411,14 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
                                          f'{e} > {atol} + {rtol} * {scale}')
                 err = max(err, e)
         _, launch = grouped_matmul_plan(As, Bs, out_id, n_out, pairs, width)
+        if getattr(launch, 'kind', None) == 'float32_mixed' and not abs(bias[0]) <= MIXED_LEAN:
+            raise AssertionError(f'{label} {name}: the sums lean {bias[0]:.3e} of their size '
+                                 f'toward zero, past {MIXED_LEAN:.3e}')
         # the pair lists, for the library loop and the work count
         PA = As if pairs is None else [As[i] for i in pairs[0].tolist()]
         PB = Bs if pairs is None else [Bs[i] for i in pairs[1].tolist()]
         if rounded:
-            library = library_call(PA, PB, precision, b_dtype == torch.bfloat16)
+            library = library_call(PA, PB, precision)
         elif dtype != b_dtype:  # real x complex: torch.matmul takes one dtype
             library = lambda: [torch.matmul(A.to(out_dtype), B.to(out_dtype))
                                for A, B in zip(PA, PB)]
@@ -374,7 +430,10 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     finally:
         config.matmul_precision = old
     flops, nbytes = work_of(PA, PB, out_id, got[0].element_size(), complex_out)
-    t_ops = flops / peak_ops_per_s(out_dtype, precision)
+    if getattr(launch, 'kind', None) == 'float32_mixed':
+        t_ops = mixed_ops_s(PA, PB)
+    else:
+        t_ops = flops / peak_ops_per_s(out_dtype, precision)
     t_bytes = nbytes / HBM_BYTES_PER_S
     res = {'pairs': len(PA), 'outputs': n_out, 'tile': getattr(launch, 'tile', None),
            'form': getattr(launch, 'form', None),
@@ -384,6 +443,8 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
                                                         spread)),
            'bound_ms': max(t_ops, t_bytes) * 1e3,
            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+    if rounded:  # the sums against the exact ones: the kernel's, then the plain version's
+        res.update(zip(('bias', 'rms', 'plain_bias', 'plain_rms'), bias))
     print(f'[kernel] {label} {name}: ' + json.dumps(res), flush=True)
     return res
 
@@ -399,13 +460,15 @@ def rounded_cases():
             ('default', f32, bf16), (None, bf16, f32), (None, f32, bf16)]
 
 
-# device_ms of the TF32 and bf16-pass kinds in their register-staged form, which the
-# warp-specialised one replaced (PERF.md §6, this script's run of that form), at the
-# chi=4096 list: (precision, A dtype name) -> ms
+# device_ms of the TF32, bf16-pass and mixed ('float32', precision None) kinds in their
+# register-staged form, which the warp-specialised one replaced (PERF.md §6, this
+# script's runs of that form), at the chi=4096 list: (precision, A dtype name) -> ms
 STAGED_BEFORE_MS = {('tensorfloat32', 'float32'): 1.627, ('tensorfloat32', 'bfloat16'): 1.751,
-                 ('default', 'float32'): 1.037, ('default', 'bfloat16'): 1.337}
+                    ('default', 'float32'): 1.037, ('default', 'bfloat16'): 1.337,
+                    (None, 'bfloat16'): 3.676}
 # ... and at the L=24 centre list (chi=1024), LP bf16
-CENTRE_BEFORE_MS = {('tensorfloat32', 'bfloat16'): 0.050, ('default', 'bfloat16'): 0.042}
+CENTRE_BEFORE_MS = {('tensorfloat32', 'bfloat16'): 0.050, ('default', 'bfloat16'): 0.042,
+                    (None, 'bfloat16'): 0.0792}
 
 
 def misaligned(rng, rows, cols, pitch, dtype):
@@ -422,12 +485,12 @@ STAGED_WIDTHS = ('wide', 'narrow')
 
 
 def staged_hard_lists(rng, a_dtype, b_dtype, precision):
-    """The lists the TF32 and bf16-pass kinds' raw staging must get right (as in
+    """The lists the staged kinds' raw staging must get right (as in
     tests/test_torch_cuda.py): name -> (As, Bs, out_ids). Odd pitches with bases one
     element past alignment (K = 295); K not a multiple of BK = 32, K = 0 pairs,
     shared outputs, M < 64 and N < BN; for TF32 with f32 operands, values just above
     the rounding midpoint (low 13 bits 0x1001), where truncation would miss the
-    bound."""
+    bound; for the mixed kind (precision None, bf16 A) its own lists, mixed_lists."""
     import torch
 
     def dense(shapes):
@@ -449,7 +512,23 @@ def staged_hard_lists(rng, a_dtype, b_dtype, precision):
             return ((bits & ~0x1FFF) | 0x1001).view(torch.float32)
         As, Bs = dense([(150, 295, 140), (70, 40, 90)])
         lists['midpoint'] = ([midpoint(A) for A in As], [midpoint(B) for B in Bs], [0, 1])
+    if precision is None and a_dtype == torch.bfloat16:
+        lists.update(mixed_lists(rng))
     return lists
+
+
+def mixed_lists(rng):
+    """The mixed kind's own lists, on the card, as tests/test_torch_cuda.py::mixed_lists
+    makes them: name -> (As, Bs, out_ids). 'fine_bits': bf16 A against f32 B of values
+    1 + j 2^-20, whose low bits only B's mid and lo pieces carry (one bf16 pass misses
+    the bound there); 'deep': K = 4100 and 5000 summed into one output; 'per_pair':
+    bf16 x f32, f32 x f32 (nine passes), bf16 x bf16 (one), f32 x bf16 in one list,
+    shared outputs; 'tiny': f32 values from 2^-118 to 2^-108 on either side (the kernel
+    splits them times 2^24)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests'))
+    from test_torch_cuda import mixed_lists as lists
+
+    return lists(rng, 'cuda')
 
 
 def turns(fns, reps: int, rounds: int = 2):
@@ -542,6 +621,16 @@ def step_settings():
             ('work bf16', 'float32', {'work_dtype': 'bfloat16'})]
 
 
+def staged_kind(As, Bs) -> bool:
+    """Whether a list of these operands runs one of the staged kinds (TF32, the bf16
+    pass, the mixed kind) at config.matmul_precision as it is now."""
+    from cyten_tpu_torch.blocks import grouped_gemm as gg
+
+    dtypes = {t.dtype for t in (*As, *Bs)}
+    return gg._kind(dtypes, gg._common_dtype(dtypes))[0] in (
+        'tensorfloat32', 'default', 'float32_mixed')
+
+
 def step_list_phase() -> dict:
     """Each distinct list of the chi=CHI_BENCH bench step at every setting of
     step_settings, and of one static SU(2) (f64) and golden-chain (complex128) bond
@@ -550,9 +639,12 @@ def step_list_phase() -> dict:
     bound_ms, library_ms and the device ms of the kind's tiled form on the same list;
     at 'tensorfloat32' and 'default' the other lists give the tile picked and the
     kernel's device ms at each of the two tiles (the data behind
-    blocks/grouped_gemm.py::_TILE_MODEL). Returns the compare_kernel results of the
-    thin lists, by '<setting> <form>': of a form's lists, the one planned most often
-    (a step's W contractions, not a list of the state's set-up), then the largest."""
+    blocks/grouped_gemm.py::_TILE_MODEL); the mixed kind's (at 'float32' with LP and
+    RP bf16) are held against their plain version by compare_kernel at its one tile,
+    their sums' lean to MIXED_LEAN. Returns the compare_kernel
+    results of the thin lists, by '<setting> <form>': of a form's lists, the one
+    planned most often (a step's W contractions, not a list of the state's set-up),
+    then the largest."""
     import torch
     from cyten_tpu_torch import fibonacci_anyon_category, su2_symmetry, Dtype
     from cyten_tpu_torch.bench import build_golden_workload, build_su2_workload
@@ -575,20 +667,24 @@ def step_list_phase() -> dict:
             config.matmul_precision = prec
             try:
                 launch = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1]
+                staged = staged_kind(As, Bs)
                 if launch.form is not None:
                     tiled = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs, 'tiled')[1]
                     times, spread = turns([launch, tiled], 20)
-                elif prec in ('tensorfloat32', 'default'):
+                elif staged and prec != 'float32':  # TF32, the bf16 pass: two tiles
                     launches = [grouped_matmul_plan(As, Bs, out_ids, n_out, pairs, w)[1]
                                 for w in STAGED_WIDTHS]
                     times, spread = turns(launches, 20)
             finally:
                 config.matmul_precision = old
             if launch.form is None:
-                if prec in ('tensorfloat32', 'default'):
+                if staged and prec != 'float32':
                     print(f'[step list] {name}: tile {launch.tile}, device ms wide '
                           f'{times[0]:.4f}, narrow {times[1]:.4f} (spreads {spread[0]:.3f}, '
                           f'{spread[1]:.3f})', flush=True)
+                elif staged:  # the mixed kind (one tile), held to its plain version
+                    compare_kernel(f'step list {name}', As, Bs, out_ids, n_out, As[0].dtype,
+                                   pairs, b_dtype=Bs[0].dtype, as_given=True)
                 continue
             rounded = prec in ('tensorfloat32', 'default')
             res = compare_kernel(f'step list {name}', As, Bs, out_ids, n_out, As[0].dtype,
@@ -653,16 +749,21 @@ def thin_crossover() -> None:
 
 
 @contextlib.contextmanager
-def lists_on_plain():
-    """Inside the block every grouped-GEMM list runs its plain version
-    (grouped_matmul_plain, at the precision configured when it is planned) in place
-    of the kernel: the sums in another order, the products the same."""
+def lists_on_plain(kinds=None):
+    """Inside the block every grouped-GEMM list (with ``kinds``, only those the kernel
+    would run on one of these kinds) runs its plain version (grouped_matmul_plain, at
+    the precision configured when it is planned) in place of the kernel: the sums in
+    another order, the products the same."""
     from cyten_tpu_torch.blocks import grouped_gemm as gg
     from cyten_tpu_torch.config import config
 
     plan = gg.grouped_matmul_plan
 
     def plain_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None):
+        if kinds is not None:
+            outs, launch = plan(As, Bs, out_ids, n_out, pairs, width)
+            if getattr(launch, 'kind', None) not in kinds:
+                return outs, launch
         precision = config.matmul_precision
         return None, lambda: gg.grouped_matmul_plain(As, Bs, out_ids, n_out, pairs,
                                                      precision)
@@ -734,14 +835,20 @@ def converged(eng, full, max_sweeps: int) -> float:
 
 def ab_sweeps(builds: dict, label: str, eng, n: int = 2) -> None:
     """Replayed static sweeps of ``eng`` on each build of ``builds`` in turns (old,
-    new, new, old; [ab sweep]): per turn the graphs captured anew on that build, then
-    ``n`` sweeps replayed and timed on the host clock, ended by a sync; the energy and
-    the launches of the last sweep by kind (thin: the thin forms)."""
+    new, new, old; [ab sweep]), each turn from the same state (the engine's B, S, LP
+    and RP as they were, copied): the graphs captured anew on that build, then ``n``
+    sweeps replayed and timed on the host clock, ended by a sync; the energy after
+    each turn, the largest relative difference between the builds' energies and
+    within a build's turns, and the launches of the last sweep by kind (thin: the
+    thin forms)."""
     import torch
     from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
 
-    seconds, energy, counts = {k: [] for k in builds}, {}, {}
+    psi = eng.psi
+    start = [[t.copy() for t in ts] for ts in (psi.Bs, psi.Ss, eng.LPs, eng.RPs)]
+    seconds, energy, counts = {k: [] for k in builds}, {k: [] for k in builds}, {}
     for name in ('old', 'new', 'new', 'old'):
+        psi.Bs, psi.Ss, eng.LPs, eng.RPs = ([t.copy() for t in ts] for ts in start)
         route_grouped_gemm(builds[name])
         eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
         eng.sweep_static_batched()  # captures this build's graphs
@@ -750,15 +857,20 @@ def ab_sweeps(builds: dict, label: str, eng, n: int = 2) -> None:
             for k in (*grouped_matmul.kinds.values(), grouped_matmul.thin):
                 k.launches = 0
             t0 = time.perf_counter()
-            energy[name] = eng.sweep_static_batched()
+            E = eng.sweep_static_batched()
             torch.cuda.synchronize()
             seconds[name].append(time.perf_counter() - t0)
+        energy[name].append(E)
         counts[name] = {k: v.launches for k, v in grouped_matmul.kinds.items() if v.launches}
         counts[name]['thin'] = grouped_matmul.thin.launches
     route_grouped_gemm(None)
+    E_ref = abs(energy['old'][0])
+    between = max(abs(a - b) for a in energy['old'] for b in energy['new']) / E_ref
+    within = max(abs(v[0] - v[1]) for v in energy.values()) / E_ref
     print(f'[ab sweep] {label}: replayed sweep s ' + ', '.join(
         f'{k} {np.median(v):.4f} {[round(t, 4) for t in v]}' for k, v in seconds.items())
-        + f'; E old {energy["old"]!r}, new {energy["new"]!r}; launches by kind old '
+        + f'; E old {energy["old"]!r}, new {energy["new"]!r} (relative between the builds '
+        f'{between:.3e}, within {within:.3e}); launches by kind old '
         f'{json.dumps(counts["old"])}, new {json.dumps(counts["new"])}', flush=True)
 
 
@@ -767,11 +879,13 @@ def ab_run(against: str) -> int:
     csrc/grouped_gemm.cu with the same C interface (for example the parent commit's,
     ``git show HEAD~1:cyten_tpu_torch/csrc/grouped_gemm.cu > chip_checkout/old.cu``), in
     one process, each measurement on the builds in turns (old, new, new, old):
-    - at 'tensorfloat32' and 'default', the chi=CHI_BENCH bench step as a CUDA graph
-      ([ab step], ms), then each distinct list of such a step ([ab list]);
-    - each thin list of the bench step at every other setting of step_settings
-      ([ab list]), the bench's chi=1024 and chi=CHI_BENCH tdot(LP, theta) lists, LP
-      in f32 and in bf16 ([ab tdot]), and the chi=CHI_BENCH list made complex128
+    - at 'tensorfloat32' and 'default', with bf16 environments at 'float32' and in
+      f32 at 'float32', the chi=CHI_BENCH bench step as a CUDA graph ([ab step], ms),
+      then each distinct list of the first two's step ([ab list]);
+    - each thin list of the bench step at every other setting of step_settings and
+      each list of the mixed kind ([ab list]), the bench's chi=1024 and chi=CHI_BENCH
+      tdot(LP, theta) lists, LP in f32 and in bf16 (at 'float32' LP bf16 only: the
+      mixed kind) ([ab tdot]), and the chi=CHI_BENCH list made complex128
       ([ab complex]): device ms, medians over four turns, spreads;
     - replayed static sweeps (ab_sweeps): U(1) L=24 at chi_max=1024 in f64, then in
       f32 with bf16 environments at 'float32' and 'default' (phase 7b's settings),
@@ -814,13 +928,15 @@ def ab_run(against: str) -> int:
         return ', '.join(f'{k} {t:.4f} ({s:.3f})' for k, t, s in zip(builds, times, spread)) + (
             f', new as {form}')
 
-    for precision in ('tensorfloat32', 'default'):
+    for label, kw in (('tensorfloat32', {'precision': 'tensorfloat32'}),
+                      ('default', {'precision': 'default'}),
+                      ('env bf16, float32', {'env_dtype': 'bfloat16'}),
+                      ('float32', {})):
         step_ms = {'old': [], 'new': []}
         for name in ('old', 'new', 'new', 'old'):
             route_grouped_gemm(builds[name])
-            step_ms[name].append(step_run(CHI_BENCH, precision=precision, graph=True)[0]
-                                 * 1e3)
-        print(f'[ab step] chi={CHI_BENCH} {precision} graph, ms: ' + ', '.join(
+            step_ms[name].append(step_run(CHI_BENCH, graph=True, **kw)[0] * 1e3)
+        print(f'[ab step] chi={CHI_BENCH} {label} graph, ms: ' + ', '.join(
             f'{k} {np.mean(v):.3f} {[round(t, 3) for t in v]}' for k, v in step_ms.items()),
             flush=True)
         route_grouped_gemm(None)
@@ -830,9 +946,10 @@ def ab_run(against: str) -> int:
             config.matmul_precision = prec
             try:
                 form = grouped_matmul_plan(As, Bs, out_ids, n_out, pairs)[1].form
+                mixed = staged_kind(As, Bs) and prec == 'float32'
             finally:
                 config.matmul_precision = old
-            if prec == precision and (form is not None or (
+            if prec == precision and (form is not None or mixed or (
                     not kw and prec in ('tensorfloat32', 'default'))):
                 print(f'[ab list] {setting} {list_name(As, Bs, pairs, count)}, device ms '
                       f'(spread): {timed(As, Bs, out_ids, n_out, pairs, prec)}', flush=True)
@@ -841,8 +958,10 @@ def ab_run(against: str) -> int:
     for chi in (1024, CHI_BENCH):
         LP, RP, W1, W2, theta = build_workload(backend, chi, Dtype.float32)
         As, Bs, pairs, out_id, n_out = lp_theta_pairs(LP, theta)
-        for precision in ('tensorfloat32', 'default'):
+        for precision in ('tensorfloat32', 'default', 'float32'):
             for a_dtype in (torch.float32, torch.bfloat16):
+                if precision == 'float32' and a_dtype == torch.float32:
+                    continue  # the f32 kind: not a converting one
                 row = timed([A.to(a_dtype) for A in As], Bs, out_id, n_out, pairs, precision)
                 print(f'[ab tdot] chi={chi} tdot(LP, theta) {precision} {str(a_dtype)[6:]} '
                       f'x float32, device ms (spread): {row}', flush=True)
@@ -1186,14 +1305,16 @@ def tridiag_phase() -> dict:
 
 
 # kernel policy (its mangled name) -> the SASS instruction its products must run on
-# (TF32 and the bf16 pass at each width: TF32Pass<256>, TF32Pass<128>, ...; complex128
-# at each tile: ComplexTile<128>, ComplexTile<64>)
-SASS_OPS = {'3F64': 'DMMA', '4BF16': 'HGMMA', '3F32': 'FFMA', '4F32W': 'FFMA',
+# (TF32 and the bf16 pass at each width: TF32Pass<256>, TF32Pass<128>, ...; the mixed
+# kind's one, F32WPass; complex128 at each tile: ComplexTile<128>, ComplexTile<64>)
+SASS_OPS = {'3F64': 'DMMA', '4BF16': 'HGMMA', '3F32': 'FFMA',
             '8TF32PassILi256': 'HGMMA', '8TF32PassILi128': 'HGMMA',
             '8BF16PassILi256': 'HGMMA', '8BF16PassILi128': 'HGMMA',
-            '11ComplexTileILi128E': 'DMMA', '11ComplexTileILi64E': 'DMMA'}
-# ... and the instructions it must not hold: TF32 runs on wgmma, not mma.sync (HMMA)
-SASS_ABSENT = {'8TF32PassILi256': 'HMMA', '8TF32PassILi128': 'HMMA'}
+            '8F32WPassE': 'HGMMA', '11ComplexTileILi128E': 'DMMA', '11ComplexTileILi64E': 'DMMA'}
+# ... and the instructions it must not hold: TF32 runs on wgmma, not mma.sync (HMMA);
+# the mixed kind's products are its bf16 passes on wgmma, none on the FMA pipes (FFMA)
+SASS_ABSENT = {'8TF32PassILi256': 'HMMA', '8TF32PassILi128': 'HMMA',
+               '8F32WPassE': 'FFMA'}
 # the thin forms (seven kinds, two forms, two table paths) run on the CUDA cores' FMA
 # pipes and hold no tensor-core instruction
 THIN_KERNELS = 28
@@ -1202,8 +1323,9 @@ TENSOR_CORE_OPS = ('DMMA', 'HGMMA', 'HMMA')
 
 def check_sass(kernels):
     """The SASS of each kind of the grouped GEMM holds the instruction its products
-    must run on (SASS_OPS: DMMA for f64 and complex128, HGMMA for bf16, TF32 and the
-    bf16 pass, FFMA for f32) and none of SASS_ABSENT's (no HMMA in TF32), and each of
+    must run on (SASS_OPS: DMMA for f64 and complex128, HGMMA for bf16, TF32, the bf16
+    pass and the mixed kind, FFMA for f32) and none of SASS_ABSENT's (no HMMA in TF32,
+    no FFMA in the mixed kind), and each of
     the THIN_KERNELS thin forms FFMA or DFMA and no tensor-core instruction, by
     cuobjdump where the toolkit has it; raises if one is missing or one is found."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
@@ -1648,24 +1770,27 @@ def main() -> int:
             rB = [torch.from_numpy(rng.normal(size=(K, N))).cuda() for M, K, N in shapes]
             compare_kernel(f'ragged {case}', rA, rB, np.array(out_ids), max(out_ids) + 1,
                            a_dtype, reps=5, precision=precision, b_dtype=b_dtype)
-        if precision is not None:  # TF32, the bf16 pass: the lists their staging must get right
-            for case, (hA, hB, ids) in staged_hard_lists(rng, a_dtype, b_dtype,
-                                                         precision).items():
-                for width in STAGED_WIDTHS:
-                    compare_kernel(f'staged {case} {width}', hA, hB, np.array(ids),
-                                   max(ids) + 1, a_dtype, reps=5, precision=precision,
-                                   b_dtype=b_dtype, as_given=True, width=width)
+        # the staged kinds (TF32, the bf16 pass, mixed): the lists their staging must get
+        # right, at each tile
+        for case, (hA, hB, ids) in staged_hard_lists(rng, a_dtype, b_dtype,
+                                                     precision).items():
+            # the mixed kind has one tile
+            for width in STAGED_WIDTHS if precision is not None else (None,):
+                compare_kernel(f'staged {case} {width or "tiled"}', hA, hB, np.array(ids),
+                               max(ids) + 1, a_dtype, reps=5, precision=precision,
+                               b_dtype=b_dtype, as_given=True, width=width)
         if b_dtype == torch.float32:  # LP as the bf16 operand: the env_dtype matvec
             res = rounded[precision, a_dtype] = compare_kernel(
                 f'chi={CHI_BENCH} tdot(LP, theta)', As, Bs, out_id, n_out, a_dtype, pairs,
                 precision=precision, b_dtype=b_dtype)
             before = STAGED_BEFORE_MS.get((precision, str(a_dtype).split('.')[-1]))
             if before is not None:
-                print(f'[kernel] chi={CHI_BENCH} tdot(LP, theta) {precision} '
+                print(f'[kernel] chi={CHI_BENCH} tdot(LP, theta) {precision or "float32"} '
                       f'{str(a_dtype).split(".")[-1]} x float32: device_ms '
                       f'{res["device_ms"]:.4f} against {before} in the register-staged form, '
-                      f'bound {res["bound_ms"]:.4f}, library_ms {res["library_ms"]:.4f}',
-                      flush=True)
+                      f'bound {res["bound_ms"]:.4f}'
+                      + (f' (the FMA pipes\' {res["gflop"] / 67:.4f})' if precision is None
+                         else '') + f', library_ms {res["library_ms"]:.4f}', flush=True)
     del LP, RP, W1, W2, theta
     torch.cuda.empty_cache()
     thin = step_list_phase()  # the bench step's own lists, the thin ones held to plain
@@ -1762,10 +1887,10 @@ def main() -> int:
     for precision, a_dtype, b_dtype in rounded_cases():
         res = compare_kernel(f'L=24 chi={psi.max_chi()} centre tdot(LP, theta)', As, Bs,
                              out_id, n_out, a_dtype, pairs, precision=precision,
-                             b_dtype=b_dtype, rounds=8 if precision else 2)
+                             b_dtype=b_dtype, rounds=8)
         before = CENTRE_BEFORE_MS.get((precision, str(a_dtype).split('.')[-1]))
         if before is not None and b_dtype == torch.float32:
-            print(f'[kernel] L=24 centre tdot(LP, theta) {precision} '
+            print(f'[kernel] L=24 centre tdot(LP, theta) {precision or "float32"} '
                   f'{str(a_dtype).split(".")[-1]} x float32: device_ms '
                   f'{res["device_ms"]:.4f} (spread {res["spread"]["device_ms"]:.3f}) against '
                   f'{before} in the register-staged form', flush=True)
@@ -1944,8 +2069,11 @@ def main() -> int:
         env_dtypes = sorted({t.dtype.name for t in eng.LPs[1:-1] + eng.RPs[1:-1]})
         counts = {k: v.launches for k, v in kinds.items() if v.launches}
         counts['thin'] = grouped_matmul.thin.launches
+        parent = PARENT_7B_DE.get(setting)
         print(f'[L=24 static env] {setting}: E = {E_env!r}, |dE| = '
-              f'{abs(E_env - HEIS24_E_REF):.3e}, sweep s {json.dumps(sweep_s)}, graphs '
+              f'{abs(E_env - HEIS24_E_REF):.3e}'
+              f'{f" (the parent kernel: {parent:.3e})" if parent else ""}, '
+              f'sweep s {json.dumps(sweep_s)}, graphs '
               f'{captured[-1]}, interior LP/RP {env_dtypes}, grouped-GEMM launches by '
               f'kind {json.dumps(counts)}', flush=True)
         # bf16 environments perturb the Lanczos energy to first order (0.02 relative,
@@ -1959,10 +2087,13 @@ def main() -> int:
     if not captured[0] < captured[1] < captured[2]:
         raise AssertionError(f'static graphs were not captured anew: {captured}')
     # the 'env bf16, default' sweeps again from the state they started from, eager,
-    # on the kernel and with every list on its plain version at 'default' (the same
-    # products, the sums in another order): how far the order of the sums alone
-    # moves this setting's energy
-    for lists, routing in (('kernel', contextlib.nullcontext), ('plain', lists_on_plain)):
+    # on the kernel, with the mixed kind's lists on their plain version, and with
+    # every list on its plain version at 'default' (the same products, the sums in
+    # another order): how far the order of the sums alone moves this setting's
+    # energy, and how much of that the mixed kind's sums make
+    for lists, routing in (('kernel', contextlib.nullcontext),
+                           ('mixed-kind plain', lambda: lists_on_plain({'float32_mixed'})),
+                           ('plain', lists_on_plain)):
         psi.Bs, psi.Ss, eng.LPs, eng.RPs = (list(x) for x in before_default)
         eng.env_dtype, eng.matmul_precision = Dtype.bfloat16, 'default'
         eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
@@ -1991,6 +2122,8 @@ def main() -> int:
                                  lengths=(2, 6) if graph else lengths, repeats=repeats)
         if (svd_mode, dtype, graph) == ('steady', Dtype.float32, False):
             E_step32 = step_run.energy
+        if (svd_mode, dtype, graph) == ('steady', Dtype.float32, True):
+            step32_graph_ms = t_step * 1e3
         print(f'[step chi={CHI_BENCH} {svd_mode} {dtype.name}'
               f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step, '
               f'{flops / t_step / 1e12:.3f} TFLOP/s ({flops / 1e9:.2f} GFLOP/step), '
@@ -2047,7 +2180,8 @@ def main() -> int:
             dE = abs(step_run.energy - E_step32) / abs(E_step32)
             out_dtypes = [d.name for d in step_run.out_dtypes]
             print(f'[step chi={CHI_BENCH} steady float32 {name}'
-                  f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step, '
+                  f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step'
+                  f'{f" (the f32 step as a graph: {step32_graph_ms:.3f})" if graph else ""}, '
                   f'{flops / t_step / 1e12:.3f} TFLOP/s, E {step_run.energy!r} against '
                   f'the float32 step {E_step32!r} (relative {dE:.3e}), outputs '
                   f'{out_dtypes}, launches by kind {json.dumps(counts)}', flush=True)

@@ -14,12 +14,13 @@ kernel and how its design answers that.
 
 A list whose operands are f32, or f32 and bf16, gives f32 and is computed at the
 precision ``config.matmul_precision`` names when the call is planned: 'float32' (or
-None) exactly, 'tensorfloat32' on TF32 tensor cores, 'default' as one bf16 pass. A
-bf16 operand of such a list is read by the kernel where it lies, in bf16. f64 and
-bf16 lists ignore the setting, as JAX's precision touches only f32 dots. A list with
-a complex128 operand gives complex128, computed at full precision by the kernel's
-complex kind; its real operands are copied to complex128 first. Each kind of launch
-is counted on its own too (``grouped_matmul.kinds``).
+None) exactly (f32 with a bf16 operand as three exact bf16 passes on the tensor
+cores, :func:`split_bf16x3`), 'tensorfloat32' on TF32 tensor cores, 'default' as one
+bf16 pass. A bf16 operand of such a list is read by the kernel where it lies, in
+bf16. f64 and bf16 lists ignore the setting, as JAX's precision touches only f32
+dots. A list with a complex128 operand gives complex128, computed at full precision
+by the kernel's complex kind; its real operands are copied to complex128 first. Each
+kind of launch is counted on its own too (``grouped_matmul.kinds``).
 
 A thin list (every pair of depth at most ``THIN_PICK_K``, and every output at most
 ``THIN_PICK_S`` columns wide, or at most that many rows tall: the environment
@@ -48,7 +49,8 @@ import torch
 from ..config import config
 from ._kernels import call, count, function
 
-__all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'round_tf32']
+__all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'round_tf32',
+           'split_bf16x3']
 
 # the kernel's kinds (csrc/grouped_gemm.cu): name -> code. float64, float32, bfloat16
 # and complex128 compute in their operands' own dtype; float32_mixed, tensorfloat32
@@ -56,9 +58,9 @@ __all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'rou
 # says
 _KIND_CODE = {'float64': 0, 'float32': 1, 'bfloat16': 2, 'float32_mixed': 3,
               'tensorfloat32': 4, 'default': 5, 'complex128': 6}
-# the staged kinds and the complex one come in two widths: the codes above run their
-# wide tiles (128 x 256; complex128 128 x 64), these their narrow ones (128 x 128;
-# 64 x 64); _staged_tile picks one per list
+# TF32, the bf16 pass and the complex kind come in two widths: the codes above run
+# their wide tiles (128 x 256; complex128 128 x 64), these their narrow ones (128 x 128;
+# 64 x 64); _staged_tile picks one per list. The mixed kind has one, 128 x 128
 _NARROW_CODE = {'tensorfloat32': 7, 'default': 8, 'complex128': 9}
 # per kind of _NARROW_CODE: its k slice (csrc/grouped_gemm.cu: Staged::BK,
 # ComplexTile::BK) and what a step of its wide tile costs against one of its narrow
@@ -90,19 +92,29 @@ _DTYPE_KIND = {torch.float64: 'float64', torch.float32: 'float32',
 _F32_OPERANDS = frozenset({torch.float32, torch.bfloat16})
 
 
-def _kind(dtypes, dtype):
+def _kind(dtypes, dtype, f32_pair: bool = False):
     """``(kind, readable)`` for a list of operand dtypes ``dtypes`` whose common
     dtype is ``dtype``: the kernel's kind, for an f32 result at the precision of
     ``config.matmul_precision`` (read now, when the call is planned), else the
-    dtype's own; and the operand dtypes that kind reads as they lie."""
+    dtype's own; and the operand dtypes that kind reads as they lie. ``f32_pair``:
+    whether a pair of the list has two f32 operands, which the mixed kind does not
+    take: at 'float32' the f32 kind runs such a list, its bf16 operands widened."""
     if dtype != torch.float32:
         return _DTYPE_KIND[dtype], frozenset({dtype})
     precision = config.matmul_precision
     if precision in ('tensorfloat32', 'default'):
         return precision, _F32_OPERANDS
-    if dtypes == {torch.float32}:
+    if dtypes == {torch.float32} or f32_pair:
         return 'float32', frozenset({dtype})
     return 'float32_mixed', _F32_OPERANDS
+
+
+def _has_f32_pair(ua, ia, ub, ib) -> bool:
+    """Whether a pair ``(ua[ia[p]], ub[ib[p]])`` of a list has two f32 operands."""
+    def bf16(ts):
+        return np.fromiter((t.dtype == torch.bfloat16 for t in ts), bool, len(ts))
+    return not bool((bf16(ua)[ia] | bf16(ub)[ib]).all())
+
 
 # unbound tensor methods, mapped over a list in C rather than called one by one
 _T = torch.Tensor
@@ -326,6 +338,23 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     away from zero, as ``cvt.rna.tf32.f32`` rounds: half a unit of the last kept bit
     added to the magnitude's bits, the 13 dropped bits then cleared."""
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_bf16x3(x: torch.Tensor):
+    """``(hi, mid, lo)``, three bf16 tensors whose sum is ``x`` (f32) exactly, as the
+    kernel's float32_mixed kind splits its f32 operand: ``hi`` is ``x`` rounded to bf16
+    (to nearest even), ``mid`` the rest rounded, ``lo`` what is left, rounded. Both
+    rests are exact in f32, and what is left after ``mid`` has at most 8 significant
+    bits, so the sum is exact for |x| from about 2^-110 (below, ``lo`` needs bits
+    finer than bf16's smallest subnormal) to where ``hi`` rounds to infinity. The
+    kernel's passes multiply these pieces; this states its split for the tests. (The
+    kernel splits its f32 operand times 2^24, which every f32 below 2^104 keeps
+    exactly, and scales its sums back by 2^-24.)"""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
 
 
 def _rounded(t: torch.Tensor, precision) -> torch.Tensor:
@@ -591,6 +620,12 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None
     raise ``ValueError`` for another), 'wide' (128 x 256; complex128 128 x 64) or
     'narrow' (128 x 128; complex128 64 x 64).
 
+    The mixed kind ('float32' with a bf16 operand) splits its f32 operand in three
+    bf16 pieces times 2^24 (:func:`split_bf16x3`) and scales its sums back: its
+    operands and results must stay below 2^104 (about 2e31) in magnitude, or they
+    come out inf. A list with a pair of two f32 operands runs on the f32 kind, its
+    bf16 operands widened.
+
     The host reads each operand once (with ``pairs``, once however many pairs read
     it), and what follows from the shapes alone once per distinct pair list
     (:func:`_layouts`).
@@ -608,6 +643,8 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None
     if dtype not in _DTYPE_KIND:
         raise NotImplementedError(f'grouped_matmul: no CUDA kernel for {dtype}')
     kind, readable = _kind(dtypes, dtype)
+    if kind == 'float32_mixed' and _has_f32_pair(ua, ia, ub, ib):
+        kind, readable = _kind(dtypes, dtype, f32_pair=True)
     code, inline_words, n_out, out_layout, table_layout, form = _kind_layouts(
         a, ia, b, ib, out_ids, n_out, dtype, kind, index, width)
     a_bf16 = _as_operands(ua, a, a_dt, dtype, readable)
@@ -633,6 +670,7 @@ def grouped_matmul_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None
     launch.operands = (ua, ub, keep)  # alive for as long as launch is
     launch.tile = table_layout.tile
     launch.form = form
+    launch.kind = kind
     return outs, launch
 
 

@@ -27,20 +27,25 @@
 // own type, so a bf16 block is read once at half width and never copied. They round
 // as config.matmul_precision says (the Hopper forms of the TPU's f32 passes that
 // cyten_tpu/algorithms/dmrg.py::_with_precision describes):
-//   f32w  'float32' with a bf16 operand: staged through registers, widened exactly,
-//         then the f32 FMA path.
+//   f32w  'float32' with a bf16 operand: the f32 operand split exactly into three bf16
+//         pieces (hi, mid, lo), three passes of wgmma.m64n128k16 bf16 (the TPU's own
+//         'float32' arithmetic; three of the six passes it runs for f32 x f32, as a
+//         bf16 operand is one piece), each k slice's from zero and then added into a
+//         register sum, rounded to nearest. See F32WPass.
 //   tf32  'tensorfloat32': each value rounded to TF32 (nearest, ties away from zero,
 //         as cvt.rna.tf32.f32 and round_tf32 round), wgmma.m64nNk8.tf32 with f32
 //         accumulators (495 TFLOP/s).
 //   bf16p 'default': each value rounded to bf16 (nearest even), then
 //         wgmma.m64nNk16 bf16, one pass, f32 written.
-//   Both on 128 x 256 tiles (N = 256), or 128 x 128 (N = 128) for the lists whose
-//   outputs are narrow or too few to fill the card: the host picks the width of each
-//   list from its shapes (see cyten_grouped_gemm_info).
-// Every product of rounded values is exact in f32, so each kind differs from its
-// plain version (grouped_matmul_plain(precision=)) only by the order of the sum.
+//   tf32 and bf16p on 128 x 256 tiles (N = 256), or 128 x 128 (N = 128) for the lists
+//   whose outputs are narrow or too few to fill the card: the host picks the width of
+//   each list from its shapes (see cyten_grouped_gemm_info). f32w on 128 x 128 only:
+//   its register sum doubles the accumulators.
+// Every product of rounded values (or of bf16 pieces) is exact in f32, so each kind
+// differs from its plain version (grouped_matmul_plain(precision=)) only by the order
+// of the sum.
 //
-// tf32 and bf16p are warp-specialised (grouped_gemm_staged). cp.async cannot
+// The three are warp-specialised (grouped_gemm_staged). cp.async cannot
 // convert, and wgmma .tf32 would truncate raw f32 bits (dropping the low 13 bits,
 // up to one TF32 unit from round_tf32, far past the K 2^-23 |A||B| bound), so the
 // conversion is a pass of its own between two rings in shared memory:
@@ -52,10 +57,11 @@
 //     mbarrier gets one arrival a producer warp once cp.async.wait_group shows the
 //     warp's copies landed, RAW_STAGES - 2 steps after they started;
 //   - two consumer warpgroups read a raw stage into registers (and release it on
-//     its empty mbarrier), widen and round each value as the plain version does,
-//     write it into the 128-byte-swizzled layout the wgmma descriptors read (tf32:
-//     A and B K-major, B transposed by the pass, since wgmma takes no transpose
-//     flag for 32-bit types; bf16p: A K-major, B MN-major), fence the async proxy
+//     its empty mbarrier), widen and round (or split) each value as the plain
+//     version does, write it into the 128-byte-swizzled layout the wgmma
+//     descriptors read (tf32: A and B K-major, B transposed by the pass, since wgmma
+//     takes no transpose flag for 32-bit types; bf16p and f32w's pieces: A K-major,
+//     B MN-major; f32w's bf16 A into registers, wgmma's RS form), fence the async proxy
 //     and start the products. Two rounded buffers alternate: the reads and the
 //     rounding of one k slice run while the products of the slice before are in
 //     flight. setmaxnreg moves registers from the producer (56) to them (224).
@@ -67,7 +73,7 @@
 // reads A from L2 half as often per product as a 128 x 128 one and halves the steps
 // and their waits.
 // The rounded buffers leave room for two raw stages (tf32) or three (bf16p) at
-// 128 x 256, four and five at 128 x 128.
+// 128 x 256, four (tf32, f32w) and five (bf16p) at 128 x 128.
 // One more kind computes complex128 lists (the Fibonacci golden chain's compose
 // lists, whose MPO is complex), at full precision whatever config.matmul_precision
 // says, as cyten_tpu computes complex products:
@@ -79,12 +85,12 @@
 // tensor): a streaming pass on the CUDA cores, bound by memory.
 // The other kinds' operands reach shared memory through a ring of stages filled by
 // cp.async, so the loads of later k slices overlap the products of this one (tf32,
-// bf16p and c128: above). Every ring runs over the concatenated (pair, k slice)
+// bf16p, f32w and c128: above). Every ring runs over the concatenated (pair, k slice)
 // stream of a tile: the loads of the next pair overlap the last products of this one.
 //
 // Alignment. Sector sizes are arbitrary (1462, 980, 295, 40, 2 at chi = 4096), so a
-// row of A or B starts on a 16-byte boundary only by chance. The f64, f32, bf16 and
-// f32w kinds pick one copy width per operand of a pair (copy_bytes), the widest of
+// row of A or B starts on a 16-byte boundary only by chance. The f64, f32 and bf16
+// kinds pick one copy width per operand of a pair (copy_bytes), the widest of
 // 16, 8 and 4 bytes that divides both the base address and the row pitch; a bf16
 // operand with an odd pitch is copied one element at a time through registers. A
 // complex128 element is 16 bytes: the wrapper hands the kernel 16-byte-aligned bases.
@@ -235,7 +241,7 @@ struct F64 {
   static constexpr int LDB = BN + 4;
   static constexpr int A_BYTES = BM * LDA * 8;
   static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 8;
-  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = false;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false;
   struct Acc { double v[4][4][4]; };  // [m16 tile][n8 tile][fragment]
 
   __device__ __forceinline__ static uint32_t a_off(int r, int c) {
@@ -319,7 +325,7 @@ struct F32 {
   static constexpr int LDB = BN + 4;
   static constexpr int A_BYTES = BM * LDA * 4;
   static constexpr int STAGE_BYTES = A_BYTES + BK * LDB * 4;
-  static constexpr bool SWIZZLED = false, ASYNC_MMA = false, CONVERTS = false;
+  static constexpr bool SWIZZLED = false, ASYNC_MMA = false;
   struct Acc { float v[8][8]; };
 
   __device__ __forceinline__ static uint32_t a_off(int r, int c) { return (r * LDA + c) * 4; }
@@ -398,8 +404,10 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
        | (1ull << 62);
 }
 
-// D[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major: trans-b = 1)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// D[64 x 128] = A[64 x 16] (K-major) * B[16 x 128] (MN-major: trans-b = 1), plus D
+// unless scale_d is 0
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -422,7 +430,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 struct BF16 {
@@ -431,7 +439,7 @@ struct BF16 {
                        LOAD_UNROLL = 8;
   static constexpr int A_BYTES = BM * BK * 2;  // 16 KiB
   static constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2;
-  static constexpr bool SWIZZLED = true, ASYNC_MMA = true, CONVERTS = false;
+  static constexpr bool SWIZZLED = true, ASYNC_MMA = true;
   struct Acc { float v[64]; };
 
   // 128-byte swizzle (the layout of TMA's SWIZZLE_128B): in each 1024-byte block of
@@ -494,50 +502,6 @@ struct BF16 {
 
 template <class P> struct Out { using type = typename P::T; };
 template <> struct Out<BF16> { using type = __nv_bfloat16; };
-
-// ---- f32w: a bf16 operand widened as it is staged through registers ------------------
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(uint16_t bits) {  // bf16 -> f32, exact
-  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
-}
-
-// Copies the ROWS x COLS box at (r0, c0) of a row-major matrix of S (float, or bf16
-// bits; pitch ld, R x C valid) into one stage through registers: two neighbouring
-// elements a thread, widened to f32 and handed to P::store2, which writes them at
-// byte off(r, c) of `stage`; what lies outside the matrix is zero. (f32w only.)
-template <typename S, class P, int ROWS, int COLS, class Off>
-__device__ __forceinline__ void load_box_cvt(unsigned char* stage, const S* base, int64_t ld,
-                                             int64_t r0, int64_t c0, int64_t R, int64_t C,
-                                             Off off) {
-  constexpr int PER_ROW = COLS / 2;
-  static_assert(P::THREADS % PER_ROW == 0, "a row's pairs must not straddle the threads");
-  constexpr int ROW_STEP = P::THREADS / PER_ROW;
-  static_assert(ROWS % ROW_STEP == 0, "box does not split evenly over the threads");
-  const int r = static_cast<int>(threadIdx.x) / PER_ROW;
-  const int c = (static_cast<int>(threadIdx.x) % PER_ROW) * 2;
-  const bool v0 = c0 + c < C, v1 = c0 + c + 1 < C;
-  const int64_t rows = R - (r0 + r);  // valid rows from this thread's first one
-  const int n_rows = static_cast<int>(rows < 0 ? 0 : (rows > ROWS ? ROWS : rows));
-  const S* src = base + (r0 + r) * ld + c0 + c;
-  const int64_t step = ROW_STEP * ld;
-#pragma unroll P::LOAD_UNROLL
-  for (int i = 0; i < ROWS / ROW_STEP; ++i) {
-    const bool in = i * ROW_STEP < n_rows;
-    const float x0 = in && v0 ? widen(__ldg(src)) : 0.f;
-    const float x1 = in && v1 ? widen(__ldg(src + 1)) : 0.f;
-    P::store2(stage + off(r + i * ROW_STEP, c), x0, x1);
-    src += step;
-  }
-}
-
-// 'float32' with a bf16 operand: widened exactly, then the f32 FMA path
-struct F32W : F32 {
-  static constexpr bool CONVERTS = true;
-  __device__ __forceinline__ static void store2(unsigned char* p, float x0, float x1) {
-    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-  }
-};
 
 // ---- tf32 and bf16p: raw staging, a rounding pass, wgmma ------------------------------
 
@@ -668,10 +632,13 @@ struct Staged {
     return (base + row * pitch + col) & 15;
   }
 
+  __device__ __forceinline__ static void finish(Acc&) {}  // the accumulators before the store
+
   // accumulators i, i + 1 (i even) are neighbours in a row: written as one float2
   // where the row's pitch and the output's base allow, so that a warp writes whole
   // 32-byte sectors (the staged kinds' epilogue does not overlap another CTA's loop)
-  __device__ __forceinline__ static void store(const Acc& acc, float* C, int64_t M, int64_t N,
+  template <class A>
+  __device__ __forceinline__ static void store(const A& acc, float* C, int64_t M, int64_t N,
                                                int64_t row0, int64_t col0) {
     const int wg = threadIdx.x / 128, w4 = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
     const bool pairs = ((reinterpret_cast<uintptr_t>(C) | (N * 4)) & 7) == 0;
@@ -888,7 +855,7 @@ struct TF32Pass : Staged<BN_ == 256 ? 2 : 4, 16384 + BN_ * 128, BN_> {
     return static_cast<int>(threadIdx.x) / BN + (256 / BN) * i;
   }
   template <int EA, int EB>
-  __device__ __forceinline__ static void load(Slice& v, const unsigned char* raw,
+  __device__ __forceinline__ static void load(Slice& v, unsigned char*, const unsigned char* raw,
                                               const Pair& pr, int64_t k0, const Tile& w) {
     const int wg = threadIdx.x / 128, q = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
     const uint32_t a = static_cast<uint32_t>(pr.a), lda = static_cast<uint32_t>(pr.lda) * EA;
@@ -912,7 +879,7 @@ struct TF32Pass : Staged<BN_ == 256 ? 2 : 4, 16384 + BN_ * 128, BN_> {
       }
   }
 
-  __device__ __forceinline__ static void write(unsigned char* dst, const Slice& v) {
+  __device__ __forceinline__ static void write(unsigned char* dst, const Slice& v, const Pair&) {
     const int wg = threadIdx.x / 128, q = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
 #pragma unroll
     for (int i = 0; i < 16; ++i)
@@ -926,7 +893,8 @@ struct TF32Pass : Staged<BN_ == 256 ? 2 : 4, 16384 + BN_ * 128, BN_> {
   }
 
   // warpgroup w runs its 64 rows, the four k8 steps of the slice, in one group
-  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf) {
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf, const Slice&,
+                                             const Pair&) {
     const uint32_t a = smem_u32(buf) + (threadIdx.x / 128) * 8192;
     const uint32_t b = smem_u32(buf) + B_OFF;
     acc.fence();
@@ -972,7 +940,7 @@ struct BF16Pass : Staged<BN_ == 256 ? 3 : 5, 16384 + BN_ * 64, BN_> {
   }
 
   template <int EA, int EB>
-  __device__ __forceinline__ static void load(Slice& v, const unsigned char* raw,
+  __device__ __forceinline__ static void load(Slice& v, unsigned char*, const unsigned char* raw,
                                               const Pair& pr, int64_t k0, const Tile& w) {
     const uint32_t a = static_cast<uint32_t>(pr.a), lda = static_cast<uint32_t>(pr.lda) * EA;
     const uint32_t b = static_cast<uint32_t>(pr.b), ldb = static_cast<uint32_t>(pr.ldb) * EB;
@@ -999,7 +967,7 @@ struct BF16Pass : Staged<BN_ == 256 ? 3 : 5, 16384 + BN_ * 64, BN_> {
     return __floats2bfloat162_rn(__uint_as_float(lo), __uint_as_float(hi));  // lo first
   }
 
-  __device__ __forceinline__ static void write(unsigned char* dst, const Slice& v) {
+  __device__ __forceinline__ static void write(unsigned char* dst, const Slice& v, const Pair&) {
     const int c = 2 * (threadIdx.x % 16), n = 2 * (threadIdx.x % (BN / 2));
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -1012,7 +980,8 @@ struct BF16Pass : Staged<BN_ == 256 ? 3 : 5, 16384 + BN_ * 64, BN_> {
   }
 
   // warpgroup w runs its 64 rows, the two k16 steps of the slice, in one group
-  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf) {
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf, const Slice&,
+                                             const Pair&) {
     const uint32_t a = smem_u32(buf) + (threadIdx.x / 128) * 8192;
     const uint32_t b = smem_u32(buf) + B_OFF;
     acc.fence();
@@ -1028,23 +997,266 @@ struct BF16Pass : Staged<BN_ == 256 ? 3 : 5, 16384 + BN_ * 64, BN_> {
   }
 };
 
+// D[64 x 128] = A[64 x 16] (registers, wgmma's fragment layout) * B[16 x 128] (MN-major:
+// trans-b = 1), plus D unless scale_d is 0
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t* a,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// x0, x1 each as N bf16 pieces (N = 3: an f32 value; N = 1: a bf16 one) whose sum is
+// the value exactly (bf16 to nearest even, as split_bf16x3 in blocks/grouped_gemm.py):
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); both differences are
+// exact in f32. Each piece packed as a bf16x2 (x0 in the low half).
+template <int N>
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t (&p)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    p[j] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
+  }
+}
+
+// 'float32' with a bf16 operand (float32_mixed): three exact bf16 passes on wgmma, the
+// passes that cyten_tpu/algorithms/dmrg.py::_with_precision names for the TPU's f32
+// dots. The f32 operand is split into hi + mid + lo (split_bf16), the bf16 one is one
+// piece as it lies, and a pair runs pieces(A) x pieces(B) passes of
+// wgmma.m64n128k16.bf16: 3 for bf16 x f32 or f32 x bf16, 1 for bf16 x bf16. Each
+// product of two bf16 is exact in f32, so the kind differs from its plain version (the
+// bf16 operand widened, an f32 product) only by the order of its f32 sums. A list
+// with a pair of two f32 operands never reaches the kind: grouped_matmul_plan gives
+// it to the f32 kind.
+// Range. The split is exact only where lo keeps its bits: below about 2^-110 they fall
+// under bf16's smallest subnormal (2^-133). A converged DMRG state holds such values
+// (the L = 24 centre list missed the K 2^-23 |A||B| bound on them by 4.8e-42 when the
+// values themselves were split), so the pieces are taken of the value times 2^24,
+// exact for every f32 below 2^104, whose products of pieces are then normal wherever
+// the plain version's products are, and the sums are scaled by 2^-24 before the
+// store. One operand of a pair carries the scale: B, unless A is f32 and B bf16 (then
+// A). So operands and results must stay below 2^104 (2e31) in magnitude: above, they
+// come out inf (grouped_matmul_plan's docstring).
+// Accumulation. wgmma's f32 accumulation aligns the products to the accumulator and
+// truncates, so a sum that runs through one accumulator over the whole depth leans
+// toward zero by about 2^-26 of its size at each of its 3 K / 16 additions (3 K 2^-30
+// in all: -1.3e-5 of the sums at K = 4386 on the card, PERF.md §6). So each slice's
+// passes start from zero (scale-d 0) in the accumulators `t`, and once they are done
+// `t` is added, rounded to nearest, into the register sum `v`: the lean is then that
+// of the six additions of one slice, whatever K (-7.7e-8 on the card).
+// Registers and shared memory decide the tile: 128 x 128 only. The sum doubles the
+// accumulators, 64 + 64 a consumer thread (at 128 x 256 it would be 256). A rounded
+// buffer holds B's pieces, each [32 k x 128 n] MN-major as BF16Pass's B (8 KB), then
+// an f32 A's, K-major in BF16::a_off's layout (pieces 0 and 1 in the k 0-31 and 32-63
+// halves of one 16 KB block, piece 2 in a second): 8 + 32 KB, so 40 KB a buffer, and
+// four raw stages fit beside the two buffers. A bf16 A goes to the products from
+// registers (wgmma's RS form), which spares the shared-memory pipe, the kernel's
+// limit, its writes and three reads of A a slice: each consumer thread reads its
+// values from the raw stage in wgmma's register layout for A (a warp's 16 rows; rows
+// g and g + 8, k 2t, 2t + 1, 2t + 8, 2t + 9 of each k16 step, for lane 4 g + t), as
+// f32 bits (Slice), and packs them two a register by a PRMT just before this slice's
+// products are issued. The products read their A registers until they are done, after
+// the next slice's loads into the Slice have begun: registers made by the PRMT are
+// their own, where a copy of the loaded ones (a build that packed the values as it
+// loaded them) shares the registers the next loads write, and gave wrong results.
+// The consumers split each f32 value as they read it from the raw stage and write its
+// pieces into the buffer the products of the slice before last read. ptxas fits the
+// consumers in their 224 registers but for 24 bytes of spills (88 with the tables in
+// device memory); a development build with A from shared memory had none, and was
+// slower at the chi = 4096 list (its times are not kept).
+struct F32WPass : Staged<4, 40960, 128> {
+  static constexpr int PIECE = BN * 64;   // the bytes of one piece of B: 8 KB
+  static constexpr float SCALE = 16777216.f;  // 2^24, and its inverse at the store
+  struct Slice { uint32_t a[16]; };  // a thread's values of a bf16 A, f32 bits
+  // t: a slice's products (wgmma's accumulators); v: their sum
+  struct Acc {
+    float v[BN / 2], t[BN / 2];
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) v[i] = t[i] = 0.f;
+    }
+    // keeps the compiler from moving reads or writes of t across a wgmma
+    __device__ __forceinline__ void fence() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(t[i]) :: "memory");
+    }
+    __device__ __forceinline__ void drain() {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence();
+    }
+    __device__ __forceinline__ void add() {  // the slice's products into the sum
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) v[i] += t[i];
+    }
+  };
+
+  // piece j of B, MN-major: k r, n c
+  __device__ __forceinline__ static uint32_t b_off(int j, int r, int c) {
+    return j * PIECE + (c / 64) * 4096 + (r / 8) * 1024 + (r % 8) * 128
+         + ((((c % 64) / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
+  }
+  // piece j of an f32 A, K-major: row r, k c; past B's one piece
+  __device__ __forceinline__ static uint32_t a_off(int j, int r, int c) {
+    return PIECE + (j / 2) * 16384 + BF16::a_off(r, c + 32 * (j % 2));
+  }
+  // a bf16 A's value i of a thread: k16 step i / 8, register (i / 2) % 4 of wgmma's
+  // fragment (rows + 8 in registers 1 and 3, k + 8 in 2 and 3), element i % 2
+  __device__ __forceinline__ static int frag_row(int i) {
+    const int q = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+    return (threadIdx.x / 128) * 64 + q * 16 + l / 4 + 8 * ((i / 2) % 2);
+  }
+  __device__ __forceinline__ static int frag_col(int i) {
+    return 16 * (i / 8) + 8 * ((i / 4) % 2) + 2 * (threadIdx.x % 4) + i % 2;
+  }
+  // A and B are read as BF16Pass reads them
+  __device__ __forceinline__ static int a_row(int i) { return BF16Pass<BN>::a_row(i); }
+  __device__ __forceinline__ static int b_row(int i) { return BF16Pass<BN>::b_row(i); }
+
+  // A slice from its raw stage: a bf16 A's values into v, the other pieces, split,
+  // into the rounded buffer `dst`
+  template <int EA, int EB>
+  __device__ __forceinline__ static void load(Slice& v, unsigned char* dst,
+                                              const unsigned char* raw, const Pair& pr,
+                                              int64_t k0, const Tile& w) {
+    const uint32_t a = static_cast<uint32_t>(pr.a), lda = static_cast<uint32_t>(pr.lda) * EA;
+    const uint32_t b = static_cast<uint32_t>(pr.b), ldb = static_cast<uint32_t>(pr.ldb) * EB;
+    constexpr int NA = EA == 4 ? 3 : 1, NB = EB == 4 ? 3 : 1;
+    // the operand that carries the scale: A if it is f32 and B bf16, else B (the
+    // products by __fmul_rn, which is never contracted into the rest's subtraction)
+    constexpr float SA = EA == 4 && EB == 2 ? SCALE : 1.f, SB = SA == 1.f ? SCALE : 1.f;
+    if constexpr (EA == 2) {
+      const unsigned char* rows[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = frag_row(2 * h);
+        rows[h] = raw + r * A_PITCH + shift(a, lda, static_cast<uint32_t>(w.row0 + r),
+                                            static_cast<uint32_t>(k0) * EA);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v.a[i] = raw_bits<EA>(rows[(i / 2) % 2], frag_col(i));
+    } else {
+      const int c = 2 * (threadIdx.x % 16);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = a_row(i);
+        const unsigned char* row = raw + r * A_PITCH + shift(
+            a, lda, static_cast<uint32_t>(w.row0 + r), static_cast<uint32_t>(k0) * EA);
+        uint32_t p[NA];
+        split_bf16<NA>(__fmul_rn(SA, __uint_as_float(raw_bits<EA>(row, c))),
+                       __fmul_rn(SA, __uint_as_float(raw_bits<EA>(row, c + 1))), p);
+#pragma unroll
+        for (int j = 0; j < NA; ++j) *reinterpret_cast<uint32_t*>(dst + a_off(j, r, c)) = p[j];
+      }
+    }
+    const int n = 2 * (threadIdx.x % (BN / 2));
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i) {
+      const int k = b_row(i);
+      const unsigned char* row = raw + A_RAW + k * B_PITCH + shift(
+          b, ldb, static_cast<uint32_t>(k0 + k), static_cast<uint32_t>(w.col0) * EB);
+      uint32_t p[NB];
+      split_bf16<NB>(__fmul_rn(SB, __uint_as_float(raw_bits<EB>(row, n))),
+                     __fmul_rn(SB, __uint_as_float(raw_bits<EB>(row, n + 1))), p);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) *reinterpret_cast<uint32_t*>(dst + b_off(j, k, n)) = p[j];
+    }
+  }
+  __device__ __forceinline__ static void write(unsigned char*, const Slice&, const Pair&) {}
+  __device__ __forceinline__ static void finish(Acc& acc) {
+    acc.add();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc.v[i] *= 1.f / SCALE;
+  }
+
+  // warpgroup w runs its 64 rows: the two k16 steps of the slice, NA x NB passes each
+  // (the smaller pieces first), the first from zero, one group; a bf16 A (NA = 1) from
+  // registers, an f32 one (NA = 3) from the buffer. Called once the products of the
+  // slice before are done, which it adds into the sum first
+  template <int NA, int NB>
+  __device__ __forceinline__ static void passes(Acc& acc, const unsigned char* buf,
+                                                const Slice& v) {
+    const uint32_t b = smem_u32(buf);
+    const uint32_t a = b + PIECE + (threadIdx.x / 128) * 8192;
+    uint32_t frag[2][4];
+    if constexpr (NA == 1) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // the high halves of two f32 bits: one bf16x2
+          frag[kk][r] = __byte_perm(v.a[8 * kk + 2 * r], v.a[8 * kk + 2 * r + 1], 0x7632);
+          // written before the fence below, which orders them before the products
+          asm volatile("" : "+r"(frag[kk][r]) :: "memory");
+        }
+    }
+    acc.fence();
+    acc.add();
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = NA - 1; i >= 0; --i)
+#pragma unroll
+        for (int j = NB - 1; j >= 0; --j) {
+          const uint64_t db = wgmma_desc(b + j * PIECE + kk * 2048, 4096, 1024);
+          const int scale_d = kk + (NA - 1 - i) + (NB - 1 - j) != 0;
+          if constexpr (NA == 1) {
+            wgmma_m64n128k16_rs(acc.t, frag[kk], db, scale_d);
+          } else {
+            const uint64_t da =
+                wgmma_desc(a + (i / 2) * 16384 + (i % 2) * 64 + kk * 32, 16, 1024);
+            wgmma_m64n128k16(acc.t, da, db, scale_d);
+          }
+        }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  __device__ __forceinline__ static void mma(Acc& acc, const unsigned char* buf, const Slice& v,
+                                             const Pair& pr) {
+    if (!pr.a_bf16) passes<3, 1>(acc, buf, v);
+    else if (pr.b_bf16) passes<1, 1>(acc, buf, v);
+    else passes<1, 3>(acc, buf, v);
+  }
+};
+
 using TF32P = TF32Pass<256>;
 using BF16P = BF16Pass<256>;
 using TF32PN = TF32Pass<128>;  // narrow: see cyten_grouped_gemm_info
 using BF16PN = BF16Pass<128>;
 
 // A consumer's load of the slice in raw stage `stage` for pair `pr` at k0: the values
-// in registers, then the stage released to the producer.
+// in registers (f32w: its pieces written into `dst`, the rounded buffer of the slice),
+// then the stage released to the producer.
 template <class P>
-__device__ __forceinline__ void load_slice(typename P::Slice& v, const unsigned char* stage,
-                                           uint32_t empty_bar, const Pair& pr, int64_t k0,
-                                           const Tile& w) {
+__device__ __forceinline__ void load_slice(typename P::Slice& v, unsigned char* dst,
+                                           const unsigned char* stage, uint32_t empty_bar,
+                                           const Pair& pr, int64_t k0, const Tile& w) {
   if (pr.a_bf16) {
-    if (pr.b_bf16) P::template load<2, 2>(v, stage, pr, k0, w);
-    else P::template load<2, 4>(v, stage, pr, k0, w);
+    if (pr.b_bf16) P::template load<2, 2>(v, dst, stage, pr, k0, w);
+    else P::template load<2, 4>(v, dst, stage, pr, k0, w);
   } else {
-    if (pr.b_bf16) P::template load<4, 2>(v, stage, pr, k0, w);
-    else P::template load<4, 4>(v, stage, pr, k0, w);
+    if (pr.b_bf16) P::template load<4, 2>(v, dst, stage, pr, k0, w);
+    else P::template load<4, 4>(v, dst, stage, pr, k0, w);
   }
   __syncwarp();
   if (threadIdx.x % 32 == 0) mbar_arrive(empty_bar);  // its reads are done (release)
@@ -1080,27 +1292,10 @@ __device__ __forceinline__ void load_step(unsigned char* stage, const int64_t* p
   const int64_t K = pr[PAIR_K];
   const auto a_off = [](int r, int c) { return P::a_off(r, c); };
   const auto b_off = [](int r, int c) { return P::b_off(r, c); };
-  if constexpr (P::CONVERTS) {  // each operand in its own type: f32 or bf16 bits
-    if (pr[PAIR_A_BF16])
-      load_box_cvt<uint16_t, P, P::BM, P::BK>(stage, reinterpret_cast<const uint16_t*>(pr[0]),
-                                              pr[1], row0, k0, M, K, a_off);
-    else
-      load_box_cvt<float, P, P::BM, P::BK>(stage, reinterpret_cast<const float*>(pr[0]),
-                                           pr[1], row0, k0, M, K, a_off);
-    if (pr[PAIR_B_BF16])
-      load_box_cvt<uint16_t, P, P::BK, P::BN>(stage, reinterpret_cast<const uint16_t*>(pr[2]),
-                                              pr[3], k0, col0, K, N, b_off);
-    else
-      load_box_cvt<float, P, P::BK, P::BN>(stage, reinterpret_cast<const float*>(pr[2]),
-                                           pr[3], k0, col0, K, N, b_off);
-  } else {
-    const T* A = reinterpret_cast<const T*>(pr[0]);
-    const T* B = reinterpret_cast<const T*>(pr[2]);
-    load_box<T, P::BM, P::BK, P::THREADS, P::LOAD_UNROLL>(stage, A, pr[1], row0, k0, M, K,
-                                                          a_off);
-    load_box<T, P::BK, P::BN, P::THREADS, P::LOAD_UNROLL>(stage, B, pr[3], k0, col0, K, N,
-                                                          b_off);
-  }
+  const T* A = reinterpret_cast<const T*>(pr[0]);
+  const T* B = reinterpret_cast<const T*>(pr[2]);
+  load_box<T, P::BM, P::BK, P::THREADS, P::LOAD_UNROLL>(stage, A, pr[1], row0, k0, M, K, a_off);
+  load_box<T, P::BK, P::BN, P::THREADS, P::LOAD_UNROLL>(stage, B, pr[3], k0, col0, K, N, b_off);
 }
 
 // The tables of a launch: in device memory, or, for lists small enough, inside the
@@ -1210,9 +1405,9 @@ grouped_gemm_kernel(const __grid_constant__ Tables tables, int n_out, int n_tile
   }
 }
 
-// The staged kinds (tf32, bf16p; see the header): the producer warpgroup fills the raw
-// ring, the consumer warpgroups round each slice into a wgmma buffer and multiply. Both walk
-// the same tiles and (pair, k slice) steps; step g of a CTA uses raw stage g mod
+// The staged kinds (tf32, bf16p, f32w; see the header): the producer warpgroup fills the
+// raw ring, the consumer warpgroups round each slice into a wgmma buffer and multiply. Both
+// walk the same tiles and (pair, k slice) steps; step g of a CTA uses raw stage g mod
 // RAW_STAGES, in its round g / RAW_STAGES, and rounded buffer g mod 2.
 template <class P, class Tables>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_CTAS)
@@ -1290,30 +1485,33 @@ grouped_gemm_staged(const __grid_constant__ Tables tables, int n_out, int n_tile
       Stream st = stream_of(pairs, w);
       if (st.more()) {
         mbar_wait(full + 8 * slot, round & 1);
-        load_slice<P>(v, raw + slot * P::RAW_BYTES, empty + 8 * slot, st.pr, st.k0, w);
+        load_slice<P>(v, rounded + buf * P::ROUND_BYTES, raw + slot * P::RAW_BYTES,
+                      empty + 8 * slot, st.pr, st.k0, w);
         next_slot();
       }
 #pragma unroll 1
       while (st.more()) {
         unsigned char* dst = rounded + buf * P::ROUND_BYTES;
-        P::write(dst, v);
+        P::write(dst, v, st.pr);
         // the rounded values, written by the generic proxy, become visible to wgmma's
         // async proxy; this warpgroup's products of the step before are done, and past
         // the barrier every consumer's are: the buffer they read is the next store's
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         asm volatile("bar.sync 1, %0;\n" :: "n"(P::CONSUMERS) : "memory");
-        P::mma(acc, dst);
+        P::mma(acc, dst, v, st.pr);
         buf ^= 1;
         // the next slice's reads, while the products run
         st.next(P::BK);
-        if (st.more()) {
+        if (st.more()) {  // into the buffer the products of the slice before read
           mbar_wait(full + 8 * slot, round & 1);
-          load_slice<P>(v, raw + slot * P::RAW_BYTES, empty + 8 * slot, st.pr, st.k0, w);
+          load_slice<P>(v, rounded + buf * P::ROUND_BYTES, raw + slot * P::RAW_BYTES,
+                        empty + 8 * slot, st.pr, st.k0, w);
           next_slot();
         }
       }
       acc.drain();
+      P::finish(acc);
       P::store(acc, reinterpret_cast<float*>(w.c), w.M, w.N, w.row0, w.col0);
     }
   }
@@ -1540,6 +1738,10 @@ grouped_gemm_complex(const __grid_constant__ Tables tables, int n_out, int n_til
       P::store(acc, reinterpret_cast<double2*>(w.c), w.M, w.N, w.row0, w.col0);
     }
   }
+}
+
+__device__ __forceinline__ float widen(uint16_t bits) {  // bf16 -> f32, exact
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
 }
 
 // ---- thin lists: a streaming pass -------------------------------------------------------
@@ -1993,7 +2195,7 @@ int with_kind(int dtype, F&& f) {
     case 0: return f(F64());
     case 1: return f(F32());
     case 2: return f(BF16());
-    case 3: return f(F32W());
+    case 3: return f(F32WPass());
     case 4: return f(TF32P());
     case 5: return f(BF16P());
     case 6: return f(C128());
@@ -2043,10 +2245,11 @@ int with_device(int device, F&& launch) {
 }  // namespace
 
 // dtype (the kind): 0 = float64, 1 = float32, 2 = bfloat16; f32 results of f32 or
-// bf16 operands: 3 = f32w ('float32'), 4 = tf32, 5 = bf16p ('default'), on 128 x 256
-// tiles, 7 = tf32 and 8 = bf16p on 128 x 128 tiles (the host picks the width of a
-// list from its shapes); 6 = complex128 on 128 x 64 tiles, 9 on 64 x 64; the thin
-// forms of kinds 0-6: THIN_TALL_CODE + kind (tall), THIN_WIDE_CODE + kind (wide).
+// bf16 operands: 3 = f32w ('float32', 128 x 128 tiles), 4 = tf32, 5 = bf16p
+// ('default'), on 128 x 256 tiles, 7 = tf32 and 8 = bf16p on 128 x 128 tiles (the host
+// picks the width of a list from its shapes); 6 = complex128 on 128 x 64 tiles, 9 on
+// 64 x 64; the thin forms of kinds 0-6: THIN_TALL_CODE + kind (tall), THIN_WIDE_CODE +
+// kind (wide).
 // `tables` holds the outs rows and then the
 // pairs rows, n_words int64 in all: in host memory if tables_on_device is 0 (then
 // n_words <= INLINE_WORDS; they are copied into the launch's parameters and may be

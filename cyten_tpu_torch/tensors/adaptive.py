@@ -27,8 +27,9 @@ generator in ``cyten_tpu``'s order, so one generator gives both packages one Ω.
 
 Where ``cyten_tpu``'s ``jax.jit`` wrappers went. ``_get_jitted_chain`` and
 ``_get_jitted_exact`` compiled :func:`_factor_chain` and the exact SVD as one program
-each; here both run eagerly, every GEMM of them one grouped-GEMM launch, and the
-``fused`` option has no counterpart. ``_apply_mask_cached`` and ``_phase2_run``
+each; here both run eagerly, every GEMM of them one grouped-GEMM launch. Their
+``fused`` parameter, which chose the compiled program, is accepted in
+``cyten_tpu``'s place and has no job. ``_apply_mask_cached`` and ``_phase2_run``
 compiled one program per mask pattern; here the cache keyed by the mask's content
 (:func:`_mask_cache_key`) keeps the mask resolved to host-side slices
 (:class:`~cyten_tpu_torch.tensors._functions._PrefixMask`), so that applying it reads
@@ -145,11 +146,12 @@ def _apply_mask_cached(U, S, Vh, mask):
 def fused_truncated_svd(thp, chi_max: int = None, new_labels=('vR', 'vL'),
                         chi_min=None, degeneracy_tol=None, trunc_cut=None,
                         svd_min=None, pad_to_multiple: int = None,
-                        normalize_to: float = None):
+                        normalize_to: float = None, fused: bool = None):
     """The exact truncated SVD in the two phases of the adaptive path: the
     per-sector SVD, the truncation decision on the host, and the mask applied by
     host-side slices cached by its content. Numerically the result of
-    :func:`~cyten_tpu_torch.tensors.truncated_svd`.
+    :func:`~cyten_tpu_torch.tensors.truncated_svd`. ``fused`` is accepted and has
+    no job (the module note).
 
     Returns ``(U, S, Vh, err, renormalize)``."""
     U, S, Vh = svd(thp)
@@ -184,7 +186,8 @@ def adaptive_truncated_svd(thp, Vh_prev, chi_max: int, n_oversample: int = 16,
                            n_power: int = 1, new_labels=('vR', 'vL'),
                            chi_min=None, degeneracy_tol=None, trunc_cut=None,
                            svd_min=None, pad_to_multiple: int = None,
-                           normalize_to: float = None, rng=None):
+                           normalize_to: float = None, rng=None,
+                           fused: bool = None):
     """Truncated SVD of ``thp``, warm-started from the previous visit's ``Vh_prev``
     with ``n_oversample`` columns of per-sector rank head-room.
 
@@ -202,6 +205,8 @@ def adaptive_truncated_svd(thp, Vh_prev, chi_max: int, n_oversample: int = 16,
         Subspace (power) iterations after the warm start.
     rng : np.random.Generator | None
         Randomness source for the fresh columns Ω (a fresh generator if None).
+    fused : bool | None
+        Accepted in ``cyten_tpu``'s place; no job here (the module note).
 
     Returns ``(U, S, Vh, err, renormalize)``, the convention of
     ``randomized_truncated_svd``; ``err`` includes the weight outside the sketch.

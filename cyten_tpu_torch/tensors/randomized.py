@@ -18,8 +18,9 @@ exactly via ||A||^2 - ||S||^2, so the reported truncation error is an upper boun
 Ω is drawn with ``SymmetricTensor.from_random_normal(..., rng=)`` from a numpy
 generator, block by block in the order ``cyten_tpu`` draws them: the same generator
 gives both packages the same Ω. ``cyten_tpu`` runs the range finder as one
-``jax.jit`` program (``_get_jitted_range_finder``); here it runs eagerly, and its
-``fused`` option has no counterpart.
+``jax.jit`` program (``_get_jitted_range_finder``); here it runs eagerly. Its
+``fused`` parameter, which chose that program, is accepted in ``cyten_tpu``'s place
+and has no job.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def randomized_truncated_svd(tensor, chi_max: int, new_labels=None,
                              n_power: int = 1, sector_ranks=None, rng=None,
                              normalize_to: float = None, chi_min=None,
                              degeneracy_tol=None, trunc_cut=None, svd_min=None,
-                             pad_to_multiple: int = None):
+                             pad_to_multiple: int = None, fused: bool = None):
     """Truncated SVD via a randomized range finder: ``(U, S, Vh, err, renormalize)``,
     the convention of :func:`~cyten_tpu_torch.tensors.truncated_svd`.
 
@@ -74,6 +75,8 @@ def randomized_truncated_svd(tensor, chi_max: int, new_labels=None,
         sketch size of a sector is ``min(mult, hint + n_oversample)``.
     rng : np.random.Generator | None
         Randomness source for the sketch Ω (a fresh generator if None).
+    fused : bool | None
+        Accepted in ``cyten_tpu``'s place; no job here (the module note).
 
     If the sketch reduces no sector (small tensors), this is the exact truncated
     SVD. The reported ``err`` includes the weight outside the sketched subspace.

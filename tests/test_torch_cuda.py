@@ -596,14 +596,22 @@ STAGED = [('tensorfloat32', torch.float32, torch.float32),
           ('tensorfloat32', torch.float32, torch.bfloat16),
           ('default', torch.float32, torch.float32),
           ('default', torch.bfloat16, torch.float32),
-          ('default', torch.float32, torch.bfloat16)]
+          ('default', torch.float32, torch.bfloat16),
+          ('float32', torch.bfloat16, torch.float32),
+          ('float32', torch.float32, torch.bfloat16)]
+# the kind each precision runs on a list with a bf16 operand
+STAGED_KIND = {'tensorfloat32': 'tensorfloat32', 'default': 'default',
+               'float32': 'float32_mixed'}
+# the mixed kind's one tile
+MIXED_TILE = (128, 128)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', list(HARD))
 @pytest.mark.parametrize('precision, a_dtype, b_dtype', STAGED)
 def test_staged_kinds_hard_lists(card, width, case, precision, a_dtype, b_dtype):
-    """TF32 and the bf16 pass, at each of their tiles, on lists whose rows start
+    """TF32 and the bf16 pass at each of their tiles, and the mixed kind's three bf16
+    passes at its one (which refuses the 'wide' width), on lists whose rows start
     anywhere: the views reach the kernel as they lie (the table holds their own
     pointers and pitches) and the result is the plain version's to within the order
     of the sums."""
@@ -613,18 +621,23 @@ def test_staged_kinds_hard_lists(card, width, case, precision, a_dtype, b_dtype)
     old = config.matmul_precision
     config.matmul_precision = precision
     try:
-        outs, launch = grouped_matmul_plan(As, Bs, out_ids, width=width)
+        if precision == 'float32':
+            with pytest.raises(ValueError):
+                grouped_matmul_plan(As, Bs, out_ids, width=width)
+        outs, launch = grouped_matmul_plan(
+            As, Bs, out_ids, width='tiled' if precision == 'float32' else width)
     finally:
         config.matmul_precision = old
     table = launch.operands[2]
     n_out = max(out_ids) + 1
-    assert launch.tile == STAGED_TILES[width]
+    assert launch.tile == (MIXED_TILE if precision == 'float32' else STAGED_TILES[width])
     assert {(A.data_ptr(), A.stride(0)) for A in As} == set(map(tuple, table[n_out:, 0:2]))
     assert {(B.data_ptr(), B.stride(0)) for B in Bs} == set(map(tuple, table[n_out:, 2:4]))
-    before = grouped_matmul.kinds[precision].launches
+    kind = grouped_matmul.kinds[STAGED_KIND[precision]]
+    before = kind.launches
     launch()
     torch.cuda.synchronize()
-    assert grouped_matmul.kinds[precision].launches == before + 1
+    assert kind.launches == before + 1
     ref = grouped_matmul_plain(As, Bs, out_ids, precision=precision)
     assert_within_sum_order(outs, ref, As, Bs, out_ids, precision)
 
@@ -696,6 +709,95 @@ def test_tf32_rounds_above_the_midpoint(card, width):
     torch.cuda.synchronize()
     assert grouped_gemm.round_tf32(As[0]).ne(As[0]).all()
     assert_within_sum_order([c.cpu() for c in got], ref, As, Bs, out_ids, 'tensorfloat32')
+
+
+def mixed_lists(rng, device):
+    """The mixed kind's own lists: name -> (As, Bs, out_ids). 'fine_bits': bf16 A
+    against f32 B whose values 1 + j 2^-20 lie between bf16 values, so that B's mid and
+    lo pieces carry its low bits; 'deep': ragged K of 4096 and more, summed into one
+    output; 'per_pair': bf16 x f32, f32 x bf16 and bf16 x bf16 (one pass) in one
+    list, with shared outputs; 'f32_pair': the same with a pair of two f32 operands,
+    which the f32 kind runs; 'tiny': f32 values from 2^-118 to 2^-108 on either side,
+    whose lo pieces need the kernel's scale of 2^24."""
+    def draw(shape, dtype):
+        return torch.from_numpy(rng.normal(size=shape)).to(device, dtype)
+
+    def fine(shape):
+        return torch.from_numpy(1 + rng.integers(1, 1 << 20, size=shape) * 2. ** -20).to(
+            device, torch.float32)
+
+    def tiny(shape):
+        return torch.from_numpy(rng.uniform(1, 2, size=shape) * 2. ** rng.integers(
+            -118, -108, size=shape) * rng.choice([-1., 1.], size=shape)).to(device,
+                                                                          torch.float32)
+
+    shapes = [(150, 295, 140), (70, 40, 90)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    kinds = [(bf16, f32), (f32, bf16), (bf16, bf16), (f32, bf16), (bf16, f32)]
+    mixed = [(40, 33, 100), (40, 64, 100), (40, 95, 100), (130, 70, 129), (130, 7, 129)]
+    f32_pair = [(f32, f32)] + kinds[1:]
+    return {
+        'fine_bits': ([draw((M, K), bf16) for M, K, N in shapes],
+                      [fine((K, N)) for M, K, N in shapes], [0, 1]),
+        'deep': ([draw((130, 4100), bf16), draw((130, 5000), bf16)],
+                 [draw((4100, 200), f32), draw((5000, 200), f32)], [0, 0]),
+        'per_pair': ([draw((M, K), a) for (M, K, N), (a, b) in zip(mixed, kinds)],
+                     [draw((K, N), b) for (M, K, N), (a, b) in zip(mixed, kinds)],
+                     [0, 0, 0, 1, 1]),
+        'f32_pair': ([draw((M, K), a) for (M, K, N), (a, b) in zip(mixed, f32_pair)],
+                     [draw((K, N), b) for (M, K, N), (a, b) in zip(mixed, f32_pair)],
+                     [0, 0, 0, 1, 1]),
+        'tiny': ([draw((150, 37), bf16), tiny((70, 40))],
+                 [tiny((37, 140)), draw((40, 90), bf16)], [0, 1]),
+    }
+
+
+# the mixed kind's sums against the exact ones: sum((C - exact) sign(exact)) / sum|exact|
+# within this. One accumulator over the whole depth leans toward zero by some K 2^-26
+# (2e-5 at K = 9100); the kernel's sum of slices by that of one slice (1e-7)
+MIXED_LEAN = 2. ** -20
+
+
+def sum_lean(got, As, Bs, out_ids) -> float:
+    """How far the sums ``got`` lean toward zero against the exact (f64) sums of the
+    same operands, relative to their size: below zero for a lean toward zero."""
+    exact = grouped_matmul_plain([A.double() for A in As], [B.double() for B in Bs], out_ids)
+    lean = sum(float(((c.double() - r) * r.sign()).sum()) for c, r in zip(got, exact))
+    return lean / sum(float(r.abs().sum()) for r in exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['fine_bits', 'deep', 'per_pair', 'f32_pair', 'tiny'])
+def test_mixed_kind_passes(card, case):
+    """The mixed kind ('float32' with a bf16 operand) on the lists its three bf16
+    passes must get right: the f32 operand's low bits (which one bf16 pass rounds
+    away past the bound, checked on the card's plain version), depths in the
+    thousands, whose sums must not lean toward zero (MIXED_LEAN), a list mixing f32
+    and bf16 pair by pair, and values near the bottom of f32's normal range. A list
+    with a pair of two f32 operands runs on the f32 kind."""
+    from cyten_tpu_torch.config import config
+
+    As, Bs, out_ids = mixed_lists(np.random.default_rng(17), card)[case]
+    old = config.matmul_precision
+    config.matmul_precision = 'float32'
+    try:
+        outs, launch = grouped_matmul_plan(As, Bs, out_ids)
+    finally:
+        config.matmul_precision = old
+    assert launch.tile == MIXED_TILE
+    kind = grouped_matmul.kinds['float32' if case == 'f32_pair' else 'float32_mixed']
+    before = kind.launches
+    launch()
+    torch.cuda.synchronize()
+    assert kind.launches == before + 1
+    ref = grouped_matmul_plain(As, Bs, out_ids, precision='float32')
+    assert_within_sum_order(outs, ref, As, Bs, out_ids, None)
+    if case == 'deep':
+        assert abs(sum_lean(outs, As, Bs, out_ids)) <= MIXED_LEAN
+    if case == 'fine_bits':  # one bf16 pass misses the bound
+        one_pass = grouped_matmul_plain(As, Bs, out_ids, precision='default')
+        with pytest.raises(AssertionError):
+            assert_within_sum_order(one_pass, ref, As, Bs, out_ids, None)
 
 
 @pytest.mark.cuda

@@ -129,6 +129,144 @@ def test_ragged_lists_against_numpy(case):
                                    atol=1e-12)
 
 
+def test_split_bf16x3_is_exact():
+    """The mixed kind's split of an f32 operand: hi + mid + lo == x bitwise, each piece
+    x's remainder rounded to bf16 (to nearest even), on seeded values from 2^-100 to
+    2^100 of both signs, values halfway between two bf16 values (ties) and values
+    whose remainder after hi is such a tie."""
+    rng = np.random.default_rng(31)
+    n = 1 << 16
+    x = rng.uniform(1, 2, n) * 2. ** rng.integers(-100, 101, n) * rng.choice([-1., 1.], n)
+    x = torch.from_numpy(x).float()
+    bits = x.view(torch.int32)
+    ties = ((bits & ~0xFFFF) | 0x8000).view(torch.float32)        # hi's tie
+    inner_ties = ((bits & ~0xFF) | 0x80).view(torch.float32)      # mid's tie
+    for v in (x, ties, inner_ties, torch.tensor([0., -0., 1., -3.5, 2. ** -100, 2. ** 100])):
+        hi, mid, lo = grouped_gemm.split_bf16x3(v)
+        assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+        assert torch.equal(hi, v.to(torch.bfloat16))
+        assert torch.equal(mid, (v - hi.float()).to(torch.bfloat16))
+        total = hi.double() + mid.double() + lo.double()
+        assert torch.equal(total, v.double())
+        # the sum in f32, in the order the passes add, is exact too
+        assert torch.equal(hi.float() + mid.float() + lo.float(), v)
+    assert not torch.equal(ties.to(torch.bfloat16).float(), ties)  # a tie is rounded
+
+
+def _three_passes(As, Bs, out_ids, scale=2. ** 24):
+    """The mixed kind's products on the CPU: each f32 operand split in three bf16
+    pieces (bf16 ones one piece), the f32 products of every piece of A with every
+    piece of B summed in f32, smaller pieces first, per output. As the kernel, one
+    operand of a pair is split times ``scale`` (A if it is f32 and B bf16, else B)
+    and the sums are scaled back at the end."""
+    def pieces(t, s):
+        t = t * s  # exact: a power of two
+        return [t] if t.dtype == torch.bfloat16 else grouped_gemm.split_bf16x3(t)[::-1]
+
+    outs = {}
+    for A, B, o in zip(As, Bs, out_ids):
+        a_scaled = A.dtype == torch.float32 and B.dtype == torch.bfloat16
+        for a in pieces(A, scale if a_scaled else 1.):
+            for b in pieces(B, 1. if a_scaled else scale):
+                prod = a.float() @ b.float()
+                outs[o] = prod if o not in outs else outs[o] + prod
+    return [outs[o] / scale for o in range(len(outs))]
+
+
+def _within_sum_order(got, ref, As, Bs, out_ids):
+    """Each element within K_o 2^-23 (|A| |B|)_ij of ``ref`` (K_o the summed depth of
+    output o's pairs): the products agree, the f32 sums differ in order."""
+    mag = grouped_matmul_plain([A.abs().double() for A in As],
+                               [B.abs().double() for B in Bs], out_ids)
+    ks = np.zeros(len(mag))
+    np.add.at(ks, out_ids, [A.shape[1] for A in As])
+    for o, (c, r, m) in enumerate(zip(got, ref, mag)):
+        r = torch.as_tensor(np.asarray(r)).double()
+        assert bool(((c.double() - r).abs() <= ks[o] * 2. ** -23 * m).all()), o
+
+
+@pytest.mark.parametrize('case', [c for c in RAGGED if c != 'six_hundred_pairs'])
+@pytest.mark.parametrize('bf16_side', ['A', 'B'])
+def test_three_passes_match_plain_and_pallas(case, bf16_side):
+    """The mixed kind's arithmetic, emulated on the CPU (_three_passes), against the
+    port's plain version at 'float32' (the bf16 operand widened, one f32 product)
+    and against cyten_tpu's Pallas kernel (interpret mode, as its own tests run it)
+    on the widened operands, within the order of the sums: K 2^-23 |A||B|."""
+    shapes, out_ids = RAGGED[case]
+    rng = np.random.default_rng(32)
+    As = [torch.from_numpy(rng.normal(size=(M, K))).float() for M, K, N in shapes]
+    Bs = [torch.from_numpy(rng.normal(size=(K, N))).float() for M, K, N in shapes]
+    if bf16_side == 'A':
+        As = [A.bfloat16() for A in As]
+    else:
+        Bs = [B.bfloat16() for B in Bs]
+    got = _three_passes(As, Bs, out_ids)
+    plain = grouped_matmul_plain(As, Bs, out_ids, precision='float32')
+    assert all(c.dtype == torch.float32 for c in plain)
+    _within_sum_order(got, plain, As, Bs, out_ids)
+    # Pallas gets the pairs of depth K > 0 (it leaves the output of an empty
+    # contraction unwritten); the others add zero
+    pallas = [np.zeros(tuple(c.shape)) for c in got]
+    deep = [(A.float().numpy(), B.float().numpy(), o)
+            for A, B, o in zip(As, Bs, out_ids) if A.shape[1] > 0]
+    g = tile_group([jnp.asarray(a) for a, b, o in deep], [jnp.asarray(b) for a, b, o in deep])
+    for c, (a, b, o) in zip(untile_results(g, pallas_grouped_matmul(g, interpret=True)), deep):
+        pallas[o] = pallas[o] + np.asarray(c, np.float64)
+    _within_sum_order(got, pallas, As, Bs, out_ids)
+
+
+@pytest.mark.parametrize('bf16_side', ['A', 'B'])
+def test_three_passes_scale_tiny_values(bf16_side):
+    """f32 values from 2^-126 to 2^-116 (a converged state's smallest): split as they
+    are, lo loses the bits below bf16's smallest subnormal and the products miss the
+    K 2^-23 |A||B| bound; split times 2^24, as the kernel splits them, they hold it."""
+    rng = np.random.default_rng(34)
+    A = torch.from_numpy(rng.normal(size=(40, 37))).float()
+    B = torch.from_numpy(rng.uniform(1, 2, size=(37, 30)) * 2. ** rng.integers(
+        -126, -116, size=(37, 30)) * rng.choice([-1., 1.], size=(37, 30))).float()
+    if bf16_side == 'A':
+        A = A.bfloat16()
+    else:
+        A, B = B.T.contiguous(), A.T.contiguous().bfloat16()
+    plain = grouped_matmul_plain([A], [B], precision='float32')
+    _within_sum_order(_three_passes([A], [B], [0]), plain, [A], [B], [0])
+    with pytest.raises(AssertionError):
+        _within_sum_order(_three_passes([A], [B], [0], scale=1.), plain, [A], [B], [0])
+
+
+def test_three_passes_range_ends_below_2_104():
+    """The kernel's scale of 2^24 bounds the mixed kind's range: f32 operands up to
+    just below 2^104 (results well inside) hold the K 2^-23 |A||B| bound, and from
+    2^104 on the scaled operand is inf in f32, so the results are not finite, which
+    grouped_matmul_plan's docstring states."""
+    rng = np.random.default_rng(35)
+    A = (torch.from_numpy(rng.normal(size=(30, 41))) * 2. ** -40).bfloat16()
+
+    def big(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, size=(41, 20)) * rng.choice(
+            [-1., 1.], size=(41, 20))).float()
+
+    B = big(2. ** 102, 2. ** 103.99)
+    assert bool(B.isfinite().all()) and float(B.abs().max()) < 2. ** 104
+    plain = grouped_matmul_plain([A], [B], precision='float32')
+    _within_sum_order(_three_passes([A], [B], [0]), plain, [A], [B], [0])
+    B = big(2. ** 104, 2. ** 105)
+    assert bool(grouped_matmul_plain([A], [B], precision='float32')[0].isfinite().all())
+    assert not bool(_three_passes([A], [B], [0])[0].isfinite().any())
+
+
+def test_three_passes_need_every_piece():
+    """On an f32 operand whose low bits only mid and lo carry (1 + j 2^-20), one bf16
+    pass misses the K 2^-23 |A||B| bound by far; the three passes hold it."""
+    rng = np.random.default_rng(33)
+    A = torch.from_numpy(rng.normal(size=(40, 295))).bfloat16()
+    B = torch.from_numpy(1 + rng.integers(1, 1 << 20, size=(295, 30)) * 2. ** -20).float()
+    plain = grouped_matmul_plain([A], [B], precision='float32')
+    _within_sum_order(_three_passes([A], [B], [0]), plain, [A], [B], [0])
+    with pytest.raises(AssertionError):
+        _within_sum_order([A.float() @ B.bfloat16().float()], plain, [A], [B], [0])
+
+
 def _complex(rng, shape, cplx: bool):
     x = rng.normal(size=shape)
     return x + 1j * rng.normal(size=shape) if cplx else x
@@ -610,6 +748,28 @@ def test_staged_width_forces_the_tile(width, case):
     assert forced.n_tiles == sum(-(-m // bm) * -(-n // bn) for m, k, n in shapes)
     assert grouped_gemm._layouts(*args)[2].tile == own
     assert grouped_gemm._layouts(*args, width)[2] is forced
+
+
+def test_mixed_list_with_an_f32_pair_runs_the_f32_kind(monkeypatch):
+    """At 'float32' a list with a bf16 operand runs the mixed kind, which reads both
+    dtypes as they lie; one with a pair of two f32 operands the f32 kind, which reads
+    f32 only (its bf16 operands widened by _as_operands). Other precisions keep their
+    kinds."""
+    from cyten_tpu_torch.config import config
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    A = [torch.zeros(3, 4, dtype=d) for d in (bf16, f32, f32)]
+    B = [torch.zeros(4, 5, dtype=d) for d in (f32, bf16, f32)]
+    ia = np.array([0, 1]), np.array([0, 1, 2])
+    assert not grouped_gemm._has_f32_pair(A, ia[0], B, ia[0])
+    assert grouped_gemm._has_f32_pair(A, ia[1], B, ia[1])
+    assert grouped_gemm._has_f32_pair(A, np.array([1]), B, np.array([2]))
+    monkeypatch.setattr(config, 'matmul_precision', 'float32')
+    assert grouped_gemm._kind({f32, bf16}, f32) == ('float32_mixed', {f32, bf16})
+    assert grouped_gemm._kind({f32, bf16}, f32, f32_pair=True) == ('float32', {f32})
+    for precision in ('tensorfloat32', 'default'):
+        monkeypatch.setattr(config, 'matmul_precision', precision)
+        assert grouped_gemm._kind({f32, bf16}, f32, f32_pair=True)[0] == precision
 
 
 @pytest.mark.parametrize('case', ['length', 'inner_dim', 'shared_shape', 'empty_output',

@@ -209,3 +209,35 @@ def test_mask_cache_keys_on_content():
     for m, got in zip(masks, results):
         for a, b in zip(got, svd_apply_mask(U, S, Vh, m)):
             np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
+
+
+@pytest.mark.parametrize('name', ['fused', 'adaptive', 'randomized'])
+def test_svds_take_fused_in_the_reference_place(name):
+    """Each SVD takes cyten_tpu's parameters in its order, ``fused`` last, and a call
+    written for cyten_tpu with ``fused=False`` gives cyten_tpu's result (the port's
+    ``fused`` has no job)."""
+    import inspect
+
+    port, ref = {'fused': (fused_truncated_svd, jax_fused),
+                 'adaptive': (adaptive_truncated_svd, jax_adaptive),
+                 'randomized': (randomized_truncated_svd, jax_randomized)}[name]
+    assert (list(inspect.signature(port).parameters)
+            == list(inspect.signature(ref).parameters))
+    assert list(inspect.signature(port).parameters)[-1] == 'fused'
+    theta_ref, B_ref = _theta(np.random.default_rng(29))
+    thp_ref = ct.permute_legs(theta_ref, codomain=['vL', 'p0'], domain=['vR', 'p1'])
+    kw = dict(chi_max=10, svd_min=1e-14, normalize_to=1., fused=False)
+    args = (thp_ref,)
+    if name == 'adaptive':
+        args += (ct.permute_legs(B_ref.relabelled({'p': 'p1'}), codomain=['vL'],
+                                 domain=['vR', 'p1']),)
+    if name != 'fused':
+        kw['rng'] = np.random.default_rng(30)
+    U, S, Vh, err, renorm = port(*map(to_port, args), **kw)
+    if name != 'fused':
+        kw['rng'] = np.random.default_rng(30)
+    U_r, S_r, Vh_r, err_r, renorm_r = ref(*args, **kw)
+    _assert_values_equal(S, S_r)
+    assert abs(err - err_r) < 1e-12 and abs(renorm - renorm_r) < 1e-12
+    _assert_projector_equal(U, U_r)
+    _assert_projector_equal(Vh, Vh_r, right=True)
