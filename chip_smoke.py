@@ -15,6 +15,7 @@ fails. Imports nothing of JAX or cyten_tpu.
     python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
     python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
     python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
+    python3 chip_smoke.py --bench-only     # phases 1, 2, 2b and 13, then stop
     python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
                                            # of it in turns (ab_run: lists, bench
                                            # steps, replayed sweeps), then stop
@@ -149,6 +150,17 @@ Phases:
      torch.profiler), one eager sweep, each within 1e-10 of the dynamic energy (the
      eager one of the graphs') with every B right-isometric; the centre compose list
      on the complex128 kind, timed as in phase 2; bench.golden_run at 512 multiplets
+  13. the rest of the port's bench (bench_phase): python -m cyten_tpu_torch.bench
+     (its JSON line: the measured ceilings beside the data sheet's, the chi=8192
+     ladder, the four SVD timings with their spreads); the grouped-GEMM lists of one
+     U(1) x U(1) Hubbard matvec at chi=2048 at each kind of bench.HUBBARD_KINDS (f64,
+     f32 at each precision, bf16 environments, bf16), of one padded chi=4096 bf16-work step and the chi=8192
+     tdot(LP, theta) in f32 and bf16, each held to its plain version as in phase 2,
+     its bound on the data sheet and on the measured ceilings; the Hubbard matvec
+     through the kernel and through a torch.matmul per pair, eager and as a graph;
+     the dense TFI matvec at chi=4096; the padded step as a graph; the chi=4096 graph
+     steps of phases 8 and 9 with frac_peak and frac_roofline against the measured
+     ceilings, each at most 1
 """
 
 from __future__ import annotations
@@ -165,7 +177,6 @@ import warnings
 import numpy as np
 
 HEIS24_E_REF = -10.45378576040958  # bench.py:1121: f64 DMRG of L=24 at chi=512
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 CHI_BENCH = 4096
 # (rtol, atol) of the kernel against its plain version; the check is
 # max|kernel - plain| <= atol + rtol * max|plain| over each output
@@ -187,18 +198,27 @@ PALLAS_SHAPES = [(37, 130, 65), (256, 128, 300), (5, 7, 9), (140, 260, 129),
                  (128, 128, 128), (128, 128, 128), (128, 128, 128), (1, 1, 1), (2, 300, 2)]
 
 
+def hbm_bytes_per_s() -> float:
+    """The H100 SXM's HBM rate of its data sheet (cyten_tpu_torch.bench.DATASHEET)."""
+    from cyten_tpu_torch.bench import DATASHEET
+
+    return DATASHEET['hbm_bytes_per_s']
+
+
 def peak_ops_per_s(dtype, precision: str = None) -> float:
-    """Dense peak of one H100 SXM for the kernel's arithmetic: f32 outside the tensor
-    cores (67 TFLOP/s), bf16 tensor cores (989.4), f64 tensor cores (67, also for
-    complex128, whose real operations they run), and for an
-    f32 result at 'tensorfloat32' the TF32 tensor cores (494.7) and at 'default' the
-    bf16 ones (data sheet). The mixed kind's rate depends on its pairs: mixed_ops_s."""
+    """Dense peak of one H100 SXM for the kernel's arithmetic (data sheet,
+    cyten_tpu_torch.bench.DATASHEET): f32 outside the tensor cores (67 TFLOP/s), bf16
+    tensor cores (989.4), f64 tensor cores (67, also for complex128, whose real
+    operations they run), and for an f32 result at 'tensorfloat32' the TF32 tensor
+    cores (494.7) and at 'default' the bf16 ones. The mixed kind's rate depends on its
+    pairs: mixed_ops_s."""
     import torch
+    from cyten_tpu_torch.bench import DATASHEET
 
     if dtype == torch.float32 and precision in ('tensorfloat32', 'default'):
-        return {'tensorfloat32': 494.7e12, 'default': 989.4e12}[precision]
-    return {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989.4e12,
-            torch.complex128: 67e12}[dtype]
+        return DATASHEET['tensorfloat32' if precision == 'tensorfloat32' else 'bfloat16']
+    return DATASHEET[{torch.float64: 'float64', torch.float32: 'float32',
+                      torch.bfloat16: 'bfloat16', torch.complex128: 'float64'}[dtype]]
 
 
 def mixed_ops_s(PA, PB) -> float:
@@ -210,7 +230,7 @@ def mixed_ops_s(PA, PB) -> float:
 
     ops = sum(2 * A.shape[0] * A.shape[1] * B.shape[1]
               * (1 if A.dtype == B.dtype == torch.bfloat16 else 3) for A, B in zip(PA, PB))
-    return ops / 989.4e12
+    return ops / peak_ops_per_s(torch.bfloat16)
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -434,7 +454,7 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
         t_ops = mixed_ops_s(PA, PB)
     else:
         t_ops = flops / peak_ops_per_s(out_dtype, precision)
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / hbm_bytes_per_s()
     res = {'pairs': len(PA), 'outputs': n_out, 'tile': getattr(launch, 'tile', None),
            'form': getattr(launch, 'form', None),
            'gflop': flops / 1e9, 'mbytes': nbytes / 1e6,
@@ -544,56 +564,26 @@ def turns(fns, reps: int, rounds: int = 2):
     return medians, [(max(t) - min(t)) / m for t, m in zip(times, medians)]
 
 
-def recorded_lists(run) -> list:
-    """The distinct grouped-GEMM lists that ``run()`` plans, in the order first
-    planned: ``[(matmul_precision then, As, Bs, out_ids, n_out, pairs), count]``, the
-    operands as the run made them."""
-    from cyten_tpu_torch.blocks import grouped_gemm as gg
-    from cyten_tpu_torch.config import config
-
-    lists, plan = {}, gg.grouped_matmul_plan
-
-    def recording(As, Bs, out_ids=None, n_out=None, pairs=None, width=None):
-        PA = As if pairs is None else [As[i] for i in pairs[0]]
-        PB = Bs if pairs is None else [Bs[i] for i in pairs[1]]
-        ids = np.arange(len(PA)) if out_ids is None else np.asarray(out_ids)
-        key = (config.matmul_precision, ids.tobytes(),
-               tuple((*A.shape, A.dtype, *B.shape, B.dtype) for A, B in zip(PA, PB)))
-        if key not in lists:
-            lists[key] = [(config.matmul_precision, list(As), list(Bs), ids,
-                           int(ids.max()) + 1 if n_out is None else n_out,
-                           None if pairs is None else tuple(map(np.asarray, pairs))), 0]
-        lists[key][1] += 1
-        return plan(As, Bs, out_ids, n_out, pairs, width)
-
-    gg.grouped_matmul_plan = recording
-    try:
-        run()
-    finally:
-        gg.grouped_matmul_plan = plan
-    return list(lists.values())
-
-
 def step_lists(precision: str, **kw) -> list:
     """The distinct grouped-GEMM lists that the bench step at chi=CHI_BENCH plans at
     ``precision`` (bench.step_run's warm-up and one step, with ``kw``: env_dtype,
-    work_dtype, dtype), as recorded_lists gives them."""
+    work_dtype, dtype), as bench.recorded_lists gives them."""
     from cyten_tpu_torch import bench
 
-    return recorded_lists(lambda: bench.step_run(CHI_BENCH, lengths=(1,), repeats=1,
+    return bench.recorded_lists(lambda: bench.step_run(CHI_BENCH, lengths=(1,), repeats=1,
                                                  precision=precision, **kw))
 
 
 def fusion_step_lists(symmetry, workload, dtype) -> list:
     """The distinct grouped-GEMM lists of one static bond update on the fusion-tree
     backend at 512 multiplets (bench.build_step_state of ``workload``, in ``dtype``),
-    as recorded_lists gives them."""
+    as bench.recorded_lists gives them."""
     from cyten_tpu_torch import get_backend
     from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn
-    from cyten_tpu_torch.bench import build_step_state
+    from cyten_tpu_torch.bench import build_step_state, recorded_lists
 
     LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
-        get_backend(symmetry, device='cuda'), 512, dtype=dtype, workload=workload)
+        get_backend(symmetry, device='cuda'), 512, builder=workload, dtype=dtype)
     return recorded_lists(lambda: _get_static_bond_fn(10, 'steady')(
         HEffective(LP, RP, W1, W2), S, B1, B2, tmpl, None))
 
@@ -746,33 +736,6 @@ def thin_crossover() -> None:
             torch.cuda.empty_cache()
     finally:
         config.matmul_precision = old
-
-
-@contextlib.contextmanager
-def lists_on_plain(kinds=None):
-    """Inside the block every grouped-GEMM list (with ``kinds``, only those the kernel
-    would run on one of these kinds) runs its plain version (grouped_matmul_plain, at
-    the precision configured when it is planned) in place of the kernel: the sums in
-    another order, the products the same."""
-    from cyten_tpu_torch.blocks import grouped_gemm as gg
-    from cyten_tpu_torch.config import config
-
-    plan = gg.grouped_matmul_plan
-
-    def plain_plan(As, Bs, out_ids=None, n_out=None, pairs=None, width=None):
-        if kinds is not None:
-            outs, launch = plan(As, Bs, out_ids, n_out, pairs, width)
-            if getattr(launch, 'kind', None) not in kinds:
-                return outs, launch
-        precision = config.matmul_precision
-        return None, lambda: gg.grouped_matmul_plain(As, Bs, out_ids, n_out, pairs,
-                                                     precision)
-
-    gg.grouped_matmul_plan = plain_plan
-    try:
-        yield
-    finally:
-        gg.grouped_matmul_plan = plan
 
 
 _THIN_FORM = None  # blocks/grouped_gemm.py::_thin_form, while another build is routed
@@ -956,7 +919,7 @@ def ab_run(against: str) -> int:
         torch.cuda.empty_cache()
     backend = get_backend(u1_symmetry, device='cuda')
     for chi in (1024, CHI_BENCH):
-        LP, RP, W1, W2, theta = build_workload(backend, chi, Dtype.float32)
+        LP, RP, W1, W2, theta = build_workload(backend, chi, dtype=Dtype.float32)
         As, Bs, pairs, out_id, n_out = lp_theta_pairs(LP, theta)
         for precision in ('tensorfloat32', 'default', 'float32'):
             for a_dtype in (torch.float32, torch.bfloat16):
@@ -1144,7 +1107,7 @@ def probe_phase() -> dict:
              'library_ms': library_ms,
              'spread': dict(zip(('ms', 'device_ms', 'library_ms'), spread))}
     # read x once, write o once; one multiply per element
-    t_bytes = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+    t_bytes = 2 * x.numel() * x.element_size() / hbm_bytes_per_s()
     t_ops = x.numel() / peak_ops_per_s(torch.float32)
     probe['bound_ms'] = max(t_bytes, t_ops) * 1e3
     probe['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
@@ -1295,7 +1258,7 @@ def tridiag_phase() -> dict:
         # read 2N f64, write N + 1. The work the function needs: one eigenvalue to f64
         # precision by bisection on Sturm counts (53 halvings of N pivot steps of 3
         # operations) and its vector by one twisted factorisation (about 10 N)
-        t_bytes = (3 * n + 1) * 8 / HBM_BYTES_PER_S
+        t_bytes = (3 * n + 1) * 8 / hbm_bytes_per_s()
         t_ops = (53 * 3 * n + 10 * n) / peak_ops_per_s(torch.float64)
         res['bound_ms'] = max(t_bytes, t_ops) * 1e3
         res['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
@@ -1491,7 +1454,7 @@ def su2_phase(E24) -> dict:
     out = {}
     for device in ('cuda', 'cpu'):
         LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
-            get_backend(su2_symmetry, device=device), 32, workload=build_su2_workload)
+            get_backend(su2_symmetry, device=device), 32, builder=build_su2_workload)
         out[device] = _get_static_bond_fn(10, 'steady')(HEffective(LP, RP, W1, W2), S,
                                                          B1, B2, tmpl, None)
     (E_card, _, S_card, *_), (E_cpu, _, S_cpu, *_) = out['cuda'], out['cpu']
@@ -1504,7 +1467,7 @@ def su2_phase(E24) -> dict:
         raise AssertionError('the SU(2) static step disagrees between card and CPU')
 
     # the port's bench: the matvec and the step at 512 multiplets
-    t_mv = su2_run(chi_max)
+    t_mv, _ = su2_run(chi_max, (10, 50), 2)
     print(f'[SU(2) bench {chi_max} multiplets] matvec {t_mv * 1e3:.3f} ms', flush=True)
     for graph in (False, True):  # eager steps take 20x longer: a shorter slope
         setup_s, t_step = su2_step(chi_max, graph=graph,
@@ -1691,12 +1654,216 @@ def golden_phase() -> dict:
     return {**compose, 'launches': c128_launches}
 
 
+# the bar rung of bench.py:1344-1363: the padded chi=4096 step in bf16 work at 'default'
+# with the converged-sweep cleanup of the steady SVD
+PADDED_STEP = {'precision': 'default', 'work_dtype': 'bfloat16',
+               'steady_opts': {'n_jacobi': 1, 'ns_polish': 1}}
+# the chi=CHI_BENCH step settings whose frac_peak and frac_roofline [bench] prints:
+# name -> step_run keywords; phases 8 and 9 time the same steps as graphs
+ROOF_SETTINGS = {'float64': {'dtype': 'float64'}, 'float32': {},
+                 'tensorfloat32': {'precision': 'tensorfloat32'},
+                 'default': {'precision': 'default'}, 'env bf16': {'env_dtype': 'bfloat16'},
+                 'work bf16': {'work_dtype': 'bfloat16'}}
+
+
+def hubbard_settings(args):
+    """The Hubbard matvec at each setting of bench.HUBBARD_KINDS, whose lists
+    bench_phase holds to plain: (kind, matmul_precision, LP, RP, W1, W2, theta) from
+    the f32 workload ``args``."""
+    from cyten_tpu_torch.bench import HUBBARD_KINDS
+
+    return [(kind, precision, [t.to_dtype(env) for t in args[:2]]
+             + [t.to_dtype(work) for t in args[2:]])
+            for kind, (precision, work, env) in HUBBARD_KINDS.items()]
+
+
+def measured_bound(label, res, ceilings, precision, a_dtype, b_dtype) -> None:
+    """Adds ``measured_bound_ms`` to a compare_kernel result ``res``: its operations and
+    bytes over this card's measured ceilings (bench.step_ceiling names the arithmetic
+    and passes of the list's kind), and prints it beside the data sheet's bound."""
+    import torch
+    from cyten_tpu_torch import bench
+
+    bf16 = torch.bfloat16
+    arith, passes = bench.step_ceiling(
+        precision or 'float32', env_dtype='bfloat16' if a_dtype != b_dtype else None,
+        work_dtype='bfloat16' if a_dtype == b_dtype == bf16 else None,
+        dtype='float64' if torch.float64 in (a_dtype, b_dtype) else 'float32')
+    t_ops = res['gflop'] * passes / ceilings[arith]  # ms: 1e9 / 1e12 * 1e3
+    t_bytes = res['mbytes'] / ceilings['hbm_gbps']  # ms: 1e6 / 1e9 * 1e3
+    res['measured_bound_ms'] = max(t_ops, t_bytes)
+    print(f'[bench list] {label}: device_ms {res["device_ms"]:.4f}, bound {res["bound_ms"]:.4f} '
+          f'on the data sheet, {res["measured_bound_ms"]:.4f} on the measured ceilings '
+          f'({arith} x{passes}, {"operations" if t_ops >= t_bytes else "bytes"}), '
+          f'library_ms {res["library_ms"]:.4f}, {res["pairs"]} pairs, tile {res["tile"]}, '
+          f'form {res["form"]}', flush=True)
+
+
+def bench_lists(label, lists, ceilings, only: str = None, reps: int = 20) -> dict:
+    """compare_kernel on each recorded list (bench.recorded_lists; with ``only``, those
+    planned at that matmul_precision) at the kind its operands and matmul_precision
+    pick, with its bound on the measured ``ceilings`` (measured_bound); returns the
+    result of the list of most operations."""
+    best = None
+    for (prec, As, Bs, out_ids, n_out, pairs), count in lists:
+        if only is not None and prec != only:  # the state's set-up, not the step
+            continue
+        rounded = prec in ('tensorfloat32', 'default')
+        name = f'{label} {list_name(As, Bs, pairs, count)}'
+        res = compare_kernel(name, As, Bs, out_ids, n_out, As[0].dtype, pairs, reps,
+                             precision=prec if rounded else None, b_dtype=Bs[0].dtype,
+                             as_given=True)
+        measured_bound(name, res, ceilings, prec, As[0].dtype, Bs[0].dtype)
+        if best is None or res['gflop'] > best['gflop']:
+            best = res
+    return best
+
+
+def bench_phase(graph_steps: dict = None) -> dict:
+    """Phase 13, [bench]: the rest of the port's bench (cyten_tpu_torch.bench) on the
+    card. First ``python -m cyten_tpu_torch.bench`` as a subprocess (its
+    JSON line: the measured ceilings, printed beside the data sheet's, the chi=8192
+    ladder, the SVD timings with their spreads; every frac at most 1). Then the
+    grouped-GEMM lists of one Hubbard (U(1) x U(1)) matvec at chi=2048 at each setting
+    of hubbard_settings, of one padded chi=4096 bf16-work step and the chi=8192
+    tdot(LP, theta) in f32 and bf16, each held to its plain version by compare_kernel,
+    its bound on the data sheet and on the measured ceilings; the Hubbard matvec
+    through the kernel and through a torch.matmul per pair (bench.lists_on_plain),
+    eager and as a graph; the dense (no-symmetry) TFI matvec at chi=4096; the padded
+    step as a graph; and the chi=CHI_BENCH step at each of ROOF_SETTINGS (as graphs;
+    ``graph_steps`` gives phases 8 and 9's (seconds, FLOPs) by name) with frac_peak
+    and frac_roofline against the measured ceilings. Returns the kernels-line numbers
+    of the largest f32 Hubbard list and padded list, each with the launches of its
+    main-path run."""
+    import torch
+    from cyten_tpu_torch import Dtype, bench, get_backend, u1_symmetry
+    from cyten_tpu_torch.algorithms import HEffective
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.config import config
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    # the bench's own JSON line: ceilings, the chi=8192 ladder, the SVD timings
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, '-m', 'cyten_tpu_torch.bench'],
+                         cwd=root, env={**os.environ, 'PYTHONPATH': root},
+                         capture_output=True, text=True, timeout=900)
+    if run.returncode:
+        raise AssertionError(f'python -m cyten_tpu_torch.bench failed:\n{run.stderr[-4000:]}')
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f'[bench json] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)', flush=True)
+    ceilings = {arith: line[f'measured_peak_{key}_tflops']
+                for arith, key in bench._PEAK_KEYS.items()}
+    ceilings['hbm_gbps'] = line['measured_hbm_gbps']
+    print('[bench ceilings] measured against the data sheet: ' + ', '.join(
+        f'{arith} {ceilings[arith]:.2f} of {bench.DATASHEET[arith] / 1e12:.1f} TFLOP/s'
+        for arith in bench._PEAK_KEYS) + f', HBM {ceilings["hbm_gbps"]:.1f} of '
+        f'{bench.DATASHEET["hbm_bytes_per_s"] / 1e9:.0f} GB/s', flush=True)
+    print('[bench ladder] ' + json.dumps({k: v for k, v in line.items()
+                                          if k.startswith('step8192')}), flush=True)
+    print('[bench svd] ' + json.dumps({k: v for k, v in line.items()
+                                       if k.startswith('svd_')}), flush=True)
+    fracs = {k: v for k, v in line.items() if '_frac_' in k}
+    # the Hubbard lists of one matvec at each setting, against plain
+    hubbard = bench.build_hubbard_workload
+    args = hubbard(get_backend(bench._builder_symmetry(hubbard), device='cuda'), 2048,
+                   dtype=Dtype.float32)
+    for name, precision, margs in hubbard_settings(args):
+        H = HEffective(*margs[:4])
+        old = config.matmul_precision
+        config.matmul_precision = precision
+        try:
+            lists = bench.recorded_lists(lambda: H.matvec(margs[4]))
+        finally:
+            config.matmul_precision = old
+        # 5 reps: the per-pair loops of 2000 pairs take 50-100 ms a call
+        res = bench_lists(f'hubbard {name}', lists, ceilings, reps=5)
+        if name == 'float32':
+            out['hubbard'] = res
+    flops = bench.matvec_flops(*args)
+    del args, margs, H, lists
+    # the main path: the Hubbard matvec through the kernel and a torch.matmul per pair
+    times = {}
+    for route, routing in (('kernel', contextlib.nullcontext),
+                           ('per-pair torch.matmul', bench.lists_on_plain)):
+        for graph in (False, True):
+            grouped_matmul.launches = 0
+            with routing():
+                times[route, graph] = bench.matvec_run(
+                    2048, (10, 50) if graph else (2, 6), 1, builder=hubbard, graph=graph)
+            if route == 'kernel' and not graph:
+                out['hubbard']['launches'] = grouped_matmul.launches
+    print(f'[bench hubbard chi=2048] matvec ms, {flops / 1e9:.3f} GFLOP: kernel eager '
+          f'{times["kernel", False] * 1e3:.3f}, graph {times["kernel", True] * 1e3:.4f}; '
+          f'a torch.matmul per pair eager {times["per-pair torch.matmul", False] * 1e3:.3f}, '
+          f'graph {times["per-pair torch.matmul", True] * 1e3:.4f}; grouped-GEMM launches '
+          f'of the eager run {out["hubbard"]["launches"]}', flush=True)
+    if not out['hubbard']['launches']:
+        raise AssertionError('the Hubbard matvec did not launch the grouped GEMM')
+    # the dense TFI matvec (torch.tensordot: no grouped GEMM on this backend)
+    dense = bench.build_dense_workload
+    d_flops = bench.matvec_flops(*dense(get_backend(bench._builder_symmetry(dense),
+                                                    device='cuda'), CHI_BENCH,
+                                        dtype=Dtype.float32))
+    t_d = bench.matvec_run(CHI_BENCH, (5, 20), 1, builder=dense)
+    print(f'[bench dense chi={CHI_BENCH}] matvec {t_d * 1e3:.4f} ms, '
+          f'{d_flops / t_d / 1e12:.3f} TFLOP/s', flush=True)
+    torch.cuda.empty_cache()
+    # the padded step's lists against plain, then the step as a graph
+    padded = bench.build_padded_workload
+    out['padded'] = bench_lists('padded', bench.recorded_lists(lambda: bench.step_run(
+        CHI_BENCH, lengths=(1,), repeats=1, builder=padded, **PADDED_STEP)), ceilings,
+        'default')
+    grouped_matmul.launches = 0
+    t_p, f_p = bench.step_run(CHI_BENCH, lengths=(2, 6), repeats=1, builder=padded,
+                              graph=True, **PADDED_STEP)
+    out['padded']['launches'] = grouped_matmul.launches
+    print(f'[bench padded chi={CHI_BENCH}] bond {bench.padded_chi(CHI_BENCH)}, graph step '
+          f'{t_p * 1e3:.3f} ms, {f_p / t_p / 1e12:.3f} TFLOP/s, E {bench.step_run.energy!r}, '
+          f'{bench.step_run.launches_per_step} grouped-GEMM launches a step, '
+          f'{out["padded"]["launches"]} in the run', flush=True)
+    if not (out['padded']['launches'] and np.isfinite(bench.step_run.energy)):
+        raise AssertionError('the padded step did not launch the grouped GEMM or E is off')
+    torch.cuda.empty_cache()
+    # the chi=8192 ladder's largest list, tdot(LP, theta), in f32 and bf16
+    LP, _, _, _, theta = bench.build_workload(get_backend(u1_symmetry, device='cuda'),
+                                              8192, dtype=Dtype.float32)
+    As, Bs, pairs, out_id, n_out = lp_theta_pairs(LP, theta)
+    del LP, theta
+    for dtype in (torch.float32, torch.bfloat16):
+        name = 'chi=8192 tdot(LP, theta)'
+        res = compare_kernel(name, As, Bs, out_id, n_out, dtype, pairs)
+        measured_bound(f'{name} {str(dtype)[6:]}', res, ceilings, None, dtype, dtype)
+    del As, Bs
+    torch.cuda.empty_cache()
+    # the chi=CHI_BENCH step at each setting against the measured ceilings
+    for name, kw in ROOF_SETTINGS.items():
+        t, f = (graph_steps or {}).get(name) or bench.step_run(
+            CHI_BENCH, lengths=(2, 6), repeats=1, graph=True, **kw)
+        roof = bench.step_roofline(CHI_BENCH, t, f, ceilings, **kw)
+        fracs[f'step {name}'] = roof['frac_peak']
+        fracs[f'step {name} roofline'] = roof['frac_roofline']
+        print(f'[bench roofline chi={CHI_BENCH} {name}] graph step {t * 1e3:.3f} ms, '
+              f'{f / t / 1e12:.3f} TFLOP/s; ceiling {roof["ceiling"]} x{roof["passes"]}: '
+              f'frac_peak {roof["frac_peak"]:.4f}, frac_roofline '
+              f'{roof["frac_roofline"]:.4f}', flush=True)
+    if not all(0 < v <= 1 for v in fracs.values()):
+        raise AssertionError(f'a frac of peak or roofline past 1: {fracs}')
+    print(f'[bench] peak reserved {torch.cuda.max_memory_reserved() / 1e9:.2f} GB here, '
+          f'{line["peak_reserved_gb"]:.2f} GB in the bench; wall '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
     kernels_only = '--kernels-only' in sys.argv[1:]
     su2_only = '--su2-only' in sys.argv[1:]
     golden_only = '--golden-only' in sys.argv[1:]
+    bench_only = '--bench-only' in sys.argv[1:]
     against = sys.argv[sys.argv.index('--against') + 1] if '--against' in sys.argv else None
 
     if not torch.cuda.is_available():
@@ -1709,7 +1876,8 @@ def main() -> int:
     )
     from cyten_tpu_torch.algorithms.dmrg import _get_static_bond_fn
     from cyten_tpu_torch.bench import (
-        accuracy_bf16work, build_step_state, build_workload, step_decomposition, step_run,
+        accuracy_bf16work, build_step_state, build_workload, lists_on_plain,
+        step_decomposition, step_run,
     )
     from cyten_tpu_torch.blocks import _kernels
     from cyten_tpu_torch.blocks.grouped_gemm import _LAYOUTS, grouped_matmul
@@ -1754,7 +1922,7 @@ def main() -> int:
             compare_kernel(f'ragged {case}', As, Bs, np.array(out_ids), max(out_ids) + 1,
                            dtype, reps=5)
     backend = get_backend(u1_symmetry, device='cuda')
-    LP, RP, W1, W2, theta = build_workload(backend, CHI_BENCH, Dtype.float64)
+    LP, RP, W1, W2, theta = build_workload(backend, CHI_BENCH, dtype=Dtype.float64)
     As, Bs, pairs, out_id, n_out = lp_theta_pairs(LP, theta)
     permute_ms = cuda_ms(lambda: lp_theta_pairs(LP, theta))
     print(f'[permute] chi={CHI_BENCH} tdot(LP, theta) operand permute+copy f64: '
@@ -1813,6 +1981,10 @@ def main() -> int:
         golden_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (golden chain only)',
               flush=True)
+        return 0
+    if bench_only:
+        bench_phase()
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (bench only)', flush=True)
         return 0
 
     # --- 3. main path, small: L=12 against exact diagonalization -------------------------
@@ -1903,7 +2075,7 @@ def main() -> int:
           f'{count_syncs(lambda: eng.update_bond(i))}', flush=True)
 
     # --- 5. bench-shaped matvec at chi=4096, f32: card against CPU -----------------------
-    args = build_workload(backend, CHI_BENCH, Dtype.float32)
+    args = build_workload(backend, CHI_BENCH, dtype=Dtype.float32)
     Hg = HEffective(*args[:4])
     grouped_matmul.launches = 0
     y = Hg.matvec(args[4])
@@ -2113,6 +2285,7 @@ def main() -> int:
     # --- 8. the bench step -----------------------------------------------------------------
     t_phase = time.perf_counter()
     lengths, repeats = (1, 3), 1
+    graph_steps = {}  # setting -> (s, FLOPs) of its graph step, for phase 13
     for svd_mode, dtype, graph in (('steady', Dtype.float32, False),
                                    ('steady', Dtype.float32, True),
                                    ('steady', Dtype.float64, False),
@@ -2124,6 +2297,8 @@ def main() -> int:
             E_step32 = step_run.energy
         if (svd_mode, dtype, graph) == ('steady', Dtype.float32, True):
             step32_graph_ms = t_step * 1e3
+        if svd_mode == 'steady' and graph:
+            graph_steps[dtype.name] = t_step, flops
         print(f'[step chi={CHI_BENCH} {svd_mode} {dtype.name}'
               f'{" graph" if graph else ""}] {t_step * 1e3:.3f} ms/step, '
               f'{flops / t_step / 1e12:.3f} TFLOP/s ({flops / 1e9:.2f} GFLOP/step), '
@@ -2176,6 +2351,8 @@ def main() -> int:
                                      repeats=repeats, **kw)
             counts = {k: v.launches for k, v in kinds.items() if v.launches}
             kind_launches[kind] = kind_launches.get(kind, 0) + counts.get(kind, 0)
+            if graph:
+                graph_steps[name] = t_step, flops
             counts['thin'] = grouped_matmul.thin.launches
             dE = abs(step_run.energy - E_step32) / abs(E_step32)
             out_dtypes = [d.name for d in step_run.out_dtypes]
@@ -2220,6 +2397,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     golden = golden_phase()
     phase_s['12'] = time.perf_counter() - t_phase
+
+    # --- 13. the rest of the port's bench ---------------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bench = bench_phase(graph_steps)
+    phase_s['13'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -2258,6 +2441,13 @@ def main() -> int:
                 **{k: golden[k] for k in ('launches', 'max_abs_err', 'ms', 'device_ms',
                                           'plain_ms', 'bound_ms', 'bound_by',
                                           'library_ms')}},
+               *({'name': f'grouped_gemm[{name}]', 'route': 'cuda',
+                  'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+                  'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+                  **{k: bench[key][k] for k in ('launches', 'max_abs_err', 'ms', 'device_ms',
+                                                'plain_ms', 'bound_ms', 'bound_by',
+                                                'library_ms')}}
+                 for name, key in (('hubbard', 'hubbard'), ('padded bf16', 'padded'))),
                {'name': 'probe', 'route': 'cuda',
                 'source': 'cyten_tpu_torch/csrc/probe.cu',
                 'replaces': 'scripts/exp_r5_step_decomp.py:59',

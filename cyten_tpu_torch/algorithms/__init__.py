@@ -10,9 +10,11 @@ from .mps import SimpleMPS, split_truncate_theta
 from .models import (
     GoldenChainModel, HeisenbergModel, TFIModel, heisenberg_exact_finite_gs_energy,
     mpo_from_bond_op, spin_half_site, tfi_exact_finite_gs_energy,
+    tfi_exact_infinite_gs_energy,
 )
 from .dmrg import DMRGEngine, FaultError, HEffective
 
 __all__ = ['SimpleMPS', 'split_truncate_theta', 'GoldenChainModel', 'HeisenbergModel',
            'TFIModel', 'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
+           'tfi_exact_infinite_gs_energy',
            'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective']

@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from ..backends.data import BlockSparseData
+from ..backends.data import BlockSparseData, DenseData
 from ..symmetries import TensorProduct
 from ..tensors import (
     DiagonalTensor, Mask, SymmetricTensor, compose, dagger, permute_legs, pinv,
@@ -377,23 +377,29 @@ def _structure(t):
     if t is None:
         return None
     legs = (t.leg,) if isinstance(t, DiagonalTensor) else (t.codomain, t.domain)
-    return (type(t), *legs, tuple(t.labels), t.data.block_inds.tobytes(), t.data.dtype,
-            tuple(tuple(b.shape) for b in t.data.blocks))
+    inds = None if isinstance(t.data, DenseData) else t.data.block_inds.tobytes()
+    return (type(t), *legs, tuple(t.labels), inds, t.data.dtype,
+            tuple(tuple(b.shape) for b in _blocks(t)))
+
+
+def _blocks(t) -> list:
+    """The blocks of ``t``: its one block on dense (no-symmetry) data."""
+    return [t.data.block] if isinstance(t.data, DenseData) else t.data.blocks
 
 
 def _slots_like(tensors):
     """Tensors of the structure of ``tensors`` with contiguous blocks of their own."""
     return [_with_blocks(t, [torch.empty_like(b, memory_format=torch.contiguous_format)
-                             for b in t.data.blocks]) for t in tensors]
+                             for b in _blocks(t)]) for t in tensors]
 
 
 class _GraphedStep:
     """``fn(*inputs)`` captured once as a CUDA graph and replayed.
 
-    ``fn`` takes tensors and returns a tuple of tensors and 0-d torch tensors. The
-    graph reads its inputs from slots of its own, which :meth:`run` fills with one
-    ``_foreach_copy_`` from the tensors it is given (of the structures captured; it
-    raises for others). Its outputs are gathered inside the graph into one buffer per
+    ``fn`` takes tensors (block-sparse, fusion-tree or dense) and returns a tuple of
+    tensors and 0-d torch tensors. The graph reads its inputs from slots of its own,
+    which :meth:`run` fills with one ``_foreach_copy_`` from the tensors it is given
+    (of the structures captured; it raises for others). Its outputs are gathered inside the graph into one buffer per
     dtype, and :meth:`run` returns copies of them: an output of the graph lives in its
     pool and is overwritten by its next replay, or by another graph of the pool.
     Capture runs nothing, reads nothing on the host, and raises where ``fn`` would
@@ -404,27 +410,27 @@ class _GraphedStep:
         t0 = time.perf_counter()
         self.keys = [_structure(t) for t in inputs]
         slots = _slots_like(inputs)
-        self.slot_blocks = [b for t in slots for b in t.data.blocks]
+        self.slot_blocks = [b for t in slots for b in _blocks(t)]
         self.graph = Graph(pool)
         with self.graph.capture():
             outs = fn(*slots)
             pieces: dict = {}  # dtype -> flat views of the outputs of that dtype
             for o in outs:
-                for b in ([o] if isinstance(o, torch.Tensor) else o.data.blocks):
+                for b in ([o] if isinstance(o, torch.Tensor) else _blocks(o)):
                     pieces.setdefault(b.dtype, []).append(b.reshape(-1))
             self.flats = {dt: torch.cat(ps) for dt, ps in pieces.items()}
         # what run() rebuilds the outputs from: per output, its shell (a tensor with
         # no blocks) or None for a 0-d torch tensor, and the shapes of its blocks
         self.outputs = [(None, [(o.dtype, o.shape)]) if isinstance(o, torch.Tensor)
                         else (_with_blocks(o, []),
-                              [(b.dtype, b.shape) for b in o.data.blocks])
+                              [(b.dtype, b.shape) for b in _blocks(o)])
                         for o in outs]
         self.capture_seconds = time.perf_counter() - t0
 
     def run(self, inputs) -> tuple:
         if [_structure(t) for t in inputs] != self.keys:
             raise ValueError('the inputs differ in structure from those captured')
-        torch._foreach_copy_(self.slot_blocks, [b for t in inputs for b in t.data.blocks])
+        torch._foreach_copy_(self.slot_blocks, [b for t in inputs for b in _blocks(t)])
         self.graph.replay()
         flats = {dt: f.clone() for dt, f in self.flats.items()}
         offset = dict.fromkeys(flats, 0)
@@ -469,7 +475,10 @@ class DMRGEngine:
       :func:`~cyten_tpu_torch.algorithms.mps.split_truncate_theta`.
 
     Options that are not ported yet raise ``NotImplementedError``: ``mesh`` (and with
-    it ``shard_axis_name``), ``orthogonal_to`` and ``run(checkpoint=...)``.
+    it ``shard_axis_name``), ``orthogonal_to`` and ``run(checkpoint=...)``; so does a
+    model or MPS with ``bc='infinite'``, which needs the infinite MPS and iDMRG
+    (``cyten_tpu``'s finite engine runs such a model from the boundary environments of
+    its bulk tensors and returns an energy of no meaning).
     """
 
     def __init__(self, psi: SimpleMPS, model, chi_max: int = 32, eps: float = 1e-12,
@@ -484,6 +493,9 @@ class DMRGEngine:
             raise NotImplementedError('DMRGEngine(orthogonal_to=...) is not ported yet')
         if dynamic_svd not in ('exact', 'adaptive', 'randomized'):
             raise ValueError(f'unknown dynamic_svd {dynamic_svd!r}')
+        if 'infinite' in (getattr(model, 'bc', 'finite'), psi.bc):
+            raise NotImplementedError('DMRGEngine of an infinite chain (bc="infinite") '
+                                      'is not ported yet')
         self.psi = psi
         self.model = model
         self.chi_max = chi_max

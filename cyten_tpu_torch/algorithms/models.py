@@ -2,10 +2,13 @@
 references.
 
 The counterpart of ``cyten_tpu/algorithms/models.py``'s ``spin_half_site`` (:35),
-``mpo_from_bond_op`` (:99), ``TFIModel`` (:372, finite chains), ``HeisenbergModel``
-(:471) and ``GoldenChainModel`` (:570). H_bonds (two-site gates) and H_mpo (MPO
-tensors) are SymmetricTensors for a chosen conserved symmetry. The exact ground-state
-energies come from sparse exact diagonalization, the golden chain's from MPSKit.jl.
+``mpo_from_bond_op`` (:99), ``TFIModel`` (:372), ``HeisenbergModel`` (:471),
+``GoldenChainModel`` (:570) and ``tfi_exact_infinite_gs_energy`` (:654). H_bonds
+(two-site gates) and H_mpo (MPO tensors) are SymmetricTensors for a chosen conserved
+symmetry; ``bc='infinite'`` gives the bonds and bulk tensors of a unit cell of L sites
+(no infinite MPS or iDMRG is ported: ``DMRGEngine`` refuses such a model). The exact
+ground-state energies come from sparse exact diagonalization, the infinite chains'
+from their closed forms, the golden chain's from MPSKit.jl.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from ..tensors import (
 
 __all__ = ['GoldenChainModel', 'HeisenbergModel', 'TFIModel', 'spin_half_site',
            'mpo_from_bond_op', 'heisenberg_exact_finite_gs_energy',
-           'tfi_exact_finite_gs_energy']
+           'tfi_exact_finite_gs_energy', 'tfi_exact_infinite_gs_energy']
 
 # Pauli x and z in the (|up>, |down>) basis
 _sx = np.array([[0., 1.], [1., 0.]])
@@ -233,14 +236,18 @@ class HeisenbergModel:
                 backend=self.backend, labels=['wL', 'p', 'wR', 'p*']))
         return mpos
 
+    def exact_infinite_gs_energy(self) -> float:
+        """Bethe ansatz: e = J (1/4 - ln 2) per site for the antiferromagnet."""
+        return self.J * (0.25 - np.log(2.0))
+
 
 class TFIModel:
     r"""Transverse field Ising chain: :math:`H = -J \sum σ^x_i σ^x_{i+1} - g \sum σ^z_i`.
 
     The Z2 symmetry (spin-flip in the x direction == parity of down spins in the z
     basis) can be conserved with ``conserve='parity'``. The tensors live on ``device``
-    (default: the CUDA card) unless a ``backend`` is given. Finite chains only:
-    ``bc='infinite'`` needs the infinite MPS, which is not ported yet.
+    (default: the CUDA card) unless a ``backend`` is given. ``bc='infinite'`` gives L
+    bonds and L bulk MPO tensors (a unit cell) and the energy per site.
     """
 
     def __init__(self, L: int, J: float = 1., g: float = 1.,
@@ -248,9 +255,7 @@ class TFIModel:
                  bc: str = 'finite', device: str = None):
         if conserve not in ('parity', 'None', None):
             raise ValueError(f'TFIModel: unknown conserve={conserve!r}')
-        if bc == 'infinite':
-            raise NotImplementedError('TFIModel(bc="infinite") is not ported yet')
-        if bc != 'finite':
+        if bc not in ('finite', 'infinite'):
             raise ValueError(f'unknown bc {bc!r}')
         self.L = L
         self.J = J
@@ -270,12 +275,14 @@ class TFIModel:
         return [self.site_leg] * self.L
 
     def _build_H_bonds(self):
-        """Two-site gates; the field of the end sites sits wholly on their one bond."""
+        """Two-site gates; in a finite chain the field of the end sites sits wholly on
+        their one bond."""
         p = self.site_leg
+        finite = self.bc == 'finite'
         res = []
-        for i in range(self.L - 1):
-            gL = self.g / 2. * (2. if i == 0 else 1.)
-            gR = self.g / 2. * (2. if i + 1 == self.L - 1 else 1.)
+        for i in range(self.L - 1 if finite else self.L):
+            gL = self.g / 2. * (2. if i == 0 and finite else 1.)
+            gR = self.g / 2. * (2. if i + 1 == self.L - 1 and finite else 1.)
             h = -self.J * np.kron(_sx, _sx) \
                 - gL * np.kron(_sz, _id) - gR * np.kron(_id, _sz)
             block = h.reshape(2, 2, 2, 2).transpose(0, 1, 3, 2)  # legs [p0,p1,p1*,p0*]
@@ -308,10 +315,10 @@ class TFIModel:
         for i in range(self.L):
             Wi = W
             wl, wr = w_leg, w_leg
-            if i == 0:
+            if i == 0 and self.bc == 'finite':
                 Wi = np.tensordot(first, Wi, (1, 0))
                 wl = triv
-            if i == self.L - 1:
+            if i == self.L - 1 and self.bc == 'finite':
                 Wi = np.tensordot(Wi, last, (3, 0))
                 wr = triv
             # dense axes [wL, p, p', wR] -> legs order [wL, p, wR, p*]
@@ -320,8 +327,17 @@ class TFIModel:
                 backend=self.backend, labels=['wL', 'p', 'wR', 'p*']))
         return mpos
 
+    def energy(self, psi) -> float:
+        """Total energy (finite) or energy per site (infinite)."""
+        e = float(np.real(sum(complex(psi.bond_expectation_value(h, i))
+                              for i, h in enumerate(self.H_bonds))))
+        return e / self.L if self.bc == 'infinite' else e
+
     def exact_finite_gs_energy(self) -> float:
         return tfi_exact_finite_gs_energy(self.L, self.J, self.g)
+
+    def exact_infinite_gs_energy(self) -> float:
+        return tfi_exact_infinite_gs_energy(self.J, self.g)
 
 
 class GoldenChainModel:
@@ -423,6 +439,18 @@ def heisenberg_exact_finite_gs_energy(L: int, J: float) -> float:
     vals = scipy.sparse.linalg.eigsh(H, k=1, which='SA',
                                      return_eigenvectors=False)
     return float(vals[0])
+
+
+def tfi_exact_infinite_gs_energy(J: float, g: float) -> float:
+    """Ground-state energy per site of the infinite TFI chain (free fermions):
+    e = -(1/pi) int_0^pi dk sqrt(J^2 + g^2 - 2 J g cos k).
+
+    Checks: g=0 -> -J; J=0 -> -g; J=g=1 -> -4/pi."""
+    from scipy.integrate import quad
+
+    val, _ = quad(lambda k: np.sqrt(J * J + g * g - 2 * J * g * np.cos(k)),
+                  0.0, np.pi, limit=200)
+    return -val / np.pi
 
 
 def tfi_exact_finite_gs_energy(L: int, J: float, g: float) -> float:

@@ -543,7 +543,7 @@ def get_block_backend(name: str = None, device: str = None) -> BlockBackend:
     """Get (and cache) a block backend by name and device.
 
     Only ``'torch'`` exists. ``device`` defaults to ``'cuda'`` (see
-    :func:`default_device`).
+    :func:`default_device`); without CUDA, ``'cuda'`` raises whether named or not.
     """
     if name is None:
         from ..config import config
@@ -552,8 +552,9 @@ def get_block_backend(name: str = None, device: str = None) -> BlockBackend:
     if name != 'torch':
         raise ValueError(f'unknown block backend: {name!r} (cyten_tpu_torch has only '
                          "'torch')")
-    if device is None:
-        device = default_device()
+    if device is None or str(device).startswith('cuda'):
+        device = device or default_device()  # a card named but absent raises alike
+        default_device()
     key = (name, str(device))
     res = _BACKENDS.get(key)
     if res is None:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..backends.data import DenseData
 from ..blocks.tridiag import tridiagonal_ground_state
 from ._functions import inner, norm, scalar_multiply
 from ._tensors import Tensor
@@ -142,8 +143,12 @@ def _device_norm(t):
     host sync: one ``_foreach_norm`` over the blocks and one norm of the results (bf16
     blocks accumulate in f32). Each block has its weight in ``norm``
     (:func:`_sqrt_weights`); an abelian tensor's blocks weigh 1 and take no
-    multiply."""
+    multiply. A tensor without symmetry is its one dense block."""
     bb = t.backend.block_backend
+    if isinstance(t.data, DenseData):
+        block = t.data.block
+        acc = torch.float32 if block.dtype == torch.bfloat16 else None
+        return torch.linalg.vector_norm(block, dtype=acc)
     blocks = t.data.blocks
     if not blocks:
         return torch.zeros((), dtype=torch.float64, device=bb.device)
@@ -162,10 +167,14 @@ def _flatten(t) -> torch.Tensor:
 
 def _with_blocks(template, blocks):
     """A tensor with the legs, labels and block indices of ``template`` and the
-    blocks ``blocks`` (one per block of ``template``, in its order)."""
+    blocks ``blocks`` (one per block of ``template``, in its order; for dense data its
+    one block, or none for a shell)."""
     res = template.copy(deep=False)
-    res.data = type(template.data)(blocks, template.data.block_inds, template.data.dtype,
-                                   is_sorted=True)
+    if isinstance(template.data, DenseData):
+        res.data = DenseData(blocks[0] if blocks else None, template.data.dtype)
+    else:
+        res.data = type(template.data)(blocks, template.data.block_inds,
+                                       template.data.dtype, is_sorted=True)
     return res
 
 

@@ -19,7 +19,9 @@ from cyten_tpu_torch.algorithms import (
 )
 from cyten_tpu_torch.algorithms.dmrg import HEffective, _get_static_bond_fn, _GraphedStep
 from cyten_tpu_torch.blocks import _kernels
-from cyten_tpu_torch.bench import build_step_state, build_workload, step_flops
+from cyten_tpu_torch.bench import (
+    HUBBARD_KINDS, build_step_state, build_workload, recorded_lists, step_flops,
+)
 from cyten_tpu_torch.blocks.grouped_gemm import (
     grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
 )
@@ -935,7 +937,7 @@ def test_captured_su2_static_bond_matches_eager(card):
     from cyten_tpu_torch.bench import build_su2_workload
 
     LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
-        get_backend(su2_symmetry, device='cuda'), 16, workload=build_su2_workload)
+        get_backend(su2_symmetry, device='cuda'), 16, builder=build_su2_workload)
     impl = _get_static_bond_fn(10, 'steady')
 
     def fn(LP, RP, S, B1, B2):
@@ -991,7 +993,7 @@ def test_captured_golden_static_bond_matches_eager(card):
 
     LP, RP, W1, W2, S, B1, B2, tmpl, _ = build_step_state(
         get_backend(fibonacci_anyon_category, device='cuda'), 16,
-        workload=build_golden_workload)
+        builder=build_golden_workload)
     B1, B2, tmpl = (t.to_dtype(Dtype.complex128) for t in (B1, B2, tmpl))
     impl = _get_static_bond_fn(10, 'steady')
 
@@ -1187,3 +1189,123 @@ def test_complex_kind_at_each_tile(card, case, width):
     launch()
     torch.cuda.synchronize()
     _complex_close(outs, grouped_matmul_plain(As, Bs, out_ids), As, Bs, out_ids)
+
+
+def _recorded_lists(run):
+    """The grouped-GEMM lists ``run()`` plans (bench.recorded_lists): ``(matmul_precision
+    then, pair list of A, of B, out_ids, n_out)``, each pair's operands as the run made
+    them."""
+    return [(precision, As if pairs is None else [As[i] for i in pairs[0]],
+             Bs if pairs is None else [Bs[i] for i in pairs[1]], ids, n_out)
+            for (precision, As, Bs, ids, n_out, pairs), _ in recorded_lists(run)]
+
+
+def _assert_lists_match_plain(lists):
+    """Each recorded list on the kernel against its plain version: an f32 result of
+    rounded operands (TF32, 'default', the mixed kind) within the order of its sums
+    (assert_within_sum_order), the others to TOL of their dtype."""
+    from cyten_tpu_torch.config import config
+
+    assert lists
+    for precision, As, Bs, out_ids, n_out in lists:
+        old = config.matmul_precision
+        config.matmul_precision = precision
+        try:
+            got = grouped_matmul(As, Bs, out_ids, n_out)
+        finally:
+            config.matmul_precision = old
+        ref = grouped_matmul_plain(As, Bs, out_ids, n_out, precision=precision)
+        torch.cuda.synchronize()
+        mixed = As[0].dtype != Bs[0].dtype
+        if got[0].dtype == torch.float32 and (precision != 'float32' or mixed):
+            assert_within_sum_order(got, ref, As, Bs, out_ids, precision)
+            continue
+        rtol, atol = TOL[got[0].dtype]
+        for c, r in zip(got, ref):
+            err = float((c.double() - r.double()).abs().max()) if c.numel() else 0.
+            assert err <= atol + rtol * (float(r.double().abs().max()) if r.numel() else 0.)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', list(HUBBARD_KINDS))
+def test_hubbard_lists_match_plain(card, kind):
+    """The lists of one U(1) x U(1) Hubbard matvec at chi=256 (many pairs with M, N or K
+    of 1 to 4) on each kind against its plain version, and the kind launched."""
+    from cyten_tpu_torch.bench import _builder_symmetry, build_hubbard_workload
+    from cyten_tpu_torch.config import config
+
+    precision, dtype, env_dtype = HUBBARD_KINDS[kind]
+    LP, RP, W1, W2, theta = build_hubbard_workload(
+        get_backend(_builder_symmetry(build_hubbard_workload), device='cuda'), 256,
+        dtype=dtype)
+    H = HEffective(LP.to_dtype(env_dtype), RP.to_dtype(env_dtype), W1, W2)
+    before = grouped_matmul.kinds[kind].launches
+    old = config.matmul_precision
+    config.matmul_precision = precision
+    try:
+        lists = _recorded_lists(lambda: H.matvec(theta))
+    finally:
+        config.matmul_precision = old
+    torch.cuda.synchronize()
+    assert grouped_matmul.kinds[kind].launches > before
+    assert max(len(A) for _, A, *_ in lists) > 100  # hundreds of pairs in a list
+    _assert_lists_match_plain(lists)
+
+
+@pytest.mark.cuda
+def test_hubbard_matvec_card_matches_cpu(card):
+    """The Hubbard matvec at chi=128 in f64 on the card and on the CPU: 1e-12."""
+    from cyten_tpu_torch.bench import _builder_symmetry, build_hubbard_workload
+
+    out = {}
+    for device in ('cuda', 'cpu'):
+        args = build_hubbard_workload(get_backend(_builder_symmetry(build_hubbard_workload),
+                                                  device=device), 128)
+        out[device] = HEffective(*args[:4]).matvec(args[4]).to_numpy()
+    np.testing.assert_allclose(out['cuda'], out['cpu'], rtol=0,
+                               atol=1e-12 * np.abs(out['cpu']).max())
+
+
+@pytest.mark.cuda
+def test_graphed_dense_matvec_matches_eager(card):
+    """The dense (no-symmetry) TFI matvec at chi=64, f64, captured as a CUDA graph
+    (_GraphedStep, as matvec_run(graph=True) times it) and replayed on a new theta,
+    against the same matvec run eagerly: 1e-12."""
+    from cyten_tpu_torch.bench import (
+        _builder_symmetry, _normalised_matvec, build_dense_workload,
+    )
+
+    backend = get_backend(_builder_symmetry(build_dense_workload), device='cuda')
+    LP, RP, W1, W2, theta = build_dense_workload(backend, 64)
+    fn = _normalised_matvec(LP, RP, W1, W2)
+    graph = _GraphedStep(lambda th: (fn(th),), (theta,))
+    theta = fn(theta)
+    got, = graph.run((theta,))
+    want = fn(theta).to_numpy()
+    np.testing.assert_allclose(got.to_numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_padded_step_lists_match_plain(card):
+    """The lists of one static bond update of the padded workload (multiplicities
+    rounded up to 64) in bf16 work at 'default', the bench's bar rung, against their
+    plain version."""
+    from cyten_tpu_torch.bench import build_padded_workload
+    from cyten_tpu_torch.config import config
+
+    def padded(backend, chi, seed=0, *, dtype):
+        return build_padded_workload(backend, chi, seed, 64, dtype=dtype)
+
+    state = build_step_state(get_backend(u1_symmetry, device='cuda'), 256, builder=padded)
+    LP, RP, W1, W2, S, B1, B2, tmpl = (t.to_dtype(Dtype.bfloat16) for t in state[:8])
+    impl = _get_static_bond_fn(10, 'steady', {'n_jacobi': 1, 'ns_polish': 1})
+    old = config.matmul_precision
+    config.matmul_precision = 'default'
+    try:
+        lists = _recorded_lists(lambda: impl(HEffective(LP, RP, W1, W2), S, B1, B2, tmpl,
+                                             None))
+    finally:
+        config.matmul_precision = old
+    assert all(A.dtype == B.dtype == torch.bfloat16 for _, PA, PB, *_ in lists
+               for A, B in zip(PA, PB))
+    _assert_lists_match_plain(lists)

@@ -20,7 +20,14 @@ import cyten_tpu_torch.bench
 import cyten_tpu_torch.blocks.probe
 import cyten_tpu_torch.tensors.steady
 import cyten_tpu_torch.tools.flops
-from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
+from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS, TFIModel
+from cyten_tpu_torch.bench import (
+    build_dense_workload, build_hubbard_workload, build_padded_workload, main,
+    matvec_run, matvec_traffic_bytes, measured_hbm_gbps, measured_peak_tflops,
+    step_roofline, svd_growth_timing,
+)
+assert TFIModel(L=2, conserve='None', bc='infinite', device='cpu').exact_infinite_gs_energy() < 0
+assert matvec_run(8, (1, 2), 1, builder=build_dense_workload, device='cpu') > 0
 model = HeisenbergModel(L=4, conserve='Sz', device='cpu')
 psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1], backend=model.backend)
 eng = DMRGEngine(psi, model, chi_max=8)

@@ -63,8 +63,12 @@ def test_tfi_model_matches_cyten_tpu():
     for h, h_ref in zip(model.H_bonds, ref.H_bonds):
         np.testing.assert_array_equal(h.to_numpy(), ref.backend.block_backend.to_numpy(
             h_ref.to_dense_block()))
+    # the infinite chain's model exists (tests/test_torch_bench.py), its finite engine
+    # does not: the infinite MPS is not ported
+    model = TFIModel(L=4, bc='infinite', device='cpu')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0] * 4, backend=model.backend)
     with pytest.raises(NotImplementedError):
-        TFIModel(L=4, bc='infinite', device='cpu')
+        DMRGEngine(psi, model)
 
 
 def test_steady_truncated_svd_matches_cyten_tpu():
