@@ -28,3 +28,8 @@ from .symmetries import (
     z3_symmetry, z4_symmetry,
 )
 from .tensors import *  # noqa: F401,F403
+
+# the per-class HDF5 hooks (save_hdf5/from_hdf5) on every persistable class
+from .tools.hdf5_io import _install_hdf5_hooks as _ih
+_ih()
+del _ih

@@ -2,7 +2,8 @@
 chains, the Fibonacci golden chain and two-site DMRG (host-driven or static).
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
-``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` and its anyonic form
+``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` (with excited states, checkpoints,
+resume and rollback, and the finite MPS's measurements) and its anyonic form
 ``GoldenChainModel -> SimpleMPS.from_fusion_pairs -> DMRGEngine``.
 """
 
@@ -12,9 +13,12 @@ from .models import (
     mpo_from_bond_op, spin_half_site, tfi_exact_finite_gs_energy,
     tfi_exact_infinite_gs_energy,
 )
-from .dmrg import DMRGEngine, FaultError, HEffective
+from .dmrg import (
+    DMRGEngine, FaultError, HEffective, PlanarDMRGEngine, PlanarHEffective,
+)
 
 __all__ = ['SimpleMPS', 'split_truncate_theta', 'GoldenChainModel', 'HeisenbergModel',
            'TFIModel', 'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
            'tfi_exact_infinite_gs_energy',
-           'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective']
+           'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective',
+           'PlanarDMRGEngine', 'PlanarHEffective']

@@ -3,10 +3,10 @@
 The counterpart of ``cyten_tpu/algorithms/dmrg.py``: the environment updates,
 ``_apply_bond_mixing``, the effective-Hamiltonian matvec, :class:`HEffective`, the
 static bond update ``_get_static_bond_fn`` and :class:`DMRGEngine` with ``sweep``,
-``update_bond``, static mode and ``run``, on the abelian and the fusion-tree (SU(2))
-backends. Every ``tdot`` and ``compose`` on the abelian backend, and every
-``compose`` on the fusion-tree backend, runs its block products as one grouped-GEMM
-kernel launch.
+``update_bond``, static mode, excited states (``orthogonal_to``) and ``run`` with
+checkpoints, resume and rollback, on the abelian and the fusion-tree (SU(2)) backends.
+Every ``tdot`` and ``compose`` on the abelian backend, and every ``compose`` on the
+fusion-tree backend, runs its block products as one grouped-GEMM kernel launch.
 
 Precision is set per operator: ``HEffective(matmul_precision=...)`` (and the engine's
 ``matmul_precision``) runs the matvec's f32 products at that precision
@@ -28,6 +28,7 @@ Environment conventions:
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -36,7 +37,7 @@ import torch
 from ..backends.data import BlockSparseData, DenseData
 from ..symmetries import TensorProduct
 from ..tensors import (
-    DiagonalTensor, Mask, SymmetricTensor, compose, dagger, permute_legs, pinv,
+    DiagonalTensor, Mask, SymmetricTensor, compose, dagger, norm, permute_legs, pinv,
     scalar_multiply, scale_axis, svd, tdot,
 )
 from ..blocks._kernels import Graph
@@ -45,15 +46,16 @@ from ..tensors.krylov_based import (
     _close_structure, _device_norm, _with_blocks, fused_lanczos_impl, lanczos,
 )
 from ..tensors.steady import steady_truncated_svd
-from ..tensors.sparse import LinearOperator
+from ..tensors.sparse import LinearOperator, ProjectedLinearOperator
 from .mps import SimpleMPS, split_truncate_theta
 
-__all__ = ['HEffective', 'DMRGEngine', 'FaultError']
+__all__ = ['HEffective', 'DMRGEngine', 'FaultError', 'PlanarHEffective',
+           'PlanarDMRGEngine']
 
 
 class FaultError(RuntimeError):
-    """A sweep produced a non-finite result and there was no checkpoint to roll
-    back to."""
+    """A sweep produced a non-finite result, and there was no checkpoint to roll
+    back to or the result stayed non-finite through ``max_faults`` rollbacks."""
 
 
 def _with_precision(fn, precision):
@@ -465,6 +467,11 @@ class DMRGEngine:
     - ``matmul_precision`` (None | 'float32' | 'tensorfloat32' | 'default'): the
       precision of the f32 products of the Lanczos matvec, dynamic and static
       (:class:`HEffective`); None keeps ``config.matmul_precision``.
+    - ``orthogonal_to``: a list of :class:`SimpleMPS` to orthogonalize against
+      (excited states). Each bond problem is solved in the subspace orthogonal to
+      these states, projected onto psi's bond bases through the overlap environments
+      ``OLs``/``ORs`` (:meth:`_ortho_theta`), by a :class:`ProjectedLinearOperator`
+      around the effective Hamiltonian. Dynamic mode only: static mode refuses it.
     - ``env_dtype`` (e.g. ``Dtype.bfloat16``): the storage dtype of the environments
       LP/RP, cast after every update, dynamic and static. theta and the Lanczos
       vectors stay in the working dtype; the grouped-GEMM kernel reads the bf16
@@ -474,12 +481,17 @@ class DMRGEngine:
       ``tensors/adaptive.py``) or 'randomized' (``tensors/randomized.py``); see
       :func:`~cyten_tpu_torch.algorithms.mps.split_truncate_theta`.
 
-    Options that are not ported yet raise ``NotImplementedError``: ``mesh`` (and with
-    it ``shard_axis_name``), ``orthogonal_to`` and ``run(checkpoint=...)``; so does a
-    model or MPS with ``bc='infinite'``, which needs the infinite MPS and iDMRG
-    (``cyten_tpu``'s finite engine runs such a model from the boundary environments of
-    its bulk tensors and returns an energy of no meaning).
+    :meth:`run` takes checkpoints (``tools/checkpoint.py``), resumes from them and
+    rolls a non-finite sweep back to the last one.
+
+    ``mesh`` (and with it ``shard_axis_name``) is not ported yet and raises
+    ``NotImplementedError``; so does a model or MPS with ``bc='infinite'``, which
+    needs the infinite MPS and iDMRG (``cyten_tpu``'s finite engine runs such a
+    model from the boundary environments of its bulk tensors and returns an energy
+    of no meaning).
     """
+
+    _sweeps_done = 0  # completed sweeps across run() calls (the checkpoint steps)
 
     def __init__(self, psi: SimpleMPS, model, chi_max: int = 32, eps: float = 1e-12,
                  lanczos_options: dict = None, pad_chi_multiple: int = None,
@@ -489,8 +501,6 @@ class DMRGEngine:
                  dynamic_svd: str = 'exact'):
         if mesh is not None:
             raise NotImplementedError('DMRGEngine(mesh=...) is not ported yet')
-        if orthogonal_to:
-            raise NotImplementedError('DMRGEngine(orthogonal_to=...) is not ported yet')
         if dynamic_svd not in ('exact', 'adaptive', 'randomized'):
             raise ValueError(f'unknown dynamic_svd {dynamic_svd!r}')
         if 'infinite' in (getattr(model, 'bc', 'finite'), psi.bc):
@@ -504,6 +514,7 @@ class DMRGEngine:
         self.jit_env_updates = jit_env_updates
         self.shard_axis_name = shard_axis_name
         self.matmul_precision = matmul_precision
+        self.orthogonal_to = list(orthogonal_to or [])
         self.env_dtype = env_dtype
         self.dynamic_svd = dynamic_svd
         self.lanczos_options = lanczos_options or {'N_max': 20, 'P_tol': 1e-14}
@@ -515,6 +526,9 @@ class DMRGEngine:
         self.LPs = [None] * L
         self.RPs = [None] * L
         self._init_environments()
+        self.OLs = [[None] * L for _ in self.orthogonal_to]
+        self.ORs = [[None] * L for _ in self.orthogonal_to]
+        self._init_overlap_environments()
         self.E = None
         self.trunc_err = 0.
 
@@ -542,6 +556,61 @@ class DMRGEngine:
         self.RPs[L - 1] = RP
         for i in range(L - 1, 0, -1):
             self.update_RP(i)
+
+    # --- overlap environments for excited-state orthogonalization ------------------
+
+    def _init_overlap_environments(self):
+        if not self.orthogonal_to:
+            return
+        psi = self.psi
+        L = psi.L
+        bb = self.backend.block_backend
+        dtype = psi.Bs[0].dtype
+
+        def ones_func(shape, coupled):
+            return bb.ones(shape, dtype)
+
+        for k, phi in enumerate(self.orthogonal_to):
+            V_psi = psi.Bs[0].get_leg_co_domain('vL')
+            V_phi = phi.Bs[0].get_leg_co_domain('vL')
+            self.OLs[k][0] = SymmetricTensor.from_sector_block_func(
+                ones_func, [V_psi], [V_phi], backend=self.backend,
+                labels=[['vR*'], ['vR']])
+            Vr_psi = psi.Bs[-1].domain.factors[0]
+            Vr_phi = phi.Bs[-1].domain.factors[0]
+            self.ORs[k][L - 1] = SymmetricTensor.from_sector_block_func(
+                ones_func, [Vr_phi], [Vr_psi], backend=self.backend,
+                labels=[['vL'], ['vL*']])
+            for i in range(L - 1, 0, -1):
+                self.update_OR(k, i)
+
+    def _phi_tensor(self, k: int, i: int):
+        """phi's site tensor in the theta-product gauge (theta1 at site 0)."""
+        phi = self.orthogonal_to[k]
+        return phi.get_theta1(0) if i == 0 else phi.Bs[i]
+
+    def update_OL(self, k: int, i: int, A):
+        """OLs[k][i+1] from OLs[k][i], psi's new left isometry A, phi's tensor."""
+        t = tdot(self.OLs[k][i], self._phi_tensor(k, i), 'vR', 'vL')
+        self.OLs[k][i + 1] = tdot(dagger(A), t, ['vL*', 'p*'], ['vR*', 'p'])
+
+    def update_OR(self, k: int, i: int, B=None):
+        """ORs[k][i-1] from ORs[k][i], psi's B at site i, phi's tensor."""
+        if B is None:
+            B = self.psi.Bs[i]
+        t = tdot(self._phi_tensor(k, i), self.ORs[k][i], 'vR', 'vL')
+        self.ORs[k][i - 1] = tdot(t, dagger(B), ['p', 'vL*'], ['p*', 'vR*'])
+
+    def _ortho_theta(self, k: int, i: int):
+        """phi's two-site wavefunction at bond (i, i+1), expressed in psi's
+        current left/right bond bases: OL . phi_i . phi_{i+1} . OR."""
+        phi = self.orthogonal_to[k]
+        c = tdot(self.OLs[k][i], self._phi_tensor(k, i).relabelled({'p': 'p0'}),
+                 'vR', 'vL')
+        c = tdot(c, phi.Bs[i + 1].relabelled({'p': 'p1'}), 'vR', 'vL')
+        c = tdot(c, self.ORs[k][i + 1], 'vR', 'vL')
+        c = c.relabelled({'vR*': 'vL', 'vL*': 'vR'})
+        return permute_legs(c, codomain=['vL', 'p0', 'p1'], domain=['vR'])
 
     def _env(self, t):
         """An environment in the storage dtype ``env_dtype`` (where one is set)."""
@@ -603,7 +672,10 @@ class DMRGEngine:
         then on, whatever bond has that structure: a change of either setting
         captures anew. ``svd_mode='exact'`` stays eager: ``torch.linalg.svd`` syncs.
         ``cuda_graphs=False`` runs every update eagerly, to compare the two.
+
+        An engine with ``orthogonal_to`` has no static mode.
         """
+        assert not self.orthogonal_to, 'static mode: no excited-state search'
         if svd_mode not in ('exact', 'steady'):
             raise ValueError(f'unknown svd_mode {svd_mode!r}')
         self.static_mode = True
@@ -698,6 +770,17 @@ class DMRGEngine:
     def _update_bond_static(self, i: int):
         self.E = float(self._static_step(i))
 
+    def _drop_static(self):
+        """Static mode off, its functions, frozen constants and CUDA graphs dropped,
+        and the graphs' memory given back to the card: a later static mode captures
+        anew on the structures it finds then, in a pool of its own."""
+        self.static_mode = False
+        self._static_cache = {}
+        if getattr(self, '_graph_pool', None) is not None:
+            self._graph_pool = None
+            gc.collect()
+            torch.cuda.empty_cache()
+
     def static_graphs(self) -> list:
         """The CUDA graphs static mode has captured (:class:`_GraphedStep`)."""
         return [v for k, v in getattr(self, '_static_cache', {}).items()
@@ -739,7 +822,14 @@ class DMRGEngine:
         psi = self.psi
         Heff = HEffective(self.LPs[i], self.RPs[i + 1], self.model.H_mpo[i],
                           self.model.H_mpo[i + 1], matmul_precision=self.matmul_precision)
-        E, theta, n_iter = lanczos(Heff, psi.get_theta2(i), self.lanczos_options)
+        theta0 = psi.get_theta2(i)
+        if self.orthogonal_to:
+            vecs = [self._ortho_theta(k, i) for k in range(len(self.orthogonal_to))]
+            vecs = [v for v in vecs if norm(v) > 1e-12]
+            if vecs:
+                Heff = ProjectedLinearOperator(Heff, vecs)
+                theta0 = Heff.project(theta0)
+        E, theta, n_iter = lanczos(Heff, theta0, self.lanczos_options)
         self.E = E
         adaptive = self.dynamic_svd == 'adaptive'
         A, S, B, err = split_truncate_theta(theta, self.chi_max, self.eps,
@@ -754,6 +844,9 @@ class DMRGEngine:
         psi.Bs[i + 1] = B
         self.update_LP(i, A)
         self.update_RP(i + 1, B)
+        for k in range(len(self.orthogonal_to)):
+            self.update_OL(k, i, A)
+            self.update_OR(k, i + 1, B)
 
     def _bond_signature(self):
         """Hashable snapshot of every bond structure (for auto_static)."""
@@ -762,20 +855,72 @@ class DMRGEngine:
              tuple(int(m) for m in B.get_leg_co_domain('vL').multiplicities))
             for B in self.psi.Bs)
 
+    def _checkpoint_manager(self, checkpoint):
+        """Normalize run()'s ``checkpoint`` argument to a CheckpointManager."""
+        if checkpoint is None:
+            return None
+        if isinstance(checkpoint, str):
+            from ..tools.checkpoint import CheckpointManager
+            return CheckpointManager(checkpoint)
+        return checkpoint
+
+    def _restore_from(self, mgr, step, verbose=False, rollback=False):
+        """Restore psi (and the counters) from a checkpoint onto the engine's device
+        and rebuild the derived state (environments, overlap environments). Static
+        mode is dropped with its graphs (:meth:`_drop_static`), so that no graph
+        captured on the tensors of before replays, and ``auto_static`` turns it on
+        again on the restored structures."""
+        payload = mgr.restore(step, device=self.backend.block_backend.device)
+        self._drop_static()
+        self.psi = payload['psi']
+        self.E = payload.get('E')
+        self.trunc_err = payload.get('trunc_err', 0.)
+        self._sweeps_done = int(payload.get('sweep', step))
+        L = self.psi.L
+        self.LPs = [None] * L
+        self.RPs = [None] * L
+        self._init_environments()
+        self.OLs = [[None] * L for _ in self.orthogonal_to]
+        self.ORs = [[None] * L for _ in self.orthogonal_to]
+        self._init_overlap_environments()
+        if verbose:
+            print(('rollback to' if rollback else 'resumed from')
+                  + f' checkpoint step {step} (E = {self.E})')
+
     def run(self, n_sweeps: int = 10, tol: float = 1e-10, verbose: bool = False,
-            checkpoint=None) -> float:
-        """Sweep until the energy changes by less than ``tol`` (at most ``n_sweeps``).
+            checkpoint=None, checkpoint_every: int = 1, resume: bool = True,
+            max_faults: int = 2) -> float:
+        """Sweep until the energy changes by less than ``tol`` (at most ``n_sweeps``),
+        optionally with fault tolerance.
 
-        A sweep whose energy is not finite, or that fails in a factorization,
-        raises :class:`FaultError`: there is no checkpoint to roll back to
-        (``checkpoint=`` is not ported yet and raises ``NotImplementedError``).
+        With ``checkpoint`` (a :class:`~cyten_tpu_torch.tools.checkpoint.
+        CheckpointManager` or a directory path) the engine is restartable and heals
+        itself, as ``cyten_tpu``'s:
 
-        With ``auto_static``, static mode is turned on after the first sweep that
-        leaves every bond structure as the sweep before it did. In static mode a
-        sweep reads E on the host once (:meth:`sweep`).
+        - every ``checkpoint_every`` completed sweeps, ``{psi, E, sweep, trunc_err}``
+          is saved (rolling, ``max_to_keep`` per the manager); environments are
+          derived state and are rebuilt on restore, not stored;
+        - on entry with ``resume=True``, a fresh engine restores the latest
+          checkpoint in the directory (crash recovery across processes);
+        - a sweep whose energy is not finite, or that fails in a factorization (a
+          NaN block makes eigh or the SVD raise before an energy returns), rolls
+          back to the last checkpoint. The first rollback also drops ``env_dtype``,
+          before the environments are rebuilt, so that they and every later update
+          are in the working dtype. Faults are counted over the whole run; after
+          ``max_faults`` rollbacks, or with no checkpoint to roll back to,
+          :class:`FaultError` is raised.
+
+        With ``auto_static`` (and no ``orthogonal_to``), static mode is turned on
+        after the first sweep that leaves every bond structure as the sweep before it
+        did. In static mode a sweep reads E on the host once (:meth:`sweep`), so a
+        poisoned sweep through graphs is caught at its end.
         """
-        if checkpoint is not None:
-            raise NotImplementedError('DMRGEngine.run(checkpoint=...) is not ported yet')
+        mgr = self._checkpoint_manager(checkpoint)
+        if mgr is not None and resume and self._sweeps_done == 0:
+            step = mgr.latest_step()
+            if step is not None:
+                self._restore_from(mgr, step, verbose)
+        faults = 0
         E_old = np.inf
         sig_old = None
         for sweep in range(n_sweeps):
@@ -789,12 +934,31 @@ class DMRGEngine:
                 fault_exc = exc
                 E = np.nan
             if not np.isfinite(E):
-                raise FaultError(f'non-finite result after sweep ({fault_exc or E}); '
-                                 'no checkpoint to roll back to') from fault_exc
+                faults += 1
+                latest = None if mgr is None else mgr.latest_step()
+                if latest is None or faults > max_faults:
+                    raise FaultError(
+                        f'non-finite result after sweep ({fault_exc or E}); '
+                        'no checkpoint to roll back to' if latest is None else
+                        f'non-finite result persisted through {max_faults} '
+                        'rollbacks') from fault_exc
+                if self.env_dtype is not None:
+                    if verbose:
+                        print('rollback: escalating precision (env_dtype -> None)')
+                    self.env_dtype = None
+                self._restore_from(mgr, latest, verbose, rollback=True)
+                E_old = np.inf
+                sig_old = None
+                continue
+            self._sweeps_done += 1
+            if mgr is not None and self._sweeps_done % checkpoint_every == 0:
+                mgr.save(self._sweeps_done,
+                         {'psi': self.psi, 'E': float(E), 'sweep': self._sweeps_done,
+                          'trunc_err': float(self.trunc_err)})
             if verbose:
                 print(f'sweep {sweep + 1}: E = {E:.12f}, '
                       f'max chi = {self.psi.max_chi()}')
-            if self.auto_static and not self.static_mode:
+            if self.auto_static and not self.static_mode and not self.orthogonal_to:
                 sig = self._bond_signature()
                 if sig == sig_old:
                     mode = self.auto_static if isinstance(self.auto_static, str) \
@@ -809,3 +973,9 @@ class DMRGEngine:
                 break
             E_old = E
         return self.E
+
+
+# The engine uses planar rearrangements only (rotations and bends), so it doubles as
+# cyten_tpu's PlanarDMRGEngine; the aliases exist for drop-in parity.
+PlanarHEffective = HEffective
+PlanarDMRGEngine = DMRGEngine

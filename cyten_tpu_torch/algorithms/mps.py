@@ -1,9 +1,12 @@
 """Finite matrix-product states in right-canonical (B) form.
 
-The counterpart of ``cyten_tpu/algorithms/mps.py``: ``SimpleMPS`` (product, singlet
-and fusion-pair states, two-site wavefunctions, bond expectation values) and
-``split_truncate_theta`` (:664) with the exact per-sector SVD. All contractions are
-label-based ``tdot`` and ``compose`` calls.
+The counterpart of ``cyten_tpu/algorithms/mps.py`` for finite chains: ``SimpleMPS``
+(product, singlet and fusion-pair states, two-site wavefunctions, ``canonicalize``, and
+the measurements: site and bond expectation values, local operators, entanglement
+entropies, correlation functions with charged pairs, MPO expectation values and
+variances, norms and overlaps) and ``split_truncate_theta`` (:664) with the exact
+per-sector SVD. All contractions are label-based ``tdot`` and ``compose`` calls. A
+``SimpleMPS`` is a type of the persistence schema (``tools/hdf5_io.py``).
 
 Conventions:
 
@@ -21,7 +24,8 @@ from ..dtypes import Dtype
 from ..backends import get_backend
 from ..symmetries import ElementarySpace
 from ..tensors import (
-    DiagonalTensor, SymmetricTensor, compose, inner, permute_legs, scale_axis, tdot,
+    ChargedTensor, DiagonalTensor, SymmetricTensor, Tensor, compose, dagger, entropy,
+    inner, item, norm, permute_legs, pinv, qr, scale_axis, svd, tdot, trace,
 )
 from ..tensors.adaptive import adaptive_truncated_svd, fused_truncated_svd
 from ..tensors.randomized import randomized_truncated_svd
@@ -194,12 +198,218 @@ class SimpleMPS:
         op_th = permute_legs(op_th, codomain=['vL', 'p0', 'p1'], domain=['vR'])
         return inner(theta, op_th, do_dagger=True)
 
+    def entanglement_entropy(self) -> list[float]:
+        """Von Neumann entropy at each bond (qdim-weighted for non-abelian)."""
+        res = []
+        bonds = range(self.L) if self.bc == 'infinite' else range(1, self.L)
+        for i in bonds:
+            S = self.Ss[i]
+            p = S * S
+            p = (1. / float(p.sum())) * p
+            res.append(entropy(p, n=1))
+        return res
+
+    def correlation_function(self, op_i, i: int, op_j, j: int):
+        """<psi| op_i op_j |psi> for single-site operators, i < j.
+
+        Transfer-matrix contraction left to right (planar rearrangements only).
+        Charge-raising/-lowering operators (``ChargedTensor``, e.g. ``Sp``/``Sm``
+        under Sz conservation) are supported in pairs: the hidden charge legs
+        propagate through the transfer matrix and pair up at site j.
+        """
+        assert i < j
+        if isinstance(op_i, ChargedTensor) or isinstance(op_j, ChargedTensor):
+            assert isinstance(op_i, ChargedTensor) and isinstance(op_j, ChargedTensor), \
+                'charged operators only pair with charged operators'
+            return self._charged_correlation(op_i, i, op_j, j)
+        theta = self.get_theta1(i)
+        oi = op_i.relabelled(['p', 'p*'])
+        thp = permute_legs(theta, codomain=['p'], domain=['vL', 'vR'])
+        op_th = permute_legs(compose(oi, thp), codomain=['vL', 'p'], domain=['vR'])
+        E = tdot(dagger(theta), op_th, ['vL*', 'p*'], ['vL', 'p'])  # [vR*; vR]
+        for k in range(i + 1, j):
+            E = tdot(E, self.Bs[k], 'vR', 'vL')
+            E = tdot(dagger(self.Bs[k]), E, ['vL*', 'p*'], ['vR*', 'p'])
+        Bj = self.Bs[j]
+        oj = op_j.relabelled(['p', 'p*'])
+        Bp = permute_legs(Bj, codomain=['p'], domain=['vL', 'vR'])
+        op_B = permute_legs(compose(oj, Bp), codomain=['vL', 'p'], domain=['vR'])
+        E = tdot(E, op_B, 'vR', 'vL')
+        E = tdot(dagger(Bj), E, ['vL*', 'p*', 'vR*'], ['vR*', 'p', 'vR'])
+        return _as_scalar(E)
+
+    def _charged_correlation(self, op_i, i: int, op_j, j: int):
+        """Transfer contraction with the hidden charge legs kept open, then
+        contracted with the operators' charged states at the end (on the host)."""
+        if op_i.charged_state is None or op_j.charged_state is None:
+            raise ValueError('charged correlation needs charged_state on both ops')
+        bang = type(op_i)._CHARGE_LEG_LABEL
+        oi = op_i.invariant_part.relabelled({bang: '!i'})  # ['p', 'p*', '!i']
+        oj = op_j.invariant_part.relabelled({bang: '!j'})
+        theta = self.get_theta1(i)
+        t = tdot(oi, theta, 'p*', 'p')            # [p, !i, vL, vR]
+        E = tdot(dagger(theta), t, ['vL*', 'p*'], ['vL', 'p'])  # [vR*; ... !i, vR]
+        for k in range(i + 1, j):
+            E = tdot(E, self.Bs[k], 'vR', 'vL')
+            E = tdot(dagger(self.Bs[k]), E, ['vL*', 'p*'], ['vR*', 'p'])
+        Bj = self.Bs[j]
+        t = tdot(E, Bj, 'vR', 'vL')               # [vR*, !i, p, vR]
+        t = tdot(t, oj, 'p', 'p*')                # [vR*, !i, vR, p, !j]
+        res = tdot(dagger(Bj), t, ['vL*', 'p*', 'vR*'], ['vR*', 'p', 'vR'])
+        # res: 2-leg invariant tensor on the charge legs [!i, !j]
+        res = permute_legs(res, codomain=['!i', '!j'], domain=[])
+        bb = res.backend.block_backend
+        dense = bb.to_numpy(res.to_dense_block())
+        si = op_i.backend.block_backend.to_numpy(op_i.charged_state)
+        sj = op_j.backend.block_backend.to_numpy(op_j.charged_state)
+        axes = [res.labels.index('!i'), res.labels.index('!j')]
+        if axes == [1, 0]:
+            dense = dense.T
+        return complex(si @ dense @ sj) if np.iscomplexobj(dense) \
+            else float(si @ dense @ sj)
+
+    def expectation_value_mpo(self, mpos) -> float:
+        """<psi| MPO |psi> for a finite MPO (one ``[wL, p, wR, p*]`` tensor per
+        site, boundary-selected at the ends, e.g. ``model.H_mpo``)."""
+        return self._mpo_expectation([mpos])
+
+    def mpo_variance(self, mpos) -> float:
+        """Variance <(O - <O>)^2> of a finite MPO: the standard DMRG convergence
+        diagnostic (small variance => eigenstate)."""
+        e = self._mpo_expectation([mpos])
+        e2 = self._mpo_expectation([mpos, mpos])
+        return float(np.real(e2 - e * e))
+
+    def _mpo_expectation(self, layers):
+        """<psi| prod(layers) |psi> by a left-to-right environment contraction.
+
+        Valid in any gauge: bra and ket use the same site tensors
+        ``[theta1(0), B_1, ..., B_{L-1}]`` which multiply out to the state; also for a
+        state of nonzero total charge, whose last bond is 1-dim in a nontrivial sector
+        (``cyten_tpu``'s fails there, as its ``item`` wants trivial legs)."""
+        assert self.bc == 'finite'
+        L = self.L
+        n_lay = len(layers)
+        sym = self.Bs[0].symmetry
+        triv = ElementarySpace(sym, sym.trivial_sector[None, :])
+        V0 = self.Bs[0].get_leg_co_domain('vL')
+        bb = self.backend.block_backend
+        dtype = self.Bs[0].dtype
+
+        def ones_func(shape, coupled):
+            return bb.ones(shape, dtype)
+
+        w_labels = [f'w{k}' for k in range(n_lay)]
+        E = SymmetricTensor.from_sector_block_func(
+            ones_func, [V0], [V0] + [triv] * n_lay, backend=self.backend,
+            labels=[['vR*'], ['vR'] + w_labels])
+        for i in range(L):
+            M = self.get_theta1(0) if i == 0 else self.Bs[i]
+            t = tdot(M, E, 'vL', 'vR')   # [p, vR] + [vR*, w0, w1, ...]
+            for k, mpo in enumerate(layers):
+                Wk = mpo[i].relabelled({'wL': f'w{k}L', 'wR': f'w{k}R'})
+                t = tdot(t, Wk, ['p', w_labels[k]], ['p*', f'w{k}L'])
+                t = t.relabelled({f'w{k}R': w_labels[k]})
+            E = tdot(dagger(M), t, ['vL*', 'p*'], ['vR*', 'p'])
+        if not all(l.is_trivial for l in E.legs):
+            # a charged boundary (nonzero total charge): the legs left are 1-dim, the
+            # last bond in a nontrivial sector, so the value is E's one entry
+            return E.to_numpy().item()
+        return _as_scalar(E)
+
+    def norm_squared(self):
+        S = self.Ss[0]
+        return float(np.sum(np.abs(S.diag_numpy) ** 2))
+
+    def overlap(self, other: SimpleMPS):
+        """<self | other>, assuming matching site legs."""
+        assert self.L == other.L
+        t_self = dagger(self.get_theta1(0))
+        t_other = other.get_theta1(0)
+        E = tdot(t_self, t_other, ['vL*', 'p*'], ['vL', 'p'])  # [vR* ; vR]
+        for i in range(1, self.L):
+            E = tdot(E, other.Bs[i], 'vR', 'vL')
+            E = tdot(dagger(self.Bs[i]), E, ['vL*', 'p*'], ['vR*', 'p'])
+        if isinstance(E, Tensor) and not all(l.is_trivial for l in E.legs):
+            # charged boundary (nonzero total charge): the final [vR*; vR]
+            # pair is 1-dim but in a nontrivial sector, closed by a trace
+            E = trace(permute_legs(E, codomain=['vR'], domain=['vR*']))
+        return _as_scalar(E)
+
     def bond_dimensions(self) -> list[int]:
         return [int(B.get_leg_co_domain('vL').dim) for B in self.Bs] \
             + [int(self.Bs[-1].domain.factors[0].dim)]
 
     def max_chi(self) -> int:
         return max(self.bond_dimensions())
+
+    def canonicalize(self, normalize: bool = True):
+        """Restore exact right-canonical B form with true Schmidt values (in place).
+
+        Two passes over the finite chain: a left-to-right QR sweep into
+        left-isometric form, then a right-to-left SVD sweep that right-canonicalizes
+        every site and collects the singular values.
+        """
+        assert self.bc == 'finite', 'canonicalize: finite MPS only'
+        L = self.L
+        # pass 1: left-to-right QR -> left-isometric A's, center carried in T
+        As = []
+        T = self.get_theta1(0)  # S_0 B_0, codomain [vL, p], domain [vR]
+        for i in range(L - 1):
+            Q, R = qr(T, new_labels=['vR', 'vL'])
+            As.append(Q)
+            T = tdot(R, self.Bs[i + 1], 'vR', 'vL')
+            T = permute_legs(T, codomain=['vL', 'p'], domain=['vR'])
+        # pass 2: right-to-left SVD -> right-isometric B's + Schmidt values
+        for i in range(L - 1, 0, -1):
+            Tp = permute_legs(T, codomain=['vL'], domain=['vR', 'p'])
+            U, S, Vh = svd(Tp, new_labels=['vR', 'vL'])
+            if normalize:
+                S = (1. / norm(S)) * S
+            self.Bs[i] = permute_legs(Vh, codomain=['vL', 'p'], domain=['vR'])
+            self.Ss[i] = S.relabelled(['vL', 'vL*'])
+            carry = scale_axis(U, S, 'vR')
+            T = tdot(As[i - 1], carry, 'vR', 'vL')
+            T = permute_legs(T, codomain=['vL', 'p'], domain=['vR'])
+        # site 0: T == S_0 B_0 of the canonicalized state
+        self.Bs[0] = scale_axis(T, pinv(self.Ss[0], cutoff=1e-14), 'vL')
+        return self
+
+    # --- measurements -----------------------------------------------------------------
+
+    def site_expectation_value(self, op, i: int):
+        """<psi| op_i |psi> for a single-site operator (codomain [p], domain [p]).
+
+        Planar rearrangements and the structural inner product only (anyon-safe).
+        """
+        theta = self.get_theta1(i)
+        op = op.relabelled(['p', 'p*'])
+        thp = permute_legs(theta, codomain=['p'], domain=['vL', 'vR'])
+        op_th = compose(op, thp)  # legs [p, vR, vL]
+        op_th = permute_legs(op_th, codomain=['vL', 'p'], domain=['vR'])
+        return inner(theta, op_th, do_dagger=True)
+
+    def apply_local_op(self, op, i: int, canonicalize: bool = True) -> SimpleMPS:
+        """Apply a single-site operator at site ``i``; returns a NEW SimpleMPS.
+
+        ``op`` is a SymmetricTensor (codomain ``[p]``, domain ``[p]``). The result is
+        NOT normalized (its norm is physical); with ``canonicalize`` (finite bc only)
+        the canonical B form and Schmidt values are restored.
+        """
+        res = self.copy()
+        op = op.relabelled(['p', 'p*'])
+        B = permute_legs(self.Bs[i], codomain=['p'], domain=['vL', 'vR'])
+        new_B = compose(op, B)  # codomain [p], domain [vL, vR]
+        res.Bs[i] = permute_legs(new_B, codomain=['vL', 'p'], domain=['vR'])
+        if canonicalize and self.bc == 'finite':
+            res.canonicalize(normalize=False)
+        return res
+
+
+def _as_scalar(res):
+    if isinstance(res, Tensor):
+        return item(res)
+    return res
 
 
 def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True,
@@ -263,3 +473,17 @@ def split_truncate_theta(theta, chi_max: int, eps: float, normalize: bool = True
     A = U.relabelled({'p0': 'p'})
     B = permute_legs(Vh, codomain=['vL', 'p1'], domain=['vR']).relabelled({'p1': 'p'})
     return A, S, B, err
+
+
+def _register_mps_serialization():
+    """SimpleMPS in the typed persistence schema (tools.hdf5_io / tools.checkpoint)."""
+    from ..tools.hdf5_io import from_tree, register_tree_type
+
+    register_tree_type(
+        'SimpleMPS', SimpleMPS,
+        lambda m: {'Bs': m.Bs, 'Ss': m.Ss, 'bc': m.bc},
+        lambda tree: SimpleMPS(from_tree(tree['Bs']), from_tree(tree['Ss']),
+                               bc=str(tree['bc'])))
+
+
+_register_mps_serialization()

@@ -54,6 +54,10 @@ class LanczosGroundState(KrylovBased):
         """Returns ``(E0, psi0, N_iterations)``."""
         H, psi = self.H, self.psi0
         psi_norm = norm(psi)
+        if not np.isfinite(psi_norm):
+            # a NaN site tensor at the bond being updated: a numerical fault, which
+            # DMRGEngine.run rolls back like a non-finite energy
+            raise FloatingPointError(f'non-finite initial vector (norm {psi_norm})')
         assert psi_norm > 0, 'zero initial vector'
         q = scalar_multiply(1. / psi_norm, psi)
         basis = [q]

@@ -8,6 +8,8 @@ imports JAX). Its one CPU test, the FLOP count against cyten_tpu, skips there.
 """
 
 import gc
+import os
+import weakref
 
 import numpy as np
 import pytest
@@ -1309,3 +1311,85 @@ def test_padded_step_lists_match_plain(card):
     assert all(A.dtype == B.dtype == torch.bfloat16 for _, PA, PB, *_ in lists
                for A, B in zip(PA, PB))
     _assert_lists_match_plain(lists)
+
+
+# --- checkpoints, resume and rollback on the card ------------------------------------
+
+
+def _heisenberg(L, device='cuda'):
+    from cyten_tpu_torch.algorithms import HeisenbergModel
+
+    model = HeisenbergModel(L=L, conserve='Sz', device=device)
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2),
+                                       backend=model.backend)
+    return model, psi
+
+
+def _mps_blocks(psi):
+    return [b for t in psi.Bs + psi.Ss for b in t.data.blocks]
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(card, tmp_path):
+    """A state on the card saved and loaded with device='cuda' lies on the card, on
+    the model's own backend, bitwise; with device='cpu' on the CPU."""
+    from cyten_tpu_torch.tools.checkpoint import load_checkpoint, save_checkpoint
+
+    model, psi = _heisenberg(8)
+    eng = DMRGEngine(psi, model, chi_max=16, eps=1e-13)
+    eng.run(n_sweeps=4)
+    path = str(tmp_path / 'ckpt')
+    save_checkpoint(path, {'psi': eng.psi, 'E': eng.E})
+    back = load_checkpoint(path, device='cuda')
+    assert back['E'] == eng.E and back['psi'].backend is model.backend
+    for a, b in zip(_mps_blocks(back['psi']), _mps_blocks(eng.psi)):
+        assert a.is_cuda and torch.equal(a, b)
+    host = load_checkpoint(path, device='cpu')['psi']
+    for a, b in zip(_mps_blocks(host), _mps_blocks(eng.psi)):
+        assert a.device.type == 'cpu' and torch.equal(a, b.cpu())
+    # the restored state sweeps on in a fresh engine
+    eng2 = DMRGEngine(back['psi'], model, chi_max=16, eps=1e-13)
+    assert abs(eng2.sweep() - eng.E) < 1e-10
+
+
+@pytest.mark.cuda
+def test_async_save_while_the_engine_sweeps(card, tmp_path):
+    """Every sweep saved with async_save while the next sweep runs: each kept step is
+    the state of its own sweep (its <H> is that sweep's E; chi 16 keeps every value at
+    L=8), not one torn by the sweeps after it."""
+    from cyten_tpu_torch.tools.checkpoint import CheckpointManager, wait_for_saves
+
+    model, psi = _heisenberg(8)
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=3, async_save=True)
+    eng = DMRGEngine(psi, model, chi_max=16, eps=1e-13)
+    eng.run(n_sweeps=4, checkpoint=mgr, tol=0.)
+    wait_for_saves()
+    assert sorted(os.listdir(tmp_path)) == [f'step_{s:08d}' for s in (2, 3, 4)]
+    energies = []
+    for step in (2, 3, 4):
+        payload = mgr.restore(step, device='cuda')
+        E = payload['psi'].expectation_value_mpo(model.H_mpo)
+        assert abs(E - payload['E']) < 1e-10, step
+        energies.append(payload['E'])
+    assert energies[-1] == eng.E
+
+
+@pytest.mark.cuda
+def test_static_rollback_recaptures_graphs(card, tmp_path, capsys):
+    """A NaN B in static mode through graphs rolls back to the checkpoint: the old
+    graphs are released, auto_static captures new ones on the restored structures, and a sweep
+    through them matches an eager static sweep (1e-10)."""
+    model, psi = _heisenberg(10)
+    eng = DMRGEngine(psi, model, chi_max=16, eps=1e-13, auto_static=True)
+    # dynamic until the structures repeat, then static sweeps that capture graphs
+    eng.run(n_sweeps=7, checkpoint=str(tmp_path), tol=0.)
+    old = [weakref.ref(g) for g in eng.static_graphs()]
+    assert eng.static_mode and old
+    eng.psi.Bs[4] = eng.psi.Bs[4] * float('nan')
+    eng.run(n_sweeps=6, checkpoint=str(tmp_path), tol=0., verbose=True)
+    assert 'rollback to checkpoint' in capsys.readouterr().out
+    assert all(r() is None for r in old)  # released
+    assert eng.static_mode and eng.static_graphs()
+    E_graph = eng.E
+    eng.enable_static_mode(n_lanczos=20, svd_mode='steady', cuda_graphs=False)
+    assert abs(eng.sweep() - E_graph) < 1e-10

@@ -4,6 +4,8 @@ Inputs are drawn once in cyten_tpu from a numpy seed and carried over exactly
 (test_torch_interop.export_tensor).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -139,10 +141,19 @@ def test_non_finite_sweep_raises_fault_error():
         eng.run(n_sweeps=2)
 
 
-@pytest.mark.parametrize('kwargs', [{'mesh': object()}, {'orthogonal_to': [None]}])
+# the options still to port: mesh (with shard_axis_name) and an infinite chain
+@pytest.mark.parametrize('kwargs', [{'mesh': object()}, {'bc': 'infinite'}])
 def test_unported_engine_options_raise(kwargs):
-    model = HeisenbergModel(L=2, conserve='Sz', device='cpu')
-    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1], backend=model.backend)
+    from cyten_tpu_torch.algorithms import TFIModel
+
+    if kwargs.get('bc') == 'infinite':
+        model = TFIModel(L=2, conserve='None', bc='infinite', device='cpu')
+        psi = SimpleMPS.from_product_state(model.site_legs, [0, 0], backend=model.backend,
+                                           bc='infinite')
+        kwargs = {}
+    else:
+        model = HeisenbergModel(L=2, conserve='Sz', device='cpu')
+        psi = SimpleMPS.from_product_state(model.site_legs, [0, 1], backend=model.backend)
     with pytest.raises(NotImplementedError):
         DMRGEngine(psi, model, **kwargs)
 
@@ -168,8 +179,14 @@ def test_dynamic_svd_methods_run(method):
     assert abs(eng.run(n_sweeps=n_sweeps) - E_exact) < tol
 
 
-def test_checkpoint_not_ported_raises():
-    model = HeisenbergModel(L=2, conserve='Sz', device='cpu')
-    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1], backend=model.backend)
-    with pytest.raises(NotImplementedError):
-        DMRGEngine(psi, model).run(checkpoint='ckpt')
+def test_checkpoint_not_ported_raises(tmp_path):
+    """run(checkpoint=...) is ported (tests/test_torch_checkpoint.py): what raises now
+    is a fault with no checkpoint yet in the directory to roll back to."""
+    model = HeisenbergModel(L=4, conserve='Sz', device='cpu')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1], backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=8)
+    RP = eng.RPs[1]
+    RP.data.blocks = [b * float('nan') for b in RP.data.blocks]
+    with pytest.raises(FaultError, match='no checkpoint to roll back to'):
+        eng.run(n_sweeps=2, checkpoint=str(tmp_path / 'ckpt'))
+    assert os.listdir(tmp_path / 'ckpt') == []

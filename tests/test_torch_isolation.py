@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor cyten_tpu (every module,
-the bench and static mode included), and without CUDA its default device raises
-instead of running on the CPU."""
+the bench, static mode, checkpoints and excited states included), nor h5py or orbax
+for its checkpoints, and without CUDA its default device raises instead of running on
+the CPU."""
 
 import os
 import re
@@ -36,8 +37,24 @@ assert abs(E - (-1.6160254037844384)) < 1e-9, E
 eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
 E = eng.sweep()
 assert abs(E - (-1.6160254037844384)) < 1e-9, E
+# checkpoints (torch.save alone) and excited states
+import tempfile
+import cyten_tpu_torch.tensors.sparse
+import cyten_tpu_torch.tools.checkpoint
+import cyten_tpu_torch.tools.hdf5_io
+import cyten_tpu_torch.tools.math
+from cyten_tpu_torch.algorithms import PlanarDMRGEngine
+from cyten_tpu_torch.tools.checkpoint import CheckpointManager
+with tempfile.TemporaryDirectory() as d:
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1], backend=model.backend)
+    E0 = PlanarDMRGEngine(psi, model, chi_max=8).run(n_sweeps=2, checkpoint=d)
+    assert CheckpointManager(d).latest_step() == 2
+    assert abs(CheckpointManager(d).restore(device='cpu')['E'] - E0) == 0
+psi1 = SimpleMPS.from_product_state(model.site_legs, [1, 0, 1, 0], backend=model.backend)
+E1 = DMRGEngine(psi1, model, chi_max=8, orthogonal_to=[psi]).run(n_sweeps=4)
+assert E1 > E0 + 0.1 and abs(psi1.overlap(psi)) < 1e-8, (E0, E1)
 leaked = sorted(m for m in sys.modules
-                if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu'))
+                if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu', 'h5py', 'orbax'))
 print('LEAKED', leaked)
 """
 
@@ -51,7 +68,7 @@ def test_port_runs_without_jax_or_cyten_tpu():
 
 
 def test_no_source_file_imports_jax_or_cyten_tpu():
-    pattern = re.compile(r'^\s*(import|from)\s+(jax|cyten_tpu)(\.|\s|$)', re.M)
+    pattern = re.compile(r'^\s*(import|from)\s+(jax|cyten_tpu|orbax)(\.|\s|$)', re.M)
     files = list((REPO / 'cyten_tpu_torch').rglob('*.py')) + [REPO / 'chip_smoke.py']
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
