@@ -9,7 +9,9 @@ two-site DMRG: HeisenbergModel -> SimpleMPS -> DMRGEngine.run, dynamic and then 
 static mode, with checkpoints, rollback and excited states; and the port's bench step,
 cyten_tpu_torch.bench) at the full width of
 the repo's production setting, SU(2) Heisenberg DMRG and the Fibonacci golden chain on
-the fusion-tree backend, checks the energies, and ends with one JSON line
+the fusion-tree backend, the models layer (sites, couplings, CouplingModel,
+SpinChainModel, mpo_from_terms) on spin-1/2, spin-1 and J1-J2 chains, checks the
+energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
@@ -18,17 +20,23 @@ fails. Imports nothing of JAX or cyten_tpu.
     python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
     python3 chip_smoke.py --bench-only     # phases 1, 2, 2b and 13, then stop
     python3 chip_smoke.py --engine-only    # phases 1, 2, 2b, 4 and 14, then stop
+    python3 chip_smoke.py --models-only    # phases 1, 2, 2b and 15, then the kernels
+                                           # line of phase 15 and the device line
+    python3 chip_smoke.py --steady-ab      # phase 1, then steady_ab, then stop
     python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
                                            # of it in turns (ab_run: lists, bench
                                            # steps, replayed sweeps), then stop
 
 The full run takes phases 11, 12 and 13 at less depth than --su2-only, --golden-only
-and --bench-only do, to stay well inside its time limit with phase 14: SU(2) and the
-golden chain without the eager static sweep before their graphs and without the
+and --bench-only do, to stay well inside its time limit with phases 14 and 15: SU(2)
+and the golden chain without the eager static sweep before their graphs and without the
 profile of a replayed sweep, the golden chain without L=6 and 8; the bench's golden
 scenario in place of its step scenario (so without the chi=8192 ladder and the SVD
 timings), the ceilings measured in the phase. The thin form's crossover (phase 2c)
-runs with --kernels-only alone.
+runs with --kernels-only alone. Phase 15 takes the spin-1 chain at L=10 alone
+(--models-only adds L=32 at chi 1024, dynamic and static) and the J1-J2 chain at
+chi_max=16 (--models-only: 64); phase 14 leaves out the child process's resume and the
+excited state (--engine-only keeps both).
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
@@ -188,6 +196,31 @@ Phases:
      update under torch.profiler with its host syncs. With --engine-only it also
      runs two static sweeps from the state after phase 4's centre-bond updates, which
      drift from HEIS24_E_REF (measured only; PERF.md §6)
+  15. the models layer (models_phase), each run's launches of the grouped GEMM (its
+     thin form apart) and the tridiagonal kernel counted: (a) the spin-1/2 Heisenberg
+     chain at L=24 from CouplingModel([SpinHalfSite('Sz')] * 24), heisenberg_coupling
+     on every bond and build_H_mpo(), its MPO's bond dimensions those of the
+     hand-built HeisenbergModel's; dynamic sweeps at chi_max=1024, eps=0, N_max=10
+     until converged at chi 1024 (from the product state under --models-only, from
+     phase 4's state in the full run), then three sweep_static_batched() sweeps (the
+     first updates each bond structure eagerly, the second captures its graph, the
+     third replays them), each to 1e-8 of HEIS24_E_REF; (b) SpinChainModel(S=1,
+     'Sz'): L=10 against sparse exact diagonalization on the host (1e-9), then, in
+     the sector of total Sz = 1, L=32 at chi_max=1024, eps=0, N_max=10, dynamic until
+     converged at chi_max, three static sweeps as in (a) to 1e-8 of the dynamic
+     energy (the full run leaves L=32 out); mpo_variance, E/L beside the
+     bulk HALDANE_E_PER_SITE (printed), s per dynamic and static sweep and the
+     launches of each; the centre tdot(LP, theta) list on the kernel against plain,
+     timed as in phase 2; (c) the J1-J2 chain at the Majumdar-Ghosh point (J2 = J1/2),
+     L=64, from mpo_from_terms with nearest and next-nearest S.S terms (MPO bond
+     dimension 11), chi_max=64 (16 in the full run), eps=0, swept until E changes by
+     less than 1e-10:
+     E = -24 exactly (1e-8), thin-form launches counted; the largest W list of two
+     bond updates (thin if one is) against its plain version, held elementwise to
+     check_f64's bound and timed as in phase 2
+
+--steady-ab runs the build, then steady_ab: the steady SVD with its QR against the
+same SVD without it, in turns, on the L=24 chain's replayed sweep and the bench step.
 """
 
 from __future__ import annotations
@@ -205,10 +238,11 @@ import weakref
 import numpy as np
 
 HEIS24_E_REF = -10.45378576040958  # bench.py:1121: f64 DMRG of L=24 at chi=512
+HALDANE_E_PER_SITE = -1.401484038971  # S=1 bulk energy per site (White & Huse, PRB 48, 3844)
 CHI_BENCH = 4096
 # (rtol, atol) of the kernel against its plain version; the check is
 # max|kernel - plain| <= atol + rtol * max|plain| over each output
-TOLERANCES = {'float64': (1e-12, 0.), 'float32': (2e-5, 2e-4), 'bfloat16': (2e-2, 0.)}
+TOLERANCES = {'float32': (2e-5, 2e-4), 'bfloat16': (2e-2, 0.)}
 # ragged lists: name -> (shapes (M, K, N), out_ids), as in tests/test_torch_grouped_gemm.py
 RAGGED = {
     'k_odd': ([(37, 131, 65), (64, 295, 40), (3, 1, 5)], [0, 1, 2]),
@@ -345,11 +379,14 @@ def sum_bias(outs, As, Bs, out_id, n_out, pairs, precision):
     return lean / size if size else 0., (err2 / norm2) ** 0.5 if norm2 else 0.
 
 
-def check_complex(label, got, ref, As, Bs, out_id, n_out, pairs):
-    """Kernel against plain for a complex128 result: each element is held to
+def check_f64(label, got, ref, As, Bs, out_id, n_out, pairs):
+    """Kernel against plain for a float64 or complex128 result: each element is held to
     2 K_o 2^-52 (|A||B|)_ij, K_o the summed depth of the output's pairs and |A||B|
     the product of the operands' moduli (each side's f64 error is at most half of
-    that). Returns the largest error; raises past the bound."""
+    that, in whatever order it sums). A bound on each element, not on the largest
+    output, so that sums which cancel are held as tightly as the rest. Returns the
+    largest error and the largest in units of K_o 2^-52 (|A||B|)_ij (at most 2);
+    raises past the bound."""
     from cyten_tpu_torch.blocks import grouped_gemm as gg
 
     mag = gg.grouped_matmul_plain([A.abs().double() for A in As],
@@ -357,17 +394,21 @@ def check_complex(label, got, ref, As, Bs, out_id, n_out, pairs):
     ks = np.zeros(n_out)
     a_idx = range(len(out_id)) if pairs is None else pairs[0].tolist()
     np.add.at(ks, np.asarray(out_id), [As[i].shape[1] for i in a_idx])
-    err = 0.
+    err = units = 0.
     for o, (c, r, m) in enumerate(zip(got, ref, mag)):
         if not c.numel():
             continue
         diff = (c - r).abs()
-        if not bool((diff <= 2 * ks[o] * 2. ** -52 * m).all()):
-            worst = float((diff - 2 * ks[o] * 2. ** -52 * m).max())
+        unit = ks[o] * 2. ** -52 * m
+        if not bool((diff <= 2 * unit).all()):
+            worst = float((diff - 2 * unit).max())
             raise AssertionError(f'{label}: kernel disagrees with plain past 2 K 2^-52 '
                                  f'|A||B| (output {o}, by {worst})')
         err = max(err, float(diff.max()))
-    return err
+        live = unit > 0
+        if bool(live.any()):
+            units = max(units, float((diff[live] / unit[live]).max()))
+    return err, units
 
 
 def library_call(PA, PB, precision):
@@ -406,8 +447,8 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
     the plain version. ``pairs`` as in grouped_matmul. The operands are made
     ``dtype``, those of B ``b_dtype`` where given (a mixed bf16 x f32 list); an f32
     result is computed at ``precision`` (config.matmul_precision while the wrapper
-    plans, the plain version's argument) and held to check_rounded's bound, the
-    others to TOLERANCES, a complex one to check_complex's bound. With ``as_given``
+    plans, the plain version's argument) and held to check_rounded's bound, an f64 or
+    complex one to check_f64's, the others (f32, bf16) to TOLERANCES. With ``as_given``
     the operands, already of those dtypes, are used as they lie (views whose rows
     start anywhere); ``width`` runs TF32 and the bf16 pass at that tile ('wide' or
     'narrow', grouped_matmul_plan's argument) in place of the one the wrapper picks.
@@ -439,16 +480,16 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
         got = wrapper()
         ref = grouped_matmul_plain(As, Bs, out_id, n_out, pairs, precision)
         torch.cuda.synchronize()
-        err = 0.
+        err, units = 0., None
         if rounded:
             err = check_rounded(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs,
                                 precision)
             bias = (*sum_bias(got, As, Bs, out_id, n_out, pairs, precision),
                     *sum_bias(ref, As, Bs, out_id, n_out, pairs, precision))
-        elif complex_out:
+        elif complex_out or out_dtype == torch.float64:
             if got and got[0].dtype != out_dtype:
                 raise AssertionError(f'{label} {name}: the kernel gave {got[0].dtype}')
-            err = check_complex(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs)
+            err, units = check_f64(f'{label} {name}', got, ref, As, Bs, out_id, n_out, pairs)
         else:
             rtol, atol = TOLERANCES[name]
             for c, r in zip(got, ref):
@@ -491,6 +532,8 @@ def compare_kernel(label, As, Bs, out_id, n_out, dtype, pairs=None, reps: int = 
                                                         spread)),
            'bound_ms': max(t_ops, t_bytes) * 1e3,
            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+    if units is not None:  # the largest error in units of K_o 2^-52 (|A||B|)_ij
+        res['err_units'] = units
     if rounded:  # the sums against the exact ones: the kernel's, then the plain version's
         res.update(zip(('bias', 'rms', 'plain_bias', 'plain_rms'), bias))
     print(f'[kernel] {label} {name}: ' + json.dumps(res), flush=True)
@@ -1515,7 +1558,7 @@ def su2_phase(E24, deep: bool = True) -> dict:
 
 def complex_phase(As, Bs, out_id, n_out, pairs, rng) -> dict:
     """Phase 2d: the grouped GEMM's complex128 kind against its plain version, held
-    to check_complex's bound: the ragged lists with random complex operands, real x
+    to check_f64's bound: the ragged lists with random complex operands, real x
     complex and complex x real, and the chi=4096 tdot(LP, theta) list ``As``, ``Bs``
     (f64) made complex128 (its imaginary parts drawn anew). Returns the chi=4096
     result."""
@@ -1930,12 +1973,14 @@ def _sweep_to_convergence(label: str, eng, max_sweeps: int = 12) -> dict:
         if done:
             break
     return {'E': E, 'sweeps': len(sweep_s), 'sweep_s': sweep_s,
-            'launches_per_sweep': launches[-1]}
+            'launches_per_sweep': launches[-1], 'launches': launches}
 
 
-def engine_phase(model, psi4, E24, psi_mid=None) -> dict:
+def engine_phase(model, psi4, E24, psi_mid=None, deep: bool = True) -> dict:
     """Phase 14: the rest of DMRGEngine on phase 4's converged L=24, chi_max=1024 state
-    (``psi4``, a copy taken at the end of its last sweep; ``model`` its f64 model):
+    (``psi4``, a copy taken at the end of its last sweep; ``model`` its f64 model;
+    ``deep=False``, the full run, leaves out the resume in a child process and the
+    excited state):
     checkpoints, resume in a child process, rollback in static mode through graphs and
     the precision escalation on an f32 copy, and the first excited state of Sz=0.
     Raises on any failed check. ``psi_mid``, the state after phase 4's centre-bond
@@ -1993,7 +2038,7 @@ def engine_phase(model, psi4, E24, psi_mid=None) -> dict:
         raise AssertionError('the restored state differs from the saved one')
     del eng_a, eng_b, restored, payload
 
-    # (b) resume run(checkpoint=dir) in a child process, one more sweep
+    # (b) resume run(checkpoint=dir) in a child process, one more sweep (deep only)
     child = (
         'import sys\n'
         f'sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n'
@@ -2003,20 +2048,21 @@ def engine_phase(model, psi4, E24, psi_mid=None) -> dict:
         f'eng = DMRGEngine(psi, model, chi_max=1024, eps=0., lanczos_options={{"N_max": 10}})\n'
         f'E = eng.run(n_sweeps=1, checkpoint={mgr.directory!r})\n'
         'print("RESUMED", eng._sweeps_done, repr(E))\n')
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, '-c', child], capture_output=True, text=True,
-                         timeout=600)
-    t_child = time.perf_counter() - t0
-    line = [ln for ln in out.stdout.splitlines() if ln.startswith('RESUMED')]
-    if out.returncode != 0 or not line:
-        raise AssertionError(f'the resuming child failed: {out.stderr[-2000:]}')
-    _, done, E_child = line[0].split()
-    E_child = float(E_child)
-    print(f'[engine resume] child process resumed step 1 and swept once: E {E_child!r}, '
-          f'|E - HEIS24_E_REF| {abs(E_child - HEIS24_E_REF):.3e}, sweeps done {done}, '
-          f'{t_child:.1f} s', flush=True)
-    if not (abs(E_child - HEIS24_E_REF) < 1e-8 and int(done) == 2):
-        raise AssertionError('the resumed run is off')
+    if deep:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, '-c', child], capture_output=True, text=True,
+                             timeout=600)
+        t_child = time.perf_counter() - t0
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith('RESUMED')]
+        if out.returncode != 0 or not line:
+            raise AssertionError(f'the resuming child failed: {out.stderr[-2000:]}')
+        _, done, E_child = line[0].split()
+        E_child = float(E_child)
+        print(f'[engine resume] child process resumed step 1 and swept once: E '
+              f'{E_child!r}, |E - HEIS24_E_REF| {abs(E_child - HEIS24_E_REF):.3e}, sweeps '
+              f'done {done}, {t_child:.1f} s', flush=True)
+        if not (abs(E_child - HEIS24_E_REF) < 1e-8 and int(done) == 2):
+            raise AssertionError('the resumed run is off')
 
     # static sweeps from the state after phase 4's centre-bond updates, measured only
     # (from the state at the end of the sweep: the first two sweeps of (c))
@@ -2124,36 +2170,363 @@ def engine_phase(model, psi4, E24, psi_mid=None) -> dict:
     del eng, psi32, model32
     torch.cuda.empty_cache()
 
-    # (d) the first excited state of Sz=0 against the Sz=1 ground state
-    psi1 = SimpleMPS.from_product_state(model.site_legs, [1, 0] * (L // 2))
-    eng1 = DMRGEngine(psi1, model, **opts, orthogonal_to=[psi4])
-    ex = _sweep_to_convergence('engine excited', eng1)
-    psit = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2 - 1) + [0, 0])
-    engt = DMRGEngine(psit, model, **opts)
-    gs1 = _sweep_to_convergence('engine Sz=1', engt)
-    ov = abs(eng1.psi.overlap(psi4))
-    var1 = eng1.psi.mpo_variance(model.H_mpo)
-    var_t = engt.psi.mpo_variance(model.H_mpo)
-    S_mid = eng1.psi.entanglement_entropy()[L // 2 - 1]
-    S0_mid = psi4.entanglement_entropy()[L // 2 - 1]
-    res['excited'] = ex
-    res['triplet'] = gs1
-    print(f'[engine excited] E1 {ex["E"]!r} (Sz=0, orthogonal to phase 4), E(Sz=1) '
-          f'{gs1["E"]!r}, |dE| {abs(ex["E"] - gs1["E"]):.3e}; gap E1 - E0 '
-          f'{ex["E"] - E24!r}; |<psi1|psi0>| {ov:.3e}; mpo_variance {var1:.3e} and '
-          f'{var_t:.3e}; centre entropy {S_mid:.6f} (ground state {S0_mid:.6f})', flush=True)
-    print(f'[engine excited] s/sweep excited {json.dumps([round(t, 3) for t in ex["sweep_s"]])}'
-          f', Sz=1 ground state {json.dumps([round(t, 3) for t in gs1["sweep_s"]])}; '
-          f'grouped-GEMM launches per converged sweep {ex["launches_per_sweep"]} with the '
-          f'overlap environments, {gs1["launches_per_sweep"]} without', flush=True)
-    if not (abs(ex['E'] - gs1['E']) < 1e-8 and ov < 1e-8 and var1 < 1e-6 and var_t < 1e-6):
-        raise AssertionError('the excited state disagrees with the Sz=1 ground state')
-    b = L // 2 - 1
-    profile_run(f'projected bond {b}', lambda: eng1.update_bond(b))
-    print(f'[engine excited] host syncs of one projected bond update: '
-          f'{count_syncs(lambda: eng1.update_bond(b))}', flush=True)
+    # (d) the first excited state of Sz=0 against the Sz=1 ground state (deep only)
+    if deep:
+        psi1 = SimpleMPS.from_product_state(model.site_legs, [1, 0] * (L // 2))
+        eng1 = DMRGEngine(psi1, model, **opts, orthogonal_to=[psi4])
+        ex = _sweep_to_convergence('engine excited', eng1)
+        psit = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2 - 1) + [0, 0])
+        engt = DMRGEngine(psit, model, **opts)
+        gs1 = _sweep_to_convergence('engine Sz=1', engt)
+        ov = abs(eng1.psi.overlap(psi4))
+        var1 = eng1.psi.mpo_variance(model.H_mpo)
+        var_t = engt.psi.mpo_variance(model.H_mpo)
+        S_mid = eng1.psi.entanglement_entropy()[L // 2 - 1]
+        S0_mid = psi4.entanglement_entropy()[L // 2 - 1]
+        res['excited'] = ex
+        res['triplet'] = gs1
+        print(f'[engine excited] E1 {ex["E"]!r} (Sz=0, orthogonal to phase 4), E(Sz=1) '
+              f'{gs1["E"]!r}, |dE| {abs(ex["E"] - gs1["E"]):.3e}; gap E1 - E0 '
+              f'{ex["E"] - E24!r}; |<psi1|psi0>| {ov:.3e}; mpo_variance {var1:.3e} and '
+              f'{var_t:.3e}; centre entropy {S_mid:.6f} (ground state {S0_mid:.6f})',
+              flush=True)
+        print(f'[engine excited] s/sweep excited '
+              f'{json.dumps([round(t, 3) for t in ex["sweep_s"]])}, Sz=1 ground state '
+              f'{json.dumps([round(t, 3) for t in gs1["sweep_s"]])}; '
+              f'grouped-GEMM launches per converged sweep {ex["launches_per_sweep"]} with the '
+              f'overlap environments, {gs1["launches_per_sweep"]} without', flush=True)
+        if not (abs(ex['E'] - gs1['E']) < 1e-8 and ov < 1e-8 and var1 < 1e-6 and var_t < 1e-6):
+            raise AssertionError('the excited state disagrees with the Sz=1 ground state')
+        b = L // 2 - 1
+        profile_run(f'projected bond {b}', lambda: eng1.update_bond(b))
+        print(f'[engine excited] host syncs of one projected bond update: '
+              f'{count_syncs(lambda: eng1.update_bond(b))}', flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return res
+
+
+class MpoModel:
+    """A model that is its MPO alone, as DMRGEngine reads it."""
+
+    def __init__(self, H_mpo):
+        self.H_mpo = H_mpo
+
+
+def spin_chain_exact_gs_energy(L: int, S: float) -> float:
+    """Ground energy of the open spin-S Heisenberg chain (J=1) by sparse exact
+    diagonalization on the host."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+    from cyten_tpu_torch.models import SpinDOF
+
+    ops = SpinDOF.spin_ops(S)
+    d = ops['Sz'].shape[0]
+
+    def op_at(o, i):
+        return sp.kron(sp.kron(sp.identity(d ** i), sp.csr_matrix(o)),
+                       sp.identity(d ** (L - i - 1)), format='csr')
+
+    H = sp.csr_matrix((d ** L, d ** L))
+    for i in range(L - 1):
+        H = H + 0.5 * (op_at(ops['Sp'], i) @ op_at(ops['Sm'], i + 1)
+                       + op_at(ops['Sm'], i) @ op_at(ops['Sp'], i + 1)) \
+            + op_at(ops['Sz'], i) @ op_at(ops['Sz'], i + 1)
+    return float(sla.eigsh(H, k=1, which='SA', return_eigenvectors=False)[0])
+
+
+def _counts_zero() -> None:
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_ground_state
+
+    grouped_matmul.launches = grouped_matmul.thin.launches = 0
+    tridiagonal_ground_state.launches = 0
+
+
+def _counts() -> dict:
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_ground_state
+
+    return {'grouped_gemm': grouped_matmul.launches, 'thin': grouped_matmul.thin.launches,
+            'tridiag': tridiagonal_ground_state.launches}
+
+
+def _dynamic_then_graphs(label: str, eng, max_sweeps: int) -> dict:
+    """Dynamic sweeps of ``eng`` until converged at chi_max (_sweep_to_convergence),
+    then three sweep_static_batched() sweeps: the first updates each bond structure
+    eagerly, the second captures a CUDA graph per structure, the third replays them;
+    the launches of each kernel counted per sweep (through replays). Returns E of
+    both, seconds and launches per sweep."""
+    import torch
+
+    _counts_zero()
+    dyn = _sweep_to_convergence(label, eng, max_sweeps)
+    # _sweep_to_convergence counts the grouped GEMM sweep by sweep
+    launches = {'dynamic run': {**_counts(), 'grouped_gemm': sum(dyn['launches'])}}
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    graph_s = []
+    for sweep in range(3):
+        _counts_zero()
+        t0 = time.perf_counter()
+        E_graph = eng.sweep_static_batched()
+        torch.cuda.synchronize()
+        graph_s.append(time.perf_counter() - t0)
+        launches[f'static sweep {sweep + 1}'] = _counts()
+        print(f'[{label} graphs] sweep {sweep + 1}: E = {E_graph!r}, {graph_s[-1]:.2f} s, '
+              f'|E - E_dynamic| = {abs(E_graph - dyn["E"]):.3e}, launches '
+              f'{json.dumps(launches[f"static sweep {sweep + 1}"])}', flush=True)
+    graphs = eng.static_graphs()
+    print(f'[{label} graphs] {len(graphs)} graphs captured in '
+          f'{sum(g.capture_seconds for g in graphs):.2f} s', flush=True)
+    return {**dyn, 'E_graph': E_graph, 'graph_s': graph_s, 'launches': launches}
+
+
+def models_phase(psi24=None, deep: bool = True) -> dict:
+    """Phase 15: the models layer on the card (see the module docstring). ``psi24``:
+    phase 4's converged L=24 state, where (a) starts in the full run; under
+    --models-only (a) starts from the product state. ``deep=False`` (the full run)
+    leaves out (b)'s L=32 chain at chi 1024 and takes (c) at chi_max=16 in place of
+    64. Returns the numbers of its kernels-line entries:
+    the spin-1 centre tdot(LP, theta) list, the J1-J2 chain's W list, and the launches
+    of each kernel over the phase's runs."""
+    import torch
+    from cyten_tpu_torch.algorithms import (
+        DMRGEngine, HeisenbergModel, SimpleMPS, SpinChainModel, mpo_from_terms,
+        spin_half_site,
+    )
+    from cyten_tpu_torch.bench import recorded_lists
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul_plan
+    from cyten_tpu_torch.models import CouplingModel, SpinHalfSite, heisenberg_coupling
+
+    total = {'grouped_gemm': 0, 'thin': 0, 'tridiag': 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # (a) spin-1/2 Heisenberg, L=24, through CouplingModel + heisenberg_coupling +
+    # build_H_mpo, against the hand-built MPO's bonds and HEIS24_E_REF
+    t_sub = time.perf_counter()
+    L = 24
+    sites = [SpinHalfSite('Sz')] * L
+    cm = CouplingModel(sites)
+    for i in range(L - 1):
+        cm.add_coupling(i, heisenberg_coupling([sites[i], sites[i + 1]]))
+    H_mpo = cm.build_H_mpo()
+    dims = [(W.get_leg_co_domain('wL').dim, W.get_leg_co_domain('wR').dim) for W in H_mpo]
+    hand = [(W.get_leg_co_domain('wL').dim, W.get_leg_co_domain('wR').dim)
+            for W in HeisenbergModel(L=L, conserve='Sz').H_mpo]
+    print(f'[models a] CouplingModel MPO bond dims {dims[:3]}... equal to the hand-built '
+          f"HeisenbergModel's: {dims == hand}; device {H_mpo[0].device}", flush=True)
+    if dims != hand or str(H_mpo[0].device).split(':')[0] != 'cuda':
+        raise AssertionError('the CouplingModel MPO differs from the hand-built one in its '
+                             'bonds, or is not on the card')
+    psi = psi24.copy() if psi24 is not None else \
+        SimpleMPS.from_product_state([s.leg for s in sites], [0, 1] * (L // 2))
+    eng = DMRGEngine(psi, MpoModel(H_mpo), chi_max=1024, eps=0.,
+                     lanczos_options={'N_max': 10})
+    a = _dynamic_then_graphs('models a L=24', eng, 8 if psi24 is None else 1)
+    for counts in a['launches'].values():
+        add(counts)
+    print(f'[models a] E dynamic {a["E"]!r}, through graphs {a["E_graph"]!r}, ref '
+          f'{HEIS24_E_REF!r}: |dE| {abs(a["E"] - HEIS24_E_REF):.3e}, '
+          f'{abs(a["E_graph"] - HEIS24_E_REF):.3e}; sweeps {a["sweeps"]} from '
+          f'{"phase 4" if psi24 is not None else "the product state"}, s per dynamic sweep '
+          f'{json.dumps([round(s, 3) for s in a["sweep_s"]])}, per static sweep (eager, '
+          f'captures, replayed) {json.dumps([round(s, 3) for s in a["graph_s"]])}; '
+          f'{time.perf_counter() - t_sub:.1f} s',
+          flush=True)
+    run = a['launches']
+    if not (abs(a['E'] - HEIS24_E_REF) < 1e-8 and abs(a['E_graph'] - HEIS24_E_REF) < 1e-8
+            and run['dynamic run']['grouped_gemm'] > 0 and run['dynamic run']['thin'] > 0
+            and run['static sweep 3']['grouped_gemm'] > 0 and run['static sweep 3']['thin'] > 0
+            and run['static sweep 3']['tridiag'] > 0 and psi.max_chi() == 1024):
+        raise AssertionError('models (a): energy, width or kernel launches wrong')
+    del eng, psi, H_mpo, cm
+    torch.cuda.empty_cache()
+
+    # (b) spin-1 SpinChainModel, conserve 'Sz': L=10 against sparse ED on the host;
+    # under --models-only then L=32 at chi_max=1024, dynamic and static, in the sector
+    # of total Sz = 1: its lowest state (the open chain's edge spins aligned) lies a
+    # Haldane gap below the next, where in Sz = 0 the singlet and the triplet's Sz = 0
+    # state are split by exp(-L / 6) and the sweeps converge slowly
+    t_sub = time.perf_counter()
+    E10_ed = spin_chain_exact_gs_energy(10, 1.)
+    L, model = 10, SpinChainModel(L=10, S=1.)
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 2] * 5)
+    _counts_zero()
+    eng = DMRGEngine(psi, model, chi_max=243, eps=1e-14)
+    E10 = eng.run(n_sweeps=10)
+    c10 = _counts()
+    add(c10)
+    print(f'[models b L=10] E = {E10!r}, sparse ED {E10_ed!r}, |dE| {abs(E10 - E10_ed):.3e}, '
+          f'launches {json.dumps(c10)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(E10 - E10_ed) < 1e-9 and c10['grouped_gemm'] > 0):
+        raise AssertionError('models (b): the L=10 spin-1 energy or its launches wrong')
+    if deep:
+        t_sub = time.perf_counter()
+        L, chi_max, model = 32, 1024, SpinChainModel(L=32, S=1.)
+        label = f'models b L={L}'
+        psi = SimpleMPS.from_product_state(model.site_legs, [0, 2] * 15 + [0, 1])
+        eng = DMRGEngine(psi, model, chi_max=chi_max, eps=0., lanczos_options={'N_max': 10})
+        b = _dynamic_then_graphs(label, eng, 10)
+        for counts in b['launches'].values():
+            add(counts)
+        var = psi.mpo_variance(model.H_mpo)
+        print(f'[{label}] Sz=1: E dynamic {b["E"]!r}, through graphs {b["E_graph"]!r}, '
+              f'|dE| {abs(b["E_graph"] - b["E"]):.3e}; E/L {b["E_graph"] / L!r} beside the '
+              f'bulk {HALDANE_E_PER_SITE} (open ends); mpo_variance {var:.3e}; max chi '
+              f'{psi.max_chi()}; sweeps {b["sweeps"]}, s per dynamic sweep '
+              f'{json.dumps([round(s, 3) for s in b["sweep_s"]])}, per static sweep (eager, '
+              f'captures, replayed) {json.dumps([round(s, 3) for s in b["graph_s"]])}; '
+              f'launches per sweep by kernel: last dynamic sweep {b["launches_per_sweep"]} '
+              f'grouped GEMM, replayed {json.dumps(b["launches"]["static sweep 3"])}; '
+              f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+        run = b['launches']
+        if not (abs(b['E_graph'] - b['E']) < 1e-8 and psi.max_chi() == chi_max
+                and run['dynamic run']['grouped_gemm'] > 0
+                and run['static sweep 3']['grouped_gemm'] > 0
+                and run['static sweep 3']['tridiag'] > 0):
+            raise AssertionError('models (b): the static energy, width or launches wrong')
+    # the centre tdot(LP, theta) list of the spin-1 state, on the kernel against plain
+    i = L // 2 - 1
+    As, Bs, pairs, out_id, n_out = lp_theta_pairs(eng.LPs[i], psi.get_theta2(i))
+    centre = compare_kernel(f'models b L={L} chi={psi.max_chi()} centre tdot(LP, theta)',
+                            As, Bs, out_id, n_out, torch.float64, pairs)
+    del eng, psi, model
+    torch.cuda.empty_cache()
+
+    # (c) the J1-J2 chain from mpo_from_terms at the Majumdar-Ghosh point, L=64
+    t_sub = time.perf_counter()
+    L = 64
+    sz = np.diag([0.5, -0.5])
+    sp = np.array([[0., 1.], [0., 0.]])
+    SS = 0.5 * (np.kron(sp, sp.T) + np.kron(sp.T, sp)) + np.kron(sz, sz)
+    leg = spin_half_site('Sz')
+    mpo = mpo_from_terms([leg] * L, couplings=[(i, i + 1, SS, 1.) for i in range(L - 1)]
+                         + [(i, i + 2, SS, 0.5) for i in range(L - 2)])
+    wR = max(W.get_leg_co_domain('wR').dim for W in mpo)
+    psi = SimpleMPS.from_product_state([leg] * L, [i % 2 for i in range(L)])
+    eng = DMRGEngine(psi, MpoModel(mpo), chi_max=64 if deep else 16, eps=0.,
+                     lanczos_options={'N_max': 10})
+    _counts_zero()
+    c = {'E': None, 'sweep_s': []}
+    for sweep in range(6):  # until E changes by less than 1e-10
+        t0 = time.perf_counter()
+        E_new = eng.run(n_sweeps=1)
+        torch.cuda.synchronize()
+        c['sweep_s'].append(time.perf_counter() - t0)
+        print(f'[models c L=64] sweep {sweep + 1}: E = {E_new!r}, {c["sweep_s"][-1]:.2f} s, '
+              f'max chi {psi.max_chi()}', flush=True)
+        done = c['E'] is not None and abs(E_new - c['E']) < 1e-10
+        c['E'] = E_new
+        if done:
+            break
+    c['sweeps'] = len(c['sweep_s'])
+    cc = _counts()
+    add(cc)
+    E_exact = -0.75 * (L // 2)
+    print(f'[models c] J1-J2 L=64, J2 = J1/2: E = {c["E"]!r}, exact {E_exact}, |dE| '
+          f'{abs(c["E"] - E_exact):.3e}; MPO bond dimension {wR} (max_range '
+          f'{mpo.max_range}); s per sweep {json.dumps([round(s, 3) for s in c["sweep_s"]])}; '
+          f'launches {json.dumps(cc)} ({cc["thin"] / c["sweeps"]:.1f} thin a sweep); '
+          f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(c['E'] - E_exact) < 1e-8 and cc['grouped_gemm'] > 0 and cc['thin'] > 0):
+        raise AssertionError('models (c): the Majumdar-Ghosh energy or launches wrong')
+    # the W lists (a narrow side of at most 16: the contractions with W) of the bond
+    # updates at the chain's quarter and centre: the largest thin one (else the largest
+    # W list, tiled) on the kernel against plain, held elementwise to check_f64's bound
+    lists = recorded_lists(lambda: [eng.update_bond(i) for i in (L // 4, L // 2 - 1)])
+
+    def narrow(l):
+        (prec, As, Bs, ids, n_out, pairs), count = l
+        PA = As if pairs is None else [As[k] for k in pairs[0].tolist()]
+        PB = Bs if pairs is None else [Bs[k] for k in pairs[1].tolist()]
+        return min(max(A.shape[1] for A in PA), max(B.shape[1] for B in PB),
+                   max(A.shape[0] for A in PA)) <= 16
+
+    w_lists = [l for l in lists if narrow(l)]
+    thin_lists = [l for l in w_lists if grouped_matmul_plan(*l[0][1:])[1].form is not None]
+    if not w_lists:
+        raise AssertionError('models (c): no W list in the bond updates')
+    (_, As, Bs, ids, n_out, pairs), count = max(
+        thin_lists or w_lists, key=lambda l: sum(t.numel() for t in (*l[0][1], *l[0][2])))
+    w_list = compare_kernel(f'models c J1-J2 chi={psi.max_chi()} W list '
+                            f'{list_name(As, Bs, pairs, count)}', As, Bs, ids, n_out,
+                            As[0].dtype, pairs, as_given=True)
+    print(f'[models c] {len(w_lists)} W lists of {len(lists)} in two bond updates, '
+          f'{len(thin_lists)} thin; the one held: {w_list["form"] or "tiled"}, largest error '
+          f'{w_list["max_abs_err"]:.3e}, {w_list["err_units"]:.4f} K 2^-52 |A||B|; '
+          f'device_ms {w_list["device_ms"]:.4f}, bound {w_list["bound_ms"]:.4f} '
+          f'({w_list["bound_by"]}), library_ms {w_list["library_ms"]:.4f}', flush=True)
+    del eng, psi, mpo
+    torch.cuda.empty_cache()
+    print(f'[models] launches over the phase: {json.dumps(total)}', flush=True)
+    return {'centre': centre, 'w_list': w_list, 'launches': total,
+            'launches_c': cc['grouped_gemm']}
+
+
+def steady_ab() -> None:
+    """--steady-ab: the steady SVD as it is (Newton-Schulz, then the thin QR of
+    tensors/steady.py::_orthonormal_columns) against the same SVD without the QR
+    (Newton-Schulz's U as it comes), in turns in one process (without, with, with,
+    without): each turn three sweep_static_batched() sweeps of a fresh engine on one
+    converged L=24, chi 1024 state (eager, capturing, replayed) and the chi=CHI_BENCH
+    f32 bench step as a graph (step_run). Prints each turn's seconds and energies and
+    raises if a replayed sweep is off HEIS24_E_REF by 1e-8."""
+    import torch
+    from cyten_tpu_torch import Dtype
+    from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
+    from cyten_tpu_torch.bench import step_run
+    from cyten_tpu_torch.tensors import steady
+
+    model = HeisenbergModel(L=24, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * 12)
+    opts = {'chi_max': 1024, 'eps': 0., 'lanczos_options': {'N_max': 10}}
+    _sweep_to_convergence('steady a/b L=24', DMRGEngine(psi, model, **opts))
+    with_qr = steady._orthonormal_columns
+    for turn in ('without QR', 'with QR', 'with QR', 'without QR'):
+        steady._orthonormal_columns = with_qr if turn == 'with QR' else (lambda U, S: U)
+        try:
+            eng = DMRGEngine(psi.copy(), model, **opts)
+            eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+            sweep_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                E = eng.sweep_static_batched()
+                torch.cuda.synchronize()
+                sweep_s.append(time.perf_counter() - t0)
+            del eng
+            torch.cuda.empty_cache()
+            t_step, _ = step_run(CHI_BENCH, svd_mode='steady', dtype=Dtype.float32,
+                                 graph=True, lengths=(2, 6), repeats=3)
+        finally:
+            steady._orthonormal_columns = with_qr
+        print(f'[steady a/b] {turn}: L=24 chi 1024 static sweeps (eager, capturing, '
+              f'replayed) {json.dumps([round(t, 4) for t in sweep_s])} s, replayed E {E!r} '
+              f'(|dE| {abs(E - HEIS24_E_REF):.3e}); chi={CHI_BENCH} f32 graph step '
+              f'{t_step * 1e3:.3f} ms, E {step_run.energy!r}', flush=True)
+        if not abs(E - HEIS24_E_REF) < 1e-8:
+            raise AssertionError(f'steady a/b {turn}: the replayed sweep is off')
+
+
+def models_kernels(models: dict, tridiag: dict) -> list:
+    """The kernels-line entries of phase 15: the grouped GEMM at the spin-1 centre
+    tdot(LP, theta) list (its launches over phase 15) and at the J1-J2 chain's W list
+    (its launches in that run), and the tridiagonal kernel (its numbers from phase 2b,
+    its launches over phase 15)."""
+    keys = ('max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+    source = {'route': 'cuda', 'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+              'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151'}
+    return [{'name': 'grouped_gemm[models]', **source,
+             'launches': models['launches']['grouped_gemm'],
+             **{k: models['centre'][k] for k in keys}},
+            {'name': 'grouped_gemm[J1-J2 W list]', **source, 'launches': models['launches_c'],
+             **{k: models['w_list'][k] for k in keys}},
+            {'name': 'tridiag[models]', 'route': 'cuda',
+             'source': 'cyten_tpu_torch/csrc/tridiag.cu',
+             'replaces': 'jnp.linalg.eigh in cyten_tpu/tensors/krylov_based.py:396',
+             'launches': models['launches']['tridiag'], **{k: tridiag[k] for k in keys}}]
 
 
 def main() -> int:
@@ -2164,6 +2537,8 @@ def main() -> int:
     golden_only = '--golden-only' in sys.argv[1:]
     bench_only = '--bench-only' in sys.argv[1:]
     engine_only = '--engine-only' in sys.argv[1:]
+    models_only = '--models-only' in sys.argv[1:]
+    steady_only = '--steady-ab' in sys.argv[1:]
     against = sys.argv[sys.argv.index('--against') + 1] if '--against' in sys.argv else None
 
     if not torch.cuda.is_available():
@@ -2203,6 +2578,10 @@ def main() -> int:
     print(f'[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)',
           flush=True)
     check_sass(_kernels)
+    if steady_only:
+        steady_ab()
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (steady a/b)', flush=True)
+        return 0
     # the sync counter's own count, on a function that does nothing (see count_syncs)
     idle = count_syncs(lambda: None)
     print(f'[syncs] a function that does nothing counts {idle} (at {count_syncs.where})',
@@ -2261,7 +2640,8 @@ def main() -> int:
                          else '') + f', library_ms {res["library_ms"]:.4f}', flush=True)
     del LP, RP, W1, W2, theta
     torch.cuda.empty_cache()
-    thin = step_list_phase()  # the bench step's own lists, the thin ones held to plain
+    # the bench step's own lists, the thin ones held to plain
+    thin = step_list_phase()
     if kernels_only:  # a measurement: with --kernels-only alone
         thin_crossover()
     # --- 2d. the complex128 kind ------------------------------------------------------------
@@ -2286,6 +2666,17 @@ def main() -> int:
     if bench_only:
         bench_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (bench only)', flush=True)
+        return 0
+    if models_only:
+        t_phase = time.perf_counter()
+        models = models_phase(deep=True)
+        print(f'[phases] wall seconds {{"15": {time.perf_counter() - t_phase:.1f}}}',
+              flush=True)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (models only)', flush=True)
+        print(json.dumps({'kernels': models_kernels(models, tridiag)}))
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
         return 0
 
     # --- 3. main path, small: L=12 against exact diagonalization -------------------------
@@ -2722,8 +3113,14 @@ def main() -> int:
     # --- 14. the rest of DMRGEngine on phase 4's state -------------------------------------
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    engine_phase(HeisenbergModel(L=psi4.L, conserve='Sz'), psi4, E24)
+    engine_phase(HeisenbergModel(L=psi4.L, conserve='Sz'), psi4, E24, deep=False)
     phase_s['14'] = time.perf_counter() - t_phase
+
+    # --- 15. the models layer: CouplingModel, SpinChainModel, mpo_from_terms -------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    models = models_phase(psi4, deep=False)
+    phase_s['15'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -2779,7 +3176,8 @@ def main() -> int:
                 'replaces': 'jnp.linalg.eigh in cyten_tpu/tensors/krylov_based.py:396',
                 'launches': tridiag_launches,
                 **{k: tridiag[k] for k in ('max_abs_err', 'ms', 'device_ms', 'plain_ms',
-                                           'bound_ms', 'bound_by', 'library_ms')}}]
+                                           'bound_ms', 'bound_by', 'library_ms')}},
+               *models_kernels(models, tridiag)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ from . import tools
 from . import blocks
 from . import backends
 from . import tensors
+from . import models
 from . import algorithms
 from .blocks import BlockBackend, get_block_backend
 from .backends import TensorBackend, get_backend
@@ -28,6 +29,7 @@ from .symmetries import (
     z3_symmetry, z4_symmetry,
 )
 from .tensors import *  # noqa: F401,F403
+from .models import Coupling, Site, couplings, sites
 
 # the per-class HDF5 hooks (save_hdf5/from_hdf5) on every persistable class
 from .tools.hdf5_io import _install_hdf5_hooks as _ih

@@ -1,5 +1,6 @@
-"""Tensor-network algorithms: finite MPS, the Heisenberg and transverse-field Ising
-chains, the Fibonacci golden chain and two-site DMRG (host-driven or static).
+"""Tensor-network algorithms: finite MPS, the Heisenberg, transverse-field Ising and
+spin-S chains, the Fibonacci golden chain, the MPO builders and two-site DMRG
+(host-driven or static).
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
 ``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` (with excited states, checkpoints,
@@ -9,8 +10,9 @@ resume and rollback, and the finite MPS's measurements) and its anyonic form
 
 from .mps import SimpleMPS, split_truncate_theta
 from .models import (
-    GoldenChainModel, HeisenbergModel, TFIModel, heisenberg_exact_finite_gs_energy,
-    mpo_from_bond_op, spin_half_site, tfi_exact_finite_gs_energy,
+    GoldenChainModel, HeisenbergModel, MpoTensors, SpinChainModel, TFIModel,
+    heisenberg_exact_finite_gs_energy, mpo_from_bond_op, mpo_from_bond_ops,
+    mpo_from_terms, spin_half_site, tfi_exact_finite_gs_energy,
     tfi_exact_infinite_gs_energy,
 )
 from .dmrg import (
@@ -18,7 +20,8 @@ from .dmrg import (
 )
 
 __all__ = ['SimpleMPS', 'split_truncate_theta', 'GoldenChainModel', 'HeisenbergModel',
-           'TFIModel', 'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
+           'MpoTensors', 'SpinChainModel', 'TFIModel', 'mpo_from_bond_ops', 'mpo_from_terms',
+           'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
            'tfi_exact_infinite_gs_energy',
            'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective',
            'PlanarDMRGEngine', 'PlanarHEffective']

@@ -1,14 +1,16 @@
-"""Spin-1/2 chains (Heisenberg, transverse-field Ising) and their MPOs, with exact
-references.
+"""Spin chains (Heisenberg, transverse-field Ising, spin-S XXZ), the golden chain and
+their MPOs, with exact references.
 
 The counterpart of ``cyten_tpu/algorithms/models.py``'s ``spin_half_site`` (:35),
-``mpo_from_bond_op`` (:99), ``TFIModel`` (:372), ``HeisenbergModel`` (:471),
-``GoldenChainModel`` (:570) and ``tfi_exact_infinite_gs_energy`` (:654). H_bonds
-(two-site gates) and H_mpo (MPO tensors) are SymmetricTensors for a chosen conserved
-symmetry; ``bc='infinite'`` gives the bonds and bulk tensors of a unit cell of L sites
-(no infinite MPS or iDMRG is ported: ``DMRGEngine`` refuses such a model). The exact
-ground-state energies come from sparse exact diagonalization, the infinite chains'
-from their closed forms, the golden chain's from MPSKit.jl.
+``mpo_from_bond_op`` (:99), ``mpo_from_bond_ops`` (:122), ``mpo_from_terms`` (:192)
+with ``MpoTensors`` (:361), ``TFIModel`` (:372), ``HeisenbergModel`` (:471),
+``GoldenChainModel`` (:570), ``SpinChainModel`` (:752) and
+``tfi_exact_infinite_gs_energy`` (:654). H_bonds (two-site gates) and H_mpo (MPO
+tensors) are SymmetricTensors for a chosen conserved symmetry; ``bc='infinite'`` gives
+the bonds and bulk tensors of a unit cell of L sites (no infinite MPS or iDMRG is
+ported: ``DMRGEngine`` refuses such a model). The exact ground-state energies come
+from sparse exact diagonalization, the infinite chains' from their closed forms, the
+golden chain's from MPSKit.jl.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from ..tensors import (
     truncate_singular_values, svd_apply_mask,
 )
 
-__all__ = ['GoldenChainModel', 'HeisenbergModel', 'TFIModel', 'spin_half_site',
-           'mpo_from_bond_op', 'heisenberg_exact_finite_gs_energy',
+__all__ = ['GoldenChainModel', 'HeisenbergModel', 'SpinChainModel', 'TFIModel',
+           'spin_half_site', 'mpo_from_bond_op', 'mpo_from_bond_ops', 'mpo_from_terms',
+           'MpoTensors', 'heisenberg_exact_finite_gs_energy',
            'tfi_exact_finite_gs_energy', 'tfi_exact_infinite_gs_energy']
 
 # Pauli x and z in the (|up>, |down>) basis
@@ -121,6 +124,37 @@ def mpo_from_bond_op(h_bond: SymmetricTensor, L: int, svd_cut: float = 1e-12,
     return mpos
 
 
+def mpo_from_bond_ops(h_bonds: list, svd_cut: float = 1e-12):
+    """Finite-chain MPO from per-bond two-site operators (non-uniform chains).
+
+    Site ``i``'s tensor combines ``A`` of bond ``i`` with ``B`` of bond ``i-1``;
+    boundary sites contract the standard left/right unit selectors. All sites share
+    one local leg.
+    """
+    from ..tensors import tensor_from_grid
+
+    L = len(h_bonds) + 1
+    if L < 2:
+        raise ValueError('mpo_from_bond_ops needs at least one bond')
+    parts = [_factorize_bond(h, svd_cut) for h in h_bonds]
+    mpos = []
+    for i in range(L):
+        A_i = parts[i][0] if i < L - 1 else parts[-1][0]      # dummy at last site
+        B_prev = parts[i - 1][1] if i > 0 else parts[0][1]    # dummy at first site
+        Id = parts[min(i, L - 2)][2]
+        grid = [[Id, A_i, None],
+                [None, None, B_prev],
+                [None, None, Id]]
+        W = tensor_from_grid(grid, labels=['wL', 'p', 'wR', 'p*'], row_leg='wL',
+                             col_leg='wR')
+        if i == 0:
+            W = _boundary_selector(W, left=True)
+        if i == L - 1:
+            W = _boundary_selector(W, left=False)
+        mpos.append(W)
+    return mpos
+
+
 def _boundary_selector(W: SymmetricTensor, left: bool) -> SymmetricTensor:
     """Contract the left (row 0) or right (last column) boundary unit vector.
 
@@ -144,6 +178,179 @@ def _boundary_selector(W: SymmetricTensor, left: bool) -> SymmetricTensor:
     diag = DiagonalTensor.from_sector_block_func(func, leg, backend=W.backend)
     mask = Mask.from_DiagonalTensor(diag)
     return apply_mask(W, mask, label)
+
+
+def _passthrough_cell(k_leg, p, backend, dtype):
+    """Identity passthrough ``[wL=k, p, wR=k, p*]`` carrying a term's factorization
+    bond leg across a gap site."""
+    P = SymmetricTensor.from_eye([k_leg, p], backend=backend, labels=['wL', 'p'],
+                                 dtype=dtype)
+    # legs [wL, p, p*, wL*] -> [wL, p, wR, p*]
+    P = P.relabelled({'wL*': 'wR'})
+    return permute_legs(P, codomain=['wL', 'p'], domain=['p*', 'wR'])
+
+
+def mpo_from_terms(site_legs, onsite=(), couplings=(), backend=None,
+                   svd_cut: float = 1e-12, bc: str = 'finite',
+                   select_boundary: bool = True, device: str = None):
+    """MPO from arbitrary-range one- and two-site terms (finite or infinite).
+
+    A finite-state-machine ('MPO graph') construction generalizing
+    :func:`mpo_from_bond_ops` to couplings between ANY pair of sites ``i < j``
+    — next-nearest-neighbor (J1-J2), 2D cylinders via snake mapping. Each coupling
+    is SVD-factorized across its pair (:func:`_factorize_pair`) and the
+    factorization's bond leg is carried through the gap sites by identity
+    passthroughs; terms sharing a pair ``(i, j)`` are summed before factorizing.
+
+    Parameters
+    ----------
+    site_legs : list[ElementarySpace]
+        The physical leg of each site.
+    onsite : iterable of ``(i, op)`` or ``(i, op, strength)``
+        ``op``: dense ``(d, d)`` array or a SymmetricTensor ``[p | p*]``.
+    couplings : iterable of ``(i, j, h)`` or ``(i, j, h, strength)``
+        ``0 <= i < j`` at any distance; ``h`` acts on ``(site_i, site_j)``
+        *as if adjacent*: dense ``(d_i*d_j, d_i*d_j)`` in ``kron(op_i, op_j)``
+        convention, or a SymmetricTensor with legs ``[p0, p1 | p1*, p0*]``.
+        Finite bc requires ``j < L``; infinite bc requires ``i < L`` and lets
+        ``j >= L`` wrap into the next unit cell(s) — every term is implicitly
+        summed over all translates by ``L``.
+    backend
+        The tensor backend; by default the first SymmetricTensor term's, else the
+        symmetry's on ``device`` (default: the CUDA card).
+    bc : ``'finite' | 'infinite'``
+        Infinite bc emits one tensor per unit-cell site with matching wrap
+        legs (``W[0].wL == W[L-1].wR``), ready channel at dense index 0 and
+        done channel last.
+    select_boundary : bool
+        Finite bc only: if False, skip contracting the boundary unit vectors
+        and return the FULL grid tensors at the chain ends too (ready channel
+        at public index 0, done channel last on every virtual leg).
+
+    Returns
+    -------
+    MpoTensors
+        MPO tensors ``[wL, p, wR, p*]``; for finite bc boundary-selected at the ends
+        (directly usable as ``model.H_mpo`` by the engine), with ``max_range``.
+    """
+    from ..backends import get_backend
+    from ..tensors import scalar_multiply, tensor_from_grid
+
+    L = len(site_legs)
+    if bc not in ('finite', 'infinite'):
+        raise ValueError(f'invalid bc: {bc!r}')
+    infinite = bc == 'infinite'
+    onsite, couplings = list(onsite), list(couplings)
+    if backend is None:
+        given = [t[1] for t in onsite if isinstance(t[1], SymmetricTensor)] \
+            + [t[2] for t in couplings if isinstance(t[2], SymmetricTensor)]
+        backend = given[0].backend if given else \
+            get_backend(site_legs[0].symmetry, device=device)
+
+    def as_onsite(i, op, strength):
+        p = site_legs[i]
+        if not isinstance(op, SymmetricTensor):
+            op = SymmetricTensor.from_dense_block(
+                np.asarray(op), [p], [p], backend=backend, labels=['p', 'p*'])
+        else:
+            op = op.relabelled(['p', 'p*'])
+        op = add_trivial_leg(op, 0, label='wL')
+        op = add_trivial_leg(op, 2, label='wR', to_domain=True, is_dual=True)
+        return scalar_multiply(strength, op)
+
+    def as_pair(i, j, h, strength):
+        pi, pj = site_legs[i], site_legs[j]
+        if not isinstance(h, SymmetricTensor):
+            h = np.asarray(h)
+            block = h.reshape(pi.dim, pj.dim, pi.dim, pj.dim).transpose(0, 1, 3, 2)
+            h = SymmetricTensor.from_dense_block(
+                block, [pi, pj], [pi, pj], backend=backend,
+                labels=['p0', 'p1', 'p1*', 'p0*'])
+        return scalar_multiply(strength, h)
+
+    onsite_map = {}
+    for i, op, *rest in onsite:
+        t = as_onsite(i, op, rest[0] if rest else 1.)
+        onsite_map[i] = t if i not in onsite_map else onsite_map[i] + t
+    pair_map = {}
+    for i, j, h, *rest in couplings:
+        if not (0 <= i < j and i < L and (infinite or j < L)):
+            raise ValueError(f'need 0 <= i < j (< L for finite bc), got ({i}, {j})')
+        t = as_pair(i, j % L if infinite else j, h, rest[0] if rest else 1.)
+        pair_map[i, j] = t if (i, j) not in pair_map else pair_map[i, j] + t
+
+    terms = []  # (i, j, A, B, k_leg) in canonical order
+    for (i, j) in sorted(pair_map):
+        A, B, k_leg = _factorize_pair(pair_map[i, j], svd_cut)
+        terms.append((i, j, A, B, k_leg))
+
+    cell_dtypes = [t.dtype for t in onsite_map.values()] + [t[2].dtype for t in terms]
+    dtype = Dtype.common(*cell_dtypes) if cell_dtypes else Dtype.float64
+
+    def states_at_bond(b):
+        """FSM states crossing bond b (the left bond of site b).
+
+        Finite: term (i, j) crosses iff i < b <= j (one state per term).
+        Infinite: states are (t, s) = 'term t started s sites ago', present
+        iff (i_t + s) == b (mod L) for s in 1..j-i — every translate of every
+        term is live somewhere in the cell.
+        """
+        if not infinite:
+            return [(t, None) for t in range(len(terms))
+                    if terms[t][0] < b <= terms[t][1]]
+        return [(t, s) for t, (i, j, *_) in enumerate(terms)
+                for s in range(1, j - i + 1) if (i + s) % L == b % L]
+
+    mpos = []
+    for m in range(L):
+        p = site_legs[m]
+        rows = ['R'] + states_at_bond(m) + ['D']
+        cols = ['R'] + states_at_bond(m + 1) + ['D']
+        eye = _eye_mpo_cell(p, backend, dtype)
+        grid = [[None] * len(cols) for _ in rows]
+
+        def put(r, c, t):
+            grid[rows.index(r)][cols.index(c)] = t
+
+        put('R', 'R', eye)
+        put('D', 'D', eye)
+        if m in onsite_map:
+            put('R', 'D', onsite_map[m].to_dtype(dtype))
+        for t, (i, j, A, B, k_leg) in enumerate(terms):
+            span = j - i
+            if infinite:
+                if i == m:
+                    put('R', (t, 1), A.to_dtype(dtype))
+                for s in range(1, span):
+                    if (i + s) % L == m:
+                        put((t, s), (t, s + 1),
+                            _passthrough_cell(k_leg, p, backend, dtype))
+                if (i + span) % L == m:
+                    put((t, span), 'D', B.to_dtype(dtype))
+            else:
+                if i == m:
+                    put('R', (t, None), A.to_dtype(dtype))
+                if i < m < j:
+                    put((t, None), (t, None),
+                        _passthrough_cell(k_leg, p, backend, dtype))
+                if j == m:
+                    put((t, None), 'D', B.to_dtype(dtype))
+        W = tensor_from_grid(grid, labels=['wL', 'p', 'wR', 'p*'],
+                             row_leg='wL', col_leg='wR')
+        if not infinite and select_boundary and m == 0:
+            W = _boundary_selector(W, left=True)
+        if not infinite and select_boundary and m == L - 1:
+            W = _boundary_selector(W, left=False)
+        mpos.append(W)
+    res = MpoTensors(mpos)
+    res.max_range = max((j - i for (i, j, *_) in terms), default=1)
+    return res
+
+
+class MpoTensors(list):
+    """A list of MPO tensors annotated with the maximal coupling range."""
+
+    max_range = 1
 
 
 class HeisenbergModel:
@@ -394,6 +601,118 @@ class GoldenChainModel:
 
     def exact_finite_gs_energy(self) -> float:
         return self.EXACT_ENERGIES[self.L] * self.J
+
+
+class SpinChainModel:
+    r"""General spin-S XXZ chain:
+    :math:`H = J \sum_i [\tfrac12 (S^+_i S^-_{i+1} + h.c.) + \Delta S^z_i S^z_{i+1}]
+    + h_z \sum_i S^z_i`.
+
+    ``S`` is any (half-)integer spin; ``conserve`` in ``('Sz', 'None')``. ``S=1,
+    Delta=1`` is the Haldane chain (bulk e = -1.401484038971 per site, White & Huse,
+    PRB 48, 3844). The tensors live on ``device`` (default: the CUDA card) unless a
+    ``backend`` is given.
+    """
+
+    def __init__(self, L: int, S: float = 1.0, J: float = 1., Delta: float = 1.,
+                 hz: float = 0., conserve: str = 'Sz', backend=None,
+                 block_backend=None, bc: str = 'finite', device: str = None):
+        from ..models.sites import SpinSite
+
+        if conserve not in ('Sz', 'None', None):
+            raise ValueError(f'SpinChainModel: unknown conserve={conserve!r}')
+        if bc not in ('finite', 'infinite'):
+            raise ValueError(f'unknown bc {bc!r}')
+        self.L = L
+        self.S = S
+        self.J = J
+        self.Delta = Delta
+        self.hz = hz
+        self.bc = bc
+        self.conserve = conserve = conserve or 'None'
+        if backend is None and block_backend is not None:
+            from ..backends import get_backend
+
+            backend = get_backend(u1_symmetry if conserve == 'Sz' else no_symmetry,
+                                  block_backend, device=device)
+        site = SpinSite(S, conserve=conserve, backend=backend, device=device)
+        self.site = site
+        self.site_leg = site.leg
+        self.backend = site.backend
+        # dense operators in the site's own public basis
+        self._sz = site.get_op_numpy('Sz')
+        self._sp = site.get_op_numpy('Sp')
+        self._sm = site.get_op_numpy('Sm')
+        self.H_bonds = self._build_H_bonds()
+        self.H_mpo = self._build_H_mpo()
+
+    @property
+    def site_legs(self):
+        return [self.site_leg] * self.L
+
+    def _build_H_bonds(self):
+        d = int(self.site_leg.dim)
+        sz, sp, sm = self._sz, self._sp, self._sm
+        eye = np.eye(d)
+        p = self.site_leg
+        finite = self.bc == 'finite'
+        res = []
+        for i in range(self.L - 1 if finite else self.L):
+            hL = self.hz / 2. * (2. if i == 0 and finite else 1.)
+            hR = self.hz / 2. * (2. if i + 1 == self.L - 1 and finite else 1.)
+            h = self.J * (0.5 * (np.kron(sp, sm) + np.kron(sm, sp))
+                          + self.Delta * np.kron(sz, sz)) \
+                + hL * np.kron(sz, eye) + hR * np.kron(eye, sz)
+            res.append(SymmetricTensor.from_dense_block(
+                h.reshape(d, d, d, d).transpose(0, 1, 3, 2), [p, p], [p, p],
+                backend=self.backend, labels=['p0', 'p1', 'p1*', 'p0*']))
+        return res
+
+    def _build_H_mpo(self):
+        d = int(self.site_leg.dim)
+        sz, sp, sm = self._sz, self._sp, self._sm
+        p = self.site_leg
+        sym = p.symmetry
+        W = np.zeros((5, d, d, 5))
+        W[0, :, :, 0] = np.eye(d)
+        W[0, :, :, 1] = sp
+        W[0, :, :, 2] = sm
+        W[0, :, :, 3] = sz
+        W[0, :, :, 4] = self.hz * sz
+        W[1, :, :, 4] = self.J / 2. * sm
+        W[2, :, :, 4] = self.J / 2. * sp
+        W[3, :, :, 4] = self.J * self.Delta * sz
+        W[4, :, :, 4] = np.eye(d)
+        if self.conserve == 'Sz':
+            w_sectors = np.array([[0], [2], [-2], [0], [0]])
+        else:
+            w_sectors = np.zeros((5, sym.sector_ind_len), dtype=int)
+        w_leg = ElementarySpace.from_basis(sym, w_sectors)
+        triv = ElementarySpace(sym, sym.trivial_sector[None, :])
+        first = np.zeros((1, 5))
+        first[0, 0] = 1.
+        last = np.zeros((5, 1))
+        last[4, 0] = 1.
+        mpos = []
+        for i in range(self.L):
+            Wi = W
+            wl, wr = w_leg, w_leg
+            if i == 0 and self.bc == 'finite':
+                Wi = np.tensordot(first, Wi, (1, 0))
+                wl = triv
+            if i == self.L - 1 and self.bc == 'finite':
+                Wi = np.tensordot(Wi, last, (3, 0))
+                wr = triv
+            mpos.append(SymmetricTensor.from_dense_block(
+                np.transpose(Wi, (0, 1, 3, 2)), [wl, p], [p, wr],
+                backend=self.backend, labels=['wL', 'p', 'wR', 'p*']))
+        return mpos
+
+    def energy(self, psi) -> float:
+        """Total energy (finite) or energy per site (infinite)."""
+        e = float(np.real(sum(complex(psi.bond_expectation_value(h, i))
+                              for i, h in enumerate(self.H_bonds))))
+        return e / self.L if self.bc == 'infinite' else e
 
 
 # --- exact reference (sparse ED) -------------------------------------------------------

@@ -117,9 +117,10 @@ def _mask_cache_key(mask):
 
 def _resolved(mask):
     """``mask`` as a :class:`_PrefixMask`, cached by its content (least recently used
-    goes first), or None where it has no host pattern or keeps more than a prefix."""
+    goes first), or None where it has no host pattern, keeps more than a prefix or is
+    not block-sparse (the no-symmetry backend's one dense block)."""
     key = _mask_cache_key(mask)
-    if key is None:
+    if key is None or not hasattr(mask.data, 'block_inds'):
         return None
     if key in _MASK_CACHE:
         _MASK_CACHE[key] = _MASK_CACHE.pop(key)  # most recently used

@@ -15,7 +15,9 @@ in four steps:
 3. first-order Jacobi sweeps per sector: R ~= qr(I + E/(D_j - D_i)); degenerate
    clusters stay mixed, which is harmless (any orthonormal basis of a degenerate
    cluster is a valid singular basis)
-4. U = theta V S^+, polished to an isometry by Newton-Schulz (GEMMs only)
+4. U = theta V S^+, polished to an isometry by Newton-Schulz (GEMMs only); a block
+   the polish leaves far from one is replaced by its thin QR
+   (``_orthonormal_columns``)
 
 Every ``compose`` is one grouped-GEMM launch on the abelian backend; the QRs go to
 ``torch.linalg.qr``. Nothing here reads a value on the host, so on the card the
@@ -75,6 +77,63 @@ def _rotation_blocks(T, n_jacobi: int, eps: float):
         R_blocks.append(R_tot)
         diags.append(d)
     return R_blocks, diags
+
+
+def _orthonormal_columns(U, S):
+    """``U`` where its columns are orthonormal (or zero) to 0.1 in every sector;
+    else its orthonormal factor, by a QR that takes the columns in the order of the
+    values ``S`` (the largest first, so that the dominant columns stay as they are and
+    the others lose what they share with them), each column of Q turned by the phase
+    of R's diagonal, a zero column (a value the pseudo-inverse dropped) kept zero.
+
+    Newton-Schulz converges only for singular values of ``U`` below sqrt(3). Where the
+    Jacobi step leaves a cluster of small values mixed (they count as degenerate
+    against the largest value of their sector), their columns of ``B S^+`` carry what
+    the warm start left of the dominant directions, divided by a small value: they are
+    far from orthogonal, the polish cannot repair them, and the left isometry of a
+    static bond update then blows up the next environment (a spin-1 chain at chi 1024:
+    E to -1e15 within one sweep). The choice is made on the device, so nothing is read
+    on the host and the update can still be captured in a graph.
+
+    Q alone would not do: where the polish holds but has not converged (a warm start
+    far from theta's subspace, one or two polish steps), U is near an isometry but not
+    one to rounding, and Q then differs from it by as much. Such a U is
+    ``cyten_tpu``'s, which the parity tests hold entry by entry
+    (``tests/test_torch_static.py``, ``tests/test_torch_bench.py``'s Hubbard step).
+    """
+    from ..backends.data import BlockSparseData, DiagonalBlockData
+
+    if not U.data.blocks:
+        return U
+    # P: the permutation of each sector's columns that sorts its values, largest first
+    dtype = U.data.blocks[0].dtype
+    perms = [torch.eye(len(s), dtype=dtype, device=s.device)[
+        :, torch.argsort(s.real, descending=True)] for s in S.data.blocks]
+    kept = S.leg
+    rows = np.stack([S.data.block_inds, S.data.block_inds], axis=1)
+    P = SymmetricTensor(BlockSparseData(perms, rows, U.data.dtype, is_sorted=True),
+                        [kept], [kept], U.backend, ['a', 'b'])
+    Q, R = qr(compose(U, P))
+    if Q.domain != U.domain:  # a sector with fewer rows than columns: no isometry
+        return U
+    phases = []
+    for blk in R.data.blocks:
+        d = torch.diagonal(blk)
+        mag = torch.abs(d)
+        phases.append(torch.where(mag > 0, d / torch.where(mag > 0, mag, 1.), 0.))
+    Ph = DiagonalTensor(DiagonalBlockData(phases, R.data.block_inds[:, 0].copy(),
+                                          R.data.dtype, is_sorted=True),
+                        Q.domain.factors[0], U.backend, ['a', 'a*'])
+    Q = compose(scale_axis(Q, Ph, -1), dagger(P))
+    Q.labels = U.labels
+    G = compose(dagger(U), U)
+    dev = []
+    for blk in G.data.blocks:
+        live = torch.diagonal(blk).real > 0.5
+        dev.append(torch.amax(torch.abs(blk - torch.diag(live.to(blk.dtype)))))
+    bad = (torch.stack(dev).amax() > 0.1).to(dev[0].dtype)
+    # U + bad (Q - U): Q where the polish failed, U itself where it held
+    return linear_combination(1., U, bad, linear_combination(1., Q, -1., U))
 
 
 def _with_kept_sectors(T, V):
@@ -173,6 +232,7 @@ def steady_truncated_svd(thp, Vh_prev, n_power: int = 1, n_jacobi: int = 2,
     for _ in range(ns_polish):
         G = compose(dagger(U), U)
         U = linear_combination(1.5, U, -0.5, compose(U, G))
+    U = _orthonormal_columns(U, S)
     Vh = dagger(V)
     U = U.relabelled({U.labels[-1]: new_labels[0]})
     Vh = Vh.relabelled({Vh.labels[0]: new_labels[1]})

@@ -23,6 +23,11 @@ leg spec
     as an ``ElementarySpace`` stores them.
 MPS spec
     ``Bs`` and ``Ss`` (lists of tensor specs) and ``bc``.
+MPO spec
+    ``tensors`` (a list of tensor specs, legs ``[wL, p, wR, p*]``) and ``max_range``.
+coupling spec
+    ``factorization`` (a list of tensor specs, one per site, legs ``[wL, p, wR, p*]``)
+    and ``name``.
 
 No-symmetry tensors carry their one dense block as ``blocks[0]``.
 """
@@ -39,7 +44,7 @@ from ..dtypes import Dtype
 from ..symmetries import SU2, ElementarySpace, NoSymmetry, Symmetry, U1, ZN, anyons
 
 __all__ = ['symmetry_from_names', 'leg_from_spec', 'tensor_from_arrays',
-           'mps_from_arrays']
+           'mps_from_arrays', 'mpo_from_arrays', 'coupling_from_arrays']
 
 
 def _anyon_factor(name: str):
@@ -121,3 +126,23 @@ def mps_from_arrays(spec: dict, backend):
     return SimpleMPS([tensor_from_arrays(s, backend) for s in spec['Bs']],
                      [tensor_from_arrays(s, backend) for s in spec['Ss']],
                      bc=spec.get('bc', 'finite'))
+
+
+def mpo_from_arrays(spec: dict, backend):
+    """The port's :class:`~cyten_tpu_torch.algorithms.models.MpoTensors` of ``backend``
+    from an MPO spec."""
+    from ..algorithms.models import MpoTensors
+
+    res = MpoTensors([tensor_from_arrays(s, backend) for s in spec['tensors']])
+    res.max_range = int(spec.get('max_range', 1))
+    return res
+
+
+def coupling_from_arrays(spec: dict, sites):
+    """A :class:`~cyten_tpu_torch.models.Coupling` on the port's ``sites`` (its
+    tensors on the first site's backend) from a coupling spec."""
+    from ..models.couplings import Coupling
+
+    backend = sites[0].backend
+    return Coupling([tensor_from_arrays(s, backend) for s in spec['factorization']],
+                    sites, spec.get('name', 'coupling'))

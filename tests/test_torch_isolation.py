@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor cyten_tpu (every module,
-the bench, static mode, checkpoints and excited states included), nor h5py or orbax
-for its checkpoints, and without CUDA its default device raises instead of running on
-the CPU."""
+the bench, static mode, checkpoints, excited states and the models layer included), nor
+h5py or orbax for its checkpoints, and without CUDA its default device raises instead of
+running on the CPU."""
 
 import os
 import re
@@ -53,6 +53,26 @@ with tempfile.TemporaryDirectory() as d:
 psi1 = SimpleMPS.from_product_state(model.site_legs, [1, 0, 1, 0], backend=model.backend)
 E1 = DMRGEngine(psi1, model, chi_max=8, orthogonal_to=[psi]).run(n_sweeps=4)
 assert E1 > E0 + 0.1 and abs(psi1.overlap(psi)) < 1e-8, (E0, E1)
+# the models layer: sites, couplings, CouplingModel and mpo_from_terms into DMRG, and
+# the interop functions that carry an MPO and a coupling over
+import cyten_tpu_torch.models.tenpy_models
+from cyten_tpu_torch.algorithms import SpinChainModel, mpo_from_terms
+from cyten_tpu_torch.models import CouplingModel, SpinHalfSite, heisenberg_coupling
+from cyten_tpu_torch.tools.interop import coupling_from_arrays, mpo_from_arrays
+sites = [SpinHalfSite('Sz', device='cpu')] * 4
+cm = CouplingModel(sites)
+for i in range(3):
+    cm.add_coupling(i, heisenberg_coupling(sites[i:i + 2]))
+psi = SimpleMPS.from_product_state([s.leg for s in sites], [0, 1, 0, 1],
+                                   backend=sites[0].backend)
+class M:
+    H_mpo = cm.build_H_mpo()
+E = DMRGEngine(psi, M(), chi_max=8).run(n_sweeps=2)
+assert abs(E - (-1.6160254037844384)) < 1e-9, E
+assert len(SpinChainModel(L=4, S=1., device='cpu').H_mpo) == 4
+h = cm.bond_terms[0][1].to_tensor()
+assert mpo_from_terms([s.leg for s in sites], couplings=[(0, 2, h)]).max_range == 2
+assert mpo_from_arrays and coupling_from_arrays
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu', 'h5py', 'orbax'))
 print('LEAKED', leaked)
@@ -88,6 +108,34 @@ def test_default_device_raises_without_cuda():
         HeisenbergModel(L=4, conserve='Sz')
     # an explicit CPU request is honoured
     assert str(get_backend(u1_symmetry, device='cpu').block_backend.device) == 'cpu'
+
+
+def test_models_default_device_raises_without_cuda():
+    """The models layer's entry points (a site, a model, mpo_from_terms) put their
+    tensors on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    import numpy as np
+
+    from cyten_tpu_torch.algorithms import SpinChainModel, mpo_from_terms, spin_half_site
+    from cyten_tpu_torch.models import (
+        ClockSite, GoldenChain, GoldenSite, SpinlessBosonSite, SpinSite, TFIModel,
+    )
+
+    for entry in (lambda: SpinSite(1, 'Sz'), lambda: SpinSite(0.5, 'SU(2)'),
+                  lambda: ClockSite(3, 'Z'), lambda: SpinlessBosonSite(2, 'N'),
+                  GoldenSite, lambda: SpinChainModel(L=4, S=1.), lambda: TFIModel(4),
+                  lambda: GoldenChain(3),
+                  lambda: mpo_from_terms([spin_half_site('Sz')] * 3,
+                                         couplings=[(0, 2, np.eye(4))])):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            entry()
+    site = SpinSite(1, 'Sz', device='cpu')
+    assert str(site.get_op('Sp').backend.block_backend.device) == 'cpu'
+    mpo = mpo_from_terms([spin_half_site('Sz')] * 3, couplings=[(0, 2, np.eye(4))],
+                         device='cpu')
+    assert str(mpo[0].backend.block_backend.device) == 'cpu'
+    assert str(SpinChainModel(L=3, device='cpu').backend.block_backend.device) == 'cpu'
 
 
 _SU2_SCRIPT = """

@@ -2,9 +2,9 @@
 against cyten_tpu's, on one state.
 
 An L=8 U(1) Heisenberg ground state, converged by the port, goes over to cyten_tpu
-(numpy block backend) by the persistence schema, exactly, and so do the charged
-operators Sp and Sm of cyten_tpu's spin-1/2 site. Every measurement is held to
-cyten_tpu's to 1e-12 (cyten_tpu/testing/asserting.py:14); canonicalize's outputs, whose
+(numpy block backend) by the persistence schema, exactly; the operators Sz, Sp and Sm
+(the last two charged) are each package's own spin-1/2 site's. Every measurement is
+held to cyten_tpu's to 1e-12 (cyten_tpu/testing/asserting.py:14); canonicalize's outputs, whose
 SVD gauge may differ between the packages, through the Schmidt values and the state
 vector.
 """
@@ -14,11 +14,12 @@ import pytest
 
 import cyten_tpu as ct
 from cyten_tpu.algorithms import HeisenbergModel as RefHeisenbergModel
-from cyten_tpu.models.sites import SpinSite
+from cyten_tpu.models.sites import SpinSite as RefSpinSite
 from cyten_tpu.tools import hdf5_io as ref_io
 
 import cyten_tpu_torch as ctt
 from cyten_tpu_torch.algorithms import DMRGEngine, HeisenbergModel, SimpleMPS
+from cyten_tpu_torch.models import SpinSite
 from cyten_tpu_torch.tools import hdf5_io as io
 from test_torch_excited import _retag, heisenberg_dense
 
@@ -40,16 +41,11 @@ def state():
                                            backend=model.backend)
     DMRGEngine(charged, model, chi_max=8, eps=1e-13).sweep()
     ref_model = RefHeisenbergModel(L=L, conserve='Sz', block_backend='numpy')
-    site = SpinSite(0.5, conserve='Sz', backend=ref_model.backend)
-    sz = np.diag([0.5, -0.5])
-    ops = {'Sz': (ct.SymmetricTensor.from_dense_block(
-        sz, [ref_model.site_legs[0]], [ref_model.site_legs[0]], backend=ref_model.backend,
-        labels=['p', 'p*']), ctt.SymmetricTensor.from_dense_block(
-        sz, [model.site_legs[0]], [model.site_legs[0]], backend=model.backend,
-        labels=['p', 'p*']))}
-    for name in ('Sp', 'Sm'):
-        op = site.get_op(name)
-        ops[name] = (op, io.from_tree(ref_io.to_tree(op), device='cpu'))
+    # each package's own spin-1/2 site: Sz symmetric, Sp and Sm charged
+    ref_site = RefSpinSite(0.5, conserve='Sz', backend=ref_model.backend)
+    site = SpinSite(0.5, conserve='Sz', backend=model.backend)
+    assert site.leg == model.site_legs[0]
+    ops = {name: (ref_site.get_op(name), site.get_op(name)) for name in ('Sz', 'Sp', 'Sm')}
     return {'psi': (to_ref(psi), psi), 'charged': (to_ref(charged), charged),
             'H': (ref_model.H_mpo, model.H_mpo), 'ops': ops}
 
