@@ -10,33 +10,42 @@ static mode, with checkpoints, rollback and excited states; and the port's bench
 cyten_tpu_torch.bench) at the full width of
 the repo's production setting, SU(2) Heisenberg DMRG and the Fibonacci golden chain on
 the fusion-tree backend, the models layer (sites, couplings, CouplingModel,
-SpinChainModel, mpo_from_terms) on spin-1/2, spin-1 and J1-J2 chains, checks the
-energies, and ends with one JSON line
+SpinChainModel, mpo_from_terms) on spin-1/2, spin-1 and J1-J2 chains, and fermions
+(FermiHubbardModel, KitaevChainModel, hopping with a next-nearest term) with the
+Ising-anyon chain, checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
     python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
     python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
     python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
-    python3 chip_smoke.py --bench-only     # phases 1, 2, 2b and 13, then stop
+    python3 chip_smoke.py --bench-only     # phases 1, 2, 2b, 10 and 13, then stop
     python3 chip_smoke.py --engine-only    # phases 1, 2, 2b, 4 and 14, then stop
     python3 chip_smoke.py --models-only    # phases 1, 2, 2b and 15, then the kernels
                                            # line of phase 15 and the device line
+    python3 chip_smoke.py --fermions-only  # phases 1, 2, 2b and 16 at full width, then
+                                           # the kernels line of phase 16 and the
+                                           # device line
     python3 chip_smoke.py --steady-ab      # phase 1, then steady_ab, then stop
     python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
                                            # of it in turns (ab_run: lists, bench
                                            # steps, replayed sweeps), then stop
 
 The full run takes phases 11, 12 and 13 at less depth than --su2-only, --golden-only
-and --bench-only do, to stay well inside its time limit with phases 14 and 15: SU(2)
-and the golden chain without the eager static sweep before their graphs and without the
-profile of a replayed sweep, the golden chain without L=6 and 8; the bench's golden
-scenario in place of its step scenario (so without the chi=8192 ladder and the SVD
-timings), the ceilings measured in the phase. The thin form's crossover (phase 2c)
-runs with --kernels-only alone. Phase 15 takes the spin-1 chain at L=10 alone
-(--models-only adds L=32 at chi 1024, dynamic and static) and the J1-J2 chain at
-chi_max=16 (--models-only: 64); phase 14 leaves out the child process's resume and the
-excited state (--engine-only keeps both).
+and --bench-only do, to stay inside its time limit with phases 14 to 16: SU(2) and the
+golden chain without the eager static sweep before their graphs and without the
+profile of a replayed sweep, SU(2) without the profile of a dynamic bond and the eager
+bench step, the golden chain without L=6 and 8; the bench without its own JSON line (so
+without the chi=8192 ladder and the SVD timings) and without the Hubbard and dense
+matvec timings, the ceilings measured in the phase; phase 10 runs with --bench-only.
+The thin form's crossover (phase 2c) runs with --kernels-only alone. Phase 15 takes
+the spin-1 chain at L=10 alone, swept until converged (--models-only adds (a), the
+CouplingModel Heisenberg chain at L=24, and the spin-1 chain at L=32 at chi 1024,
+dynamic and static) and the J1-J2 chain at L=32, chi_max=16 (--models-only: L=64,
+chi_max 64); phase 14 leaves out the child process's resume and the excited
+state (--engine-only keeps both). Phase 16 takes the Hubbard chain at L=8 and the
+Kitaev chain at L=32 (--fermions-only: L=32 at chi_max=1024 with a profile of its
+replayed sweep, and L=64).
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
@@ -138,9 +147,9 @@ Phases:
      TFLOP/s, launches of each kind, E against the f32 'float32' step (within 0.05
      relative; every output of the bf16-work step bf16); the LP/RP bytes a matvec
      reads in f32 and in bf16
-  10. bench.accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=4): polished and raw
-     bf16 dE against HEIS24_E_REF beside cyten_tpu's CPU figures (1.04e-5, 2.25e-3);
-     the polished dE must stay below 1e-3
+  10. (--bench-only) bench.accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=4):
+     polished and raw bf16 dE against HEIS24_E_REF beside cyten_tpu's CPU figures
+     (1.04e-5, 2.25e-3); the polished dE must stay below 1e-3
   11. SU(2) Heisenberg on the fusion-tree backend: L=8 against exact diagonalization
      (1e-9); L=24 at chi_max=512 multiplets, eps=0, N_max=10, from singlet pairs,
      swept dynamically until the centre bond holds 512 multiplets, against
@@ -197,15 +206,17 @@ Phases:
      runs two static sweeps from the state after phase 4's centre-bond updates, which
      drift from HEIS24_E_REF (measured only; PERF.md §6)
   15. the models layer (models_phase), each run's launches of the grouped GEMM (its
-     thin form apart) and the tridiagonal kernel counted: (a) the spin-1/2 Heisenberg
+     thin form apart) and the tridiagonal kernel counted: (a, --models-only) the
+     spin-1/2 Heisenberg
      chain at L=24 from CouplingModel([SpinHalfSite('Sz')] * 24), heisenberg_coupling
      on every bond and build_H_mpo(), its MPO's bond dimensions those of the
      hand-built HeisenbergModel's; dynamic sweeps at chi_max=1024, eps=0, N_max=10
-     until converged at chi 1024 (from the product state under --models-only, from
-     phase 4's state in the full run), then three sweep_static_batched() sweeps (the
+     until converged at chi 1024 from the product state, then three
+     sweep_static_batched() sweeps (the
      first updates each bond structure eagerly, the second captures its graph, the
      third replays them), each to 1e-8 of HEIS24_E_REF; (b) SpinChainModel(S=1,
-     'Sz'): L=10 against sparse exact diagonalization on the host (1e-9), then, in
+     'Sz'): L=10 against sparse exact diagonalization on the host (1e-9), dynamic and
+     one static sweep (the tridiagonal kernel's launches in the full run), then, in
      the sector of total Sz = 1, L=32 at chi_max=1024, eps=0, N_max=10, dynamic until
      converged at chi_max, three static sweeps as in (a) to 1e-8 of the dynamic
      energy (the full run leaves L=32 out); mpo_variance, E/L beside the
@@ -213,11 +224,33 @@ Phases:
      launches of each; the centre tdot(LP, theta) list on the kernel against plain,
      timed as in phase 2; (c) the J1-J2 chain at the Majumdar-Ghosh point (J2 = J1/2),
      L=64, from mpo_from_terms with nearest and next-nearest S.S terms (MPO bond
-     dimension 11), chi_max=64 (16 in the full run), eps=0, swept until E changes by
-     less than 1e-10:
-     E = -24 exactly (1e-8), thin-form launches counted; the largest W list of two
+     dimension 11), chi_max=64 (the full run: L=32, chi_max=16), eps=0, swept until E
+     changes by less than 1e-10: E = -3 L / 8 exactly (1e-8), thin-form launches
+     counted; the largest W list of two
      bond updates (thin if one is) against its plain version, held elementwise to
      check_f64's bound and timed as in phase 2
+  16. fermions and the Ising-anyon chain (fermions_phase), each kernel's launches
+     counted over the phase: (a) FermiHubbardModel(L=8, t=1, U=4) (FermionNumber('N')
+     x U1('2*Sz') on the fusion-tree backend) from half filling, chi_max=256,
+     eps=1e-14, against sparse ED of the model's own bonds in the N=8, Sz=0 sector
+     (4900 states, 1e-9); then static mode: one eager sweep, sweeps through CUDA
+     graphs until one captures nothing (the replayed sweep), each within 1e-10 of the
+     dynamic energy, at most one host sync a replayed sweep, the device constants held
+     against _CONSTANTS_MAX and by the graphs; --fermions-only takes L=32 at
+     chi_max=1024, eps=0, N_max=10 (at most 8 dynamic sweeps) to 1e-8, with
+     mpo_variance, a replayed sweep under torch.profiler and a replay after the
+     backend dropped every device constant and their memory was written over (the
+     graphs keep what they read alive); (b) KitaevChainModel(L=32, t=1, delta=0.6,
+     mu=0.4) (FermionParity) from the vacuum at chi_max 32 (--fermions-only: L=64,
+     chi_max 64) against the BdG pair of exact_finite_gs_energy(parity='both') (1e-9:
+     the even sector's energy is one of the two); (c) spinless fermions with t1 = 1 and
+     t2 = 0.6 at L=16 from mpo_from_terms, chi_max=64, against the single-particle
+     spectrum, and correlation_function(Cd, 0, C, 15) and (Cd, 7, C, 8) against the
+     exact correlation matrix (1e-9); (d) the Ising-anyon chain at L=8, chi 16, against
+     the ED built inside the framework on the card (full_chain_hamiltonian, eigh;
+     1e-9); (e) the largest compose list of (a)'s centre bond update on the kernel
+     against its plain version, held elementwise to check_f64's bound ([fermions e]:
+     err_units, device_ms, bound_ms, library_ms, launches)
 
 --steady-ab runs the build, then steady_ab: the steady SVD with its QR against the
 same SVD without it, in turns, on the L=24 chain's replayed sweep and the bench step.
@@ -1150,6 +1183,7 @@ def profile_run(label: str, fn, top: int = 8):
           flush=True)
     for name, count, t in kernels[:top]:
         print(f'[profile {label}]   {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}', flush=True)
+    profile_run.kernels = kernels  # (name, count, device us), the longest first
     return sum(c for _, c, _ in kernels)
 
 
@@ -1463,7 +1497,8 @@ def su2_phase(E24, deep: bool = True) -> dict:
     if not (abs(E - HEIS24_E_REF) < 1e-8 and (dE_u1 is None or dE_u1 < 1e-8)
             and launches > 0 and centre_mult() == chi_max):
         raise AssertionError('SU(2) L=24 DMRG energy, width or kernel launches wrong')
-    profile_run(f'SU(2) dynamic bond {i}', lambda: eng.update_bond(i))
+    if deep:
+        profile_run(f'SU(2) dynamic bond {i}', lambda: eng.update_bond(i))
 
     # static mode: one eager steady sweep (deep only), two through graphs, one eager
     # after
@@ -1545,7 +1580,7 @@ def su2_phase(E24, deep: bool = True) -> dict:
     # the port's bench: the matvec and the step at 512 multiplets
     t_mv, _ = su2_run(chi_max, (10, 50), 2)
     print(f'[SU(2) bench {chi_max} multiplets] matvec {t_mv * 1e3:.3f} ms', flush=True)
-    for graph in (False, True):  # eager steps take 20x longer: a shorter slope
+    for graph in (False, True) if deep else (True,):  # eager: 20x longer, a short slope
         setup_s, t_step = su2_step(chi_max, graph=graph,
                                    lengths=(5, 25) if graph else (2, 6))
         print(f'[SU(2) bench {chi_max} multiplets{" graph" if graph else ""}] step '
@@ -1796,80 +1831,15 @@ def bench_lists(label, lists, ceilings, only: str = None, reps: int = 20) -> dic
     return best
 
 
-def bench_phase(graph_steps: dict = None, deep: bool = True) -> dict:
-    """Phase 13, [bench]: the rest of the port's bench (cyten_tpu_torch.bench) on the
-    card. First ``python -m cyten_tpu_torch.bench`` as a subprocess (its
-    JSON line: the measured ceilings, printed beside the data sheet's, the chi=8192
-    ladder, the SVD timings with their spreads; every frac at most 1); with
-    ``deep=False`` (the full run) its golden scenario instead, and the ceilings
-    measured here (``bench.measured_peak_tflops``, ``measured_hbm_gbps``). Then the
-    grouped-GEMM lists of one Hubbard (U(1) x U(1)) matvec at chi=2048 at each setting
-    of hubbard_settings, of one padded chi=4096 bf16-work step and the chi=8192
-    tdot(LP, theta) in f32 and bf16, each held to its plain version by compare_kernel,
-    its bound on the data sheet and on the measured ceilings; the Hubbard matvec
-    through the kernel and through a torch.matmul per pair (bench.lists_on_plain),
-    eager and as a graph; the dense (no-symmetry) TFI matvec at chi=4096; the padded
-    step as a graph; and the chi=CHI_BENCH step at each of ROOF_SETTINGS (as graphs;
-    ``graph_steps`` gives phases 8 and 9's (seconds, FLOPs) by name) with frac_peak
-    and frac_roofline against the measured ceilings. Returns the kernels-line numbers
-    of the largest f32 Hubbard list and padded list, each with the launches of its
-    main-path run."""
+def hubbard_and_dense_matvecs(out: dict, flops: float) -> None:
+    """Phase 13 under --bench-only: the Hubbard matvec at chi=2048 through the kernel
+    and through a torch.matmul per pair (bench.lists_on_plain), eager and as a graph
+    (its eager run's launches into ``out['hubbard']``), and the dense TFI matvec."""
     import torch
-    from cyten_tpu_torch import Dtype, bench, get_backend, u1_symmetry
-    from cyten_tpu_torch.algorithms import HEffective
+    from cyten_tpu_torch import Dtype, bench, get_backend
     from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
-    from cyten_tpu_torch.config import config
 
-    t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    out = {}
-    # the bench's own JSON line: ceilings, the chi=8192 ladder, the SVD timings (deep;
-    # else the golden scenario's line, a few seconds, and the ceilings measured here)
-    t0 = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    run = subprocess.run([sys.executable, '-m', 'cyten_tpu_torch.bench',
-                          *(() if deep else ('--scenario', 'golden'))],
-                         cwd=root, env={**os.environ, 'PYTHONPATH': root},
-                         capture_output=True, text=True, timeout=900)
-    if run.returncode:
-        raise AssertionError(f'python -m cyten_tpu_torch.bench failed:\n{run.stderr[-4000:]}')
-    line = json.loads(run.stdout.strip().splitlines()[-1])
-    print(f'[bench json] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)', flush=True)
-    if not deep:
-        line.update({f'measured_peak_{key}_tflops': bench.measured_peak_tflops(arith)
-                     for arith, key in bench._PEAK_KEYS.items()},
-                    measured_hbm_gbps=bench.measured_hbm_gbps())
-    ceilings = {arith: line[f'measured_peak_{key}_tflops']
-                for arith, key in bench._PEAK_KEYS.items()}
-    ceilings['hbm_gbps'] = line['measured_hbm_gbps']
-    print('[bench ceilings] measured against the data sheet: ' + ', '.join(
-        f'{arith} {ceilings[arith]:.2f} of {bench.DATASHEET[arith] / 1e12:.1f} TFLOP/s'
-        for arith in bench._PEAK_KEYS) + f', HBM {ceilings["hbm_gbps"]:.1f} of '
-        f'{bench.DATASHEET["hbm_bytes_per_s"] / 1e9:.0f} GB/s', flush=True)
-    if deep:
-        print('[bench ladder] ' + json.dumps({k: v for k, v in line.items()
-                                              if k.startswith('step8192')}), flush=True)
-        print('[bench svd] ' + json.dumps({k: v for k, v in line.items()
-                                           if k.startswith('svd_')}), flush=True)
-    fracs = {k: v for k, v in line.items() if '_frac_' in k}
-    # the Hubbard lists of one matvec at each setting, against plain
     hubbard = bench.build_hubbard_workload
-    args = hubbard(get_backend(bench._builder_symmetry(hubbard), device='cuda'), 2048,
-                   dtype=Dtype.float32)
-    for name, precision, margs in hubbard_settings(args):
-        H = HEffective(*margs[:4])
-        old = config.matmul_precision
-        config.matmul_precision = precision
-        try:
-            lists = bench.recorded_lists(lambda: H.matvec(margs[4]))
-        finally:
-            config.matmul_precision = old
-        # 5 reps: the per-pair loops of 2000 pairs take 50-100 ms a call
-        res = bench_lists(f'hubbard {name}', lists, ceilings, reps=5)
-        if name == 'float32':
-            out['hubbard'] = res
-    flops = bench.matvec_flops(*args)
-    del args, margs, H, lists
     # the main path: the Hubbard matvec through the kernel and a torch.matmul per pair
     times = {}
     for route, routing in (('kernel', contextlib.nullcontext),
@@ -1896,6 +1866,91 @@ def bench_phase(graph_steps: dict = None, deep: bool = True) -> dict:
     t_d = bench.matvec_run(CHI_BENCH, (5, 20), 1, builder=dense)
     print(f'[bench dense chi={CHI_BENCH}] matvec {t_d * 1e3:.4f} ms, '
           f'{d_flops / t_d / 1e12:.3f} TFLOP/s', flush=True)
+    torch.cuda.empty_cache()
+
+
+def bench_phase(graph_steps: dict = None, deep: bool = True) -> dict:
+    """Phase 13, [bench]: the rest of the port's bench (cyten_tpu_torch.bench) on the
+    card. First ``python -m cyten_tpu_torch.bench`` as a subprocess (its
+    JSON line: the measured ceilings, printed beside the data sheet's, the chi=8192
+    ladder, the SVD timings with their spreads; every frac at most 1); with
+    ``deep=False`` (the full run) only the ceilings, measured here
+    (``bench.measured_peak_tflops``, ``measured_hbm_gbps``). Then the
+    grouped-GEMM lists of one Hubbard (U(1) x U(1)) matvec at chi=2048 at each setting
+    of hubbard_settings, of one padded chi=4096 bf16-work step and the chi=8192
+    tdot(LP, theta) in f32 and bf16, each held to its plain version by compare_kernel,
+    its bound on the data sheet and on the measured ceilings; with ``deep``, the
+    Hubbard matvec through the kernel and through a torch.matmul per pair, eager and
+    as a graph, and the dense (no-symmetry) TFI matvec at chi=4096
+    (hubbard_and_dense_matvecs); the padded step as a graph; and the chi=CHI_BENCH step at each of ROOF_SETTINGS (as graphs;
+    ``graph_steps`` gives phases 8 and 9's (seconds, FLOPs) by name) with frac_peak
+    and frac_roofline against the measured ceilings. Returns the kernels-line numbers
+    of the largest f32 Hubbard list and padded list, each with the launches of its
+    main-path run."""
+    import torch
+    from cyten_tpu_torch import Dtype, bench, get_backend, u1_symmetry
+    from cyten_tpu_torch.algorithms import HEffective
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.config import config
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    # the bench's own JSON line: ceilings, the chi=8192 ladder, the SVD timings (deep;
+    # else the golden scenario's line, a few seconds, and the ceilings measured here)
+    if deep:
+        t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        run = subprocess.run([sys.executable, '-m', 'cyten_tpu_torch.bench'],
+                             cwd=root, env={**os.environ, 'PYTHONPATH': root},
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            raise AssertionError('python -m cyten_tpu_torch.bench failed:\n'
+                                 f'{run.stderr[-4000:]}')
+        line = json.loads(run.stdout.strip().splitlines()[-1])
+        print(f'[bench json] {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)',
+              flush=True)
+    else:
+        line = {f'measured_peak_{key}_tflops': bench.measured_peak_tflops(arith)
+                for arith, key in bench._PEAK_KEYS.items()}
+        line['measured_hbm_gbps'] = bench.measured_hbm_gbps()
+    ceilings = {arith: line[f'measured_peak_{key}_tflops']
+                for arith, key in bench._PEAK_KEYS.items()}
+    ceilings['hbm_gbps'] = line['measured_hbm_gbps']
+    print('[bench ceilings] measured against the data sheet: ' + ', '.join(
+        f'{arith} {ceilings[arith]:.2f} of {bench.DATASHEET[arith] / 1e12:.1f} TFLOP/s'
+        for arith in bench._PEAK_KEYS) + f', HBM {ceilings["hbm_gbps"]:.1f} of '
+        f'{bench.DATASHEET["hbm_bytes_per_s"] / 1e9:.0f} GB/s', flush=True)
+    if deep:
+        print('[bench ladder] ' + json.dumps({k: v for k, v in line.items()
+                                              if k.startswith('step8192')}), flush=True)
+        print('[bench svd] ' + json.dumps({k: v for k, v in line.items()
+                                           if k.startswith('svd_')}), flush=True)
+    fracs = {k: v for k, v in line.items() if '_frac_' in k}
+    # the Hubbard lists of one matvec at each setting, against plain
+    hubbard = bench.build_hubbard_workload
+    args = hubbard(get_backend(bench._builder_symmetry(hubbard), device='cuda'), 2048,
+                   dtype=Dtype.float32)
+    for name, precision, margs in hubbard_settings(args):
+        H = HEffective(*margs[:4])
+        old = config.matmul_precision
+        config.matmul_precision = precision
+        grouped_matmul.launches = 0
+        try:
+            lists = bench.recorded_lists(lambda: H.matvec(margs[4]))
+        finally:
+            config.matmul_precision = old
+        launches = grouped_matmul.launches
+        # 5 reps: the per-pair loops of 2000 pairs take 50-100 ms a call
+        res = bench_lists(f'hubbard {name}', lists, ceilings, reps=5)
+        if name == 'float32':
+            out['hubbard'] = {**res, 'launches': launches}
+    flops = bench.matvec_flops(*args)
+    del args, margs, H, lists
+    if not out['hubbard']['launches']:
+        raise AssertionError('the Hubbard matvec did not launch the grouped GEMM')
+    if deep:
+        hubbard_and_dense_matvecs(out, flops)
     torch.cuda.empty_cache()
     # the padded step's lists against plain, then the step as a graph
     padded = bench.build_padded_workload
@@ -1941,6 +1996,31 @@ def bench_phase(graph_steps: dict = None, deep: bool = True) -> dict:
           f'{line.get("peak_reserved_gb")} GB in the bench; wall '
           f'{time.perf_counter() - t_phase:.1f} s', flush=True)
     return out
+
+
+def accuracy_phase() -> None:
+    """Phase 10: bench.accuracy_bf16work at the reference's scale (see the module
+    docstring); under --bench-only."""
+    import torch
+    from cyten_tpu_torch.bench import accuracy_bf16work
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+
+    t_phase = time.perf_counter()
+    kinds = grouped_matmul.kinds
+    for k in kinds.values():
+        k.launches = 0
+    n_bf16 = 4
+    E_pol, E_bf16, dE_pol = accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=n_bf16)
+    torch.cuda.synchronize()
+    acc_s = time.perf_counter() - t_phase
+    counts = {k: v.launches for k, v in kinds.items() if v.launches}
+    dE_raw = abs(E_bf16 - HEIS24_E_REF)
+    print(f'[accuracy] L=24 chi=1024, {n_bf16} bf16 sweeps + 1 f32 polish: polished E '
+          f'{E_pol!r} dE {dE_pol:.3e} (cyten_tpu on a CPU: 1.04e-5), raw bf16 E {E_bf16!r} '
+          f'dE {dE_raw:.3e} (2.25e-3); {acc_s:.1f} s, {acc_s / (n_bf16 + 1):.1f} s per '
+          f'sweep; launches by kind {json.dumps(counts)}', flush=True)
+    if not dE_pol < 1e-3 or not counts.get('default'):
+        raise AssertionError(f'accuracy protocol: polished dE {dE_pol} or kinds {counts}')
 
 
 def _dir_bytes(path: str) -> int:
@@ -2280,12 +2360,10 @@ def _dynamic_then_graphs(label: str, eng, max_sweeps: int) -> dict:
     return {**dyn, 'E_graph': E_graph, 'graph_s': graph_s, 'launches': launches}
 
 
-def models_phase(psi24=None, deep: bool = True) -> dict:
-    """Phase 15: the models layer on the card (see the module docstring). ``psi24``:
-    phase 4's converged L=24 state, where (a) starts in the full run; under
-    --models-only (a) starts from the product state. ``deep=False`` (the full run)
-    leaves out (b)'s L=32 chain at chi 1024 and takes (c) at chi_max=16 in place of
-    64. Returns the numbers of its kernels-line entries:
+def models_phase(deep: bool = True) -> dict:
+    """Phase 15: the models layer on the card (see the module docstring).
+    ``deep=False`` (the full run) leaves out (a) and (b)'s L=32 chain at chi 1024 and
+    takes (c) at chi_max=16 in place of 64. Returns the numbers of its kernels-line entries:
     the spin-1 centre tdot(LP, theta) list, the J1-J2 chain's W list, and the launches
     of each kernel over the phase's runs."""
     import torch
@@ -2303,46 +2381,48 @@ def models_phase(psi24=None, deep: bool = True) -> dict:
         for k in total:
             total[k] += counts[k]
 
-    # (a) spin-1/2 Heisenberg, L=24, through CouplingModel + heisenberg_coupling +
-    # build_H_mpo, against the hand-built MPO's bonds and HEIS24_E_REF
-    t_sub = time.perf_counter()
-    L = 24
-    sites = [SpinHalfSite('Sz')] * L
-    cm = CouplingModel(sites)
-    for i in range(L - 1):
-        cm.add_coupling(i, heisenberg_coupling([sites[i], sites[i + 1]]))
-    H_mpo = cm.build_H_mpo()
-    dims = [(W.get_leg_co_domain('wL').dim, W.get_leg_co_domain('wR').dim) for W in H_mpo]
-    hand = [(W.get_leg_co_domain('wL').dim, W.get_leg_co_domain('wR').dim)
-            for W in HeisenbergModel(L=L, conserve='Sz').H_mpo]
-    print(f'[models a] CouplingModel MPO bond dims {dims[:3]}... equal to the hand-built '
-          f"HeisenbergModel's: {dims == hand}; device {H_mpo[0].device}", flush=True)
-    if dims != hand or str(H_mpo[0].device).split(':')[0] != 'cuda':
-        raise AssertionError('the CouplingModel MPO differs from the hand-built one in its '
-                             'bonds, or is not on the card')
-    psi = psi24.copy() if psi24 is not None else \
-        SimpleMPS.from_product_state([s.leg for s in sites], [0, 1] * (L // 2))
-    eng = DMRGEngine(psi, MpoModel(H_mpo), chi_max=1024, eps=0.,
-                     lanczos_options={'N_max': 10})
-    a = _dynamic_then_graphs('models a L=24', eng, 8 if psi24 is None else 1)
-    for counts in a['launches'].values():
-        add(counts)
-    print(f'[models a] E dynamic {a["E"]!r}, through graphs {a["E_graph"]!r}, ref '
-          f'{HEIS24_E_REF!r}: |dE| {abs(a["E"] - HEIS24_E_REF):.3e}, '
-          f'{abs(a["E_graph"] - HEIS24_E_REF):.3e}; sweeps {a["sweeps"]} from '
-          f'{"phase 4" if psi24 is not None else "the product state"}, s per dynamic sweep '
-          f'{json.dumps([round(s, 3) for s in a["sweep_s"]])}, per static sweep (eager, '
-          f'captures, replayed) {json.dumps([round(s, 3) for s in a["graph_s"]])}; '
-          f'{time.perf_counter() - t_sub:.1f} s',
-          flush=True)
-    run = a['launches']
-    if not (abs(a['E'] - HEIS24_E_REF) < 1e-8 and abs(a['E_graph'] - HEIS24_E_REF) < 1e-8
-            and run['dynamic run']['grouped_gemm'] > 0 and run['dynamic run']['thin'] > 0
-            and run['static sweep 3']['grouped_gemm'] > 0 and run['static sweep 3']['thin'] > 0
-            and run['static sweep 3']['tridiag'] > 0 and psi.max_chi() == 1024):
-        raise AssertionError('models (a): energy, width or kernel launches wrong')
-    del eng, psi, H_mpo, cm
-    torch.cuda.empty_cache()
+    # (a) under --models-only alone (the full run's phase 4 drives the same MPO)
+    if deep:
+        # (a) spin-1/2 Heisenberg, L=24, through CouplingModel + heisenberg_coupling +
+        # build_H_mpo, against the hand-built MPO's bonds and HEIS24_E_REF
+        t_sub = time.perf_counter()
+        L = 24
+        sites = [SpinHalfSite('Sz')] * L
+        cm = CouplingModel(sites)
+        for i in range(L - 1):
+            cm.add_coupling(i, heisenberg_coupling([sites[i], sites[i + 1]]))
+        H_mpo = cm.build_H_mpo()
+        dims = [(W.get_leg_co_domain('wL').dim, W.get_leg_co_domain('wR').dim) for W in H_mpo]
+        hand = [(W.get_leg_co_domain('wL').dim, W.get_leg_co_domain('wR').dim)
+                for W in HeisenbergModel(L=L, conserve='Sz').H_mpo]
+        print(f'[models a] CouplingModel MPO bond dims {dims[:3]}... equal to the hand-built '
+              f"HeisenbergModel's: {dims == hand}; device {H_mpo[0].device}", flush=True)
+        if dims != hand or str(H_mpo[0].device).split(':')[0] != 'cuda':
+            raise AssertionError('the CouplingModel MPO differs from the hand-built one in its '
+                                 'bonds, or is not on the card')
+        psi = SimpleMPS.from_product_state([s.leg for s in sites], [0, 1] * (L // 2))
+        eng = DMRGEngine(psi, MpoModel(H_mpo), chi_max=1024, eps=0.,
+                         lanczos_options={'N_max': 10})
+        a = _dynamic_then_graphs('models a L=24', eng, 8)
+        for counts in a['launches'].values():
+            add(counts)
+        print(f'[models a] E dynamic {a["E"]!r}, through graphs {a["E_graph"]!r}, ref '
+              f'{HEIS24_E_REF!r}: |dE| {abs(a["E"] - HEIS24_E_REF):.3e}, '
+              f'{abs(a["E_graph"] - HEIS24_E_REF):.3e}; sweeps {a["sweeps"]} from '
+              f'the product state, s per dynamic sweep '
+              f'{json.dumps([round(s, 3) for s in a["sweep_s"]])}, per static sweep (eager, '
+              f'captures, replayed) {json.dumps([round(s, 3) for s in a["graph_s"]])}; '
+              f'{time.perf_counter() - t_sub:.1f} s',
+              flush=True)
+        run = a['launches']
+        if not (abs(a['E'] - HEIS24_E_REF) < 1e-8 and abs(a['E_graph'] - HEIS24_E_REF) < 1e-8
+                and run['dynamic run']['grouped_gemm'] > 0 and run['dynamic run']['thin'] > 0
+                and run['static sweep 3']['grouped_gemm'] > 0
+                and run['static sweep 3']['thin'] > 0
+                and run['static sweep 3']['tridiag'] > 0 and psi.max_chi() == 1024):
+            raise AssertionError('models (a): energy, width or kernel launches wrong')
+        del eng, psi, H_mpo, cm
+        torch.cuda.empty_cache()
 
     # (b) spin-1 SpinChainModel, conserve 'Sz': L=10 against sparse ED on the host;
     # under --models-only then L=32 at chi_max=1024, dynamic and static, in the sector
@@ -2355,12 +2435,16 @@ def models_phase(psi24=None, deep: bool = True) -> dict:
     psi = SimpleMPS.from_product_state(model.site_legs, [0, 2] * 5)
     _counts_zero()
     eng = DMRGEngine(psi, model, chi_max=243, eps=1e-14)
-    E10 = eng.run(n_sweeps=10)
+    E10 = _sweeps_until('models b L=10', eng, 10, tol=1e-11)['E']
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    E10_static = eng.sweep_static_batched()
     c10 = _counts()
     add(c10)
-    print(f'[models b L=10] E = {E10!r}, sparse ED {E10_ed!r}, |dE| {abs(E10 - E10_ed):.3e}, '
-          f'launches {json.dumps(c10)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
-    if not (abs(E10 - E10_ed) < 1e-9 and c10['grouped_gemm'] > 0):
+    print(f'[models b L=10] E = {E10!r}, static {E10_static!r}, sparse ED {E10_ed!r}, |dE| '
+          f'{abs(E10 - E10_ed):.3e}, {abs(E10_static - E10_ed):.3e}; launches '
+          f'{json.dumps(c10)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(E10 - E10_ed) < 1e-9 and abs(E10_static - E10_ed) < 1e-9
+            and c10['grouped_gemm'] > 0 and c10['tridiag'] > 0):
         raise AssertionError('models (b): the L=10 spin-1 energy or its launches wrong')
     if deep:
         t_sub = time.perf_counter()
@@ -2395,9 +2479,10 @@ def models_phase(psi24=None, deep: bool = True) -> dict:
     del eng, psi, model
     torch.cuda.empty_cache()
 
-    # (c) the J1-J2 chain from mpo_from_terms at the Majumdar-Ghosh point, L=64
+    # (c) the J1-J2 chain from mpo_from_terms at the Majumdar-Ghosh point, L=64 (32 in
+    # the full run)
     t_sub = time.perf_counter()
-    L = 64
+    L = 64 if deep else 32
     sz = np.diag([0.5, -0.5])
     sp = np.array([[0., 1.], [0., 0.]])
     SS = 0.5 * (np.kron(sp, sp.T) + np.kron(sp.T, sp)) + np.kron(sz, sz)
@@ -2415,7 +2500,7 @@ def models_phase(psi24=None, deep: bool = True) -> dict:
         E_new = eng.run(n_sweeps=1)
         torch.cuda.synchronize()
         c['sweep_s'].append(time.perf_counter() - t0)
-        print(f'[models c L=64] sweep {sweep + 1}: E = {E_new!r}, {c["sweep_s"][-1]:.2f} s, '
+        print(f'[models c L={L}] sweep {sweep + 1}: E = {E_new!r}, {c["sweep_s"][-1]:.2f} s, '
               f'max chi {psi.max_chi()}', flush=True)
         done = c['E'] is not None and abs(E_new - c['E']) < 1e-10
         c['E'] = E_new
@@ -2425,7 +2510,7 @@ def models_phase(psi24=None, deep: bool = True) -> dict:
     cc = _counts()
     add(cc)
     E_exact = -0.75 * (L // 2)
-    print(f'[models c] J1-J2 L=64, J2 = J1/2: E = {c["E"]!r}, exact {E_exact}, |dE| '
+    print(f'[models c] J1-J2 L={L}, J2 = J1/2: E = {c["E"]!r}, exact {E_exact}, |dE| '
           f'{abs(c["E"] - E_exact):.3e}; MPO bond dimension {wR} (max_range '
           f'{mpo.max_range}); s per sweep {json.dumps([round(s, 3) for s in c["sweep_s"]])}; '
           f'launches {json.dumps(cc)} ({cc["thin"] / c["sweeps"]:.1f} thin a sweep); '
@@ -2463,6 +2548,318 @@ def models_phase(psi24=None, deep: bool = True) -> dict:
     print(f'[models] launches over the phase: {json.dumps(total)}', flush=True)
     return {'centre': centre, 'w_list': w_list, 'launches': total,
             'launches_c': cc['grouped_gemm']}
+
+
+def full_chain_hamiltonian(h_bonds, site_leg, backend):
+    """H = sum_i 1 x .. x h_i x .. x 1 as one tensor [p0..pL-1 | p0*..pL-1*], built
+    inside the framework (an anyonic chain has no dense form): site by site, H' = H x 1
+    + 1 x h, from outer products and permutations (tests/test_anyonic_ed.py:17-40
+    builds each term apart)."""
+    from cyten_tpu_torch.tensors import SymmetricTensor, outer, permute_legs
+
+    def ordered(t, n):
+        return permute_legs(t, codomain=[f'p{j}' for j in range(n)],
+                            domain=[f'p{j}*' for j in range(n)])
+
+    H = ordered(h_bonds[0].relabelled(['p0', 'p1', 'p1*', 'p0*']), 2)
+    for m, h in enumerate(h_bonds[1:], 2):
+        h = h.relabelled([f'p{m - 1}', f'p{m}', f'p{m}*', f'p{m - 1}*'])
+        eye = SymmetricTensor.from_eye([site_leg], backend=backend, labels=[f'p{m}'],
+                                       dtype=h.dtype)
+        rest = SymmetricTensor.from_eye([site_leg] * (m - 1), backend=backend,
+                                        labels=[f'p{j}' for j in range(m - 1)], dtype=h.dtype)
+        H = ordered(outer(H, eye), m + 1) + ordered(outer(rest, h), m + 1)
+    return H
+
+
+def _sweeps_until(label: str, eng, max_sweeps: int, tol: float = 1e-10) -> dict:
+    """Dynamic sweeps until E changes by less than ``tol`` (at most ``max_sweeps``):
+    E, the seconds of each sweep."""
+    import torch
+
+    E, sweep_s = None, []
+    for sweep in range(max_sweeps):
+        t0 = time.perf_counter()
+        E_new = eng.run(n_sweeps=1)
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+        print(f'[{label}] sweep {sweep + 1}: E = {E_new!r}, {sweep_s[-1]:.2f} s, max chi '
+              f'{eng.psi.max_chi()}', flush=True)
+        done = E is not None and abs(E_new - E) < tol
+        E = E_new
+        if done:
+            break
+    return {'E': E, 'sweep_s': sweep_s}
+
+
+def _static_sweeps(label: str, eng, E_dyn: float, tol: float, deep: bool) -> dict:
+    """Static mode after the dynamic sweeps of ``eng``: one eager sweep
+    (cuda_graphs=False), then sweeps through CUDA graphs until one captures no new
+    graph (the replayed sweep), each to ``tol`` of ``E_dyn``; the host syncs of one
+    more replayed sweep, each kernel's launches per sweep, the device constants of the
+    backend against _CONSTANTS_MAX and those the graphs hold. With ``deep``, a
+    replayed sweep under torch.profiler, and a replay after the backend's constants
+    were all dropped and their memory reused (the graphs keep what they read alive:
+    _kernels.keep_alive)."""
+    import torch
+    from cyten_tpu_torch.blocks import torch_backend
+    from cyten_tpu_torch.blocks.torch_backend import _CONSTANTS_MAX
+    from cyten_tpu_torch.tensors import permute_legs
+
+    res = {'static_s': [], 'E_static': []}
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
+    t0 = time.perf_counter()
+    E = eng.sweep()
+    torch.cuda.synchronize()
+    res['static_s'].append(time.perf_counter() - t0)
+    res['E_static'].append(E)
+    print(f'[{label} static] eager sweep: E = {E!r}, |E - E_dynamic| = {abs(E - E_dyn):.3e}, '
+          f'{res["static_s"][-1]:.2f} s', flush=True)
+    eng.enable_static_mode(n_lanczos=10, svd_mode='steady')
+    for sweep in range(4):
+        n_graphs = len(eng.static_graphs())
+        _counts_zero()
+        t0 = time.perf_counter()
+        E = eng.sweep_static_batched()
+        torch.cuda.synchronize()
+        res['static_s'].append(time.perf_counter() - t0)
+        res['E_static'].append(E)
+        res['launches'] = _counts()
+        new = len(eng.static_graphs()) - n_graphs
+        print(f'[{label} graphs] sweep {sweep + 1}: E = {E!r}, |E - E_dynamic| = '
+              f'{abs(E - E_dyn):.3e}, {res["static_s"][-1]:.2f} s, {new} graphs captured, '
+              f'launches {json.dumps(res["launches"])}', flush=True)
+        if new == 0 and sweep > 0:
+            break
+    res['E_graph'] = E
+    res['syncs'] = count_syncs(eng.sweep_static_batched)
+    graphs = eng.static_graphs()
+    bb = eng.psi.Bs[0].backend.block_backend
+    held = {id(x): x for g in graphs for x in g.graph.keep}
+    lru = {id(v) for v in bb._constants.values()}
+    res['constants'] = len(bb._constants)
+    print(f'[{label} graphs] {len(graphs)} graphs, captured in '
+          f'{sum(g.capture_seconds for g in graphs):.2f} s; host syncs of a replayed sweep '
+          f'{res["syncs"]} (at {count_syncs.where}); device constants held by the backend '
+          f'{res["constants"]} (cap {_CONSTANTS_MAX}), device buffers held by the graphs '
+          f'{len(held)} ({len(set(held) & lru)} of them the backend\'s constants); peak '
+          f'reserved {torch.cuda.max_memory_reserved() / 1e9:.2f} GB', flush=True)
+    if deep:
+        res['profile_kernels'] = profile_run(f'{label} replayed sweep',
+                                             eng.sweep_static_batched, top=10)
+        if res['profile_kernels']:
+            # the plan application of the fermionic symmetries (a concatenation, one
+            # signed gather): the kernels one permute_legs launches, named, and their
+            # share of the sweep's device time (an upper bound: other steps launch
+            # kernels of these names too)
+            sweep = profile_run.kernels
+            theta = eng.psi.get_theta2(eng.psi.L // 2 - 1)
+            profile_run(f'{label} one plan application',
+                        lambda: permute_legs(theta, ['vL', 'p0'], ['vR', 'p1']), top=4)
+            names = {name for name, _, _ in profile_run.kernels}
+            plan = [(c, t) for name, c, t in sweep if name in names]
+            busy = sum(t for _, _, t in sweep)
+            print(f'[profile {label} replayed sweep] kernels of the plan application\'s '
+                  f'names: {sum(c for c, _ in plan)} kernels, '
+                  f'{sum(t for _, t in plan) / 1e3:.3f} ms, '
+                  f'{100 * sum(t for _, t in plan) / busy:.1f} % of the device time',
+                  flush=True)
+        # drop every constant of the backend, reuse their memory, replay
+        bb._constants.clear()
+        torch.cuda.empty_cache()
+        junk = torch.full((2 ** 27,), float('nan'), dtype=torch.float64, device='cuda')
+        del junk
+        E_kept = eng.sweep_static_batched()
+        print(f'[{label} graphs] replayed after the backend dropped all '
+              f'{res["constants"]} constants and their memory was written over: E = '
+              f'{E_kept!r}, |E - E_dynamic| = {abs(E_kept - E_dyn):.3e} (the graphs held '
+              f'{len(held)} of them alive; _CONSTANTS_MAX {torch_backend._CONSTANTS_MAX})',
+              flush=True)
+        res['E_static'].append(E_kept)
+    bad = [E for E in res['E_static'] if not abs(E - E_dyn) < tol]
+    if bad or res['syncs'] > 1 or res['launches']['grouped_gemm'] == 0 \
+            or res['launches']['tridiag'] == 0:
+        raise AssertionError(f'{label}: static sweeps off the dynamic energy ({bad}), more '
+                             f'than one host sync, or no kernel launched')
+    return res
+
+
+def fermions_phase(deep: bool = False) -> dict:
+    """Phase 16: fermions and the Ising-anyon chain (see the module docstring).
+    ``deep`` (--fermions-only) takes (a) at L=32, chi_max=1024 and (b) at L=64, chi_max
+    64. Returns the numbers of its kernels-line entries: the largest compose list of a
+    Hubbard bond update and the launches of each kernel over the phase."""
+    import torch
+    from cyten_tpu_torch.algorithms import (
+        DMRGEngine, FermiHubbardModel, KitaevChainModel, SimpleMPS, mpo_from_bond_op,
+        mpo_from_terms,
+    )
+    from cyten_tpu_torch.bench import recorded_lists
+    from cyten_tpu_torch.models.couplings import hopping, sector_projection_coupling
+    from cyten_tpu_torch.models.sites import IsingAnyonSite, SpinlessFermionSite
+    from cyten_tpu_torch.tensors import eigh
+
+    total = {'grouped_gemm': 0, 'thin': 0, 'tridiag': 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # (a) the Fermi-Hubbard chain, FermionNumber('N') x U1('2*Sz') on the fusion-tree
+    # backend, from half filling
+    t_sub = time.perf_counter()
+    L = 32 if deep else 8
+    model = FermiHubbardModel(L, t=1., U=4.)
+    label = f'fermions a Hubbard L={L}'
+    psi = SimpleMPS.from_product_state(model.site_legs, [1, 2] * (L // 2))
+    if str(psi.Bs[0].device).split(':')[0] != 'cuda' \
+            or type(model.backend).__name__ != 'FusionTreeBackend':
+        raise AssertionError('the Hubbard chain is not on the card\'s fusion-tree backend')
+    _counts_zero()
+    if deep:
+        eng = DMRGEngine(psi, model, chi_max=1024, eps=0., lanczos_options={'N_max': 10})
+        dyn = _sweeps_until(label, eng, 8)
+        E_ref, tol = dyn['E'], 1e-8
+        print(f'[{label}] dynamic: E = {dyn["E"]!r}, E/L {dyn["E"] / L!r}, max chi '
+              f'{psi.max_chi()}, centre sectors {psi.Ss[L // 2].leg.num_sectors}', flush=True)
+        if psi.max_chi() != 1024:
+            raise AssertionError(f'{label}: the bond dimension did not reach chi_max')
+    else:
+        eng = DMRGEngine(psi, model, chi_max=256, eps=1e-14)
+        dyn = _sweeps_until(label, eng, 8)
+        t0 = time.perf_counter()
+        E_ref = model.exact_finite_gs_energy([L, 0])
+        print(f'[{label}] E = {dyn["E"]!r}, sparse ED of the N={L}, Sz=0 sector (4900 '
+              f'states) {E_ref!r} in {time.perf_counter() - t0:.1f} s, |dE| '
+              f'{abs(dyn["E"] - E_ref):.3e}', flush=True)
+        if not abs(dyn['E'] - E_ref) < 1e-9:
+            raise AssertionError(f'{label}: the DMRG energy is off exact diagonalization')
+        E_ref, tol = dyn['E'], 1e-10
+    c_dyn = _counts()
+    add(c_dyn)
+    # (e) the largest compose list of one bond update at the centre, on the kernel
+    # against its plain version, held elementwise to check_f64's bound
+    i = L // 2 - 1
+    lists = recorded_lists(lambda: eng.update_bond(i))
+    (_, As, Bs, ids, n_out, pairs), count = max(
+        lists, key=lambda l: sum(t.numel() for t in (*l[0][1], *l[0][2])))
+    compose = compare_kernel(f'fermions e Hubbard L={L} chi={psi.max_chi()} centre compose '
+                             f'{list_name(As, Bs, pairs, count)}', As, Bs, ids, n_out,
+                             As[0].dtype, pairs, as_given=True)
+    static = _static_sweeps(label, eng, E_ref, tol, deep)
+    c_static = _counts()
+    add(c_static)
+    var = psi.mpo_variance(model.H_mpo)
+    print(f'[{label}] dynamic launches {json.dumps(c_dyn)} over {len(dyn["sweep_s"])} sweeps; '
+          f's per dynamic sweep {json.dumps([round(x, 3) for x in dyn["sweep_s"]])}, per '
+          f'static sweep (eager, then through graphs) '
+          f'{json.dumps([round(x, 3) for x in static["static_s"]])}; replayed sweep '
+          f'launches {json.dumps(static["launches"])}; mpo_variance {var:.3e}; '
+          f'{len(lists)} lists in the centre bond update; '
+          f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+    print(f'[fermions e] centre compose list: {compose["pairs"]} pairs into '
+          f'{compose["outputs"]} outputs, err_units {compose["err_units"]:.4f}, device_ms '
+          f'{compose["device_ms"]:.4f}, bound_ms {compose["bound_ms"]:.5f} '
+          f'({compose["bound_by"]}), library_ms {compose["library_ms"]:.4f}, grouped-GEMM '
+          f'launches in (a) {c_dyn["grouped_gemm"] + c_static["grouped_gemm"]}', flush=True)
+    del eng, psi, model, lists, As, Bs
+    torch.cuda.empty_cache()
+
+    # (b) the Kitaev chain, FermionParity, from the vacuum (even parity) against the
+    # BdG pair: the even sector's lowest energy is one of the two
+    t_sub = time.perf_counter()
+    L, chi_max = (64, 64) if deep else (32, 32)
+    model = KitaevChainModel(L, t=1., delta=0.6, mu=0.4)
+    psi = SimpleMPS.from_product_state(model.site_legs, [0] * L)
+    eng = DMRGEngine(psi, model, chi_max=chi_max, eps=1e-14)
+    _counts_zero()
+    b = _sweeps_until(f'fermions b Kitaev L={L}', eng, 10)
+    cb = _counts()
+    add(cb)
+    pair = model.exact_finite_gs_energy('both')
+    dE = min(abs(b['E'] - e) for e in pair)
+    print(f'[fermions b] Kitaev L={L}, chi_max {chi_max}: E = {b["E"]!r}, BdG pair '
+          f'{json.dumps(pair)} (split {abs(pair[1] - pair[0]):.3e}), |dE| {dE:.3e}; s per '
+          f'sweep {json.dumps([round(x, 3) for x in b["sweep_s"]])}; launches '
+          f'{json.dumps(cb)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (dE < 1e-9 and cb['grouped_gemm'] > 0):
+        raise AssertionError('fermions (b): the Kitaev energy or its launches wrong')
+    del eng, psi, model
+
+    # (c) spinless fermions with t1 = 1, t2 = 0.6 from mpo_from_terms (its odd
+    # passthrough sector is the t2 hopping's string) against the single-particle
+    # spectrum, and two correlations against the exact correlation matrix
+    t_sub = time.perf_counter()
+    L, t1, t2 = 16, 1., 0.6
+    site = SpinlessFermionSite('N')
+    h1 = hopping([site, site], t=t1).to_tensor()
+    h2 = hopping([site, site], t=t2).to_tensor()
+    mpo = mpo_from_terms([site.leg] * L, couplings=[(i, i + 1, h1) for i in range(L - 1)]
+                         + [(i, i + 2, h2) for i in range(L - 2)], backend=site.backend)
+    h_sp = np.diag(-t1 * np.ones(L - 1), 1) + np.diag(-t2 * np.ones(L - 2), 2)
+    eps_sp, phi = np.linalg.eigh(h_sp + h_sp.T)
+    n0 = int((eps_sp < 0).sum())
+    E_exact = float(eps_sp[:n0].sum())
+    corr = phi[:, :n0] @ phi[:, :n0].T
+    psi = SimpleMPS.from_product_state([site.leg] * L, [1] * n0 + [0] * (L - n0),
+                                       backend=site.backend)
+    eng = DMRGEngine(psi, MpoModel(mpo), chi_max=64, eps=1e-14)
+    _counts_zero()
+    c = _sweeps_until(f'fermions c t1-t2 L={L}', eng, 10, tol=1e-11)
+    cc = _counts()
+    add(cc)
+    Cd, C = site.get_op('Cd'), site.get_op('C')
+    corrs = {(i, j): psi.correlation_function(Cd, i, C, j) for i, j in ((0, L - 1), (7, 8))}
+    dC = max(abs(v - corr[i, j]) for (i, j), v in corrs.items())
+    print(f'[fermions c] t1-t2 L={L}, N={n0}: E = {c["E"]!r}, single-particle {E_exact!r}, '
+          f'|dE| {abs(c["E"] - E_exact):.3e}; <Cd_0 C_{L - 1}> {corrs[0, L - 1]!r}, '
+          f'<Cd_7 C_8> {corrs[7, 8]!r}, largest error against the exact correlation '
+          f'matrix {dC:.3e}; launches {json.dumps(cc)}; {time.perf_counter() - t_sub:.1f} s',
+          flush=True)
+    if not (abs(c['E'] - E_exact) < 1e-9 and dC < 1e-9 and cc['grouped_gemm'] > 0):
+        raise AssertionError('fermions (c): the t1-t2 energy or correlations wrong')
+    del eng, psi, mpo
+
+    # (d) the Ising-anyon chain against the ED built inside the framework, on the card
+    t_sub = time.perf_counter()
+    L = 8
+    site = IsingAnyonSite()
+    h_bond = sector_projection_coupling([site, site], J=-1.,
+                                        sector=site.leg.symmetry.trivial_sector).to_tensor()
+    W, _ = eigh(full_chain_hamiltonian([h_bond] * (L - 1), site.leg, site.backend))
+    E_ed = min(float(b.real.min()) for b in W.data.blocks)
+    psi = SimpleMPS.from_fusion_pairs(site.leg, L, backend=site.backend)
+    eng = DMRGEngine(psi, MpoModel(mpo_from_bond_op(h_bond, L)), chi_max=16, eps=1e-13)
+    _counts_zero()
+    d = _sweeps_until(f'fermions d Ising anyons L={L}', eng, 8)
+    cd = _counts()
+    add(cd)
+    print(f'[fermions d] Ising-anyon chain L={L}: E = {d["E"]!r}, internal ED {E_ed!r} '
+          f'(on {W.data.blocks[0].device}), |dE| {abs(d["E"] - E_ed):.3e}; launches {json.dumps(cd)}; '
+          f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(d['E'] - E_ed) < 1e-9 and cd['grouped_gemm'] > 0):
+        raise AssertionError('fermions (d): the Ising-anyon energy or its launches wrong')
+    del eng, psi, W
+    torch.cuda.empty_cache()
+    print(f'[fermions] launches over the phase: {json.dumps(total)}', flush=True)
+    return {'compose': compose, 'launches': total}
+
+
+def fermions_kernels(fermions: dict, tridiag: dict) -> list:
+    """The kernels-line entries of phase 16: the grouped GEMM at the largest compose
+    list of a Hubbard bond update and the tridiagonal kernel (its numbers from phase
+    2b), each with its launches over phase 16."""
+    keys = ('max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+    return [{'name': 'grouped_gemm[fermions]', 'route': 'cuda',
+             'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+             'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+             'launches': fermions['launches']['grouped_gemm'],
+             **{k: fermions['compose'][k] for k in keys}},
+            {'name': 'tridiag[fermions]', 'route': 'cuda',
+             'source': 'cyten_tpu_torch/csrc/tridiag.cu',
+             'replaces': 'jnp.linalg.eigh in cyten_tpu/tensors/krylov_based.py:396',
+             'launches': fermions['launches']['tridiag'], **{k: tridiag[k] for k in keys}}]
 
 
 def steady_ab() -> None:
@@ -2538,6 +2935,7 @@ def main() -> int:
     bench_only = '--bench-only' in sys.argv[1:]
     engine_only = '--engine-only' in sys.argv[1:]
     models_only = '--models-only' in sys.argv[1:]
+    fermions_only = '--fermions-only' in sys.argv[1:]
     steady_only = '--steady-ab' in sys.argv[1:]
     against = sys.argv[sys.argv.index('--against') + 1] if '--against' in sys.argv else None
 
@@ -2551,8 +2949,7 @@ def main() -> int:
     )
     from cyten_tpu_torch.algorithms.dmrg import _get_static_bond_fn
     from cyten_tpu_torch.bench import (
-        accuracy_bf16work, build_step_state, build_workload, lists_on_plain,
-        step_decomposition, step_run,
+        build_step_state, build_workload, lists_on_plain, step_decomposition, step_run,
     )
     from cyten_tpu_torch.blocks import _kernels
     from cyten_tpu_torch.blocks.grouped_gemm import _LAYOUTS, grouped_matmul
@@ -2664,8 +3061,20 @@ def main() -> int:
               flush=True)
         return 0
     if bench_only:
+        accuracy_phase()
         bench_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (bench only)', flush=True)
+        return 0
+    if fermions_only:
+        t_phase = time.perf_counter()
+        fermions = fermions_phase(deep=True)
+        print(f'[phases] wall seconds {{"16": {time.perf_counter() - t_phase:.1f}}}',
+              flush=True)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (fermions only)', flush=True)
+        print(json.dumps({'kernels': fermions_kernels(fermions, tridiag)}))
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
         return 0
     if models_only:
         t_phase = time.perf_counter()
@@ -3076,24 +3485,6 @@ def main() -> int:
                 raise AssertionError(f'the bf16-work step promoted: {out_dtypes}')
     phase_s['9'] = time.perf_counter() - t_phase
 
-    # --- 10. the accuracy protocol at the reference's scale ---------------------------------
-    t_phase = time.perf_counter()
-    for k in kinds.values():
-        k.launches = 0
-    n_bf16 = 4
-    E_pol, E_bf16, dE_pol = accuracy_bf16work(chi=1024, L=24, n_bf16_sweeps=n_bf16)
-    torch.cuda.synchronize()
-    acc_s = time.perf_counter() - t_phase
-    counts = {k: v.launches for k, v in kinds.items() if v.launches}
-    dE_raw = abs(E_bf16 - HEIS24_E_REF)
-    print(f'[accuracy] L=24 chi=1024, {n_bf16} bf16 sweeps + 1 f32 polish: polished E '
-          f'{E_pol!r} dE {dE_pol:.3e} (cyten_tpu on a CPU: 1.04e-5), raw bf16 E {E_bf16!r} '
-          f'dE {dE_raw:.3e} (2.25e-3); {acc_s:.1f} s, {acc_s / (n_bf16 + 1):.1f} s per '
-          f'sweep; launches by kind {json.dumps(counts)}', flush=True)
-    if not dE_pol < 1e-3 or not counts.get('default'):
-        raise AssertionError(f'accuracy protocol: polished dE {dE_pol} or kinds {counts}')
-    phase_s['10'] = acc_s
-
     # --- 11. SU(2) Heisenberg on the fusion-tree backend -------------------------------------
     t_phase = time.perf_counter()
     su2 = su2_phase(E24, deep=False)
@@ -3119,8 +3510,14 @@ def main() -> int:
     # --- 15. the models layer: CouplingModel, SpinChainModel, mpo_from_terms -------------
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    models = models_phase(psi4, deep=False)
+    models = models_phase(deep=False)
     phase_s['15'] = time.perf_counter() - t_phase
+
+    # --- 16. fermions and the Ising-anyon chain ----------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fermions = fermions_phase(deep=False)
+    phase_s['16'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -3177,7 +3574,8 @@ def main() -> int:
                 'launches': tridiag_launches,
                 **{k: tridiag[k] for k in ('max_abs_err', 'ms', 'device_ms', 'plain_ms',
                                            'bound_ms', 'bound_by', 'library_ms')}},
-               *models_kernels(models, tridiag)]
+               *models_kernels(models, tridiag),
+               *fermions_kernels(fermions, tridiag)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """cyten_tpu_torch: the PyTorch/CUDA port of cyten_tpu, for one NVIDIA H100.
 
-Block-sparse symmetric tensors (no symmetry, abelian, and SU(2) and anyons on fusion
-trees) and two-site DMRG, written in PyTorch. The block-pair products of every abelian
+Block-sparse symmetric tensors (no symmetry, abelian, and SU(2), fermions and anyons
+on fusion trees) and two-site DMRG, written in PyTorch. The block-pair products of every abelian
 ``tdot``/``compose``, and of every fusion-tree ``compose``, run as one launch of a
 hand-written CUDA grouped-GEMM kernel (``csrc/grouped_gemm.cu``). Entry
 points put their tensors on the CUDA card unless the caller passes ``device='cpu'``;
@@ -23,8 +23,9 @@ from . import algorithms
 from .blocks import BlockBackend, get_block_backend
 from .backends import TensorBackend, get_backend
 from .symmetries import (
-    SU2, U1, ZN, AbelianLegPipe, ElementarySpace, FibonacciAnyonCategory, Leg, LegPipe,
-    NoSymmetry, Sector, SectorArray, Space, Symmetry, SymmetryError, TensorProduct,
+    SU2, U1, ZN, AbelianLegPipe, ElementarySpace, FermionNumber, FermionParity,
+    FibonacciAnyonCategory, Leg, LegPipe, NoSymmetry, Sector, SectorArray, Space,
+    Symmetry, SymmetryError, TensorProduct, fermion_number, fermion_parity,
     fibonacci_anyon_category, no_symmetry, su2_symmetry, u1_symmetry, z2_symmetry,
     z3_symmetry, z4_symmetry,
 )

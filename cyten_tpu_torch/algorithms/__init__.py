@@ -1,6 +1,6 @@
 """Tensor-network algorithms: finite MPS, the Heisenberg, transverse-field Ising and
-spin-S chains, the Fibonacci golden chain, the MPO builders and two-site DMRG
-(host-driven or static).
+spin-S chains, the Fermi-Hubbard and Kitaev chains, the Fibonacci golden chain, the
+MPO builders and two-site DMRG (host-driven or static).
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
 ``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` (with excited states, checkpoints,
@@ -10,7 +10,8 @@ resume and rollback, and the finite MPS's measurements) and its anyonic form
 
 from .mps import SimpleMPS, split_truncate_theta
 from .models import (
-    GoldenChainModel, HeisenbergModel, MpoTensors, SpinChainModel, TFIModel,
+    FermiHubbardModel, GoldenChainModel, HeisenbergModel, KitaevChainModel, MpoTensors,
+    SpinChainModel, TFIModel,
     heisenberg_exact_finite_gs_energy, mpo_from_bond_op, mpo_from_bond_ops,
     mpo_from_terms, spin_half_site, tfi_exact_finite_gs_energy,
     tfi_exact_infinite_gs_energy,
@@ -19,8 +20,9 @@ from .dmrg import (
     DMRGEngine, FaultError, HEffective, PlanarDMRGEngine, PlanarHEffective,
 )
 
-__all__ = ['SimpleMPS', 'split_truncate_theta', 'GoldenChainModel', 'HeisenbergModel',
-           'MpoTensors', 'SpinChainModel', 'TFIModel', 'mpo_from_bond_ops', 'mpo_from_terms',
+__all__ = ['SimpleMPS', 'split_truncate_theta', 'FermiHubbardModel', 'GoldenChainModel',
+           'HeisenbergModel', 'KitaevChainModel', 'MpoTensors', 'SpinChainModel', 'TFIModel',
+           'mpo_from_bond_ops', 'mpo_from_terms',
            'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
            'tfi_exact_infinite_gs_energy',
            'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective',

@@ -1,11 +1,11 @@
-"""Spin chains (Heisenberg, transverse-field Ising, spin-S XXZ), the golden chain and
-their MPOs, with exact references.
+"""Spin chains (Heisenberg, transverse-field Ising, spin-S XXZ), fermion chains
+(Fermi-Hubbard, Kitaev), the golden chain and their MPOs, with exact references.
 
 The counterpart of ``cyten_tpu/algorithms/models.py``'s ``spin_half_site`` (:35),
 ``mpo_from_bond_op`` (:99), ``mpo_from_bond_ops`` (:122), ``mpo_from_terms`` (:192)
 with ``MpoTensors`` (:361), ``TFIModel`` (:372), ``HeisenbergModel`` (:471),
-``GoldenChainModel`` (:570), ``SpinChainModel`` (:752) and
-``tfi_exact_infinite_gs_energy`` (:654). H_bonds (two-site gates) and H_mpo (MPO
+``GoldenChainModel`` (:570), ``FermiHubbardModel`` (:690), ``SpinChainModel`` (:752),
+``KitaevChainModel`` (:868) and ``tfi_exact_infinite_gs_energy`` (:654). H_bonds (two-site gates) and H_mpo (MPO
 tensors) are SymmetricTensors for a chosen conserved symmetry; ``bc='infinite'`` gives
 the bonds and bulk tensors of a unit cell of L sites (no infinite MPS or iDMRG is
 ported: ``DMRGEngine`` refuses such a model). The exact ground-state energies come
@@ -25,9 +25,10 @@ from ..tensors import (
     truncate_singular_values, svd_apply_mask,
 )
 
-__all__ = ['GoldenChainModel', 'HeisenbergModel', 'SpinChainModel', 'TFIModel',
+__all__ = ['FermiHubbardModel', 'GoldenChainModel', 'HeisenbergModel', 'KitaevChainModel',
+           'SpinChainModel', 'TFIModel',
            'spin_half_site', 'mpo_from_bond_op', 'mpo_from_bond_ops', 'mpo_from_terms',
-           'MpoTensors', 'heisenberg_exact_finite_gs_energy',
+           'MpoTensors', 'bond_sum_ground_energy', 'heisenberg_exact_finite_gs_energy',
            'tfi_exact_finite_gs_energy', 'tfi_exact_infinite_gs_energy']
 
 # Pauli x and z in the (|up>, |down>) basis
@@ -715,7 +716,169 @@ class SpinChainModel:
         return e / self.L if self.bc == 'infinite' else e
 
 
+def _model_site(site_cls, backend, block_backend, device, *args):
+    """A site of ``site_cls(*args)`` on ``backend``, or on the ``block_backend`` tensor
+    backend of its symmetry on ``device``."""
+    site = site_cls(*args, backend=backend, device=device)
+    if backend is None and block_backend is not None:
+        from ..backends import get_backend
+
+        backend = get_backend(site.leg.symmetry, block_backend, device=device)
+        if backend is not site.backend:
+            site = site_cls(*args, backend=backend)
+    return site
+
+
+class FermiHubbardModel:
+    r"""Fermi-Hubbard chain:
+    :math:`H = -t \sum_{s,i} (c^\dagger_{s,i} c_{s,i+1} + h.c.) + U \sum_i n_{u,i} n_{d,i}`.
+
+    Built from the coupling factories on :class:`SpinHalfFermionSite` with graded
+    fermion statistics (no Jordan-Wigner strings between sites); by default
+    ``FermionNumber('N') x U1('2*Sz')`` is conserved, on the fusion-tree backend. The
+    tensors live on ``device`` (default: the CUDA card) unless a ``backend`` is given.
+    """
+
+    def __init__(self, L: int, t: float = 1., U: float = 4., conserve_N: str = 'N',
+                 conserve_S: str = 'Sz', backend=None, block_backend=None,
+                 device: str = None):
+        from ..models.couplings import hopping, onsite_interaction
+        from ..models.sites import SpinHalfFermionSite
+        from ..models.tenpy_models import CouplingModel
+
+        self.L = L
+        self.t = t
+        self.U = U
+        site = _model_site(SpinHalfFermionSite, backend, block_backend, device,
+                           conserve_N, conserve_S)
+        self.site = site
+        self.site_leg = site.leg
+        self.backend = site.backend
+        cm = CouplingModel([site] * L)
+        for i in range(L - 1):
+            cm.add_coupling(i, hopping([site, site], t=t, species='u'))
+            cm.add_coupling(i, hopping([site, site], t=t, species='dn'))
+        if U != 0:
+            for i in range(L):
+                cm.add_onsite(i, onsite_interaction([site], U=U))
+        self.H_bonds = cm.all_bond_ops()
+        self.H_mpo = mpo_from_bond_ops(self.H_bonds)
+
+    @property
+    def site_legs(self):
+        return [self.site_leg] * self.L
+
+    def exact_finite_gs_energy(self, sector=None) -> float:
+        """Sparse ED of the bond sum the MPO represents; restricted to the states of
+        total charge ``sector`` (e.g. ``[N, 2 Sz]``) if one is given."""
+        return bond_sum_ground_energy(self.H_bonds, self.site_leg, self.L, sector)
+
+
+class KitaevChainModel:
+    r"""Kitaev chain (p-wave superconductor):
+    :math:`H = \sum_i [-t (c^\dagger_i c_{i+1} + h.c.)
+    + \Delta (c^\dagger_i c^\dagger_{i+1} + h.c.)] - \mu \sum_i n_i`.
+
+    Built from the ``hopping``, ``pairing`` and ``chemical_potential`` factories on
+    :class:`SpinlessFermionSite` with graded fermion statistics. Pairing breaks the
+    particle number, so ``conserve`` is 'parity' (default) or 'None'. The exact
+    references are the open chain's BdG solution and sparse ED. The tensors live on
+    ``device`` (default: the CUDA card) unless a ``backend`` is given.
+    """
+
+    def __init__(self, L: int, t: float = 1., delta: float = 1., mu: float = 0.,
+                 conserve: str = 'parity', backend=None, block_backend=None,
+                 device: str = None):
+        from ..models.couplings import chemical_potential, hopping, pairing
+        from ..models.sites import SpinlessFermionSite
+        from ..models.tenpy_models import CouplingModel
+
+        if conserve not in ('parity', 'None', None):
+            raise ValueError(f'KitaevChainModel: unknown conserve={conserve!r}')
+        self.L = L
+        self.t = t
+        self.delta = delta
+        self.mu = mu
+        site = _model_site(SpinlessFermionSite, backend, block_backend, device,
+                           conserve or 'None')
+        self.site = site
+        self.site_leg = site.leg
+        self.backend = site.backend
+        cm = CouplingModel([site] * L)
+        for i in range(L - 1):
+            cm.add_coupling(i, hopping([site, site], t=t))
+            if delta != 0:
+                cm.add_coupling(i, pairing([site, site], D=delta))
+        if mu != 0:
+            for i in range(L):
+                cm.add_onsite(i, chemical_potential([site], mu=mu))
+        self.H_bonds = cm.all_bond_ops()
+        self.H_mpo = mpo_from_bond_ops(self.H_bonds)
+
+    @property
+    def site_legs(self):
+        return [self.site_leg] * self.L
+
+    def exact_finite_gs_energy(self, parity: str = None):
+        """BdG ground energy of the open chain.
+
+        The ground state fills every negative BdG mode: ``E = (tr(h) - sum_k eps_k) /
+        2``, returned for ``parity=None``. ``parity='both'`` returns the unordered pair
+        ``(E, E + eps_min)``, the lowest energies of the two parity sectors (flipping
+        the lowest mode flips the parity; which one is even needs the Pfaffian's sign,
+        which is not computed: resolve it by ED or the initial state's parity).
+        """
+        L, t, D, mu = self.L, self.t, self.delta, self.mu
+        h = np.zeros((L, L))
+        d = np.zeros((L, L))
+        for i in range(L - 1):
+            h[i, i + 1] = h[i + 1, i] = -t
+            d[i, i + 1] = D
+            d[i + 1, i] = -D
+        np.fill_diagonal(h, -mu)
+        eps = np.sort(np.linalg.eigvalsh(np.block([[h, d], [-d, -h]])))
+        # the spectrum comes in +- pairs; the upper half are the quasiparticle
+        # energies (a threshold would drop the exponentially small Majorana mode)
+        pos = eps[L:]
+        E = 0.5 * (np.trace(h) - pos.sum())
+        if parity is None:
+            return float(E)
+        if parity != 'both':
+            raise ValueError("parity must be None or 'both' (sector labels would need "
+                             "the Pfaffian's sign)")
+        return float(E), float(E + (pos.min() if len(pos) else 0.))
+
+
 # --- exact reference (sparse ED) -------------------------------------------------------
+
+
+def bond_sum_ground_energy(H_bonds, site_leg, L: int, sector=None) -> float:
+    """Lowest eigenvalue of the sum of nearest-neighbour bond operators (legs ``[p0,
+    p1, p1*, p0*]``) over ``L`` sites with leg ``site_leg``, by sparse ED of their
+    dense forms: for fermions, the chain's Jordan-Wigner form. With ``sector``, only
+    the basis states whose charges fuse to it count (abelian symmetries)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg
+
+    d = int(site_leg.dim)
+    H = sp.csr_matrix((d ** L, d ** L))
+    for i, h in enumerate(H_bonds):
+        hd = sp.csr_matrix(h.to_numpy().transpose(0, 1, 3, 2).reshape(d * d, d * d))
+        H = H + sp.kron(sp.kron(sp.identity(d ** i, format='csr'), hd),
+                        sp.identity(d ** (L - i - 2), format='csr'), format='csr')
+    if sector is not None:
+        sym = site_leg.symmetry
+        basis = site_leg.sectors_of_basis
+        total = basis
+        for _ in range(L - 1):
+            total = sym.fusion_outcomes_broadcast(
+                np.repeat(total, d, axis=0), np.tile(basis, (len(total), 1)))
+        keep = np.flatnonzero(np.all(total == np.asarray(sector), axis=1))
+        H = H[keep][:, keep]
+    if H.shape[0] <= 64:
+        return float(np.linalg.eigvalsh(H.toarray())[0])
+    return float(scipy.sparse.linalg.eigsh(H, k=1, which='SA',
+                                           return_eigenvectors=False)[0])
 
 
 def _sparse_chain_hamiltonian(L: int, bond_terms):

@@ -286,7 +286,11 @@ class SimpleMPS:
         Valid in any gauge: bra and ket use the same site tensors
         ``[theta1(0), B_1, ..., B_{L-1}]`` which multiply out to the state; also for a
         state of nonzero total charge, whose last bond is 1-dim in a nontrivial sector
-        (``cyten_tpu``'s fails there, as its ``item`` wants trivial legs)."""
+        (``cyten_tpu``'s fails there, as its ``item`` wants trivial legs). The ket is
+        contracted onto the environment (``tdot(E, M)``, as :meth:`overlap` does): in
+        the other order a graded symmetry's braids cost a sign per odd leg crossed,
+        and fermionic states of odd parity, and two layers, came out wrong
+        (``cyten_tpu/algorithms/mps.py:381``)."""
         assert self.bc == 'finite'
         L = self.L
         n_lay = len(layers)
@@ -305,7 +309,7 @@ class SimpleMPS:
             labels=[['vR*'], ['vR'] + w_labels])
         for i in range(L):
             M = self.get_theta1(0) if i == 0 else self.Bs[i]
-            t = tdot(M, E, 'vL', 'vR')   # [p, vR] + [vR*, w0, w1, ...]
+            t = tdot(E, M, 'vR', 'vL')   # [vR*] + [w0, w1, ..., p, vR]
             for k, mpo in enumerate(layers):
                 Wk = mpo[i].relabelled({'wL': f'w{k}L', 'wR': f'w{k}R'})
                 t = tdot(t, Wk, ['p', w_labels[k]], ['p*', f'w{k}L'])

@@ -1,9 +1,10 @@
-"""Tensor backend for fusion categories: the SU(2) slice of the port.
+"""Tensor backend for fusion categories: SU(2), fermions and anyons.
 
 The counterpart of ``cyten_tpu/backends/fusion_tree.py``, role-equivalent to reference
 ``cyten/backends/fusion_tree_backend.py`` (storage layout :1-78, compose :445, permute
 engine :2698-3034, tree mappings :3181-3630, dense conversion :2393-2565). It takes
-every symmetry the port has; fermions and anyons come with later slices.
+every symmetry the port has: SU(2), the graded fermionic ones (``FermionParity``,
+``FermionNumber``, and their products with U(1) and Z_N) and the anyonic categories.
 
 Storage: per coupled sector ``c`` one matrix block ``[codomain tree basis x domain
 tree basis]`` (reusing :class:`BlockSparseData` with 2-column block_inds into the
@@ -24,7 +25,11 @@ one coefficient product and batched scatter-adds per class of equal-shaped entri
 Plans are memoized on the (codomain, domain, permutation, levels) key, and the
 device copies of their coefficients and indices on the block backend
 (``TorchBlockBackend.constant``), so that a CUDA graph captured after an eager call
-of the same structure copies nothing from the host.
+of the same structure copies nothing from the host. An abelian graded symmetry (every
+sector one-dimensional, the fermionic ones and their products with U(1) and Z_N) moves
+each tree pair to one tree pair with a sign: its plan (``tree_moves.AbelianPlan``) is
+made from the sector tables at once, and applied as one signed gather of the
+concatenated blocks.
 
 ``compose`` is one grouped-GEMM launch (:func:`~cyten_tpu_torch.blocks.grouped_gemm.
 grouped_matmul`) over the list of per-coupled-sector block pairs, each pair with its
@@ -687,7 +692,7 @@ class FusionTreeBackend(TensorBackend):
 
     def permute_legs(self, a, codomain_idcs, domain_idcs, levels, new_codomain,
                      new_domain, bend_right=None):
-        from .tree_moves import permute_legs_plan
+        from .tree_moves import AbelianPlan, permute_legs_plan
 
         key_levels = None if levels is None else tuple(levels)
         plan = permute_legs_plan(a.codomain, a.domain, tuple(codomain_idcs),
@@ -695,7 +700,38 @@ class FusionTreeBackend(TensorBackend):
                                  bend_right=bend_right)
         if plan is None:
             return None  # levels required
+        if isinstance(plan, AbelianPlan):
+            return self._apply_abelian_plan(a, plan)
         return self._apply_plan_grouped(a, plan, new_codomain, new_domain)
+
+    def _apply_abelian_plan(self, a, plan):
+        """A plan of an abelian graded symmetry as one gather: the old blocks and a
+        zero concatenated, their elements taken in the new blocks' order by one
+        index (and multiplied by the signs, if any is -1), the new blocks views of
+        the result. The index and signs are device constants of the block backend,
+        made once per plan and set of present blocks."""
+        from .tree_moves import abelian_program
+
+        bb = self.block_backend
+        lookup = {tuple(r): n for n, r in enumerate(a.data.block_inds)}
+        present = tuple(sorted(lookup))
+        prog = abelian_program(plan, present)
+        dtype = a.data.dtype
+        if not prog.new_keys:
+            return BlockSparseData([], np.zeros((0, 2), np.intp), dtype)
+        flat = bb.concatenate([bb.reshape(a.data.blocks[lookup[k]], (-1,)) for k in present]
+                              + [bb.zeros((1,), dtype)])
+        out = bb.take_flat(flat, ('abelian_index', plan.token, present), prog.index)
+        if prog.signs is not None:
+            out = out * bb.cached(('abelian_signs', plan.token, present, dtype),
+                                  lambda: bb.as_block(prog.signs, dtype))
+        blocks = []
+        pos = 0
+        for h, w in prog.new_shapes:
+            blocks.append(bb.reshape(out[pos:pos + h * w], (h, w)))
+            pos += h * w
+        return BlockSparseData(blocks, np.array(prog.new_keys, np.intp).reshape(-1, 2),
+                               dtype)
 
     def _apply_plan_grouped(self, a, plan, new_codomain, new_domain):
         """Index-batched plan application: per shape class, ONE batched gather per

@@ -13,6 +13,15 @@ on-device ops. Plans are memoized on the
 (codomain, domain, permutation, levels) key, so repeated calls (e.g. inside DMRG
 sweeps) reuse them.
 
+For an abelian graded symmetry (products of U(1), Z_N and one fermionic factor) every
+tree is fixed by its uncoupled sectors and a move maps it to one tree with a sign, which
+depends only on the parities of the legs' sectors. Its plan (:class:`AbelianPlan`) is
+therefore built from the sector tables of both sides with numpy, the sign of each
+parity pattern composed once on FermionParity trees; the tree-pair composition, whose
+cost grows with the number of tree pairs (thousands at chi 1024 with two charges),
+stays the path of every other symmetry (``ABELIAN_PLANS = False`` sends these there
+too, as the parity tests do).
+
 Move conventions (tensor ``T = sum block[Y, X] hconj(Y) ∘ X``; Y = codomain tree,
 X = domain tree). ``over`` always means: the plane-LEFT strand of the exchanged
 pair passes in front (which the level rule translates to "the higher level goes
@@ -35,7 +44,8 @@ over", reference _tensors.py:5519-5537):
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 from math import prod
 
 import numpy as np
@@ -44,7 +54,7 @@ from ..symmetries import TensorProduct
 from ..symmetries.trees import FusionTree, fusion_trees
 from ..tools.misc import iter_common_sorted_arrays
 
-__all__ = ['permute_legs_plan', 'PermutePlan', 'PlanEntry']
+__all__ = ['permute_legs_plan', 'PermutePlan', 'PlanEntry', 'AbelianPlan']
 
 CUTOFF = 1e-16
 
@@ -585,6 +595,11 @@ def _cached_plan(codomain, domain, codomain_idcs, domain_idcs, levels,
 
     if braids_needed and rot is None and not symmetric and levels is None:
         return None
+    if ABELIAN_PLANS and _is_abelian_graded(sym) and Jf == K and Mf == n - K:
+        # the moves follow from the legs' duality and the permutation alone
+        moves_key = (tuple(l.is_dual for l in cod_flat), tuple(l.is_dual for l in dom_flat),
+                     codomain_idcs, domain_idcs, levels, bend_right)
+        return _abelian_plan(codomain, domain, target_cod, target_dom, moves, moves_key)
 
     # --- compose the pair map ------------------------------------------------------------
     pairs = _all_pairs(codomain, domain)
@@ -678,3 +693,280 @@ def _cached_plan(codomain, domain, codomain_idcs, domain_idcs, levels,
                 mult_shape=mult_shape, axis_perm=axis_perm,
                 new_shape_2d=(new_rows, new_cols)))
     return PermutePlan(entries=tuple(entries), complex_coeffs=complex_coeffs)
+
+
+# --- abelian graded symmetries: one signed gather per plan -------------------------------
+
+#: plans of abelian graded symmetries (products of U(1), Z_N and one fermionic factor)
+#: as one signed permutation of the blocks' elements (:class:`AbelianPlan`); False
+#: sends them through the tree-pair composition above, as every other symmetry
+ABELIAN_PLANS = True
+
+
+def _is_abelian_graded(sym) -> bool:
+    """True if every sector of ``sym`` is one-dimensional with one fusion outcome and
+    trivial F symbols, and its braid is symmetric with at most one fermionic factor:
+    each tree pair then moves to exactly one tree pair, with a sign."""
+    from ..symmetries.fermions import _FermionicBase
+    from ..symmetries.groups import U1, ZN, NoSymmetry
+
+    factors = sym.factors
+    return (sym.has_symmetric_braid
+            and all(isinstance(f, (U1, ZN, NoSymmetry, _FermionicBase)) for f in factors)
+            and sum(isinstance(f, _FermionicBase) for f in factors) <= 1)
+
+
+@dataclass(frozen=True, eq=False)
+class AbelianPlan:
+    """A leg permutation of a tensor of an abelian graded symmetry, tree pair by tree
+    pair (a tree pair is one sector for each leg): the old pair's sub-block, shaped
+    ``mult_shapes[p]`` (the old legs' multiplicities, codomain then domain), has its
+    axes permuted by ``axis_perm`` and lands, times ``signs[p]``, in the new pair's
+    window. Starts are ``(row, column)`` in the block of the pair's coupled sector;
+    ``old_shapes``/``new_shapes`` give each block's shape by its key."""
+
+    old_keys: np.ndarray    # [n_pairs, 2] (codomain, domain) sector index
+    old_starts: np.ndarray  # [n_pairs, 2]
+    new_keys: np.ndarray    # [n_pairs, 2]
+    new_starts: np.ndarray  # [n_pairs, 2]
+    mult_shapes: np.ndarray  # [n_pairs, n_legs]
+    signs: np.ndarray       # [n_pairs], +-1
+    axis_perm: tuple
+    n_codomain: tuple       # flat codomain legs, old and new
+    old_shapes: dict
+    new_shapes: dict
+    complex_coeffs: bool = False
+    token: int = field(default_factory=itertools.count().__next__)  # names its constants
+
+
+def _tree_table(tp: TensorProduct):
+    """The tree blocks of a side of an abelian symmetry, in the backend's order:
+    ``(idcs, coupled, offsets)``, with ``idcs[n]`` the sector index of each flat leg
+    for the n-th uncoupled combination (C order, last leg fastest), ``coupled[n]`` the
+    index of its coupled sector in ``tp.sector_decomposition`` and ``offsets[n]`` its
+    first row in that sector's block. Cached on ``tp``."""
+    res = getattr(tp, '_abelian_tree_table', None)
+    if res is not None:
+        return res
+    sym = tp.symmetry
+    legs = tp.flat_legs
+    if legs:
+        grids = np.meshgrid(*[np.arange(l.num_sectors) for l in legs], indexing='ij')
+        idcs = np.stack([g.reshape(-1) for g in grids], axis=1)
+        sectors = sym.multiple_fusion_broadcast(
+            *[l.sector_decomposition[idcs[:, k]] for k, l in enumerate(legs)])
+        sizes = np.prod(np.stack([l.multiplicities[idcs[:, k]]
+                                  for k, l in enumerate(legs)], axis=1), axis=1)
+    else:
+        idcs = np.zeros((1, 0), int)
+        sectors = sym.trivial_sector[None, :]
+        sizes = np.ones(1, int)
+    lookup = {tuple(r): i for i, r in enumerate(tp.sector_decomposition.tolist())}
+    uniq, inv = np.unique(sectors, axis=0, return_inverse=True)
+    coupled = np.array([lookup[tuple(r)] for r in uniq.tolist()], int)[inv.reshape(-1)]
+    order = np.argsort(coupled, kind='stable')
+    ends = np.cumsum(sizes[order])
+    group_start = np.searchsorted(coupled[order], coupled[order], side='left')
+    firsts = np.concatenate([[0], ends])[group_start]
+    offsets = np.empty_like(sizes)
+    offsets[order] = ends - sizes[order] - firsts
+    res = tp._abelian_tree_table = (idcs, coupled, offsets)
+    return res
+
+
+def _sector_map(old_leg, new_leg, switched: bool) -> np.ndarray:
+    """Index in ``new_leg.sector_decomposition`` of each sector of ``old_leg``, dualised
+    if the leg switched between codomain and domain."""
+    sectors = old_leg.sector_decomposition
+    if switched:
+        sectors = old_leg.symmetry.dual_sectors(sectors)
+    lookup = {tuple(r): i for i, r in enumerate(new_leg.sector_decomposition.tolist())}
+    return np.array([lookup[tuple(r)] for r in sectors.tolist()], int)
+
+
+_PARITY_TABLES: dict = {}
+
+
+def _parity_signs(sym, codomain, domain, moves, moves_key) -> tuple:
+    """``(fermionic factor index, table)``: the sign that ``moves`` give a tree pair,
+    by the parities of its legs' sectors (bit k of the table's index: leg k, codomain
+    then domain, odd). Computed by composing the moves on the tree pairs of
+    FermionParity legs with the same duality (once per ``moves_key``): the symbols of
+    U(1) and Z_N factors are all 1, so only the fermionic factor's give signs. None if
+    there is none."""
+    from ..symmetries.fermions import _FermionicBase
+
+    fermionic = [k for k, f in enumerate(sym.factors) if isinstance(f, _FermionicBase)]
+    if not fermionic:
+        return None
+    table = _PARITY_TABLES.get(moves_key)
+    if table is None:
+        table = _PARITY_TABLES[moves_key] = _parity_table(codomain, domain, moves)
+    return fermionic[0], table
+
+
+def _parity_table(codomain, domain, moves) -> np.ndarray:
+    from ..symmetries import ElementarySpace, FermionParity
+
+    parity = FermionParity().as_Symmetry()
+
+    def parity_legs(legs):
+        return TensorProduct([ElementarySpace(parity, [[0], [1]], [1, 1],
+                                              is_dual=l.is_dual) for l in legs],
+                             symmetry=parity)
+
+    pm = _PairMap(_all_pairs(parity_legs(codomain.flat_legs),
+                             parity_legs(domain.flat_legs)))
+    for mv in moves:
+        pm.apply(mv)
+    n_legs = codomain.num_flat_legs + domain.num_flat_legs
+    table = np.zeros(2 ** n_legs)
+    for (Y, X), targets in pm.map.items():
+        (coeff,) = targets.values()
+        bits = np.concatenate([Y.uncoupled[:, 0], X.uncoupled[:, 0]])
+        table[int(np.dot(bits, 2 ** np.arange(n_legs)))] = np.real(coeff)
+    return table
+
+
+def _common_sectors(codomain, domain) -> dict:
+    """``{i: j}``: the codomain's sector i is the domain's sector j."""
+    lookup = {tuple(r): j for j, r in enumerate(domain.sector_decomposition.tolist())}
+    return {i: lookup[tuple(r)] for i, r in enumerate(codomain.sector_decomposition.tolist())
+            if tuple(r) in lookup}
+
+
+def _combination_index(tp, idcs) -> np.ndarray:
+    """The position of each row of sector indices (one per flat leg) in the C-order
+    enumeration of ``_tree_table``."""
+    res = np.zeros(len(idcs), int)
+    for k, leg in enumerate(tp.flat_legs):
+        res = res * leg.num_sectors + idcs[:, k]
+    return res
+
+
+def _abelian_plan(codomain, domain, target_cod, target_dom, moves, moves_key) -> AbelianPlan:
+    sym = codomain.symmetry
+    J = codomain.num_flat_legs
+    all_flat = codomain.flat_legs + domain.flat_legs
+    new_cod_legs = [all_flat[t] if t < J else all_flat[t].dual for t in target_cod]
+    new_dom_legs = [all_flat[t].dual if t < J else all_flat[t] for t in target_dom]
+    new_codomain = TensorProduct(new_cod_legs, symmetry=sym)
+    new_domain = TensorProduct(new_dom_legs, symmetry=sym)
+
+    # every (codomain combination, domain combination) with a common coupled sector
+    ci, cc, co = _tree_table(codomain)
+    di, dc, do = _tree_table(domain)
+    n_dom = len(domain.sector_decomposition)
+    common = _common_sectors(codomain, domain)
+    j_of_c = np.array([common.get(i, -1) for i in range(len(codomain.sector_decomposition))],
+                      int)[cc]
+    d_order = np.argsort(dc, kind='stable')
+    d_first = np.searchsorted(dc[d_order], np.arange(n_dom))
+    cnt = np.where(j_of_c >= 0, np.bincount(dc, minlength=n_dom)[np.maximum(j_of_c, 0)], 0)
+    pc = np.repeat(np.arange(len(cc)), cnt)
+    within = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    pd = d_order[d_first[j_of_c[pc]] + within]
+    tags = np.concatenate([ci[pc], di[pd]], axis=1)  # sector index per old leg
+
+    # the new pairs: the same sectors, dualised where a leg switched sides
+    new_tags = target_cod + target_dom
+    new_legs = new_cod_legs + new_dom_legs
+    new_idcs = np.stack(
+        [_sector_map(all_flat[t], new_legs[k], (t < J) != (k < len(target_cod)))[tags[:, t]]
+         for k, t in enumerate(new_tags)], axis=1)
+    Jn = len(target_cod)
+    _, ncc, nco = _tree_table(new_codomain)
+    _, ndc, ndo = _tree_table(new_domain)
+    r_new = _combination_index(new_codomain, new_idcs[:, :Jn])
+    c_new = _combination_index(new_domain, new_idcs[:, Jn:])
+
+    signs = np.ones(len(tags))
+    parity_signs = _parity_signs(sym, codomain, domain, moves, moves_key)
+    if parity_signs is not None:
+        f, table = parity_signs
+        factor = sym.factors[f]
+        col = slice(sym.sector_slices[f], sym.sector_slices[f + 1])
+        bits = np.zeros(len(tags), int)
+        for t, leg in enumerate(all_flat):
+            odd = factor._parity(leg.sector_decomposition[tags[:, t], col])[:, 0]
+            bits += np.asarray(odd, int) << t
+        signs = table[bits]
+        assert np.all(np.abs(signs) == 1)
+
+    def shapes(cod, dom):
+        return {(i, j): (int(cod.multiplicities[i]), int(dom.multiplicities[j]))
+                for i, j in _common_sectors(cod, dom).items()}
+
+    return AbelianPlan(
+        old_keys=np.stack([cc[pc], dc[pd]], axis=1),
+        old_starts=np.stack([co[pc], do[pd]], axis=1),
+        new_keys=np.stack([ncc[r_new], ndc[c_new]], axis=1),
+        new_starts=np.stack([nco[r_new], ndo[c_new]], axis=1),
+        mult_shapes=np.stack([leg.multiplicities[tags[:, t]]
+                              for t, leg in enumerate(all_flat)], axis=1),
+        signs=signs, axis_perm=tuple(new_tags), n_codomain=(J, Jn),
+        old_shapes=shapes(codomain, domain), new_shapes=shapes(new_codomain, new_domain))
+
+
+@dataclass(frozen=True, eq=False)
+class AbelianProgram:
+    """An :class:`AbelianPlan` on the blocks a tensor has: the new blocks' elements,
+    concatenated in ``new_keys`` order, are ``signs * flat[index]`` with ``flat`` the
+    old blocks of ``present`` concatenated (each row-major) and a zero at its end."""
+
+    index: np.ndarray
+    signs: np.ndarray | None  # None: every sign is +1
+    new_keys: tuple
+    new_shapes: tuple
+
+
+@functools.lru_cache(maxsize=1024)
+def abelian_program(plan: AbelianPlan, present: tuple) -> AbelianProgram:
+    """Compile an :class:`AbelianPlan` for the old blocks ``present`` (sorted keys)."""
+    old_base = {}
+    pos = 0
+    for key in present:
+        old_base[key] = pos
+        h, w = plan.old_shapes[key]
+        pos += h * w
+    zero = pos
+    live = np.array([tuple(k) in old_base for k in plan.old_keys.tolist()], bool)
+    new_keys = sorted({tuple(k) for k in plan.new_keys[live].tolist()})
+    new_base = {}
+    pos = 0
+    for key in new_keys:
+        new_base[key] = pos
+        h, w = plan.new_shapes[key]
+        pos += h * w
+    index = np.full(pos, zero, np.int64)
+    signs = np.ones(pos)
+    J_old, J_new = plan.n_codomain
+    rows = np.flatnonzero(live)
+    if len(rows):
+        shapes, group = np.unique(plan.mult_shapes[rows], axis=0, return_inverse=True)
+        group = group.reshape(-1)
+        for g, m in enumerate(shapes):
+            sel = rows[group == g]
+            m = tuple(int(x) for x in m)
+            P = prod(m)
+            old_local = np.arange(P).reshape(m).transpose(plan.axis_perm).reshape(-1)
+            mp = tuple(m[a] for a in plan.axis_perm)
+            ok = [tuple(k) for k in plan.old_keys[sel].tolist()]
+            nk = [tuple(k) for k in plan.new_keys[sel].tolist()]
+            ob = np.array([old_base[k] for k in ok])
+            op = np.array([plan.old_shapes[k][1] for k in ok])
+            nb = np.array([new_base[k] for k in nk])
+            npitch = np.array([plan.new_shapes[k][1] for k in nk])
+            w_old = prod(m[J_old:])
+            w_new = prod(mp[J_new:])
+            o_rows = plan.old_starts[sel, 0][:, None] + (old_local // w_old)[None, :]
+            o_cols = plan.old_starts[sel, 1][:, None] + (old_local % w_old)[None, :]
+            k = np.arange(P)
+            n_rows = plan.new_starts[sel, 0][:, None] + (k // w_new)[None, :]
+            n_cols = plan.new_starts[sel, 1][:, None] + (k % w_new)[None, :]
+            dst = nb[:, None] + n_rows * npitch[:, None] + n_cols
+            index[dst] = ob[:, None] + o_rows * op[:, None] + o_cols
+            signs[dst] = plan.signs[sel][:, None]
+    return AbelianProgram(index=index, signs=None if np.all(signs == 1) else signs,
+                          new_keys=tuple(new_keys),
+                          new_shapes=tuple(plan.new_shapes[k] for k in new_keys))

@@ -267,6 +267,12 @@ class TorchBlockBackend(BlockBackend):
         acc.view(-1).index_add_(0, flat, updates.reshape(-1).to(acc.dtype))
         return acc
 
+    def take_flat(self, flat, key, index):
+        """``flat[index]`` for a 1-d ``flat``, with ``index`` (numpy) a device constant
+        under ``key``."""
+        return torch.index_select(flat, 0, self.cached(
+            key, lambda: torch.as_tensor(index).to(self.device)))
+
     def take_rows(self, block, idx):
         idx = np.asarray(idx, np.int64)
         return torch.index_select(block, 0, self.cached(

@@ -1,8 +1,8 @@
 """Couplings: multi-site operators factorized MPO-style into per-site tensors.
 
-The counterpart of ``cyten_tpu/models/couplings.py`` without the fermionic factories
-(``hopping``, ``pairing``, ``onsite_pairing``): ``Coupling`` (:32), ``squeeze_w_legs``
-(:135), the numpy helpers (:146-175) and the spin, boson, clock and anyon factories
+The counterpart of ``cyten_tpu/models/couplings.py``: ``Coupling`` (:32),
+``squeeze_w_legs`` (:135), the numpy helpers (:146-175) and the spin, boson, fermion
+(``hopping``, ``pairing``, ``onsite_pairing``, :263-305), clock and anyon factories
 (:177-391).
 
 A :class:`Coupling` stores one tensor per site with legs ``[wL, p, wR, p*]``
@@ -24,7 +24,8 @@ from .degrees_of_freedom import AnyonDOF, Site, SpinDOF
 
 __all__ = ['Coupling', 'spin_spin_coupling', 'spin_field_coupling', 'heisenberg_coupling',
            'aklt_coupling', 'chiral_3spin_coupling', 'chemical_potential',
-           'onsite_interaction', 'density_density_interaction', 'clock_coupling',
+           'onsite_interaction', 'density_density_interaction', 'hopping', 'pairing',
+           'onsite_pairing', 'clock_coupling',
            'clock_clock_coupling', 'clock_field', 'clock_field_coupling',
            'sector_projection_coupling', 'gold_coupling']
 
@@ -248,6 +249,45 @@ def density_density_interaction(sites, V=1., name='density_density') -> Coupling
     _check_num_sites(sites, 2, 'density_density_interaction')
     N0, N1 = (s.get_op_numpy('Ntot' if s.has_op('Ntot') else 'N') for s in sites)
     return _two_site_from_numpy(N0, N1, sites, coeff=V, name=name)
+
+
+def hopping(sites, t=1., species: str = '', name='hopping') -> Coupling:
+    r""":math:`-t (c^\dagger_i c_j + c^\dagger_j c_i)` of one species (``'u'``,
+    ``'dn'`` on a spin-1/2 fermion site).
+
+    The braids of a graded symmetry carry the signs between the sites; the dense
+    block takes the Jordan-Wigner string to the right of the first site's operator.
+    """
+    _check_num_sites(sites, 2, 'hopping')
+    Cd0, C0, JW0 = (sites[0].get_op_numpy(k) for k in ('Cd' + species, 'C' + species,
+                                                         'JW'))
+    Cd1, C1 = (sites[1].get_op_numpy(k) for k in ('Cd' + species, 'C' + species))
+    return _two_site_sum_from_numpy([(-t, Cd0 @ JW0, C1), (t, C0 @ JW0, Cd1)], sites,
+                                    name=name)
+
+
+def pairing(sites, D=1., species: str = '', name='pairing') -> Coupling:
+    r""":math:`\Delta (c^\dagger_i c^\dagger_j + c_j c_i)`.
+
+    :math:`c^\dagger_i c^\dagger_j` is ``(Cd JW) x Cd`` and :math:`c_j c_i` is
+    ``(JW C) x C``: the string stands to the left of a lowering operator
+    (``JW C = -C JW``; ``C JW`` would flip that term's sign and the operator would not
+    be hermitian).
+    """
+    _check_num_sites(sites, 2, 'pairing')
+    Cd0, C0, JW0 = (sites[0].get_op_numpy(k) for k in ('Cd' + species, 'C' + species,
+                                                         'JW'))
+    Cd1, C1 = (sites[1].get_op_numpy(k) for k in ('Cd' + species, 'C' + species))
+    return _two_site_sum_from_numpy([(D, Cd0 @ JW0, Cd1), (D, JW0 @ C0, C1)], sites,
+                                    name=name)
+
+
+def onsite_pairing(sites, D=1., name='onsite_pairing') -> Coupling:
+    r""":math:`\Delta (c^\dagger_u c^\dagger_d + c_d c_u)` on one spin-1/2 fermion
+    site."""
+    _check_num_sites(sites, 1, 'onsite_pairing')
+    Cdu, Cddn, Cu, Cdn = (sites[0].get_op_numpy(k) for k in ('Cdu', 'Cddn', 'Cu', 'Cdn'))
+    return _one_site_from_numpy(D * (Cdu @ Cddn + Cdn @ Cu), sites, name)
 
 
 def spin_field_coupling(sites, hx=0., hy=0., hz=0., name='spin-field') -> Coupling:

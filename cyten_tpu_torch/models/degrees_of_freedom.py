@@ -1,8 +1,8 @@
 """Sites (local Hilbert spaces with named operators) and degree-of-freedom builders.
 
-The counterpart of ``cyten_tpu/models/degrees_of_freedom.py`` without fermions:
-``Site`` (:25), ``SpinDOF`` (:124), ``OccupationDOF`` (:144), ``BosonicDOF`` (:159),
-``ClockDOF`` (:195) and ``AnyonDOF`` (:206).
+The counterpart of ``cyten_tpu/models/degrees_of_freedom.py``: ``Site`` (:25),
+``SpinDOF`` (:124), ``OccupationDOF`` (:144), ``BosonicDOF`` (:159), ``FermionicDOF``
+(:163), ``ClockDOF`` (:195) and ``AnyonDOF`` (:206).
 
 A :class:`Site` couples a leg (the local Hilbert space with its conserved symmetry)
 to the dictionary of *symmetric* onsite operators. Which operators exist depends on
@@ -19,7 +19,8 @@ from ..dtypes import Dtype
 from ..symmetries import ElementarySpace
 from ..tensors import ChargedTensor, SymmetricTensor
 
-__all__ = ['Site', 'SpinDOF', 'OccupationDOF', 'BosonicDOF', 'ClockDOF', 'AnyonDOF']
+__all__ = ['Site', 'SpinDOF', 'OccupationDOF', 'BosonicDOF', 'FermionicDOF', 'ClockDOF',
+           'AnyonDOF']
 
 
 class Site:
@@ -158,6 +159,33 @@ class OccupationDOF:
 
 class BosonicDOF(OccupationDOF):
     """Bosonic creation/annihilation with capped occupation."""
+
+
+class FermionicDOF:
+    """Fermionic operators. The statistics between sites come from the braids of a
+    graded symmetry; within a site, Jordan-Wigner strings order the species."""
+
+    @staticmethod
+    def fermion_ops() -> dict:
+        C = np.array([[0., 1.], [0., 0.]])  # |0>, |1> basis
+        return {'C': C, 'Cd': C.T.copy(), 'N': np.diag([0., 1.]),
+                'JW': np.diag([1., -1.])}
+
+    @staticmethod
+    def get_annihilator_numpy(ops: dict, species: int, n_species: int,
+                              include_JW: bool = True) -> np.ndarray:
+        """Annihilator of one species in a site of ``n_species`` (a kron over the
+        species, in order), with the Jordan-Wigner string over the earlier species
+        unless ``include_JW`` is False. ``ops`` is not read."""
+        single = FermionicDOF.fermion_ops()
+        res = np.eye(1)
+        for s in range(n_species):
+            if s < species:
+                m = single['JW'] if include_JW else np.eye(2)
+            else:
+                m = single['C'] if s == species else np.eye(2)
+            res = np.kron(res, m)
+        return res
 
 
 class ClockDOF:

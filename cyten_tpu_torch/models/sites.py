@@ -1,8 +1,8 @@
 """Concrete sites, each parameterized by a ``conserve`` option.
 
-The counterpart of ``cyten_tpu/models/sites.py`` without fermions: ``SpinSite`` (:32),
-``SpinHalfSite`` (:62), ``SpinlessBosonSite`` (:67), ``ClockSite`` (:181) and the
-anyon sites (:199-232).
+The counterpart of ``cyten_tpu/models/sites.py``: ``SpinSite`` (:32), ``SpinHalfSite``
+(:62), ``SpinlessBosonSite`` (:67), ``SpinlessFermionSite`` (:91),
+``SpinHalfFermionSite`` (:121), ``ClockSite`` (:181) and the anyon sites (:199-232).
 
 The ``conserve`` choice fixes the symmetry of the leg and thereby *which* operators
 remain symmetric: diagonal operators survive any abelian conservation;
@@ -16,13 +16,15 @@ from __future__ import annotations
 import numpy as np
 
 from ..symmetries import (
-    ElementarySpace, SU2_kAnyonCategory, U1, ZN, fibonacci_anyon_category,
-    ising_anyon_category, no_symmetry, su2_symmetry, u1_symmetry,
+    ElementarySpace, FermionNumber, FermionParity, SU2_kAnyonCategory, Symmetry, U1, ZN,
+    fibonacci_anyon_category, ising_anyon_category, no_symmetry, su2_symmetry,
+    u1_symmetry,
 )
-from .degrees_of_freedom import BosonicDOF, ClockDOF, Site, SpinDOF
+from .degrees_of_freedom import BosonicDOF, ClockDOF, FermionicDOF, Site, SpinDOF
 
-__all__ = ['SpinSite', 'SpinHalfSite', 'SpinlessBosonSite', 'ClockSite', 'AnyonSite',
-           'FibonacciAnyonSite', 'IsingAnyonSite', 'GoldenSite', 'SU2kSpin1Site']
+__all__ = ['SpinSite', 'SpinHalfSite', 'SpinlessBosonSite', 'SpinlessFermionSite',
+           'SpinHalfFermionSite', 'ClockSite', 'AnyonSite', 'FibonacciAnyonSite',
+           'IsingAnyonSite', 'GoldenSite', 'SU2kSpin1Site']
 
 
 def _check_conserve(cls_name: str, conserve, allowed) -> str:
@@ -88,6 +90,90 @@ class SpinlessBosonSite(Site):
         Site.__init__(self, leg, backend=backend, state_labels={'vac': 0},
                       device=device, N=ops['N'], NN=ops['NN'], dN=ops['dN'],
                       B=ops['B'], Bd=ops['Bd'])
+
+
+class SpinlessFermionSite(Site):
+    """Spinless fermion site. ``conserve`` in {'N', 'parity', 'None'}.
+
+    'N' takes the graded :class:`FermionNumber`, 'parity' :class:`FermionParity`: the
+    braids of the symmetry then carry the signs between sites, and couplings need no
+    Jordan-Wigner string between them. 'None' keeps no grading.
+    """
+
+    def __init__(self, conserve: str = 'N', backend=None, device: str = None):
+        conserve = _check_conserve('SpinlessFermionSite', conserve,
+                                   ('N', 'parity', 'None', None))
+        self.conserve = conserve
+        ops = FermionicDOF.fermion_ops()
+        if conserve == 'N':
+            leg = ElementarySpace.from_basis(FermionNumber().as_Symmetry(), [[0], [1]])
+        elif conserve == 'parity':
+            leg = ElementarySpace.from_basis(FermionParity().as_Symmetry(), [[0], [1]])
+        else:
+            leg = ElementarySpace.from_trivial_sector(2, symmetry=no_symmetry)
+        Site.__init__(self, leg, backend=backend,
+                      state_labels={'empty': 0, 'full': 1}, device=device,
+                      N=ops['N'], JW=ops['JW'], C=ops['C'], Cd=ops['Cd'])
+
+    def get_annihilator_numpy(self, include_JW: bool = True) -> np.ndarray:
+        return FermionicDOF.get_annihilator_numpy({}, 0, 1, include_JW=include_JW)
+
+
+#: the kron basis (up x down) (0,0), (0,1), (1,0), (1,1) in the site's order |0>,
+#: |up>, |down>, |updown>
+_SPIN_HALF_FERMION_BASIS = np.eye(4)[[0, 2, 1, 3]]
+
+
+class SpinHalfFermionSite(Site):
+    """Spin-1/2 fermion site, basis |0>, |up>, |down>, |updown>.
+
+    ``conserve_N`` in {'N', 'parity', 'None'} and ``conserve_S`` in {'Sz', 'None'};
+    the symmetry is ``FermionNumber('N')`` or ``FermionParity('parity')`` times
+    ``U1('2*Sz')``, the factors that are conserved. Species 0 is up, 1 down; the
+    down annihilator carries the Jordan-Wigner string of the up species.
+    """
+
+    def __init__(self, conserve_N: str = 'N', conserve_S: str = 'Sz', backend=None,
+                 device: str = None):
+        conserve_N = _check_conserve('SpinHalfFermionSite', conserve_N,
+                                     ('N', 'parity', 'None', None))
+        conserve_S = _check_conserve('SpinHalfFermionSite', conserve_S,
+                                     ('Sz', 'None', None))
+        self.conserve_N = conserve_N
+        self.conserve_S = conserve_S
+        P = _SPIN_HALF_FERMION_BASIS
+        Cu = P @ FermionicDOF.get_annihilator_numpy({}, 0, 2, include_JW=False) @ P.T
+        Cdn = P @ FermionicDOF.get_annihilator_numpy({}, 1, 2, include_JW=True) @ P.T
+        Nu = Cu.T @ Cu
+        Nd = Cdn.T @ Cdn
+        Sp = Cu.T @ Cdn  # S+ = c†_up c_down
+        factors = []
+        sectors = []
+        if conserve_N == 'N':
+            factors.append(FermionNumber('N'))
+            sectors.append([0, 1, 1, 2])
+        elif conserve_N == 'parity':
+            factors.append(FermionParity('parity'))
+            sectors.append([0, 1, 1, 0])
+        if conserve_S == 'Sz':
+            factors.append(U1('2*Sz'))
+            sectors.append([0, 1, -1, 0])
+        if factors:
+            leg = ElementarySpace.from_basis(Symmetry(factors), np.array(sectors).T)
+        else:
+            leg = ElementarySpace.from_trivial_sector(4, symmetry=no_symmetry)
+        Site.__init__(self, leg, backend=backend,
+                      state_labels={'empty': 0, 'up': 1, 'down': 2, 'full': 3},
+                      device=device, Nu=Nu, Nd=Nd, Ntot=Nu + Nd, NuNd=Nu @ Nd,
+                      Sz=0.5 * (Nu - Nd), JW=np.diag([1., -1., -1., 1.]), Cu=Cu,
+                      Cdu=Cu.T.copy(), Cdn=Cdn, Cddn=Cdn.T.copy(), Sp=Sp,
+                      Sm=Sp.T.copy())
+
+    def get_annihilator_numpy(self, species: int, include_JW: bool = True
+                              ) -> np.ndarray:
+        P = _SPIN_HALF_FERMION_BASIS
+        return P @ FermionicDOF.get_annihilator_numpy(
+            {}, species, 2, include_JW=include_JW) @ P.T
 
 
 class ClockSite(Site):

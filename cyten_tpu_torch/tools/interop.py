@@ -5,9 +5,12 @@ spec, which an exporter on the other side writes (the parity tests hold one):
 
 tensor spec
     ``symmetry``: list of factor names, each ``'NoSymmetry'``, ``'U1'``, ``'Z<N>'``,
-    ``'SU2'``, or the class name of an anyonic category of ``symmetries/anyons.py``
-    with its constructor's arguments (``_init_args``), as in
-    ``'FibonacciAnyonCategory(handedness=right)'`` or ``'ZNAnyonCategory(N=3,n=1)'``;
+    ``'SU2'``, ``'FermionParity'``, ``'FermionNumber'``, or the class name of an
+    anyonic category of ``symmetries/anyons.py`` with its constructor's arguments
+    (``_init_args``), as in ``'FibonacciAnyonCategory(handedness=right)'`` or
+    ``'ZNAnyonCategory(N=3,n=1)'``; a factor with a descriptive name carries it after
+    a colon, as in ``'FermionNumber:N'`` or ``'U1:2*Sz'`` (symmetries with other
+    names are not equal);
     ``codomain`` / ``domain``: lists of leg specs (domain factors in domain order);
     ``labels``: labels in ``legs`` order; ``block_inds``: ``[n_blocks, n_legs]`` int
     array (``[n_blocks]`` for a diagonal tensor); ``blocks``: list of numpy arrays in
@@ -41,7 +44,10 @@ import numpy as np
 from ..backends.data import BlockSparseData, DenseData, DiagonalBlockData
 from ..backends.no_symmetry import NoSymmetryBackend
 from ..dtypes import Dtype
-from ..symmetries import SU2, ElementarySpace, NoSymmetry, Symmetry, U1, ZN, anyons
+from ..symmetries import (
+    SU2, U1, ZN, ElementarySpace, FermionNumber, FermionParity, NoSymmetry, Symmetry,
+    anyons,
+)
 
 __all__ = ['symmetry_from_names', 'leg_from_spec', 'tensor_from_arrays',
            'mps_from_arrays', 'mpo_from_arrays', 'coupling_from_arrays']
@@ -61,24 +67,27 @@ def _anyon_factor(name: str):
     return getattr(anyons, m.group(1))(**kwargs)
 
 
+_NAMED_FACTORS = {'U1': U1, 'SU2': SU2, 'NoSymmetry': NoSymmetry,
+                  'FermionParity': FermionParity, 'FermionNumber': FermionNumber}
+
+
 def symmetry_from_names(names) -> Symmetry:
     """``['U1', 'Z2']`` -> ``U1 x Z2``; ``['SU2']`` -> SU(2);
+    ``['FermionNumber:N', 'U1:2*Sz']`` -> the Hubbard site's symmetry, names included;
     ``['FibonacciAnyonCategory(handedness=left)']`` -> Fibonacci anyons."""
     factors = []
-    for name in names:
+    for full_name in names:
+        name, _, descriptive_name = full_name.partition(':')
         m = re.fullmatch(r'Z(\d+)', name)
-        if name == 'U1':
-            factors.append(U1())
-        elif name == 'SU2':
-            factors.append(SU2())
-        elif name == 'NoSymmetry':
-            factors.append(NoSymmetry())
+        if name in _NAMED_FACTORS:
+            factor = _NAMED_FACTORS[name]()
         elif m:
-            factors.append(ZN(int(m.group(1))))
-        elif (anyon := _anyon_factor(name)) is not None:
-            factors.append(anyon)
-        else:
-            raise ValueError(f'unknown symmetry factor {name!r}')
+            factor = ZN(int(m.group(1)))
+        elif (factor := _anyon_factor(name)) is None:
+            raise ValueError(f'unknown symmetry factor {full_name!r}')
+        if descriptive_name:
+            factor.descriptive_name = descriptive_name
+        factors.append(factor)
     res = factors[0].as_Symmetry()
     for f in factors[1:]:
         res = res * f

@@ -1393,3 +1393,86 @@ def test_static_rollback_recaptures_graphs(card, tmp_path, capsys):
     E_graph = eng.E
     eng.enable_static_mode(n_lanczos=20, svd_mode='steady', cuda_graphs=False)
     assert abs(eng.sweep() - E_graph) < 1e-10
+
+
+# --- fermions ------------------------------------------------------------------------------
+
+
+def _hubbard_on(device, L=6, chi_max=16):
+    """The Fermi-Hubbard chain at L, half filling, after one dynamic sweep."""
+    from cyten_tpu_torch.algorithms import FermiHubbardModel
+
+    model = FermiHubbardModel(L, device=device)
+    psi = SimpleMPS.from_product_state(model.site_legs, [1, 2] * (L // 2),
+                                       backend=model.backend)
+    eng = DMRGEngine(psi, model, chi_max=chi_max, eps=1e-14)
+    eng.sweep()
+    return model, psi, eng
+
+
+@pytest.mark.cuda
+def test_fermionic_compose_list_matches_plain(card):
+    """The largest grouped-GEMM list of a Hubbard bond update (FermionNumber x U(1) on
+    the fusion-tree backend: a compose over its coupled sectors) on the kernel, against
+    its plain version elementwise to 2 K 2^-52 |A||B|."""
+    model, psi, eng = _hubbard_on('cuda')
+    lists = recorded_lists(lambda: eng.update_bond(2))
+    (_, As, Bs, ids, n_out, pairs), _ = max(
+        lists, key=lambda l: sum(t.numel() for t in (*l[0][1], *l[0][2])))
+    before = grouped_matmul.launches
+    got = grouped_matmul(As, Bs, ids, n_out, pairs)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1 and len(pairs[0]) > 1
+    ref = grouped_matmul_plain(As, Bs, ids, n_out, pairs)
+    bound = grouped_matmul_plain([A.abs() for A in As], [B.abs() for B in Bs], ids, n_out,
+                                 pairs)
+    K = max(As[i].shape[1] for i in pairs[0].tolist())
+    for g, r, b in zip(got, ref, bound):
+        assert g.dtype == torch.float64
+        assert bool(((g - r).abs() <= 2 * K * 2. ** -52 * b).all())
+
+
+@pytest.mark.cuda
+def test_captured_hubbard_static_bond_matches_eager(card):
+    """A steady static Hubbard bond update captured as a CUDA graph and replayed,
+    against the eager update on the same inputs (1e-12), its signed gathers reading
+    device constants the graph keeps."""
+    from cyten_tpu_torch.algorithms.dmrg import _freeze_bond
+
+    model, psi, eng = _hubbard_on('cuda')
+    i = 2
+    W1, W2 = model.H_mpo[i], model.H_mpo[i + 1]
+    tmpl, _ = _freeze_bond(HEffective(eng.LPs[i], eng.RPs[i + 1], W1, W2),
+                           psi.get_theta2(i), psi.Bs[i + 1].get_leg('vL'))
+    impl = _get_static_bond_fn(10, 'steady')
+
+    def fn(LP, RP, S, B1, B2):
+        return impl(HEffective(LP, RP, W1, W2), S, B1, B2, tmpl, None)
+
+    for j in range(i):  # the left environments up to bond i
+        eng.update_LP(j, psi.get_theta1(j))
+    inputs = (eng.LPs[i], eng.RPs[i + 1], psi.Ss[i], psi.Bs[i], psi.Bs[i + 1])
+    ref = fn(*inputs)
+    graph = _GraphedStep(fn, inputs)
+    assert graph.graph.launches[grouped_matmul] > 0
+    assert graph.graph.launches[tridiagonal_ground_state] == 1
+    psi.Bs[0].backend.block_backend._constants.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 22,), -1, dtype=torch.int64, device='cuda')
+    got = graph.run(inputs)
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-12 * abs(float(ref[0]))
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.labels == r.labels and g.dtype == r.dtype
+        for gb, rb in zip(g.data.blocks, r.data.blocks):
+            np.testing.assert_allclose(gb.cpu().numpy(), rb.cpu().numpy(), rtol=0,
+                                       atol=1e-12)
+    assert junk.numel() == 1 << 22
+
+
+@pytest.mark.cuda
+def test_hubbard_dmrg_card_matches_cpu(card):
+    """The same Hubbard sweep on the card and on the CPU (1e-10)."""
+    E = {device: _hubbard_on(device)[2].E for device in ('cuda', 'cpu')}
+    assert abs(E['cuda'] - E['cpu']) < 1e-10

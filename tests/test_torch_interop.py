@@ -16,16 +16,20 @@ import cyten_tpu_torch as ctt
 from cyten_tpu_torch.tools.interop import mps_from_arrays, tensor_from_arrays
 
 
-def _factor_name(f) -> str:
+def _factor_name(f, with_names: bool = False) -> str:
+    """The factor's name in ``tools/interop.py``'s spec, with its descriptive name
+    after a colon if ``with_names`` (else symmetries are carried without them)."""
     name = type(f).__name__
     if name == 'ZN':
-        return f'Z{f.N}'
-    if name in ('U1', 'NoSymmetry', 'SU2'):
-        return name
-    if name in ct.symmetries.anyons.__all__:
+        name = f'Z{f.N}'
+    elif name in ct.symmetries.anyons.__all__:
         args = ','.join(f'{k}={v}' for k, v in f._init_args().items())
-        return f'{name}({args})' if args else name
-    raise ValueError(f'no port of symmetry factor {f}')
+        name = f'{name}({args})' if args else name
+    elif name not in ('U1', 'NoSymmetry', 'SU2', 'FermionParity', 'FermionNumber'):
+        raise ValueError(f'no port of symmetry factor {f}')
+    if with_names and f.descriptive_name is not None:
+        name = f'{name}:{f.descriptive_name}'
+    return name
 
 
 def _leg_spec(leg) -> dict:
@@ -35,12 +39,13 @@ def _leg_spec(leg) -> dict:
             'basis_perm': None if leg._basis_perm is None else np.asarray(leg._basis_perm)}
 
 
-def export_tensor(t) -> dict:
-    """Spec of a cyten_tpu SymmetricTensor / DiagonalTensor (blocks as numpy)."""
+def export_tensor(t, with_names: bool = False) -> dict:
+    """Spec of a cyten_tpu SymmetricTensor / DiagonalTensor (blocks as numpy); with
+    the factors' descriptive names if ``with_names``."""
     bb = t.backend.block_backend
     data = t.data
     blocks = [data.block] if hasattr(data, 'block') else list(data.blocks)
-    return {'symmetry': [_factor_name(f) for f in t.symmetry.factors],
+    return {'symmetry': [_factor_name(f, with_names) for f in t.symmetry.factors],
             'codomain': [_leg_spec(l) for l in t.codomain.factors],
             'domain': [_leg_spec(l) for l in t.domain.factors],
             'labels': list(t.labels),
@@ -50,9 +55,9 @@ def export_tensor(t) -> dict:
             'kind': 'diagonal' if isinstance(t, DiagonalTensor) else 'symmetric'}
 
 
-def export_mps(psi) -> dict:
-    return {'Bs': [export_tensor(B) for B in psi.Bs],
-            'Ss': [export_tensor(S) for S in psi.Ss], 'bc': psi.bc}
+def export_mps(psi, with_names: bool = False) -> dict:
+    return {'Bs': [export_tensor(B, with_names) for B in psi.Bs],
+            'Ss': [export_tensor(S, with_names) for S in psi.Ss], 'bc': psi.bc}
 
 
 def port_backend(symmetry_names):
@@ -62,8 +67,8 @@ def port_backend(symmetry_names):
     return ctt.get_backend(sym, device='cpu')
 
 
-def to_port(t):
-    spec = export_tensor(t)
+def to_port(t, with_names: bool = False):
+    spec = export_tensor(t, with_names)
     return tensor_from_arrays(spec, port_backend(spec['symmetry']))
 
 

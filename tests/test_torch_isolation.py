@@ -183,3 +183,49 @@ def test_fusion_tree_backend_default_device_raises_without_cuda():
     backend = get_backend(su2_symmetry, device='cpu')
     assert isinstance(backend, FusionTreeBackend)
     assert str(backend.block_backend.device) == 'cpu'
+
+
+_FERMION_SCRIPT = """
+import sys
+import cyten_tpu_torch.symmetries.fermions
+from cyten_tpu_torch import FermionNumber, FermionParity, fermion_number, fermion_parity
+from cyten_tpu_torch.algorithms import (
+    DMRGEngine, FermiHubbardModel, KitaevChainModel, SimpleMPS,
+)
+from cyten_tpu_torch.models import (
+    FermionicDOF, SpinHalfFermionSite, SpinlessFermionSite, hopping, onsite_pairing,
+    pairing,
+)
+model = FermiHubbardModel(L=4, device='cpu')
+psi = SimpleMPS.from_product_state(model.site_legs, [1, 2, 1, 2], backend=model.backend)
+E = DMRGEngine(psi, model, chi_max=16, eps=1e-14).run(n_sweeps=1)
+assert E < 0, E
+assert len(KitaevChainModel(L=4, device='cpu').H_mpo) == 4
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu'))
+print('LEAKED', leaked)
+"""
+
+
+def test_fermionic_path_runs_without_jax_or_cyten_tpu():
+    """The fermionic symmetries, sites, couplings and models, and one Hubbard DMRG
+    sweep on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, '-c', _FERMION_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert 'LEAKED []' in res.stdout, res.stdout
+
+
+def test_fermion_models_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from cyten_tpu_torch.algorithms import FermiHubbardModel, KitaevChainModel
+    from cyten_tpu_torch.models import SpinHalfFermionSite, SpinlessFermionSite
+
+    for entry in (lambda: FermiHubbardModel(2), lambda: KitaevChainModel(2),
+                  lambda: SpinlessFermionSite('N'), lambda: SpinHalfFermionSite()):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            entry()
+    model = FermiHubbardModel(2, device='cpu')
+    assert str(model.backend.block_backend.device) == 'cpu'
