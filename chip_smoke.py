@@ -12,7 +12,9 @@ the repo's production setting, SU(2) Heisenberg DMRG and the Fibonacci golden ch
 the fusion-tree backend, the models layer (sites, couplings, CouplingModel,
 SpinChainModel, mpo_from_terms) on spin-1/2, spin-1 and J1-J2 chains, and fermions
 (FermiHubbardModel, KitaevChainModel, hopping with a next-nearest term) with the
-Ising-anyon chain, checks the energies, and ends with one JSON line
+Ising-anyon chain, one-site DMRG (DMRG1SEngine) and the infinite chain (iDMRGEngine,
+MultiCellIDMRGEngine, the infinite MPS's canonical forms and correlation length),
+checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
 
@@ -25,6 +27,9 @@ fails. Imports nothing of JAX or cyten_tpu.
                                            # line of phase 15 and the device line
     python3 chip_smoke.py --fermions-only  # phases 1, 2, 2b and 16 at full width, then
                                            # the kernels line of phase 16 and the
+                                           # device line
+    python3 chip_smoke.py --infinite-only  # phases 1, 2, 2b and 17 at full width, then
+                                           # the kernels line of phase 17 and the
                                            # device line
     python3 chip_smoke.py --steady-ab      # phase 1, then steady_ab, then stop
     python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
@@ -45,7 +50,9 @@ dynamic and static) and the J1-J2 chain at L=32, chi_max=16 (--models-only: L=64
 chi_max 64); phase 14 leaves out the child process's resume and the excited
 state (--engine-only keeps both). Phase 16 takes the Hubbard chain at L=8 and the
 Kitaev chain at L=32 (--fermions-only: L=32 at chi_max=1024 with a profile of its
-replayed sweep, and L=64).
+replayed sweep, and L=64). Phase 17 takes one-site DMRG on the TFI chain at L=8 and
+iDMRG on the infinite TFI chain at chi 32 (--infinite-only: (a) to (f) at full width in
+their place).
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
@@ -251,6 +258,29 @@ Phases:
      1e-9); (e) the largest compose list of (a)'s centre bond update on the kernel
      against its plain version, held elementwise to check_f64's bound ([fermions e]:
      err_units, device_ms, bound_ms, library_ms, launches)
+
+  17. one-site DMRG and the infinite chain (infinite_phase), each engine's launches of
+     the grouped GEMM (its thin form apart) counted over the phase: the full run holds
+     DMRG1SEngine on the parity TFI chain (L=8, g=1.2, chi_max 16, alpha 1e-2 decaying
+     by 0.2 to 1e-10, five sweeps) to tfi_exact_finite_gs_energy (1e-10) and
+     iDMRGEngine on the infinite parity TFI chain (g=1.5, chi_max 32) to
+     tfi_exact_infinite_gs_energy (1e-9). --infinite-only runs in their place: (a)
+     DMRG1SEngine on the U(1) Heisenberg chain at L=24, chi_max=1024, f64, from the
+     Neel state (eps 1e-14, alpha 1e-3, alpha_decay 0.5, swept until E moves by less
+     than 1e-10, at most 16 sweeps) to HEIS24_E_REF (1e-8), its chi, seconds and
+     launches per sweep, and from the converged state one more one-site sweep beside
+     one two-site dynamic sweep (N_max=10, the same eps); (b) DMRG1SEngine on the SU(2) chain at
+     L=8, chi_max 24, with each mixer, to exact diagonalization (1e-9); (c) iDMRGEngine
+     on the critical U(1) Heisenberg chain at chi_max=1024 (at most 120 steps, until
+     e/site moves by less than 1e-10) to 1/4 - ln 2 (5e-5), its gap, seconds per step,
+     steps and correlation_length() with its seconds; (d) the spin-1 Haldane chain at
+     chi 48 to HALDANE_E_PER_SITE (1e-5), both methods of canonicalize_infinite on its
+     cell with each B's isometry error (1e-10); (e) MultiCellIDMRGEngine on the uniform
+     L=4 Heisenberg cell at chi 16 to the Bethe energy (2e-4); (f) MultiCellIDMRGEngine
+     on the dimerized XX chain (J1 1, J2 0.6) at chi 32 to its band integral (1e-6).
+     Then every f64 list of one one-site update (its expansion on) and one iDMRG step
+     on the kernel against its plain version, held elementwise by check_f64, and the
+     largest of each (and the largest thin list) timed as in phase 2
 
 --steady-ab runs the build, then steady_ab: the steady SVD with its QR against the
 same SVD without it, in turns, on the L=24 chain's replayed sweep and the bench step.
@@ -2862,6 +2892,382 @@ def fermions_kernels(fermions: dict, tridiag: dict) -> list:
              'launches': fermions['launches']['tridiag'], **{k: tridiag[k] for k in keys}}]
 
 
+def _hold_lists(label: str, lists) -> dict:
+    """Every f64 list of ``lists`` (bench.recorded_lists) on the kernel against its plain
+    version, held elementwise by check_f64; then the largest list (and the largest thin
+    one, where a list is thin) timed by compare_kernel. Returns their results."""
+    import torch
+    from cyten_tpu_torch.blocks.grouped_gemm import (
+        grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
+    )
+
+    held, worst = 0, 0.
+    for (_, As, Bs, ids, n_out, pairs), _count in lists:
+        if not {As[0].dtype, Bs[0].dtype} <= {torch.float64}:
+            continue
+        got = grouped_matmul(As, Bs, ids, n_out, pairs)
+        ref = grouped_matmul_plain(As, Bs, ids, n_out, pairs)
+        torch.cuda.synchronize()
+        _, units = check_f64(f'{label} list {held}', got, ref, As, Bs, ids, n_out, pairs)
+        held += 1
+        worst = max(worst, units)
+    print(f'[{label}] {held} f64 lists held to 2 K 2^-52 |A||B|, largest err_units '
+          f'{worst:.3f}', flush=True)
+    if held == 0:
+        raise AssertionError(f'{label}: no f64 list recorded')
+
+    def size(entry):
+        return sum(t.numel() for t in (*entry[0][1], *entry[0][2]))
+
+    res = {}
+    thin = [e for e in lists if grouped_matmul_plan(*e[0][1:6])[1].form is not None]
+    for key, pool in (('largest', lists), ('thin', thin)):
+        if not pool:
+            continue
+        (_, As, Bs, ids, n_out, pairs), count = max(pool, key=size)
+        res[key] = compare_kernel(f'{label} {key} {list_name(As, Bs, pairs, count)}', As,
+                                  Bs, ids, n_out, As[0].dtype, pairs, as_given=True)
+    return res
+
+
+def _centre_update_lists(eng) -> list:
+    """The grouped-GEMM lists (bench.recorded_lists) of one right-moving one-site update
+    at the centre of ``eng``'s chain, after right moves from site 0 that rebuild the
+    left environments up to it (a finished sweep leaves them stale)."""
+    from cyten_tpu_torch.bench import recorded_lists
+
+    c = eng.psi.L // 2 - 1
+    for i in range(c):
+        eng.update_site(i, True)
+    return recorded_lists(lambda: eng.update_site(c, True))
+
+
+def _idmrg_until(label: str, eng, max_steps: int, tol: float) -> dict:
+    """iDMRG steps until e/site changes by less than ``tol`` (at most ``max_steps``):
+    e/site, the steps and the seconds of each."""
+    import torch
+
+    e, step_s = None, []
+    for n in range(max_steps):
+        t0 = time.perf_counter()
+        e_new = eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if n % 10 == 0 or n == max_steps - 1:
+            print(f'[{label}] step {eng.n_steps}: e/site {e_new!r}, {step_s[-1]:.3f} s, '
+                  f'chi {int(eng.S.leg.dim)}', flush=True)
+        done = e is not None and e_new is not None and abs(e_new - e) < tol
+        e = e_new
+        if done:
+            break
+    return {'e': e, 'steps': len(step_s), 'step_s': step_s}
+
+
+def _dimerized_xx(J1: float, J2: float):
+    """The dimerized XX chain's two-site MPO cell (bond J1 after site 0, J2 after site
+    1, as tests/test_idmrg.py builds it) and its exact energy per site (the two-band
+    integral)."""
+    import scipy.integrate
+    from cyten_tpu_torch.algorithms import spin_half_site
+    from cyten_tpu_torch.algorithms.models import _factorize_bond
+    from cyten_tpu_torch.backends import get_backend
+    from cyten_tpu_torch.tensors import SymmetricTensor, tensor_from_grid
+
+    p = spin_half_site('Sz')
+    backend = get_backend(p.symmetry)
+    Sp = np.array([[0., 1.], [0., 0.]])
+    Sm = Sp.T
+
+    def xx_bond(J):
+        h = J / 2. * (np.kron(Sp, Sm) + np.kron(Sm, Sp))
+        return SymmetricTensor.from_dense_block(
+            h.reshape(2, 2, 2, 2).transpose(0, 1, 3, 2), [p, p], [p, p], backend=backend,
+            labels=['p0', 'p1', 'p1*', 'p0*'])
+
+    A1, B1, Id = _factorize_bond(xx_bond(J1), 1e-12)
+    A2, B2, _ = _factorize_bond(xx_bond(J2), 1e-12)
+
+    def W(A, B):
+        return tensor_from_grid([[Id, A, None], [None, None, B], [None, None, Id]],
+                                labels=['wL', 'p', 'wR', 'p*'], row_leg='wL',
+                                col_leg='wR')
+
+    class Dimerized:
+        bc = 'infinite'
+        H_mpo = [W(A1, B2), W(A2, B1)]
+
+    t1, t2 = J1 / 2., J2 / 2.
+    e_exact = -scipy.integrate.quad(lambda k: abs(t1 + t2 * np.exp(1j * k)),
+                                    -np.pi, np.pi)[0] / (2 * np.pi) / 2.
+    return Dimerized(), p, backend, e_exact
+
+
+def infinite_phase(deep: bool = False) -> dict:
+    """Phase 17: one-site DMRG and the infinite chain (see the module docstring).
+    ``deep`` (--infinite-only) runs (a) to (f) at full width in place of the full run's
+    two small checks. Returns the numbers of its kernels-line entries: each kernel's
+    launches over the phase and the lists of a one-site update and an iDMRG step."""
+    import torch
+    from cyten_tpu_torch.algorithms import (
+        DMRG1SEngine, DMRGEngine, HeisenbergModel, MultiCellIDMRGEngine, SimpleMPS,
+        SpinChainModel, TFIModel, heisenberg_exact_finite_gs_energy, iDMRGEngine,
+        tfi_exact_finite_gs_energy, tfi_exact_infinite_gs_energy,
+    )
+    from cyten_tpu_torch.bench import recorded_lists
+
+    launches = {'dmrg1': {}, 'idmrg': {}}
+
+    def add(kind, c):
+        for k, v in c.items():
+            launches[kind][k] = launches[kind].get(k, 0) + v
+
+    def canonical_errors(psi):
+        from cyten_tpu_torch.tensors import dagger, eye, norm, tdot
+        errs = []
+        for B in psi.Bs:
+            E = tdot(B, dagger(B), ['p', 'vR'], ['p*', 'vR*'])
+            ey = eye([B.get_leg_co_domain('vL')], backend=B.backend, labels=['vL', 'vL*'],
+                     dtype=B.dtype).as_SymmetricTensor()
+            errs.append(float(norm(E + (-1.) * ey)))
+        return errs
+
+    lists = {}
+    bethe = 0.25 - np.log(2.)
+    if not deep:
+        # DMRG1S on the parity TFI chain at L=8, chi 16 (tests/test_dmrg1.py's run, five
+        # of its sweeps), against the exact energy
+        t_sub = time.perf_counter()
+        L, g = 8, 1.2
+        model = TFIModel(L=L, g=g, conserve='parity')
+        psi = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+        eng = DMRG1SEngine(psi, model, chi_max=16, eps=1e-14, alpha=1e-2, alpha_decay=0.2,
+                           alpha_min=1e-10)
+        _counts_zero()
+        E = eng.run(n_sweeps=5, tol=1e-13)
+        torch.cuda.synchronize()
+        c = _counts()
+        add('dmrg1', c)
+        E_exact = tfi_exact_finite_gs_energy(L, 1., g)
+        print(f'[infinite dmrg1] TFI L={L}, g={g}, chi_max 16, five sweeps: E = {E!r}, exact '
+              f'{E_exact!r}, |dE| {abs(E - E_exact):.3e}, max chi {psi.max_chi()}; launches '
+              f'{json.dumps(c)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+        if not (abs(E - E_exact) < 1e-10 and psi.max_chi() == 16 and c['grouped_gemm'] > 0):
+            raise AssertionError('phase 17: the one-site TFI energy, chi or launches wrong')
+        eng.alpha = 1e-2  # the expansion on: its lists too
+        lists['dmrg1'] = _centre_update_lists(eng)
+        # iDMRG on the parity TFI chain at g=1.5, chi 32, against the exact density
+        t_sub = time.perf_counter()
+        model = TFIModel(L=2, g=1.5, conserve='parity', bc='infinite')
+        psi = SimpleMPS.from_product_state(model.site_legs, [0, 0], backend=model.backend,
+                                           bc='infinite')
+        ieng = iDMRGEngine(psi, model, chi_max=32, eps=1e-12)
+        _counts_zero()
+        e = ieng.run(n_steps=150, tol=1e-12)
+        torch.cuda.synchronize()
+        c = _counts()
+        add('idmrg', c)
+        e_exact = tfi_exact_infinite_gs_energy(1., 1.5)
+        print(f'[infinite idmrg] TFI g=1.5, chi_max 32: e/site {e!r}, exact {e_exact!r}, '
+              f'|de| {abs(e - e_exact):.3e} after {ieng.n_steps} steps; launches '
+              f'{json.dumps(c)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+        if not (abs(e - e_exact) < 1e-9 and c['grouped_gemm'] > 0):
+            raise AssertionError('phase 17: the iDMRG TFI energy or its launches wrong')
+        lists['idmrg'] = recorded_lists(ieng.step)
+        out = {k: _hold_lists(f'infinite {k}', v) for k, v in lists.items()}
+        return {'lists': out, 'launches': launches}
+
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+
+    # (a) DMRG1S on the U(1) Heisenberg chain at L=24, chi_max=1024, from the Neel state,
+    # swept until E moves by less than 1e-10; then, from the converged state, one more
+    # one-site sweep and one two-site dynamic sweep (N_max=10, the same eps), timed
+    t_sub = time.perf_counter()
+    L, chi_max, eps = 24, 1024, 1e-14
+    alpha, alpha_decay, max_sweeps = 1e-3, 0.5, 16
+    model = HeisenbergModel(L=L, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2),
+                                       backend=model.backend)
+    eng = DMRG1SEngine(psi, model, chi_max=chi_max, eps=eps, alpha=alpha,
+                       alpha_decay=alpha_decay)
+    E, sweep_s, per_sweep, chis = None, [], [], []
+
+    def timed_sweep(engine):
+        before = grouped_matmul.launches
+        t0 = time.perf_counter()
+        E_new = engine.sweep()
+        torch.cuda.synchronize()
+        return E_new, time.perf_counter() - t0, grouped_matmul.launches - before
+
+    _counts_zero()
+    for sweep in range(max_sweeps):
+        E_new, sec, n = timed_sweep(eng)
+        sweep_s.append(sec)
+        per_sweep.append(n)
+        chis.append(psi.max_chi())
+        print(f'[infinite a] DMRG1S L={L} sweep {sweep + 1}: E = {E_new!r}, {sec:.2f} s, '
+              f'max chi {chis[-1]}, alpha {eng.alpha:.1e}, grouped-GEMM launches {n}',
+              flush=True)
+        done = E is not None and abs(E_new - E) < 1e-10
+        E = E_new
+        if done:  # the sweep that shows it is the converged one-site sweep
+            break
+    c = _counts()
+    add('dmrg1', c)
+    converged = {'one-site': (sweep_s[-1], per_sweep[-1])}
+    eng.alpha = alpha  # one centre update with the expansion on, for its lists
+    lists['dmrg1'] = _centre_update_lists(eng)
+    two = DMRGEngine(psi, model, chi_max=chi_max, eps=eps, lanczos_options={'N_max': 10})
+    E2, two_s, two_n = timed_sweep(two)
+    converged['two-site'] = (two_s, two_n)
+    print(f'[infinite a] DMRG1S Heisenberg L={L}, chi_max {chi_max}, eps {eps}, alpha '
+          f'{alpha}, alpha_decay {alpha_decay}: E = {E!r}, ref {HEIS24_E_REF!r}, |dE| '
+          f'{abs(E - HEIS24_E_REF):.3e} after {len(sweep_s)} sweeps; max chi per sweep '
+          f'{json.dumps(chis)}; s per sweep '
+          f'{json.dumps([round(x, 3) for x in sweep_s])}, grouped-GEMM launches per sweep '
+          f'{json.dumps(per_sweep)}; from the converged state, (s, launches) a sweep: '
+          f'{json.dumps(converged)} (the two-site sweep: E = {E2!r}, max chi '
+          f'{psi.max_chi()}); {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(E - HEIS24_E_REF) < 1e-8 and c['grouped_gemm'] > 0):
+        raise AssertionError('phase 17 (a): the one-site L=24 energy or its launches wrong')
+    del eng, two, psi, model
+    torch.cuda.empty_cache()
+
+    # (b) DMRG1S on the SU(2) chain at L=8, once with each mixer, against ED
+    for mixer in ('expand', 'density_matrix'):
+        t_sub = time.perf_counter()
+        L = 8
+        model = HeisenbergModel(L=L, conserve='SU(2)')
+        psi = SimpleMPS.from_singlet_pairs(model.site_leg, L, backend=model.backend)
+        eng = DMRG1SEngine(psi, model, chi_max=24, eps=1e-14, alpha=1e-2, mixer=mixer)
+        _counts_zero()
+        E = None
+        for sweep in range(12):
+            E_new = eng.sweep()
+            done = E is not None and abs(E_new - E) < 1e-12
+            E = E_new
+            if done:
+                break
+        torch.cuda.synchronize()
+        c = _counts()
+        add('dmrg1', c)
+        E_exact = heisenberg_exact_finite_gs_energy(L, 1.)
+        print(f'[infinite b] DMRG1S SU(2) L={L}, mixer {mixer}: E = {E!r}, exact '
+              f'{E_exact!r}, |dE| {abs(E - E_exact):.3e} after {sweep + 1} sweeps; '
+              f'launches {json.dumps(c)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+        if not (abs(E - E_exact) < 1e-9 and c['grouped_gemm'] > 0):
+            raise AssertionError(f'phase 17 (b): the SU(2) {mixer} energy or launches wrong')
+
+    # (c) iDMRG on the critical U(1) Heisenberg chain at chi_max=1024
+    t_sub = time.perf_counter()
+    model = HeisenbergModel(L=2, conserve='Sz', bc='infinite')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1], backend=model.backend,
+                                       bc='infinite')
+    ieng = iDMRGEngine(psi, model, chi_max=1024, eps=1e-12)
+    _counts_zero()
+    run = _idmrg_until('infinite c', ieng, 120, 1e-10)
+    c = _counts()
+    add('idmrg', c)
+    lists['idmrg'] = recorded_lists(ieng.step)
+    t0 = time.perf_counter()
+    xi = ieng.psi.correlation_length()
+    xi_s = time.perf_counter() - t0
+    e = run['e']
+    print(f'[infinite c] iDMRG Heisenberg chi_max 1024: e/site {e!r}, Bethe {bethe!r}, '
+          f'gap {e - bethe:.3e} after {run["steps"]} steps (chi {int(ieng.S.leg.dim)}); s '
+          f'per step: median {np.median(run["step_s"]):.3f}, last '
+          f'{run["step_s"][-1]:.3f}, total {sum(run["step_s"]):.1f}; launches '
+          f'{json.dumps(c)} ({c["grouped_gemm"] / run["steps"]:.0f} per step); '
+          f'correlation_length {xi!r} in {xi_s:.2f} s; {time.perf_counter() - t_sub:.1f} s',
+          flush=True)
+    if not (abs(e - bethe) < 5e-5 and c['grouped_gemm'] > 0 and xi > 0):
+        raise AssertionError('phase 17 (c): the critical iDMRG energy or launches wrong')
+    del ieng, psi, model
+    torch.cuda.empty_cache()
+
+    # (d) the spin-1 Haldane chain at chi 48, and both canonical forms of its cell
+    t_sub = time.perf_counter()
+    model = SpinChainModel(L=2, S=1.0, conserve='Sz', bc='infinite')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 2], backend=model.backend,
+                                       bc='infinite')
+    ieng = iDMRGEngine(psi, model, chi_max=48, eps=1e-12)
+    _counts_zero()
+    e = ieng.run(n_steps=400, tol=1e-12)
+    c = _counts()
+    add('idmrg', c)
+    iso = {}
+    for method in ('fixed_point', 'window'):
+        t0 = time.perf_counter()
+        cell = ieng.psi.canonicalize_infinite(method=method,
+                                              n_cells=16 if method == 'window' else None)
+        iso[method] = {'errors': canonical_errors(cell),
+                       'energy': model.energy(cell),
+                       's': time.perf_counter() - t0}
+    print(f'[infinite d] Haldane chain chi_max 48: e/site {e!r}, ref {HALDANE_E_PER_SITE!r}, '
+          f'|de| {abs(e - HALDANE_E_PER_SITE):.3e} after {ieng.n_steps} steps; launches '
+          f'{json.dumps(c)}; canonical forms (each B\'s isometry error, e/site, s) '
+          f'{json.dumps(iso)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(e - HALDANE_E_PER_SITE) < 1e-5
+            and max(max(v['errors']) for v in iso.values()) < 1e-10):
+        raise AssertionError('phase 17 (d): the Haldane energy or a canonical form wrong')
+
+    # (e) the multi-cell engine on the uniform L=4 Heisenberg cell at chi 16
+    t_sub = time.perf_counter()
+    model = HeisenbergModel(L=4, conserve='Sz', bc='infinite')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1],
+                                       backend=model.backend, bc='infinite')
+    meng = MultiCellIDMRGEngine(psi, model, chi_max=16, eps=1e-12)
+    _counts_zero()
+    e = meng.run(n_steps=20, tol=1e-9)
+    c = _counts()
+    add('idmrg', c)
+    print(f'[infinite e] multi-cell L=4 Heisenberg chi_max 16: e/site {e!r}, Bethe '
+          f'{bethe!r}, gap {e - bethe:.3e} after {meng.n_steps} steps; launches '
+          f'{json.dumps(c)}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(e - bethe) < 2e-4 and c['grouped_gemm'] > 0):
+        raise AssertionError('phase 17 (e): the multi-cell energy or launches wrong')
+
+    # (f) the multi-cell engine on the dimerized XX chain at chi 32
+    t_sub = time.perf_counter()
+    model, p, backend, e_exact = _dimerized_xx(1.0, 0.6)
+    psi = SimpleMPS.from_product_state([p, p], [0, 1], backend=backend, bc='infinite')
+    meng = MultiCellIDMRGEngine(psi, model, chi_max=32, eps=1e-12)
+    _counts_zero()
+    e = meng.run(n_steps=60, tol=1e-10)
+    c = _counts()
+    add('idmrg', c)
+    print(f'[infinite f] multi-cell dimerized XX (J1 1, J2 0.6) chi_max 32: e/site {e!r}, '
+          f'band integral {e_exact!r}, |de| {abs(e - e_exact):.3e} after {meng.n_steps} '
+          f'steps; launches {json.dumps(c)}; {time.perf_counter() - t_sub:.1f} s',
+          flush=True)
+    if not (abs(e - e_exact) < 1e-6 and c['grouped_gemm'] > 0):
+        raise AssertionError('phase 17 (f): the dimerized XX energy or launches wrong')
+    out = {k: _hold_lists(f'infinite {k}', v) for k, v in lists.items()}
+    return {'lists': out, 'launches': launches}
+
+
+def infinite_kernels(infinite: dict) -> list:
+    """The kernels-line entries of phase 17: the grouped GEMM at the largest list of a
+    one-site update and of an iDMRG step, each with the launches of its engines over
+    the phase, and its thin form at the largest thin list of either, with the thin
+    launches over the phase."""
+    keys = ('max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+    source = {'route': 'cuda', 'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+              'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151'}
+    lists, launches = infinite['lists'], infinite['launches']
+    res = [{'name': f'grouped_gemm[{kind}]', **source,
+            'launches': launches[kind].get('grouped_gemm', 0),
+            **{k: lists[kind]['largest'][k] for k in keys}} for kind in ('dmrg1', 'idmrg')]
+    thin = [lists[kind]['thin'] for kind in ('dmrg1', 'idmrg') if 'thin' in lists[kind]]
+    n_thin = sum(launches[kind].get('thin', 0) for kind in ('dmrg1', 'idmrg'))
+    if thin:
+        res.append({'name': 'grouped_gemm[thin, infinite]', **source, 'launches': n_thin,
+                    **{k: max(thin, key=lambda r: r['mbytes'])[k] for k in keys}})
+    elif n_thin:
+        raise AssertionError('phase 17: thin launches counted but no thin list recorded')
+    return res
+
+
 def steady_ab() -> None:
     """--steady-ab: the steady SVD as it is (Newton-Schulz, then the thin QR of
     tensors/steady.py::_orthonormal_columns) against the same SVD without the QR
@@ -2936,6 +3342,7 @@ def main() -> int:
     engine_only = '--engine-only' in sys.argv[1:]
     models_only = '--models-only' in sys.argv[1:]
     fermions_only = '--fermions-only' in sys.argv[1:]
+    infinite_only = '--infinite-only' in sys.argv[1:]
     steady_only = '--steady-ab' in sys.argv[1:]
     against = sys.argv[sys.argv.index('--against') + 1] if '--against' in sys.argv else None
 
@@ -3072,6 +3479,17 @@ def main() -> int:
               flush=True)
         print(f'[total] {time.perf_counter() - t_start:.1f} s (fermions only)', flush=True)
         print(json.dumps({'kernels': fermions_kernels(fermions, tridiag)}))
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
+        return 0
+    if infinite_only:
+        t_phase = time.perf_counter()
+        infinite = infinite_phase(deep=True)
+        print(f'[phases] wall seconds {{"17": {time.perf_counter() - t_phase:.1f}}}',
+              flush=True)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (infinite only)', flush=True)
+        print(json.dumps({'kernels': infinite_kernels(infinite)}))
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                                  'kind': torch.cuda.get_device_name(0),
                                                  'count': torch.cuda.device_count()}}))
@@ -3518,6 +3936,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     fermions = fermions_phase(deep=False)
     phase_s['16'] = time.perf_counter() - t_phase
+
+    # --- 17. one-site DMRG and the infinite chain ----------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    infinite = infinite_phase(deep=False)
+    phase_s['17'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -3575,7 +3999,8 @@ def main() -> int:
                 **{k: tridiag[k] for k in ('max_abs_err', 'ms', 'device_ms', 'plain_ms',
                                            'bound_ms', 'bound_by', 'library_ms')}},
                *models_kernels(models, tridiag),
-               *fermions_kernels(fermions, tridiag)]
+               *fermions_kernels(fermions, tridiag),
+               *infinite_kernels(infinite)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

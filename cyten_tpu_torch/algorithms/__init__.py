@@ -1,6 +1,7 @@
-"""Tensor-network algorithms: finite MPS, the Heisenberg, transverse-field Ising and
-spin-S chains, the Fermi-Hubbard and Kitaev chains, the Fibonacci golden chain, the
-MPO builders and two-site DMRG (host-driven or static).
+"""Tensor-network algorithms: finite and infinite MPS, the Heisenberg, transverse-field
+Ising and spin-S chains, the Fermi-Hubbard and Kitaev chains, the Fibonacci golden chain,
+the MPO builders, two-site DMRG (host-driven or static), one-site DMRG with subspace
+expansion and infinite DMRG (two-site and multi-site unit cells).
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
 ``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` (with excited states, checkpoints,
@@ -19,6 +20,8 @@ from .models import (
 from .dmrg import (
     DMRGEngine, FaultError, HEffective, PlanarDMRGEngine, PlanarHEffective,
 )
+from .dmrg1 import DMRG1SEngine, HEffective1
+from .idmrg import MultiCellIDMRGEngine, iDMRGEngine
 
 __all__ = ['SimpleMPS', 'split_truncate_theta', 'FermiHubbardModel', 'GoldenChainModel',
            'HeisenbergModel', 'KitaevChainModel', 'MpoTensors', 'SpinChainModel', 'TFIModel',
@@ -26,4 +29,5 @@ __all__ = ['SimpleMPS', 'split_truncate_theta', 'FermiHubbardModel', 'GoldenChai
            'heisenberg_exact_finite_gs_energy', 'tfi_exact_finite_gs_energy',
            'tfi_exact_infinite_gs_energy',
            'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective',
-           'PlanarDMRGEngine', 'PlanarHEffective']
+           'PlanarDMRGEngine', 'PlanarHEffective', 'DMRG1SEngine', 'HEffective1',
+           'iDMRGEngine', 'MultiCellIDMRGEngine']

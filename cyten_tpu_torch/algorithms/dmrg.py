@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import gc
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -486,9 +487,10 @@ class DMRGEngine:
 
     ``mesh`` (and with it ``shard_axis_name``) is not ported yet and raises
     ``NotImplementedError``; so does a model or MPS with ``bc='infinite'``, which
-    needs the infinite MPS and iDMRG (``cyten_tpu``'s finite engine runs such a
-    model from the boundary environments of its bulk tensors and returns an energy
-    of no meaning).
+    :class:`~cyten_tpu_torch.algorithms.idmrg.iDMRGEngine` takes (``cyten_tpu``'s
+    finite engine runs such a model from the boundary environments of its bulk
+    tensors and returns an energy of no meaning). A window of an infinite chain
+    between given environments is made by :meth:`_window` alone.
     """
 
     _sweeps_done = 0  # completed sweeps across run() calls (the checkpoint steps)
@@ -504,8 +506,40 @@ class DMRGEngine:
         if dynamic_svd not in ('exact', 'adaptive', 'randomized'):
             raise ValueError(f'unknown dynamic_svd {dynamic_svd!r}')
         if 'infinite' in (getattr(model, 'bc', 'finite'), psi.bc):
-            raise NotImplementedError('DMRGEngine of an infinite chain (bc="infinite") '
-                                      'is not ported yet')
+            raise NotImplementedError('DMRGEngine of an infinite chain (bc="infinite"): '
+                                      'use iDMRGEngine or MultiCellIDMRGEngine')
+        self._set_options(psi, model, chi_max, eps, lanczos_options, pad_chi_multiple,
+                          jit_env_updates, shard_axis_name, matmul_precision,
+                          orthogonal_to, auto_static, env_dtype, dynamic_svd)
+        self._init_environments()
+        self._init_overlap_environments()
+
+    @classmethod
+    def _window(cls, psi: SimpleMPS, H_mpo, LP, RP, chi_max: int, eps: float,
+                lanczos_options: dict, pad_chi_multiple: int = None,
+                matmul_precision: str = None):
+        """An engine on the finite window ``psi`` between the boundary environments
+        ``LP`` (left of site 0) and ``RP`` (right of site L-1), with the MPO tensors
+        ``H_mpo``: the inner engine of
+        :class:`~cyten_tpu_torch.algorithms.idmrg.MultiCellIDMRGEngine`, whose window
+        is a piece of an infinite chain. It has every option of a new engine at its
+        default (no static mode, no excited states) and is the only engine whose
+        tensors may come from an infinite chain."""
+        eng = cls.__new__(cls)
+        eng._set_options(psi, SimpleNamespace(H_mpo=list(H_mpo)), chi_max, eps,
+                         lanczos_options, pad_chi_multiple, None, 'mult', matmul_precision,
+                         None, False, None, 'exact')
+        L = psi.L
+        eng.LPs[0] = LP
+        eng.RPs[L - 1] = RP
+        for i in range(L - 1, 0, -1):
+            eng.update_RP(i)
+        return eng
+
+    def _set_options(self, psi, model, chi_max, eps, lanczos_options, pad_chi_multiple,
+                     jit_env_updates, shard_axis_name, matmul_precision, orthogonal_to,
+                     auto_static, env_dtype, dynamic_svd):
+        """Every attribute of a new engine but its environments, which are empty."""
         self.psi = psi
         self.model = model
         self.chi_max = chi_max
@@ -525,10 +559,8 @@ class DMRGEngine:
         L = psi.L
         self.LPs = [None] * L
         self.RPs = [None] * L
-        self._init_environments()
         self.OLs = [[None] * L for _ in self.orthogonal_to]
         self.ORs = [[None] * L for _ in self.orthogonal_to]
-        self._init_overlap_environments()
         self.E = None
         self.trunc_err = 0.
 

@@ -24,8 +24,10 @@ from ..dtypes import Dtype
 from ..backends import get_backend
 from ..symmetries import ElementarySpace
 from ..tensors import (
-    ChargedTensor, DiagonalTensor, SymmetricTensor, Tensor, compose, dagger, entropy,
-    inner, item, norm, permute_legs, pinv, qr, scale_axis, svd, tdot, trace,
+    ChargedTensor, DiagonalTensor, SymmetricTensor, Tensor, complex_conj, compose,
+    dagger, eigh, entropy, eye, inner, item, linear_combination, lq, norm, permute_legs,
+    pinv, qr, scale_axis, sqrt, svd, svd_apply_mask, tdot, trace,
+    truncate_singular_values,
 )
 from ..tensors.adaptive import adaptive_truncated_svd, fused_truncated_svd
 from ..tensors.randomized import randomized_truncated_svd
@@ -47,6 +49,17 @@ class SimpleMPS:
     def copy(self):
         return SimpleMPS([B.copy(deep=False) for B in self.Bs],
                          [S.copy(deep=False) for S in self.Ss], self.bc)
+
+    def enlarge_unit_cell(self, factor: int) -> SimpleMPS:
+        """The same infinite state on a ``factor * L``-site unit cell.
+
+        Useful to bring cross-cell sites into indexable range (e.g. for
+        ``correlation_function`` between sites of different cells)."""
+        assert self.bc == 'infinite', 'only meaningful for infinite MPS'
+        assert factor >= 1
+        return SimpleMPS([B.copy(deep=False) for B in self.Bs * factor],
+                         [S.copy(deep=False) for S in self.Ss * factor],
+                         bc='infinite')
 
     @classmethod
     def from_product_state(cls, site_legs, basis_states, backend=None,
@@ -379,6 +392,240 @@ class SimpleMPS:
         self.Bs[0] = scale_axis(T, pinv(self.Ss[0], cutoff=1e-14), 'vL')
         return self
 
+    # --- infinite chains ----------------------------------------------------------------
+
+    def canonicalize_infinite(self, n_cells: int = None, method: str = None,
+                              tol: float = 0.0):
+        """Restore canonical B form of an infinite MPS (in place).
+
+        Two methods:
+
+        ``'fixed_point'`` (default): the transfer-matrix gauge fix (Orus & Vidal, PRB
+        78, 155117 (2008)). Arnoldi (scipy's ARPACK on the host, each matvec's
+        contractions on the tensors' device) finds the dominant left/right fixed points
+        of the unit-cell transfer operator; their Hermitian square roots
+        ``sigma_L = Y^dag Y``, ``rho_R = X X^dag`` and the SVD ``Y X = U S V^dag`` fix
+        the boundary gauge (``S`` = the boundary Schmidt values); one QR and one SVD
+        pass through the cell then canonicalize the interior.
+
+        ``'window'`` (used when ``n_cells`` is given): unroll ``n_cells`` copies of the
+        cell into a finite MPS, run the finite canonicalization, read the central cell
+        back. Boundary effects decay like ``lambda_2^(n_cells/2)``; the fallback for
+        non-injective states (degenerate transfer spectrum).
+        """
+        assert self.bc == 'infinite'
+        if method is None:
+            method = 'window' if n_cells is not None else 'fixed_point'
+        if method == 'fixed_point':
+            return self._canonicalize_fixed_point(tol)
+        if method != 'window':
+            raise ValueError(f'unknown method {method!r}')
+        return self._canonicalize_window(16 if n_cells is None else n_cells)
+
+    def _canonicalize_window(self, n_cells: int = 16):
+        L = self.L
+        fin = SimpleMPS([self.Bs[i % L] for i in range(n_cells * L)],
+                        [self.Ss[i % L] for i in range(n_cells * L)], bc='finite')
+        fin.canonicalize()
+        mid = (n_cells // 2) * L
+        # the cell must wrap: bond mid and bond mid+L need identical leg spaces
+        if not fin.Bs[mid].get_leg_co_domain('vL') == \
+                fin.Bs[mid + L].get_leg_co_domain('vL'):
+            raise ValueError('canonicalize_infinite: cell bonds did not converge to '
+                             'equal spaces; increase n_cells')
+        self.Bs = [fin.Bs[mid + i] for i in range(L)]
+        self.Ss = [fin.Ss[mid + i] for i in range(L)]
+        return self
+
+    def _transfer_fixed_points(self, tol: float):
+        """Dominant (eta, rho_R, sigma_L) of the unit-cell transfer operator.
+
+        Both fixed points are returned Hermitian, PSD-projected and with unit trace, as
+        square tensors ``[v; v*]`` on the cell-boundary bond. ARPACK runs on the host;
+        each matvec carries one flat vector to the device and back.
+        """
+        import scipy.sparse.linalg as spla
+
+        L, Bs = self.L, self.Bs
+        bond = Bs[0].get_leg_co_domain('vL')
+        backend = self.backend
+        is_real = not Bs[0].dtype.is_complex
+
+        def apply_right(rho):
+            # rho: codomain [bond] 'vL', domain [bond] 'vL*' (right-env layout)
+            t = rho
+            for i in range(L - 1, -1, -1):
+                x = tdot(Bs[i], t, 'vR', 'vL')             # [vL, p, vL*]
+                t = tdot(x, dagger(Bs[i]), ['p', 'vL*'], ['p*', 'vR*'])
+                t = permute_legs(t, codomain=['vL'], domain=['vL*'])
+            return t
+
+        def apply_left(sig):
+            # sig: codomain [bond] 'vR*', domain [bond] 'vR' (left-env layout)
+            t = sig
+            for i in range(L):
+                x = tdot(t, Bs[i], 'vR', 'vL')             # [vR*, p, vR]
+                t = tdot(dagger(Bs[i]), x, ['vL*', 'p*'], ['vR*', 'p'])
+                t = permute_legs(t, codomain=['vR*'], domain=['vR'])
+            return t
+
+        rho0 = eye([bond], backend=backend, labels=['vL', 'vL*'],
+                   dtype=Bs[0].dtype).as_SymmetricTensor()
+        sig0 = eye([bond], backend=backend, labels=['vR*', 'vR'],
+                   dtype=Bs[0].dtype).as_SymmetricTensor()
+        shape = rho0.shape
+        dim = int(np.prod(shape))
+
+        def solve(apply_fn, t0):
+            if dim < 3:  # chi = 1: any vector spans the space
+                t = t0
+                for _ in range(3):
+                    t2 = apply_fn(t)
+                    eta = complex(inner(t, t2, do_dagger=True)) \
+                        / complex(inner(t, t, do_dagger=True))
+                    t = (1. / float(norm(t2))) * t2
+                return eta, t
+
+            def mv(flat):
+                blk = np.ascontiguousarray(flat.reshape(shape))
+                t = SymmetricTensor.from_dense_block(
+                    blk, t0.codomain, t0.domain, backend, t0.labels, tol=None)
+                return np.asarray(apply_fn(t).to_numpy(),
+                                  dtype=np.complex128).reshape(-1)
+
+            op = spla.LinearOperator((dim, dim), matvec=mv, dtype=np.complex128)
+            v0 = np.asarray(t0.to_numpy(), dtype=np.complex128).reshape(-1)
+            vals, vecs = spla.eigs(op, k=1, which='LM', v0=v0, tol=tol)
+            t = SymmetricTensor.from_dense_block(
+                np.ascontiguousarray(vecs[:, 0].reshape(shape)), t0.codomain,
+                t0.domain, backend, t0.labels, tol=None)
+            return complex(vals[0]), t
+
+        def hermitize(t):
+            tr = complex(trace(t))
+            if abs(tr) > 1e-300:     # fix the Arnoldi phase: positive trace
+                t = (abs(tr) / tr) * t
+            dg = dagger(t).set_labels(t.labels)
+            t = linear_combination(0.5, t, 0.5, dg)
+            if is_real and t.dtype.is_complex:
+                t = SymmetricTensor.from_dense_block(
+                    np.ascontiguousarray(np.real(t.to_numpy())),
+                    t.codomain, t.domain, backend, t.labels, tol=None)
+            return (1. / float(np.real(complex(trace(t))))) * t
+
+        eta_r, rho_R = solve(apply_right, rho0)
+        eta_l, sig_L = solve(apply_left, sig0)
+        eta = 0.5 * (abs(eta_r) + abs(eta_l))
+        return eta, hermitize(rho_R), hermitize(sig_L)
+
+    def _canonicalize_fixed_point(self, tol: float = 0.0, dead_cutoff: float = 1e-12):
+        L, Bs = self.L, self.Bs
+        eta, rho_R, sig_L = self._transfer_fixed_points(tol)
+
+        def drop_dead(U, S, Vh):
+            """Truncate numerically dead directions (relative ``dead_cutoff``): they
+            carry no state weight, but their pseudo-inverted 1/S rows would leave
+            non-isometric tensors behind."""
+            if float(S.min()) >= dead_cutoff * float(S.max()):
+                return U, S, Vh
+            mask, _, _ = truncate_singular_values(S, svd_min=dead_cutoff * float(S.max()))
+            return svd_apply_mask(U, S, Vh, mask)
+
+        def sqrt_factors(rho):
+            """rho = F F^dag with F = V sqrt(w); also pinv(F) = pinv(sqrt(w)) V^dag."""
+            W, V = eigh(rho, new_labels=['e', 'e*'])
+            sq = sqrt(abs(W))        # PSD projection: |w| differs only at noise level
+            cut = float(sq.max()) * 1e-7   # sqrt of the eigenvalue noise floor
+            F = scale_axis(V, sq, -1)
+            Finv = scale_axis(dagger(V), pinv(sq, cutoff=cut), 0)
+            return F, Finv
+
+        X, Xinv = sqrt_factors(rho_R)       # rho_R = X X^dag
+        Yd, Ydinv = sqrt_factors(sig_L)     # sig_L = Y^dag Y, Yd = Y^dag
+        Y = dagger(Yd)
+        Yinv = dagger(Ydinv)
+        U, S, Vh = svd(compose(Y, X), new_labels=['vR', 'vL'])
+        U, S, Vh = drop_dead(U, S, Vh)
+        S = (1. / float(norm(S))) * S
+        g_left = compose(Vh, Xinv).relabelled(['vL', 'vR'])
+        g_right = scale_axis(compose(Yinv, U), S, -1)
+        g_right = (1. / np.sqrt(eta)) * g_right.relabelled(['vL', 'vR'])
+
+        Bt = list(Bs)
+        B0 = tdot(g_left, Bt[0], 'vR', 'vL')
+        Bt[0] = permute_legs(B0, codomain=['vL', 'p'], domain=['vR'])
+        Bl = tdot(Bt[L - 1], g_right, 'vR', 'vL')
+        Bt[L - 1] = permute_legs(Bl, codomain=['vL', 'p'], domain=['vR'])
+        S_bound = S.relabelled(['vL', 'vL*'])
+
+        # interior: one QR pass (left-isometric As) + one SVD pass, seeded by the now
+        # exact boundary gauge on both ends (cf. the finite canonicalize)
+        As = []
+        T = scale_axis(Bt[0], S_bound, 'vL')
+        for i in range(L - 1):
+            Q, R = qr(T, new_labels=['vR', 'vL'])
+            As.append(Q)
+            T = tdot(R, Bt[i + 1], 'vR', 'vL')
+            T = permute_legs(T, codomain=['vL', 'p'], domain=['vR'])
+        new_Bs = [None] * L
+        new_Ss = [None] * L
+        new_Ss[0] = S_bound
+        for i in range(L - 1, 0, -1):
+            Tp = permute_legs(T, codomain=['vL'], domain=['vR', 'p'])
+            Ui, Si, Vhi = svd(Tp, new_labels=['vR', 'vL'])
+            Ui, Si, Vhi = drop_dead(Ui, Si, Vhi)
+            Si = (1. / float(norm(Si))) * Si
+            new_Bs[i] = permute_legs(Vhi, codomain=['vL', 'p'], domain=['vR'])
+            new_Ss[i] = Si.relabelled(['vL', 'vL*'])
+            T = tdot(As[i - 1], scale_axis(Ui, Si, 'vR'), 'vR', 'vL')
+            T = permute_legs(T, codomain=['vL', 'p'], domain=['vR'])
+        T = (1. / float(norm(T))) * T
+        # T == S_bound @ B_0 up to fixed-point noise. Factor by (phase-fixed) LQ rather
+        # than pinv(S): the L factor reabsorbs the noise instead of amplifying it by 1/S
+        # in near-dead directions, so B_0 is exactly row-isometric.
+        Tp = permute_legs(T, codomain=['vL'], domain=['vR', 'p'])
+        Lf, Q = lq(Tp, new_labels=['vR', 'vL'])
+        Lf, Q = _fix_lq_phases(Lf, Q)
+        new_Bs[0] = permute_legs(Q, codomain=['vL', 'p'], domain=['vR'])
+        self.Bs = new_Bs
+        self.Ss = new_Ss
+        return self
+
+    def correlation_length(self, n_ev: int = 6) -> float:
+        """Correlation length of an infinite MPS, in units of sites.
+
+        ``xi = -L_cell / ln |lambda_2 / lambda_1|`` from the two dominant
+        transfer-matrix eigenvalues (all charge sectors: the map acts on the dense
+        blocks, on their device, and ARPACK on the host sees one flat vector a matvec).
+        Requires ``bc='infinite'`` and a droppable symmetry.
+        """
+        assert self.bc == 'infinite'
+        import scipy.sparse.linalg as spla
+        import torch
+
+        Bs = [B.to_dense_block().to(torch.complex128) for B in self.Bs]  # [vL, p, vR]
+        chi = int(Bs[0].shape[0])
+
+        def tmap(flat):
+            E = torch.from_numpy(np.ascontiguousarray(flat, dtype=np.complex128))
+            E = E.to(Bs[0].device).reshape(chi, chi)
+            for B in Bs:
+                t = torch.tensordot(E, B, dims=([1], [0]))                  # [a, p, y]
+                E = torch.tensordot(B.conj(), t, dims=([0, 1], [0, 1]))     # [x, y]
+            return E.reshape(-1).cpu().numpy()
+
+        if chi * chi <= 16:  # dense fallback for tiny bonds
+            M = np.column_stack([tmap(e) for e in np.eye(chi * chi)])
+            lam = np.linalg.eigvals(M)
+        else:
+            op = spla.LinearOperator((chi * chi, chi * chi), matvec=tmap, dtype=complex)
+            lam = spla.eigs(op, k=min(n_ev, chi * chi - 2), which='LM',
+                            return_eigenvectors=False)
+        lam = np.sort(np.abs(lam))[::-1]
+        if len(lam) < 2 or lam[1] < 1e-14:
+            return 0.0
+        return float(-self.L / np.log(lam[1] / lam[0]))
+
     # --- measurements -----------------------------------------------------------------
 
     def site_expectation_value(self, op, i: int):
@@ -408,6 +655,21 @@ class SimpleMPS:
         if canonicalize and self.bc == 'finite':
             res.canonicalize(normalize=False)
         return res
+
+
+def _fix_lq_phases(Lf, Q):
+    """Make L's diagonal real-positive (absorbing phases into Q).
+
+    ``A = L Q`` with ``Lf`` [rows; new] and ``Q`` [new; cols]: rescale ``L <- L D^dagger``
+    (columns) and ``Q <- D Q`` (rows), where ``D`` holds the phases of ``diag(L)``: the
+    LQ mirror of :func:`~cyten_tpu_torch.algorithms.idmrg._fix_qr_phases`.
+    """
+    from .idmrg import _diag_phases
+
+    lbl = Lf.labels[-1]
+    D = _diag_phases(Lf, [lbl, f'{lbl}*'])
+    Dc = complex_conj(D) if Lf.dtype.is_complex else D
+    return scale_axis(Lf, Dc, -1), scale_axis(Q, D, 0)
 
 
 def _as_scalar(res):

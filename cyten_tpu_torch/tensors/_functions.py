@@ -1148,6 +1148,44 @@ def tensor_from_grid(grid, labels=None, row_leg=0, col_leg=None) -> SymmetricTen
         t = next((grid[i][j] for i in range(rows) if grid[i][j] is not None), None)
         assert t is not None, f'empty grid column {j}'
         col_spaces.append(t.domain.factors[col_factor_idx])
+    from ..backends.fusion_tree import FusionTreeBackend
+
+    if isinstance(backend, FusionTreeBackend) and any(
+            isinstance(sp, LegPipe) for sp in (*row_spaces, *col_spaces)):
+        # The fused basis of a fusion-tree pipe is a Clebsch-Gordan transform, not a
+        # permutation, so pipes can not be direct-summed as metadata. Each entry's pipe
+        # leg is flattened to the flat fused ElementarySpace by the unitary fuser
+        # (split_legs is a data no-op on fusion-tree storage; partial_compose routes
+        # planarly, so no braid levels are needed), then the flat legs are summed. The
+        # summed legs of the result are plain ElementarySpaces, as on the abelian
+        # backend, which sums pipe.as_ElementarySpace.
+        def _flatten(t):
+            if isinstance(t.codomain.factors[row_pos], LegPipe):
+                pipe = t.codomain.factors[row_pos]
+                label = t.labels[row_pos]
+                ts = split_legs(t, row_pos)
+                S = fuser_tensor(pipe.legs, backend=t.backend, dtype=t.dtype)
+                t = partial_compose(ts, dagger(S), row_pos)
+                t = t.relabelled([label if i == row_pos else l
+                                  for i, l in enumerate(t.labels)])
+            if isinstance(t.domain.factors[col_factor_idx], LegPipe):
+                pipe = t.domain.factors[col_factor_idx]
+                label = t.labels[col_pos]
+                ts = split_legs(t, col_pos)
+                # the split factors occupy legs col_pos..col_pos+m-1; the fuser goes
+                # below them (its codomain the factors in domain-factor order)
+                m = pipe.num_legs
+                df = ts.num_legs - 1 - (col_pos + m - 1)
+                S = fuser_tensor(list(ts.domain.factors[df:df + m]), backend=t.backend,
+                                 dtype=t.dtype)
+                t = partial_compose(ts, S, col_pos)
+                t = t.relabelled([label if i == col_pos else l
+                                  for i, l in enumerate(t.labels)])
+            return t
+
+        flat_grid = [[None if t is None else _flatten(t) for t in row] for row in grid]
+        return tensor_from_grid(flat_grid, labels=labels, row_leg=row_pos,
+                                col_leg=col_pos)
     # harmonize dualities (trivial legs may come with either flag)
     row_dual = next((sp.is_dual for sp in row_spaces if not sp.is_trivial),
                     row_spaces[0].is_dual)

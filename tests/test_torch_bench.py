@@ -202,7 +202,7 @@ def test_infinite_tfi_matches_cyten_tpu(L, conserve, g):
         np.testing.assert_allclose(got.to_numpy(), np.asarray(want.to_numpy()), rtol=0,
                                    atol=TOL)
     assert model.exact_infinite_gs_energy() == ref.exact_infinite_gs_energy()
-    # no finite engine on an infinite chain (the infinite MPS is not ported)
+    # no public finite engine on an infinite chain (iDMRGEngine takes it)
     psi = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
     with pytest.raises(NotImplementedError):
         DMRGEngine(psi, model)

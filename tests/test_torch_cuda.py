@@ -1476,3 +1476,37 @@ def test_hubbard_dmrg_card_matches_cpu(card):
     """The same Hubbard sweep on the card and on the CPU (1e-10)."""
     E = {device: _hubbard_on(device)[2].E for device in ('cuda', 'cpu')}
     assert abs(E['cuda'] - E['cpu']) < 1e-10
+
+
+@pytest.mark.cuda
+def test_dmrg1_update_and_idmrg_step_card_matches_cpu(card):
+    """One-site DMRG (one sweep of update_site, expand mixer) and three iDMRG steps on
+    the card against the CPU, by the quantities the SVD gauge leaves alone: E and the
+    Schmidt values, to 1e-10; both through the grouped-GEMM kernel on the card."""
+    from cyten_tpu_torch.algorithms import DMRG1SEngine, HeisenbergModel, iDMRGEngine
+
+    def values(S):
+        return np.sort(np.abs(np.diag(S.to_numpy())))[::-1]
+
+    res = {}
+    for device in ('cuda', 'cpu'):
+        before = grouped_matmul.launches
+        model = HeisenbergModel(L=8, conserve='Sz', device=device)
+        psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * 4,
+                                           backend=model.backend)
+        eng = DMRG1SEngine(psi, model, chi_max=16, eps=1e-14, alpha=1e-2)
+        E1 = eng.sweep()
+        tfi = TFIModel(L=2, g=1.5, conserve='parity', bc='infinite', device=device)
+        ipsi = SimpleMPS.from_product_state(tfi.site_legs, [0, 0], backend=tfi.backend,
+                                            bc='infinite')
+        ieng = iDMRGEngine(ipsi, tfi, chi_max=16)
+        es = [ieng.step() for _ in range(3)]
+        res[device] = (E1, [values(S) for S in psi.Ss[1:]], es[1:], values(ieng.S),
+                       grouped_matmul.launches - before)
+    card_res, cpu_res = res['cuda'], res['cpu']
+    assert card_res[4] > 0
+    assert abs(card_res[0] - cpu_res[0]) < 1e-10
+    for a, b in zip(card_res[1], cpu_res[1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(card_res[2], cpu_res[2], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(card_res[3], cpu_res[3], rtol=0, atol=1e-10)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor cyten_tpu (every module,
-the bench, static mode, checkpoints, excited states and the models layer included), nor
+the bench, static mode, checkpoints, excited states, the models layer, one-site DMRG
+and the infinite chain included), nor
 h5py or orbax for its checkpoints, and without CUDA its default device raises instead of
 running on the CPU."""
 
@@ -73,6 +74,24 @@ assert len(SpinChainModel(L=4, S=1., device='cpu').H_mpo) == 4
 h = cm.bond_terms[0][1].to_tensor()
 assert mpo_from_terms([s.leg for s in sites], couplings=[(0, 2, h)]).max_range == 2
 assert mpo_from_arrays and coupling_from_arrays
+# one-site DMRG, and the infinite chain: iDMRG, the multi-cell engine, the canonical
+# forms and the correlation length (scipy's ARPACK, no JAX)
+import cyten_tpu_torch.algorithms.dmrg1
+import cyten_tpu_torch.algorithms.idmrg
+from cyten_tpu_torch.algorithms import DMRG1SEngine, MultiCellIDMRGEngine, iDMRGEngine
+psi = SimpleMPS.from_product_state(model.site_legs, [0, 1, 0, 1], backend=model.backend)
+E = DMRG1SEngine(psi, model, chi_max=8, alpha=1e-2, mixer='density_matrix').run(n_sweeps=3)
+assert abs(E - (-1.6160254037844384)) < 1e-9, E
+tfi = TFIModel(L=2, g=1.5, conserve='parity', bc='infinite', device='cpu')
+psi = SimpleMPS.from_product_state(tfi.site_legs, [0, 0], backend=tfi.backend, bc='infinite')
+eng = iDMRGEngine(psi, tfi, chi_max=8)
+eng.run(n_steps=20)
+psi = eng.psi.canonicalize_infinite()
+assert psi.correlation_length() > 1. and psi.enlarge_unit_cell(2).L == 4
+heis = HeisenbergModel(L=2, conserve='Sz', bc='infinite', device='cpu')
+psi = SimpleMPS.from_product_state(heis.site_legs, [0, 1], backend=heis.backend,
+                                   bc='infinite')
+assert MultiCellIDMRGEngine(psi, heis, chi_max=4).run(n_steps=2) < 0
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu', 'h5py', 'orbax'))
 print('LEAKED', leaked)
