@@ -13,7 +13,9 @@ the fusion-tree backend, the models layer (sites, couplings, CouplingModel,
 SpinChainModel, mpo_from_terms) on spin-1/2, spin-1 and J1-J2 chains, and fermions
 (FermiHubbardModel, KitaevChainModel, hopping with a next-nearest term) with the
 Ising-anyon chain, one-site DMRG (DMRG1SEngine) and the infinite chain (iDMRGEngine,
-MultiCellIDMRGEngine, the infinite MPS's canonical forms and correlation length),
+MultiCellIDMRGEngine, the infinite MPS's canonical forms and correlation length), and
+time evolution (TEBDEngine, TDVPEngine, TDVP2Engine, TDVPQREngine with its fused site
+steps replayed as CUDA graphs, iTDVPEngine, VUMPSEngine),
 checks the energies, and ends with one JSON line
 naming the device. Exits non-zero, with no result, when CUDA is absent or any phase
 fails. Imports nothing of JAX or cyten_tpu.
@@ -21,7 +23,8 @@ fails. Imports nothing of JAX or cyten_tpu.
     python3 chip_smoke.py --kernels-only   # phases 1, 2, 2b and 6, then stop
     python3 chip_smoke.py --su2-only       # phases 1, 2, 2b and 11, then stop
     python3 chip_smoke.py --golden-only    # phases 1, 2, 2b and 12, then stop
-    python3 chip_smoke.py --bench-only     # phases 1, 2, 2b, 10 and 13, then stop
+    python3 chip_smoke.py --bench-only     # phases 1 to 7b (7b with its plain-list
+                                           # re-sweeps), 10 and 13, then stop
     python3 chip_smoke.py --engine-only    # phases 1, 2, 2b, 4 and 14, then stop
     python3 chip_smoke.py --models-only    # phases 1, 2, 2b and 15, then the kernels
                                            # line of phase 15 and the device line
@@ -30,6 +33,9 @@ fails. Imports nothing of JAX or cyten_tpu.
                                            # device line
     python3 chip_smoke.py --infinite-only  # phases 1, 2, 2b and 17 at full width, then
                                            # the kernels line of phase 17 and the
+                                           # device line
+    python3 chip_smoke.py --evolution-only # phases 1, 2, 2b and 18 at full width, then
+                                           # the kernels line of phase 18 and the
                                            # device line
     python3 chip_smoke.py --steady-ab      # phase 1, then steady_ab, then stop
     python3 chip_smoke.py --against OLD.cu # the grouped GEMM against another build
@@ -47,12 +53,15 @@ The thin form's crossover (phase 2c) runs with --kernels-only alone. Phase 15 ta
 the spin-1 chain at L=10 alone, swept until converged (--models-only adds (a), the
 CouplingModel Heisenberg chain at L=24, and the spin-1 chain at L=32 at chi 1024,
 dynamic and static) and the J1-J2 chain at L=32, chi_max=16 (--models-only: L=64,
-chi_max 64); phase 14 leaves out the child process's resume and the excited
-state (--engine-only keeps both). Phase 16 takes the Hubbard chain at L=8 and the
+chi_max 64); phase 14 leaves out the child process's resume, the precision
+escalation on an f32 copy and the excited state (--engine-only keeps them); phase 7b
+leaves out its eager re-sweeps with the mixed kind's lists and with every list on
+their plain versions (--bench-only keeps them). Phase 16 takes the Hubbard chain at L=8 and the
 Kitaev chain at L=32 (--fermions-only: L=32 at chi_max=1024 with a profile of its
 replayed sweep, and L=64). Phase 17 takes one-site DMRG on the TFI chain at L=8 and
 iDMRG on the infinite TFI chain at chi 32 (--infinite-only: (a) to (f) at full width in
-their place).
+their place). Phase 18 takes the TFI chain at L=8 and the infinite TFI chain at chi 16
+(--evolution-only: (a) to (e) at full width in their place).
 
 Phases:
   1. card name and power limit; kernel build time and each kernel's -Xptxas -v
@@ -107,7 +116,13 @@ Phases:
      theta) list made complex128; the form or tile of each list; library_ms a per-pair
      complex128 torch.matmul loop; bound at 8 real operations a complex multiply-add
      on the f64 tensor cores (67 TFLOP/s)
-  2b. the tridiagonal kernel (csrc/tridiag.cu) against its plain version on the
+  2b. (and tridiag_evolve_phase: tridiagonal_evolve, csrc/tridiag.cu's second kernel,
+     against its plain version on the same families, closed Krylov spaces among them,
+     from f64 and f32 buffers at a real, an imaginary and a complex delta, to 1e-12 of
+     the largest coefficient, NaN giving NaN; at N=30 its times, graph_ms, the plain
+     version's, torch.linalg.matrix_exp's (library_ms) and torch.linalg.eigh's, the
+     bound, and the host syncs of eigh and matrix_exp on the card)
+     the tridiagonal kernel (csrc/tridiag.cu) against its plain version on the
      Lanczos families of tests/test_torch_tridiag.py (N=1; closing at every k;
      graded like a converged state's; a near-degenerate lowest pair; random N=10,
      20, 37 and 64), from f64 and f32 buffers: E to 1e-12 relative, the
@@ -141,8 +156,8 @@ Phases:
      with f32 environments (|dE| < 0.02 relative with bf16 environments, 1e-3 with
      f32 ones; each bf16 setting's |dE| beside the parent kernel's, PARENT_7B_DE);
      then the first 'default' sweep again from the state it started from, eager, on
-     the kernel, with the mixed kind's lists on their plain version, and with every
-     list on its plain version (lists_on_plain)
+     the kernel, and (--bench-only) with the mixed kind's lists on their plain
+     version, and with every list on its plain version (lists_on_plain)
   8. the bench step (cyten_tpu_torch.bench.step_run) at chi=4096: steady in f32 and
      f64, eager and as a CUDA graph (CUDA-event times), exact in f32; one chi=1024
      f64 static step, card against CPU (E 1e-9 relative, S 1e-8); then
@@ -203,7 +218,8 @@ Phases:
      HEIS24_E_REF; (c) static mode with graphs, a NaN B, run(n_sweeps=3,
      checkpoint=...): the rollback, the old graphs released and new ones captured by
      two batched sweeps (1e-8, B right-isometric, reserved memory after empty_cache
-     within 1.25x), then on an f32 copy with env_dtype=bfloat16 the rollback that
+     within 1.25x), then (--engine-only) on an f32 copy with env_dtype=bfloat16 the
+     rollback that
      drops env_dtype (every LP/RP f32 after it, E to 1e-3 relative) and FaultError
      with no checkpoint; (d) the first excited state of Sz=0 (orthogonal_to=[phase 4's
      state]) against the Sz=1 ground state, both at chi_max=1024, eps=0, N_max=10, to
@@ -281,6 +297,39 @@ Phases:
      Then every f64 list of one one-site update (its expansion on) and one iDMRG step
      on the kernel against its plain version, held elementwise by check_f64, and the
      largest of each (and the largest thin list) timed as in phase 2
+  18. time evolution (evolution_phase), the launches of the grouped GEMM and of
+     tridiagonal_evolve counted over the phase (and the real operands of complex lists
+     copied to complex, 'converted'): the full run holds, on the parity TFI chain at L=8
+     (g=1.5) from a DMRG state at g=1, one real-time TDVPEngine step (dt 0.05) against
+     exact evolution (overlap 1e-8, energy and norm 1e-10), one TDVP2Engine step from
+     the all-up state (dt 0.1) likewise, six TEBD steps (dt 0.05) by the central <sz>
+     (5e-4), and three fused TDVPQREngine steps (eager, capturing, replayed; N_max 12)
+     against three eager ones (|a - b| / |a| of the state vectors, 1e-10), from the DMRG
+     state made complex128; on the
+     infinite chain at chi 16, two imaginary-time iTDVP steps and VUMPSEngine from the
+     same cell, to tfi_exact_infinite_gs_energy (1e-12).
+     --evolution-only runs in their place: (a) the L=24 U(1) Heisenberg ground state at
+     chi_max=1024 (phase 4's sweeps) with Sz applied at site 12, made complex128, then
+     EVOLUTION_STEPS real-time steps (dt 0.05) of TDVPEngine, TDVPQREngine and
+     TDVPQREngine(fused=True; its first step eager, its second capturing) from it:
+     energy and norm to 1e-8, the QR engine to the SVD engine by overlap (1e-8), the
+     fused one to the eager QR one by overlap (1e-10) and by |a - b| / |a| from the three
+     overlaps (1e-7: the overlaps' rounding sets a floor under it, printed beside it as
+     the same measure between the eager QR state and itself regauged); seconds and
+     launches a step, graphs and capture seconds, the host syncs of a replayed sweep
+     (at most 1), a replayed sweep under torch.profiler, peak reserved memory; (b)
+     TDVP2Engine from the Neel state at L=16, chi_max 256, dt 0.1 to t=2 against sparse
+     exact evolution of the Sz=0 sector (12870 states; overlap and norm 1e-8); (c) TEBD from the all-up TFI chain at g=1:
+     L=12 to t=1 by the central <sz> against exact evolution (5e-4), L=64 at chi_max
+     512, dt 0.05, 40 steps (energy per site within 1e-3, truncation error, chi,
+     seconds a step); (d) iTDVP on the infinite TFI chain (g=1.5) from iDMRG at chi_max
+     256: ten imaginary-time steps (1e-12), then a quench to g=2.5, dt 0.02 to t=0.5
+     (energy conserved to 1e-6; seconds and environment iterations a step); (e)
+     VUMPSEngine.from_warm_start on the spin-1 Heisenberg chain at chi 128 to
+     HALDANE_E_PER_SITE (1e-7), until the gradient norm is below 1e-6 (at most
+     VUMPS_MAX_ITER iterations), the gradient norm of each. Then every f64 and c128 list of one fused TDVP site step, one TEBD bond and
+     one iTDVP step on the kernel against its plain version (check_f64), the largest of
+     each timed as in phase 2
 
 --steady-ab runs the build, then steady_ab: the steady SVD with its QR against the
 same SVD without it, in turns, on the L=24 chain's replayed sweep and the bench step.
@@ -302,6 +351,8 @@ import numpy as np
 
 HEIS24_E_REF = -10.45378576040958  # bench.py:1121: f64 DMRG of L=24 at chi=512
 HALDANE_E_PER_SITE = -1.401484038971  # S=1 bulk energy per site (White & Huse, PRB 48, 3844)
+EVOLUTION_STEPS = 5  # phase 18 (a): real-time TDVP steps of each engine at chi 1024
+VUMPS_MAX_ITER = 40  # phase 18 (e): VUMPS iterations on the spin-1 chain at chi 128
 CHI_BENCH = 4096
 # (rtol, atol) of the kernel against its plain version; the check is
 # max|kernel - plain| <= atol + rtol * max|plain| over each output
@@ -2089,8 +2140,8 @@ def _sweep_to_convergence(label: str, eng, max_sweeps: int = 12) -> dict:
 def engine_phase(model, psi4, E24, psi_mid=None, deep: bool = True) -> dict:
     """Phase 14: the rest of DMRGEngine on phase 4's converged L=24, chi_max=1024 state
     (``psi4``, a copy taken at the end of its last sweep; ``model`` its f64 model;
-    ``deep=False``, the full run, leaves out the resume in a child process and the
-    excited state):
+    ``deep=False``, the full run, leaves out the resume in a child process, the
+    precision escalation and the excited state):
     checkpoints, resume in a child process, rollback in static mode through graphs and
     the precision escalation on an f32 copy, and the first excited state of Sz=0.
     Raises on any failed check. ``psi_mid``, the state after phase 4's centre-bond
@@ -2247,7 +2298,11 @@ def engine_phase(model, psi4, E24, psi_mid=None, deep: bool = True) -> dict:
     del eng
     torch.cuda.empty_cache()
 
-    # the precision escalation on an f32 copy with bf16 environments (as phase 7b)
+    # the precision escalation on an f32 copy with bf16 environments (as phase 7b; deep
+    # only)
+    if not deep:
+        shutil.rmtree(root, ignore_errors=True)
+        return res
     model32 = HeisenbergModel(L=L, conserve='Sz')
     model32.H_mpo = [W.to_dtype(Dtype.float32) for W in model.H_mpo]
     psi32 = SimpleMPS([B.to_dtype(Dtype.float32) for B in psi4.Bs],
@@ -2892,29 +2947,32 @@ def fermions_kernels(fermions: dict, tridiag: dict) -> list:
              'launches': fermions['launches']['tridiag'], **{k: tridiag[k] for k in keys}}]
 
 
-def _hold_lists(label: str, lists) -> dict:
-    """Every f64 list of ``lists`` (bench.recorded_lists) on the kernel against its plain
-    version, held elementwise by check_f64; then the largest list (and the largest thin
-    one, where a list is thin) timed by compare_kernel. Returns their results."""
+def _hold_lists(label: str, lists, dtypes=None) -> dict:
+    """Every list of ``lists`` (bench.recorded_lists) whose operands are of ``dtypes``
+    (default f64; c128 and real x complex lists where phase 18 asks) on the kernel
+    against its plain version, held elementwise by check_f64; then the largest list
+    (and the largest thin one, where a list is thin) timed by compare_kernel. Returns
+    their results."""
     import torch
     from cyten_tpu_torch.blocks.grouped_gemm import (
         grouped_matmul, grouped_matmul_plain, grouped_matmul_plan,
     )
 
+    dtypes = {torch.float64} if dtypes is None else dtypes
     held, worst = 0, 0.
+    lists = [e for e in lists if {e[0][1][0].dtype, e[0][2][0].dtype} <= dtypes]
     for (_, As, Bs, ids, n_out, pairs), _count in lists:
-        if not {As[0].dtype, Bs[0].dtype} <= {torch.float64}:
-            continue
         got = grouped_matmul(As, Bs, ids, n_out, pairs)
         ref = grouped_matmul_plain(As, Bs, ids, n_out, pairs)
         torch.cuda.synchronize()
         _, units = check_f64(f'{label} list {held}', got, ref, As, Bs, ids, n_out, pairs)
         held += 1
         worst = max(worst, units)
-    print(f'[{label}] {held} f64 lists held to 2 K 2^-52 |A||B|, largest err_units '
+    names = '/'.join(sorted(str(d).split('.')[-1] for d in dtypes))
+    print(f'[{label}] {held} {names} lists held to 2 K 2^-52 |A||B|, largest err_units '
           f'{worst:.3f}', flush=True)
     if held == 0:
-        raise AssertionError(f'{label}: no f64 list recorded')
+        raise AssertionError(f'{label}: no {names} list recorded')
 
     def size(entry):
         return sum(t.numel() for t in (*entry[0][1], *entry[0][2]))
@@ -2926,7 +2984,8 @@ def _hold_lists(label: str, lists) -> dict:
             continue
         (_, As, Bs, ids, n_out, pairs), count = max(pool, key=size)
         res[key] = compare_kernel(f'{label} {key} {list_name(As, Bs, pairs, count)}', As,
-                                  Bs, ids, n_out, As[0].dtype, pairs, as_given=True)
+                                  Bs, ids, n_out, As[0].dtype, pairs, as_given=True,
+                                  b_dtype=Bs[0].dtype)
     return res
 
 
@@ -3268,6 +3327,514 @@ def infinite_kernels(infinite: dict) -> list:
     return res
 
 
+def tridiag_evolve_phase() -> dict:
+    """Phase 18's kernel: tridiagonal_evolve (csrc/tridiag.cu) against its plain version
+    on every Lanczos family of tests/test_torch_tridiag.py (closed Krylov spaces among
+    them: zero betas before N), from f64 and f32 buffers, at a real (imaginary-time)
+    and an imaginary (real-time) delta and a complex one, each coefficient to 1e-12 of
+    the largest; NaN in, NaN out. Then, at N=30 (the TDVP engines' Krylov length), its
+    times in turns: the wrapper (ms), the C entry point (device_ms), launches replayed
+    from a CUDA graph (graph_ms), beside the plain version, torch.linalg.matrix_exp of
+    delta T (library_ms: one PyTorch call computing the same function) and
+    torch.linalg.eigh of T, the bound, and the host syncs of eigh and matrix_exp on the
+    card. Returns the N=30 numbers."""
+    import torch
+    from cyten_tpu_torch.blocks._kernels import call, function
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_evolve, tridiagonal_evolve_plain
+
+    families = tridiag_families()[0]
+    err, rel = 0., 0.
+    for label, ab in families:
+        for dtype in (torch.float64, torch.float32):
+            t = torch.from_numpy(ab).to(dtype)
+            nrm0 = torch.tensor(0.75, dtype=dtype)
+            for delta in (-0.025, -0.025j, 0.01 - 0.025j):
+                got = tridiagonal_evolve(t.cuda(), delta, nrm0.cuda()).cpu()
+                want = tridiagonal_evolve_plain(t, delta, nrm0)
+                e = float((got - want).abs().max())
+                scale = max(1., float(want.abs().max()))
+                if got.dtype != want.dtype or not e <= 1e-12 * scale:
+                    raise AssertionError(f'tridiag_evolve {label} {dtype} delta {delta}: '
+                                         f'{e} past 1e-12 x {scale}')
+                err, rel = max(err, e), max(rel, e / scale)
+    bad = torch.from_numpy(families[-1][1]).cuda()
+    bad[0, 3] = float('nan')
+    if not torch.isnan(tridiagonal_evolve(bad, -0.025j, torch.ones((), dtype=bad.dtype,
+                                                                    device='cuda'))).all():
+        raise AssertionError('tridiag_evolve: NaN input did not give NaN output')
+    print(f'[tridiag evolve] {len(families)} families x f64/f32 x 3 deltas against plain: '
+          f'max |dc| {err:.3e} ({rel:.3e} of the largest coefficient); NaN in, NaN out',
+          flush=True)
+
+    n, delta = 30, -0.025j
+    rng = np.random.default_rng(18)
+    ab = torch.from_numpy(np.stack([rng.normal(size=n), 0.1 + np.abs(rng.normal(size=n))]))
+    ab = ab.cuda()
+    nrm0 = torch.ones((), dtype=torch.float64, device='cuda')
+    out = torch.empty(n, dtype=torch.complex128, device='cuda')
+    fn = function('tridiag', 'cyten_tridiag_evolve')
+    kernel = lambda: call(fn, (ab.data_ptr(), nrm0.data_ptr(), 0, n, 0., delta.imag, 1,  # noqa: E731
+                               out.data_ptr()), 0, 'tridiag_evolve')
+    a, b = ab
+    T = torch.diag(a) + torch.diag(b[:-1], 1) + torch.diag(b[:-1], -1)
+    dT = (delta * T).to(torch.complex128)
+    (ms, device_ms, library_ms, eigh_ms), spread = turns(
+        [lambda: tridiagonal_evolve(ab, delta, nrm0), kernel,
+         lambda: torch.linalg.matrix_exp(dT), lambda: torch.linalg.eigh(T)], 50, rounds=4)
+    res = {'N': n, 'max_abs_err': err, 'ms': ms, 'device_ms': device_ms,
+           'graph_ms': graph_ms(kernel),
+           'plain_ms': cuda_ms(lambda: tridiagonal_evolve_plain(ab, delta, nrm0), reps=20),
+           'library_ms': library_ms, 'eigh_ms': eigh_ms,
+           'syncs': {'eigh': count_syncs(lambda: torch.linalg.eigh(T)),
+                     'matrix_exp': count_syncs(lambda: torch.linalg.matrix_exp(dT)),
+                     'tridiag_evolve': count_syncs(
+                         lambda: tridiagonal_evolve(ab, delta, nrm0))},
+           'spread': dict(zip(('ms', 'device_ms', 'library_ms', 'eigh_ms'), spread))}
+    # read 2N + 1 f64, write N c128; the work the function needs: the eigenvectors of T
+    # (about two QL sweeps an eigenvalue, each rotation 6 operations a row: 6 N^3) and
+    # the combination (8 N^2)
+    t_bytes = ((2 * n + 1) * 8 + n * 16) / hbm_bytes_per_s()
+    t_ops = (6 * n ** 3 + 8 * n ** 2) / peak_ops_per_s(torch.float64)
+    res['bound_ms'] = max(t_bytes, t_ops) * 1e3
+    res['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    print(f'[tridiag evolve] N={n}: ' + json.dumps(res), flush=True)
+    if res['syncs']['tridiag_evolve']:
+        raise AssertionError('tridiag_evolve synced with the host')
+    return res
+
+
+def _full_vector(psi) -> np.ndarray:
+    """The state vector of a finite MPS (site 0 slowest), on the host."""
+    from cyten_tpu_torch.tensors import tdot
+
+    s = psi.get_theta1(0)
+    for i in range(1, psi.L):
+        s = tdot(s, psi.Bs[i].relabelled({'p': f'p{i}'}), 'vR', 'vL')
+    return np.asarray(s.to_numpy()).reshape(-1)
+
+
+def _bond_sum_sparse(H_bonds, d: int):
+    """The sparse Hamiltonian sum_i h_i of the finite chain's bond terms (legs [p0, p1,
+    p1*, p0*]) on the public basis, site 0 slowest."""
+    import scipy.sparse as sp
+
+    L = len(H_bonds) + 1
+    H = sp.csr_matrix((d ** L, d ** L), dtype=complex)
+    for i, h in enumerate(H_bonds):
+        hd = np.asarray(h.to_numpy()).transpose(0, 1, 3, 2).reshape(d * d, d * d)
+        H = H + sp.kron(sp.kron(sp.identity(d ** i), sp.csr_matrix(hd)),
+                        sp.identity(d ** (L - i - 2))).tocsr()
+    return H
+
+
+def _overlap_error(a: np.ndarray, b: np.ndarray) -> float:
+    return abs(abs(np.vdot(a, b)) / (np.linalg.norm(a) * np.linalg.norm(b)) - 1.)
+
+
+def _mps_overlap_error(a, b) -> float:
+    """1 - |<a|b>| / (|a| |b|) of two finite MPS, contracted on the card."""
+    ab, aa, bb = (abs(complex(x.overlap(y))) for x, y in ((a, b), (a, a), (b, b)))
+    return abs(ab / np.sqrt(aa * bb) - 1.)
+
+
+def _distance(a: np.ndarray, b: np.ndarray) -> float:
+    """|a - b| / |a| of two state vectors: linear in the error, global phase included."""
+    return float(np.linalg.norm(a - b) / np.linalg.norm(a))
+
+
+def _mps_distance(a, b) -> tuple:
+    """|a - b| / |a| of two finite MPS from their three overlaps, contracted on the card,
+    and |a - b|^2 / |a|^2 = (<a|a> + <b|b> - 2 Re <a|b>) / <a|a> as it came out. The
+    overlaps' rounding, a few ulps of <a|a>, sets a floor under the square, some 1e-15,
+    and so under the distance, the square root of that: below it, the square is noise of
+    either sign."""
+    ab, aa, bb = complex(a.overlap(b)), complex(a.overlap(a)).real, complex(b.overlap(b)).real
+    sq = (aa + bb - 2. * ab.real) / aa
+    return float(np.sqrt(max(sq, 0.))), sq
+
+
+def _evo_counts_zero() -> None:
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_evolve
+
+    _counts_zero()
+    tridiagonal_evolve.launches = 0
+    grouped_matmul.converted = 0
+
+
+def _evo_counts() -> dict:
+    from cyten_tpu_torch.blocks.grouped_gemm import grouped_matmul
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_evolve
+
+    return {**_counts(), 'tridiag_evolve': tridiagonal_evolve.launches,
+            'converted': grouped_matmul.converted}
+
+
+def _timed_steps(label: str, eng, n: int, step=None) -> dict:
+    """``n`` steps of ``eng`` (``eng.sweep`` or ``step``), each timed to a synchronize
+    with its kernel launches counted; prints a line a step."""
+    import torch
+
+    step = eng.sweep if step is None else step
+    secs, counts = [], []
+    for k in range(n):
+        _evo_counts_zero()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(_evo_counts())
+        print(f'[{label}] step {k + 1}: {secs[-1]:.3f} s, launches {json.dumps(counts[-1])}',
+              flush=True)
+    return {'s': secs, 'counts': counts}
+
+
+def _as_complex(psi):
+    """``psi`` with complex128 tensors: a real state that real-time evolution would make
+    complex at its first step, made so before it, so that a fused engine's first step
+    meets the structures (dtypes included) of every later one."""
+    from cyten_tpu_torch import Dtype
+    from cyten_tpu_torch.algorithms import SimpleMPS
+
+    return SimpleMPS([B.to_dtype(Dtype.complex128) for B in psi.Bs], list(psi.Ss), bc=psi.bc)
+
+
+def _diag_op(leg, backend, diag):
+    """The single-site operator diag(``diag``) on the public basis of ``leg`` (a [p, p*]
+    tensor): Sz of a spin-1/2 site as diag(0.5, -0.5), the TFI chain's sz as
+    diag(1, -1)."""
+    from cyten_tpu_torch.tensors import SymmetricTensor
+
+    return SymmetricTensor.from_dense_block(np.diag(np.asarray(diag, float)), [leg], [leg],
+                                            backend=backend, labels=['p', 'p*'])
+
+
+def _tdvp_site_step_lists(eng, i: int) -> list:
+    """The grouped-GEMM lists of one fused right-moving site step of ``eng`` (a
+    TDVPQREngine) at site i, run eagerly on the state as it is."""
+    from cyten_tpu_torch.algorithms.tdvp import _site_step
+    from cyten_tpu_torch.bench import recorded_lists
+
+    d_site, d_bond = eng._deltas(eng.dt / 2.)
+    fn = _site_step('R', d_site, d_bond, eng.lanczos_options.get('N_max', 30), {})
+    args = (eng.LPs[i], eng.RPs[i], eng.model.H_mpo[i], eng.psi.get_theta1(i))
+    return recorded_lists(lambda: fn(*args))
+
+
+def evolution_phase(deep: bool = False) -> dict:
+    """Phase 18: time evolution (see the module docstring). ``deep`` (--evolution-only)
+    runs (a) to (e) at full width in place of the full run's small checks. Every f64 and
+    c128 list of one TDVP site step, one TEBD bond and one iTDVP step is held to its
+    plain version (check_f64). Returns the launches over the phase and the lists'
+    results, for the kernels line."""
+    import scipy.linalg
+    import scipy.sparse.linalg as spla
+    import torch
+    from cyten_tpu_torch.algorithms import (
+        DMRGEngine, HeisenbergModel, SimpleMPS, SpinChainModel, TDVP2Engine, TDVPEngine,
+        TDVPQREngine, TEBDEngine, TFIModel, VUMPSEngine, iDMRGEngine, iTDVPEngine,
+        tfi_exact_infinite_gs_energy,
+    )
+    from cyten_tpu_torch.bench import recorded_lists
+
+    launches = {}
+
+    def add(c):
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def steps(label, eng, n, step=None):
+        run = _timed_steps(label, eng, n, step)
+        for c in run['counts']:
+            add(c)
+        return run
+
+    c128 = {torch.float64, torch.complex128}
+    lists = {}
+    if not deep:
+        # the TFI chain at L=8 (parity), from a DMRG state at g=1 (chi 16, full rank),
+        # under g=1.5: 1-TDVP, TDVP2 and TEBD against exact evolution, the fused QR
+        # engine through graphs against the eager one. (At g=3 the smallest Schmidt
+        # values lie near the rounding, which then decides the directions that carry
+        # them, and the two engines part by far more than the rounding:
+        # scripts/torch_tdvp_conditioning.py.)
+        t_sub = time.perf_counter()
+        L, g = 8, 1.5
+        model = TFIModel(L=L, g=g, conserve='parity')
+        model0 = TFIModel(L=L, g=1.0, conserve='parity')
+        psi0 = SimpleMPS.from_product_state(model0.site_legs, [0] * L, backend=model0.backend)
+        DMRGEngine(psi0, model0, chi_max=16, eps=1e-14).run(n_sweeps=3)
+        H = _bond_sum_sparse(model.H_bonds, 2)
+        v0 = _full_vector(psi0)
+        psi = psi0.copy()
+        eng = TDVPEngine(psi, model, dt=0.05)
+        E0 = eng.energy()
+        run = steps('evolution tdvp L=8', eng, 1)
+        v = _full_vector(psi)
+        exact = spla.expm_multiply(-1j * 0.05 * H, v0)
+        checks = {'tdvp': (_overlap_error(exact, v), abs(eng.energy() - E0),
+                           abs(np.linalg.norm(v) - np.linalg.norm(v0)))}
+        psi2 = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+        w0 = _full_vector(psi2)
+        steps('evolution tdvp2 L=8', TDVP2Engine(psi2, model, dt=0.1, chi_max=16), 1)
+        w = _full_vector(psi2)
+        checks['tdvp2'] = (_overlap_error(spla.expm_multiply(-1j * 0.1 * H, w0), w),
+                           psi2.max_chi(), abs(np.linalg.norm(w) - 1.))
+        psi3 = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+        tebd = TEBDEngine(psi3, model, dt=0.05, chi_max=16, imaginary=False)
+        steps('evolution tebd L=8', tebd, 6)
+        sz = _diag_op(model.site_legs[0], model.backend, [1., -1.])
+        u = spla.expm_multiply(-1j * 0.3 * H, w0)
+        sz_mid = np.kron(np.kron(np.eye(2 ** (L // 2)), np.diag([1., -1.])),
+                         np.eye(2 ** (L - L // 2 - 1)))
+        sz_ed = float(np.real(np.vdot(u, sz_mid @ u)))
+        sz_mps = float(np.real(complex(psi3.site_expectation_value(sz, L // 2))))
+        checks['tebd'] = (abs(sz_mps - sz_ed),)
+        lists['tebd'] = recorded_lists(lambda: tebd.update_bond(L // 2 - 1,
+                                                                tebd.U_full[L // 2 - 1]))
+        # (a complex start: the fused engine's first step is its only eager one)
+        psi_q, psi_f = _as_complex(psi0), _as_complex(psi0)
+        opts = {'lanczos_options': {'N_max': 12}}
+        steps('evolution qr L=8', TDVPQREngine(psi_q, model, dt=0.05, **opts), 3)
+        fused = TDVPQREngine(psi_f, model, dt=0.05, fused=True, **opts)
+        frun = steps('evolution qr fused L=8', fused, 3)
+        checks['fused'] = (_distance(_full_vector(psi_q), _full_vector(psi_f)),
+                           len(fused.graphs()), frun['counts'][-1]['tridiag_evolve'])
+        lists['tdvp'] = _tdvp_site_step_lists(fused, L // 2 - 1)
+        print(f'[evolution small] TFI L={L}: 1-TDVP (overlap error, |dE|, |d norm|) '
+              f'{checks["tdvp"]}; TDVP2 (overlap error, chi, |d norm|) {checks["tdvp2"]}; '
+              f'TEBD |<sz_mid> - exact| {checks["tebd"][0]:.3e}; fused against eager QR '
+              f'(|a - b| / |a|, graphs, tridiag_evolve launches of a replayed sweep) '
+              f'{checks["fused"]}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+        if not (checks['tdvp'][0] < 1e-8 and max(checks['tdvp'][1:]) < 1e-10
+                and checks['tdvp2'][0] < 1e-8 and checks['tdvp2'][1] > 1
+                and checks['tdvp2'][2] < 1e-8 and checks['tebd'][0] < 5e-4
+                and checks['fused'][0] < 1e-10 and checks['fused'][1] > 0
+                and checks['fused'][2] > 0 and run['counts'][-1]['grouped_gemm'] > 0):
+            raise AssertionError('phase 18: a small evolution check failed')
+        # the infinite TFI chain at g=1.5, chi 16: iTDVP in imaginary time and VUMPS
+        t_sub = time.perf_counter()
+        imodel = TFIModel(L=2, g=1.5, conserve='parity', bc='infinite')
+        ipsi = SimpleMPS.from_product_state(imodel.site_legs, [0, 0], backend=imodel.backend,
+                                            bc='infinite')
+        ieng = iDMRGEngine(ipsi, imodel, chi_max=16, eps=1e-14)
+        ieng.run(n_steps=150, tol=1e-13)
+        cell = ieng.psi.canonicalize_infinite(n_cells=20)
+        e_exact = tfi_exact_infinite_gs_energy(1., 1.5)
+        it = iTDVPEngine(cell.copy(), imodel, dt=0.05, imaginary=True)
+        steps('evolution itdvp chi 16', it, 2, it.step)
+        lists['itdvp'] = recorded_lists(it.step)
+        e_it = it.energy_density()
+        vu = VUMPSEngine(cell.copy(), imodel)
+        e_vu = vu.run(max_iter=8, tol=1e-11)
+        print(f'[evolution small] infinite TFI g=1.5, chi 16: iTDVP imaginary time e/site '
+              f'{e_it!r}, exact {e_exact!r}, |de| {abs(e_it - e_exact):.3e}; VUMPS {e_vu!r} '
+              f'(|de| {abs(e_vu - e_exact):.3e}, gradient {vu.grad_norm:.3e}, '
+              f'{vu.n_steps} iterations); {time.perf_counter() - t_sub:.1f} s', flush=True)
+        if not (abs(e_it - e_exact) < 1e-12 and abs(e_vu - e_exact) < 1e-12):
+            raise AssertionError('phase 18: the iTDVP or VUMPS energy density is off')
+        out = {k: _hold_lists(f'evolution {k}', v, c128) for k, v in lists.items()}
+        return {'lists': out, 'launches': launches}
+
+    # (a) finite TDVP at chi 1024 from the L=24 Heisenberg ground state with Sz applied
+    # at site 12
+    t_sub = time.perf_counter()
+    L = 24
+    model = HeisenbergModel(L=L, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2))
+    dmrg = _sweep_to_convergence('evolution a DMRG', DMRGEngine(
+        psi, model, chi_max=1024, eps=0., lanczos_options={'N_max': 10}), max_sweeps=8)
+    if not (abs(dmrg['E'] - HEIS24_E_REF) < 1e-8 and psi.max_chi() == 1024):
+        raise AssertionError('phase 18 (a): the L=24 ground state is off')
+    psi0 = _as_complex(psi.apply_local_op(_diag_op(model.site_legs[12], model.backend,
+                                                   [.5, -.5]), 12))
+    del psi
+    print(f'[evolution a] ground state E {dmrg["E"]!r} in {dmrg["sweeps"]} sweeps, chi '
+          f'{psi0.max_chi()}; Sz applied at site 12: <psi|psi> '
+          f'{abs(complex(psi0.overlap(psi0))):.12f}; {time.perf_counter() - t_sub:.1f} s',
+          flush=True)
+    n_steps = EVOLUTION_STEPS
+    res_a = {}
+    for name, kw in (('svd', None), ('qr', {}), ('qr fused', {'fused': True})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p = psi0.copy()
+        eng = TDVPEngine(p, model, dt=0.05) if kw is None else TDVPQREngine(p, model, dt=0.05,
+                                                                            **kw)
+        E0, n0 = eng.energy(), abs(complex(p.overlap(p)))
+        run = steps(f'evolution a {name}', eng, n_steps)
+        E1, n1 = eng.energy(), abs(complex(p.overlap(p)))
+        entry = {'psi': p.copy(), 'E': (E0, E1), 'norm2': (n0, n1), 's': run['s'],
+                 'counts': run['counts'][-1],
+                 'peak_reserved_gb': torch.cuda.max_memory_reserved() / 1e9}
+        if name == 'qr fused':
+            graphs = eng.graphs()
+            entry['graphs'] = len(graphs)
+            entry['capture_s'] = sum(g.capture_seconds for g in graphs)
+            entry['syncs'] = count_syncs(eng.sweep)
+            entry['syncs_at'] = count_syncs.where
+            entry['profile_kernels'] = profile_run('replayed fused TDVP sweep', eng.sweep)
+            lists['tdvp'] = _tdvp_site_step_lists(eng, L // 2 - 1)
+        res_a[name] = entry
+        print(f'[evolution a] {name}: E {E0!r} -> {E1!r} (|dE| {abs(E1 - E0):.3e}), '
+              f'<psi|psi> {n0!r} -> {n1!r}; s per step '
+              f'{json.dumps([round(x, 3) for x in run["s"]])}; launches of the last step '
+              f'{json.dumps(entry["counts"])}; peak reserved {entry["peak_reserved_gb"]:.2f} GB'
+              + (f'; {entry["graphs"]} graphs captured in {entry["capture_s"]:.2f} s; host '
+                 f'syncs of a replayed sweep {entry["syncs"]} (at {entry["syncs_at"]})'
+                 if name == 'qr fused' else ''), flush=True)
+        del eng
+        if not (abs(E1 - E0) < 1e-8 and abs(n1 - n0) < 1e-8):
+            raise AssertionError(f'phase 18 (a) {name}: energy or norm not conserved')
+    ov_qr = _mps_overlap_error(res_a['svd']['psi'], res_a['qr']['psi'])
+    ov_fused = _mps_overlap_error(res_a['qr']['psi'], res_a['qr fused']['psi'])
+    # the fused engine against the eager QR one, also linearly; beside it the same measure
+    # between the eager QR state and itself regauged (canonicalize): its rounding floor
+    d_fused, sq_fused = _mps_distance(res_a['qr']['psi'], res_a['qr fused']['psi'])
+    d_floor, sq_floor = _mps_distance(res_a['qr']['psi'],
+                                      res_a['qr']['psi'].copy().canonicalize(normalize=False))
+    print(f'[evolution a] QR against SVD: overlap error {ov_qr:.3e}; fused against QR: '
+          f'overlap error {ov_fused:.3e}, |a - b| / |a| {d_fused:.3e} (its square '
+          f'{sq_fused:.3e}); the eager QR state against itself regauged {d_floor:.3e} '
+          f'(its square {sq_floor:.3e}); {time.perf_counter() - t_sub:.1f} s', flush=True)
+    fused = res_a['qr fused']
+    if not (ov_qr < 1e-8 and ov_fused < 1e-10 and d_fused < 1e-7 and fused['graphs'] > 0
+            and fused['syncs'] <= 1 and fused['counts']['tridiag_evolve'] > 0):
+        raise AssertionError('phase 18 (a): the QR engines disagree, or the fused sweep '
+                             'synced or skipped its graphs')
+    del res_a, psi0
+    torch.cuda.empty_cache()
+
+    # (b) TDVP2 from the Neel state at L=16, chi_max 256, against exact evolution of the
+    # Sz=0 sector
+    t_sub = time.perf_counter()
+    L = 16
+    model = HeisenbergModel(L=L, conserve='Sz')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0, 1] * (L // 2))
+    v0 = _full_vector(psi)
+    bits = (np.arange(2 ** L)[:, None] >> np.arange(L)[None, :]) & 1
+    sector = np.flatnonzero(bits.sum(1) == L // 2)
+    H = _bond_sum_sparse(model.H_bonds, 2)[sector][:, sector]
+    eng = TDVP2Engine(psi, model, dt=0.1, chi_max=256, eps=1e-12)
+    run = steps('evolution b tdvp2', eng, 20)
+    u = spla.expm_multiply(-1j * 2.0 * H, v0[sector])
+    v = _full_vector(psi)
+    err_b = (_overlap_error(u, v[sector]), abs(np.linalg.norm(v) - 1.),
+             float(np.linalg.norm(np.delete(v, sector))))
+    print(f'[evolution b] TDVP2 L={L} to t=2: overlap error {err_b[0]:.3e}, |d norm| '
+          f'{err_b[1]:.3e}, weight outside Sz=0 {err_b[2]:.3e}; {len(sector)} sector states; '
+          f'chi {psi.max_chi()}, trunc_err {eng.trunc_err:.3e}; s per step median '
+          f'{np.median(run["s"]):.3f}; {time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (err_b[0] < 1e-8 and err_b[1] < 1e-8):
+        raise AssertionError('phase 18 (b): TDVP2 is off exact evolution')
+    del eng, psi, H
+
+    # (c) TEBD from the all-up state of the TFI chain at g=1.0
+    t_sub = time.perf_counter()
+    L = 12
+    model = TFIModel(L=L, g=1.0, conserve='parity')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+    w0 = _full_vector(psi)
+    tebd = TEBDEngine(psi, model, dt=0.05, chi_max=64, imaginary=False)
+    tebd.run(20)
+    H = _bond_sum_sparse(model.H_bonds, 2)
+    u = spla.expm_multiply(-1j * 1.0 * H, w0)
+    sz_mid = np.kron(np.kron(np.ones(2 ** (L // 2)), np.array([1., -1.])),
+                     np.ones(2 ** (L - L // 2 - 1)))
+    sz = _diag_op(model.site_legs[0], model.backend, [1., -1.])
+    d_sz = abs(float(np.real(complex(psi.site_expectation_value(sz, L // 2))))
+               - float(np.sum(sz_mid * np.abs(u) ** 2)))
+    L = 64
+    model = TFIModel(L=L, g=1.0, conserve='parity')
+    psi = SimpleMPS.from_product_state(model.site_legs, [0] * L, backend=model.backend)
+    tebd = TEBDEngine(psi, model, dt=0.05, chi_max=512, imaginary=False)
+    e0 = tebd.energy() / L
+    run = steps('evolution c tebd', tebd, 40)
+    e1 = tebd.energy() / L
+    lists['tebd'] = recorded_lists(lambda: tebd.update_bond(L // 2 - 1, tebd.U_full[L // 2 - 1]))
+    print(f'[evolution c] TEBD L=12 to t=1: |<sz_mid> - exact| {d_sz:.3e}; L={L}, chi_max '
+          f'512, 40 steps: e/site {e0!r} -> {e1!r} (|de| {abs(e1 - e0):.3e}), trunc_err '
+          f'{tebd.trunc_err:.3e}, chi {psi.max_chi()}, s per step median '
+          f'{np.median(run["s"]):.3f}, last {run["s"][-1]:.3f}; '
+          f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (d_sz < 5e-4 and abs(e1 - e0) < 1e-3):
+        raise AssertionError('phase 18 (c): TEBD is off')
+    del tebd, psi
+
+    # (d) iTDVP on the infinite TFI chain, warm-started by iDMRG at chi_max 256
+    t_sub = time.perf_counter()
+    model = TFIModel(L=2, g=1.5, conserve='parity', bc='infinite')
+    ipsi = SimpleMPS.from_product_state(model.site_legs, [0, 0], backend=model.backend,
+                                        bc='infinite')
+    ieng = iDMRGEngine(ipsi, model, chi_max=256, eps=1e-14)
+    ieng.run(n_steps=150, tol=1e-13)
+    cell = ieng.psi.canonicalize_infinite(n_cells=20)
+    e_exact = tfi_exact_infinite_gs_energy(1., 1.5)
+    it = iTDVPEngine(cell.copy(), model, dt=0.05, imaginary=True)
+    run_i = steps('evolution d itdvp imaginary', it, 10, it.step)
+    e_im = it.energy_density()
+    quench = TFIModel(L=2, g=2.5, conserve='parity', bc='infinite')
+    e0 = quench.energy(cell)
+    it = iTDVPEngine(cell.copy(), quench, dt=0.02)
+    iters = []
+    run_r = steps('evolution d itdvp real', it, 25, lambda: iters.append(it.step().env_iters))
+    e1 = quench.energy(it.psi)
+    lists['itdvp'] = recorded_lists(it.step)
+    print(f'[evolution d] iTDVP: chi {cell.max_chi()}; imaginary time e/site {e_im!r}, '
+          f'exact {e_exact!r}, |de| {abs(e_im - e_exact):.3e}, s per step median '
+          f'{np.median(run_i["s"]):.3f}; quench to g=2.5, t=0.5: e/site {e0!r} -> {e1!r} '
+          f'(|de| {abs(e1 - e0):.3e}), s per step median {np.median(run_r["s"]):.3f}, '
+          f'environment iterations per step {json.dumps(iters)}; '
+          f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not (abs(e_im - e_exact) < 1e-12 and abs(e1 - e0) < 1e-6):
+        raise AssertionError('phase 18 (d): iTDVP is off')
+
+    # (e) VUMPS on the spin-1 Heisenberg chain at chi 128
+    t_sub = time.perf_counter()
+    model = SpinChainModel(L=2, S=1.0, conserve='Sz', bc='infinite')
+    vu = VUMPSEngine.from_warm_start(model, initial_state=[0, 2], chi_max=128)
+    t_warm = time.perf_counter() - t_sub
+    grads, secs = [], []
+    for _ in range(VUMPS_MAX_ITER):
+        _evo_counts_zero()
+        t0 = time.perf_counter()
+        grads.append(vu.step())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        add(_evo_counts())
+        if grads[-1] < 1e-6:  # the energy's error is second order in the gradient
+            break
+    e = vu.energy_density()
+    print(f'[evolution e] VUMPS spin-1 chi 128: e/site {e!r}, White & Huse '
+          f'{HALDANE_E_PER_SITE!r}, |de| {abs(e - HALDANE_E_PER_SITE):.3e}; gradient norm per '
+          f'iteration {json.dumps([float(f"{x:.3e}") for x in grads])}; warm start '
+          f'{t_warm:.1f} s, s per iteration median {np.median(secs):.3f}; '
+          f'{time.perf_counter() - t_sub:.1f} s', flush=True)
+    if not abs(e - HALDANE_E_PER_SITE) < 1e-7:
+        raise AssertionError('phase 18 (e): the VUMPS energy is off')
+    out = {k: _hold_lists(f'evolution {k}', v, c128) for k, v in lists.items()}
+    return {'lists': out, 'launches': launches}
+
+
+def evolution_kernels(evolution: dict, tev: dict) -> list:
+    """The kernels-line entries of phase 18: the grouped GEMM at the largest list of a
+    TDVP site step (c128; its launches over the phase) and tridiag_evolve (its numbers
+    from tridiag_evolve_phase, its launches over the phase)."""
+    keys = ('max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+    launches = evolution['launches']
+    return [{'name': 'grouped_gemm[evolution]', 'route': 'cuda',
+             'source': 'cyten_tpu_torch/csrc/grouped_gemm.cu',
+             'replaces': 'cyten_tpu/blocks/pallas_grouped.py:151',
+             'launches': launches.get('grouped_gemm', 0),
+             **{k: evolution['lists']['tdvp']['largest'][k] for k in keys}},
+            {'name': 'tridiag_evolve', 'route': 'cuda',
+             'source': 'cyten_tpu_torch/csrc/tridiag.cu',
+             'replaces': 'jnp.linalg.eigh and the phase product in '
+                         'cyten_tpu/tensors/krylov_based.py:458-460',
+             'launches': launches.get('tridiag_evolve', 0), **{k: tev[k] for k in keys}}]
+
+
 def steady_ab() -> None:
     """--steady-ab: the steady SVD as it is (Newton-Schulz, then the thin QR of
     tensors/steady.py::_orthonormal_columns) against the same SVD without the QR
@@ -3343,6 +3910,7 @@ def main() -> int:
     models_only = '--models-only' in sys.argv[1:]
     fermions_only = '--fermions-only' in sys.argv[1:]
     infinite_only = '--infinite-only' in sys.argv[1:]
+    evolution_only = '--evolution-only' in sys.argv[1:]
     steady_only = '--steady-ab' in sys.argv[1:]
     against = sys.argv[sys.argv.index('--against') + 1] if '--against' in sys.argv else None
 
@@ -3452,8 +4020,9 @@ def main() -> int:
     complex_phase(As, Bs, out_id, n_out, pairs, rng)
     del As, Bs
     torch.cuda.empty_cache()
-    # --- 2b. the tridiagonal kernel against its plain version ----------------------------
+    # --- 2b. the tridiagonal kernels against their plain versions -------------------------
     tridiag = tridiag_phase()
+    tev = tridiag_evolve_phase()
     if kernels_only:
         probe = probe_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (kernels only)', flush=True)
@@ -3466,11 +4035,6 @@ def main() -> int:
         golden_phase()
         print(f'[total] {time.perf_counter() - t_start:.1f} s (golden chain only)',
               flush=True)
-        return 0
-    if bench_only:
-        accuracy_phase()
-        bench_phase()
-        print(f'[total] {time.perf_counter() - t_start:.1f} s (bench only)', flush=True)
         return 0
     if fermions_only:
         t_phase = time.perf_counter()
@@ -3490,6 +4054,17 @@ def main() -> int:
               flush=True)
         print(f'[total] {time.perf_counter() - t_start:.1f} s (infinite only)', flush=True)
         print(json.dumps({'kernels': infinite_kernels(infinite)}))
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
+        return 0
+    if evolution_only:
+        t_phase = time.perf_counter()
+        evolution = evolution_phase(deep=True)
+        print(f'[phases] wall seconds {{"18": {time.perf_counter() - t_phase:.1f}}}',
+              flush=True)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (evolution only)', flush=True)
+        print(json.dumps({'kernels': evolution_kernels(evolution, tev)}))
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                                  'kind': torch.cuda.get_device_name(0),
                                                  'count': torch.cuda.device_count()}}))
@@ -3797,9 +4372,10 @@ def main() -> int:
     # every list on its plain version at 'default' (the same products, the sums in
     # another order): how far the order of the sums alone moves this setting's
     # energy, and how much of that the mixed kind's sums make
+    plain_resweeps = (('mixed-kind plain', lambda: lists_on_plain({'float32_mixed'})),
+                      ('plain', lists_on_plain))  # under --bench-only
     for lists, routing in (('kernel', contextlib.nullcontext),
-                           ('mixed-kind plain', lambda: lists_on_plain({'float32_mixed'})),
-                           ('plain', lists_on_plain)):
+                           *(plain_resweeps if bench_only else ())):
         psi.Bs, psi.Ss, eng.LPs, eng.RPs = (list(x) for x in before_default)
         eng.env_dtype, eng.matmul_precision = Dtype.bfloat16, 'default'
         eng.enable_static_mode(n_lanczos=10, svd_mode='steady', cuda_graphs=False)
@@ -3814,6 +4390,12 @@ def main() -> int:
     del eng, psi, model, H
     torch.cuda.empty_cache()
     phase_s['7b'] = time.perf_counter() - t_phase
+    if bench_only:
+        accuracy_phase()
+        bench_phase()
+        print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
+        print(f'[total] {time.perf_counter() - t_start:.1f} s (bench only)', flush=True)
+        return 0
 
     # --- 8. the bench step -----------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -3942,6 +4524,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     infinite = infinite_phase(deep=False)
     phase_s['17'] = time.perf_counter() - t_phase
+
+    # --- 18. time evolution ------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    evolution = evolution_phase(deep=False)
+    phase_s['18'] = time.perf_counter() - t_phase
     print(f'[phases] wall seconds {json.dumps(phase_s)}', flush=True)
 
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
@@ -4000,7 +4588,8 @@ def main() -> int:
                                            'bound_ms', 'bound_by', 'library_ms')}},
                *models_kernels(models, tridiag),
                *fermions_kernels(fermions, tridiag),
-               *infinite_kernels(infinite)]
+               *infinite_kernels(infinite),
+               *evolution_kernels(evolution, tev)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Tensor-network algorithms: finite and infinite MPS, the Heisenberg, transverse-field
 Ising and spin-S chains, the Fermi-Hubbard and Kitaev chains, the Fibonacci golden chain,
 the MPO builders, two-site DMRG (host-driven or static), one-site DMRG with subspace
-expansion and infinite DMRG (two-site and multi-site unit cells).
+expansion, infinite DMRG (two-site and multi-site unit cells), and time evolution: TEBD
+(finite and infinite), TDVP (one-site, two-site, QR-split, fused), iTDVP, and VUMPS for
+uniform ground states.
 
 The counterpart of ``cyten_tpu/algorithms/`` for the main path
 ``HeisenbergModel -> SimpleMPS -> DMRGEngine.run`` (with excited states, checkpoints,
@@ -22,6 +24,10 @@ from .dmrg import (
 )
 from .dmrg1 import DMRG1SEngine, HEffective1
 from .idmrg import MultiCellIDMRGEngine, iDMRGEngine
+from .itdvp import iTDVPEngine
+from .tebd import TEBDEngine
+from .tdvp import TDVP2Engine, TDVPEngine, TDVPQREngine
+from .vumps import VUMPSEngine
 
 __all__ = ['SimpleMPS', 'split_truncate_theta', 'FermiHubbardModel', 'GoldenChainModel',
            'HeisenbergModel', 'KitaevChainModel', 'MpoTensors', 'SpinChainModel', 'TFIModel',
@@ -30,4 +36,5 @@ __all__ = ['SimpleMPS', 'split_truncate_theta', 'FermiHubbardModel', 'GoldenChai
            'tfi_exact_infinite_gs_energy',
            'mpo_from_bond_op', 'spin_half_site', 'DMRGEngine', 'FaultError', 'HEffective',
            'PlanarDMRGEngine', 'PlanarHEffective', 'DMRG1SEngine', 'HEffective1',
-           'iDMRGEngine', 'MultiCellIDMRGEngine']
+           'iDMRGEngine', 'MultiCellIDMRGEngine', 'iTDVPEngine', 'TEBDEngine',
+           'TDVPEngine', 'TDVP2Engine', 'TDVPQREngine', 'VUMPSEngine']

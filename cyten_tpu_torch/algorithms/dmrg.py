@@ -536,6 +536,19 @@ class DMRGEngine:
             eng.update_RP(i)
         return eng
 
+    @classmethod
+    def _environments(cls, psi: SimpleMPS, model):
+        """An engine that holds the environments ``LPs``/``RPs`` of the finite ``psi``
+        under ``model.H_mpo`` and updates them (``update_LP``/``update_RP``): the
+        environment machinery of the TDVP engines, which sweep with it but take no
+        DMRG step. Every option at its default, set through :meth:`_set_options`; the
+        right environments are built (:meth:`_init_environments`)."""
+        eng = cls.__new__(cls)
+        eng._set_options(psi, model, 32, 1e-12, None, None, False, 'mult', None, None,
+                         False, None, 'exact')
+        eng._init_environments()
+        return eng
+
     def _set_options(self, psi, model, chi_max, eps, lanczos_options, pad_chi_multiple,
                      jit_env_updates, shard_axis_name, matmul_precision, orthogonal_to,
                      auto_static, env_dtype, dynamic_svd):

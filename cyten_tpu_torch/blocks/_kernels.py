@@ -57,6 +57,10 @@ _SIGNATURES = {
         'cyten_tridiag_ground_state': ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
                                        ctypes.c_int),
+        'cyten_tridiag_evolve': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_double, ctypes.c_double, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                                 ctypes.c_int),
     },
 }
 
@@ -176,6 +180,16 @@ def count(wrapper, keep=None) -> None:
         wrapper.launches += 1
 
 
+def tally(obj, attr: str) -> None:
+    """Adds one to the counter ``obj.<attr>``, or, while a :class:`Graph` is captured,
+    records it in that graph, whose replays then add it: for host-side work that each
+    replay repeats on the device, such as an operand copied before a launch."""
+    if _capture is not None:
+        _capture.tallies[obj, attr] = _capture.tallies.get((obj, attr), 0) + 1
+    else:
+        setattr(obj, attr, getattr(obj, attr) + 1)
+
+
 def keep_alive(obj) -> None:
     """While a :class:`Graph` is captured, makes it keep ``obj`` (a device buffer the
     captured work reads) alive for as long as it lives; else nothing."""
@@ -188,15 +202,16 @@ class Graph:
 
     ``with g.capture(): ...`` captures the work queued in the block (on a side
     stream, with ``capture_error_mode='global'``, so a host sync inside fails);
-    :meth:`replay` runs it and adds its launches to each wrapper's count. ``pool``
-    is a ``torch.cuda.graph_pool_handle()`` shared with other graphs, or None for a
-    private one.
+    :meth:`replay` runs it and adds its launches to each wrapper's count, and its
+    :func:`tally` counts to theirs. ``pool`` is a ``torch.cuda.graph_pool_handle()``
+    shared with other graphs, or None for a private one.
     """
 
     def __init__(self, pool=None):
         self.graph = torch.cuda.CUDAGraph()
         self.pool = pool
         self.launches: dict = {}  # wrapper -> launches per replay
+        self.tallies: dict = {}   # (object, counter) -> additions per replay (tally)
         self.keep: list = []      # buffers the graph's copies and kernels read
 
     @contextmanager
@@ -223,3 +238,5 @@ class Graph:
         self.graph.replay()
         for wrapper, n in self.launches.items():
             wrapper.launches += n
+        for (obj, attr), n in self.tallies.items():
+            setattr(obj, attr, getattr(obj, attr) + n)

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..config import config
-from ._kernels import call, count, function
+from ._kernels import call, count, function, tally
 
 __all__ = ['grouped_matmul', 'grouped_matmul_plain', 'grouped_matmul_plan', 'round_tf32',
            'split_bf16x3']
@@ -325,6 +325,8 @@ def _as_operands(tensors, info, dtypes, dtype, readable):
     if need.any():
         for i in np.flatnonzero(need).tolist():
             t = tensors[i]
+            if t.dtype not in readable:
+                tally(grouped_matmul, 'converted')
             t = (t if t.dtype in readable else t.to(dtype)).resolve_conj().resolve_neg()
             t = tensors[i] = t.contiguous()
             info[i, :3] = t.data_ptr(), t.stride(0), 1
@@ -721,3 +723,7 @@ class _KindCount:
 grouped_matmul.kinds = {kind: _KindCount() for kind in _KIND_CODE}
 #: the launches of the thin forms, whatever their kind (counted in the kind's too)
 grouped_matmul.thin = _KindCount()
+#: operands copied to the list's dtype where the kind cannot read theirs (a real
+#: operand of a complex list, copied at every call), counted where a call is planned
+#: and, for a call captured in a graph, at each replay
+grouped_matmul.converted = 0

@@ -1,3 +1,7 @@
+// The Krylov problems of the fused Lanczos solvers, on the card: the lowest eigenpair
+// of the N x N tridiagonal matrix (cyten_tridiag_ground_state), and the coefficients
+// of exp(delta T) e_0 (cyten_tridiag_evolve, at the end of this file).
+//
 // Lowest eigenpair of the fused Lanczos's N x N tridiagonal matrix, on the card.
 //
 // It has no Pallas counterpart: it takes the place of jnp.linalg.eigh inside
@@ -307,6 +311,231 @@ extern "C" int cyten_tridiag_ground_state(const void* ab, int dtype, int n, doub
     tridiag_kernel<double><<<1, WARP, 0, s>>>(static_cast<const double*>(ab), n, out);
   else
     tridiag_kernel<float><<<1, WARP, 0, s>>>(static_cast<const float*>(ab), n, out);
+  err = static_cast<int>(cudaGetLastError());
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
+
+// --- tridiagonal_evolve ---------------------------------------------------------------
+//
+// The coefficients of exp(delta T) e_0 in the Krylov basis of the fused Lanczos
+// evolution, times the start vector's norm: c = nrm0 V (exp(delta lambda) * V[0, :]^*)
+// with T = V diag(lambda) V^T. It has no Pallas counterpart either: it takes the place
+// of jnp.linalg.eigh and the phase product of cyten_tpu's fused_lanczos_evolution_impl
+// (cyten_tpu/tensors/krylov_based.py:458-460), which XLA runs on the device inside the
+// jitted TDVP site steps. torch.linalg.eigh on CUDA reads its LAPACK info on the host,
+// which a CUDA graph cannot hold, so a fused QR-TDVP site step ends its two
+// evolutions here and is captured whole (cyten_tpu_torch/algorithms/tdvp.py).
+//
+// What it computes, as the plain version (blocks/tridiag.py) does: the valid block as
+// for the ground state (a beta at or below 1e-12 closes the Krylov space). The
+// reference masks T (the invalid diagonal entries shifted to a Gershgorin bound,
+// their couplings dropped), so the invalid block is diagonal and decoupled, and
+// V[0, k] = 0 on it: its coefficients are exact zeros. The kernel takes the valid
+// block alone. delta = dr + i di; the output is complex (interleaved re, im) when the
+// caller asks for it (di != 0), else real. A non-finite entry that reaches the masked
+// matrix, a non-finite norm, or a QL iteration that does not converge makes every
+// output NaN.
+//
+// Design: one warp, as the ground-state kernel; the simple and sure method, since the
+// whole spectrum is needed: EISPACK's tql2 (implicit-shift QL with eigenvectors, as
+// JAMA writes it) on the valid block in f64 shared memory. Lane 0 runs the scalar
+// recurrence of one QL sweep and records its Givens rotations; then every lane applies
+// them to its rows of V (rows lane and lane + 32), the eigenvector accumulation that
+// is the O(N^3) part; a __syncwarp separates the two. Then lane j forms
+// w_j = exp(delta lambda_j) V[0, j] and lane k the sums c_k = nrm0 sum_j V[k, j] w_j.
+//
+// What bounds it: it reads 2N + 1 numbers and writes N (or 2N), under 1.5 KB, and
+// does about 6 N^3 operations (two QL sweeps an eigenvalue, each rotation 6 operations
+// a row) and 8 N^2 for the product: at N = 10-30 neither count matters. Its time is the
+// launch and the serial chain of lane 0's sweeps (square roots and divisions), about
+// 2N sweeps of up to N steps. Making it fast (the rotations' recurrence split across
+// lanes, a divide-and-conquer or a Sturm-count method as the ground-state kernel's) is
+// later work; it is launched twice a site step, against some 2N matvecs.
+
+namespace {
+
+constexpr int QL_MAX_ITER = 60;  // QL sweeps per eigenvalue before giving up (tql2: 30)
+
+template <typename T>
+__global__ void __launch_bounds__(WARP)
+tridiag_evolve_kernel(const T* __restrict__ ab, const T* __restrict__ nrm, int n,
+                      double dr, double di, int complex_out, double* __restrict__ out) {
+  __shared__ double V[MAX_N][MAX_N + 1];  // eigenvectors of the valid block, by column
+  __shared__ double d[MAX_N], e[MAX_N];   // tql2's diagonal and couplings
+  __shared__ double rc[MAX_N], rs[MAX_N];  // the rotations of one QL sweep
+  __shared__ double wr[MAX_N], wi[MAX_N];
+  __shared__ int s_hi, s_fail;
+  const int lane = threadIdx.x;
+
+  // --- set-up: the valid block 0..m-1, and the checks of the ground-state kernel -------
+  double a[2], b[2];
+  bool in[2], closes[2];
+  for (int j = 0; j < 2; ++j) {
+    const int k = lane + WARP * j;
+    in[j] = k < n;
+    a[j] = in[j] ? static_cast<double>(ab[k]) : 0.0;
+    b[j] = in[j] ? static_cast<double>(ab[n + k]) : 0.0;
+    closes[j] = k < n - 1 && !(b[j] > CLOSED);
+  }
+  const unsigned c0 = __ballot_sync(FULL, closes[0]), c1 = __ballot_sync(FULL, closes[1]);
+  const int m = c0 ? __ffs(c0) : c1 ? WARP + __ffs(c1) : n;
+  double red[2] = {0.0, -INFINITY};  // max |alpha_valid|, max beta
+  bool bad = false;
+  for (int j = 0; j < 2; ++j) {
+    const int k = lane + WARP * j;
+    bad |= (k < m && !isfinite(a[j])) || (k < m - 1 && !isfinite(b[j]))
+           || (m < n && in[j] && !isfinite(b[j]));
+    if (k < m) {
+      red[0] = fmax(red[0], fabs(a[j]));
+      d[k] = a[j];
+      e[k] = k < m - 1 ? b[j] : 0.0;
+    }
+    if (in[j]) red[1] = fmax(red[1], b[j]);
+    for (int col = 0; col < m; ++col)
+      if (k < m) V[k][col] = col == k ? 1.0 : 0.0;
+  }
+  warp_max(red);
+  const double scale = static_cast<double>(*nrm);
+  bad |= !isfinite(scale) || (m < n && !isfinite(red[0] + 2.0 * red[1] + 1.0));
+  if (__any_sync(FULL, bad)) {
+    for (int k = lane; k < (complex_out ? 2 * n : n); k += WARP) out[k] = nan("");
+    return;
+  }
+  if (lane == 0) s_fail = 0;
+  __syncwarp();
+
+  // --- tql2 on the valid block ------------------------------------------------------------
+  double f = 0.0, tst1 = 0.0;  // lane 0's: the accumulated shift, the size of T so far
+  int split = 0;
+  for (int l = 0; l < m; ++l) {
+    if (lane == 0) {
+      tst1 = fmax(tst1, fabs(d[l]) + fabs(e[l]));
+      split = l;  // the first coupling below eps |T| from l on (e[m-1] = 0)
+      while (split < m - 1 && fabs(e[split]) > EPS * tst1) ++split;
+    }
+    for (int iter = 0;; ++iter) {
+      if (lane == 0) {
+        int hi = -1;
+        if (split > l && (iter == 0 || fabs(e[l]) > EPS * tst1)) {
+          if (iter == QL_MAX_ITER) {
+            s_fail = 1;
+          } else {
+            // the implicit shift
+            double g = d[l];
+            double p = (d[l + 1] - g) / (2.0 * e[l]);
+            double r = hypot(p, 1.0);
+            if (p < 0) r = -r;
+            d[l] = e[l] / (p + r);
+            d[l + 1] = e[l] * (p + r);
+            const double dl1 = d[l + 1];
+            double h = g - d[l];
+            for (int i = l + 2; i < m; ++i) d[i] -= h;
+            f += h;
+            // one implicit QL sweep, its rotations recorded
+            p = d[split];
+            double c = 1.0, c2 = 1.0, c3 = 1.0, s = 0.0, s2 = 0.0;
+            const double el1 = e[l + 1];
+            for (int i = split - 1; i >= l; --i) {
+              c3 = c2;
+              c2 = c;
+              s2 = s;
+              g = c * e[i];
+              h = c * p;
+              r = hypot(p, e[i]);
+              e[i + 1] = s * r;
+              s = e[i] / r;
+              c = p / r;
+              p = c * d[i] - s * g;
+              d[i + 1] = h + s * (c * g + s * d[i]);
+              rc[i] = c;
+              rs[i] = s;
+            }
+            p = -s * s2 * c3 * el1 * e[l] / dl1;
+            e[l] = s * p;
+            d[l] = c * p;
+            hi = split - 1;
+          }
+        }
+        s_hi = hi;
+      }
+      __syncwarp();
+      const int hi = s_hi;
+      if (hi < 0) break;
+      // the sweep's rotations on this lane's rows of V, in the order they were made
+      for (int j = 0; j < 2; ++j) {
+        const int k = lane + WARP * j;
+        if (k >= m) continue;
+        for (int i = hi; i >= l; --i) {
+          const double c = rc[i], s = rs[i], h = V[k][i + 1];
+          V[k][i + 1] = s * V[k][i] + c * h;
+          V[k][i] = c * V[k][i] - s * h;
+        }
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      d[l] += f;
+      e[l] = 0.0;
+    }
+    __syncwarp();
+  }
+  if (s_fail) {
+    for (int k = lane; k < (complex_out ? 2 * n : n); k += WARP) out[k] = nan("");
+    return;
+  }
+
+  // --- the coefficients ---------------------------------------------------------------
+  for (int j = lane; j < m; j += WARP) {
+    const double amp = exp(dr * d[j]) * V[0][j];
+    double sn = 0.0, cs = 1.0;
+    if (complex_out) sincos(di * d[j], &sn, &cs);
+    wr[j] = amp * cs;
+    wi[j] = amp * sn;
+  }
+  __syncwarp();
+  for (int k = lane; k < n; k += WARP) {
+    double cr = 0.0, ci = 0.0;
+    if (k < m) {
+      for (int j = 0; j < m; ++j) {
+        cr = fma(V[k][j], wr[j], cr);
+        ci = fma(V[k][j], wi[j], ci);
+      }
+    }
+    if (complex_out) {
+      out[2 * k] = scale * cr;
+      out[2 * k + 1] = scale * ci;
+    } else {
+      out[k] = scale * cr;
+    }
+  }
+}
+
+}  // namespace
+
+// The coefficients nrm0 exp((dr + i di) T) e_0 of the Lanczos matrix given by
+// ab = [alpha_0..alpha_{n-1}, beta_0..beta_{n-1}] and the 0-d norm nrm (both on the
+// card, f64 for dtype 0, f32 for dtype 1), written to out in f64: n complex numbers
+// (re, im) if complex_out, else n reals; on `stream` of CUDA device `device`. Returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int cyten_tridiag_evolve(const void* ab, const void* nrm, int dtype, int n,
+                                    double dr, double di, int complex_out, double* out,
+                                    int device, void* stream) {
+  if (n < 1 || n > MAX_N || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int current = 0;
+  int err = static_cast<int>(cudaGetDevice(&current));
+  if (err) return err;
+  if (current != device && (err = static_cast<int>(cudaSetDevice(device)))) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    tridiag_evolve_kernel<double><<<1, WARP, 0, s>>>(
+        static_cast<const double*>(ab), static_cast<const double*>(nrm), n, dr, di,
+        complex_out, out);
+  else
+    tridiag_evolve_kernel<float><<<1, WARP, 0, s>>>(
+        static_cast<const float*>(ab), static_cast<const float*>(nrm), n, dr, di,
+        complex_out, out);
   err = static_cast<int>(cudaGetLastError());
   if (current != device) cudaSetDevice(current);
   return err;

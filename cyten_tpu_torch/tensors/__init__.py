@@ -2,7 +2,7 @@
 
 The counterpart of ``cyten_tpu/tensors/`` for the abelian and no-symmetry backends:
 the tensor classes, the free functions, the linear operators of ``sparse`` and the
-host-driven Lanczos solver.
+Krylov solvers (Lanczos, its evolution, Arnoldi).
 """
 
 from ._tensors import (
@@ -17,7 +17,9 @@ from .sparse import (
     NumpyArrayLinearOperator, ProjectedLinearOperator, ShiftedLinearOperator,
     SumLinearOperator, TensorLinearOperator, gram_schmidt,
 )
-from .krylov_based import KrylovBased, LanczosGroundState, lanczos
+from .krylov_based import (
+    Arnoldi, KrylovBased, LanczosEvolution, LanczosGroundState, lanczos, lanczos_arpack,
+)
 
 __all__ = ['LabelledLegs', 'Tensor', 'SymmetricTensor', 'DiagonalTensor', 'Identity',
            'Mask', 'ChargedTensor', 'is_valid_leg_label', 'check_same_legs',
@@ -26,5 +28,5 @@ __all__ = ['LabelledLegs', 'Tensor', 'SymmetricTensor', 'DiagonalTensor', 'Ident
            'TensorLinearOperator', 'SumLinearOperator',
            'ShiftedLinearOperator', 'ProjectedLinearOperator',
            'NumpyArrayLinearOperator', 'HermitianNumpyArrayLinearOperator',
-           'gram_schmidt', 'KrylovBased',
-           'LanczosGroundState', 'lanczos', 'krylov_based', 'sparse']
+           'gram_schmidt', 'Arnoldi', 'KrylovBased', 'LanczosGroundState',
+           'LanczosEvolution', 'lanczos', 'lanczos_arpack', 'krylov_based', 'sparse']

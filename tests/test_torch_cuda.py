@@ -1510,3 +1510,86 @@ def test_dmrg1_update_and_idmrg_step_card_matches_cpu(card):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
     np.testing.assert_allclose(card_res[2], cpu_res[2], rtol=0, atol=1e-10)
     np.testing.assert_allclose(card_res[3], cpu_res[3], rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('delta', [-0.05, 0.05j, 0.02 - 0.05j])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_tridiag_evolve_matches_plain(card, dtype, delta):
+    """tridiagonal_evolve against its plain version on every Lanczos family (closed
+    Krylov spaces included), to 1e-12 of the largest coefficient; NaN in, NaN out."""
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_evolve, tridiagonal_evolve_plain
+
+    for label, ab in FAMILIES:
+        t = torch.from_numpy(ab).to(dtype)
+        nrm0 = torch.tensor(1.3, dtype=dtype)
+        before = tridiagonal_evolve.launches
+        got = tridiagonal_evolve(t.to(card), delta, nrm0.to(card)).cpu()
+        assert tridiagonal_evolve.launches == before + 1
+        want = tridiagonal_evolve_plain(t, delta, nrm0)
+        assert got.dtype == want.dtype
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-12 * max(1., want.abs().max().item()),
+                                   err_msg=label)
+    bad = torch.from_numpy(FAMILIES[-1][1]).to(card, dtype)
+    bad[0, 3] = float('nan')
+    assert torch.isnan(tridiagonal_evolve(bad, delta, nrm0.to(card))).all()
+
+
+@pytest.mark.cuda
+def test_fused_tdvp_site_step_graph_matches_cpu(card):
+    """One fused QR-TDVP site step (right-moving, real time) at the chain's centre on
+    the card, eager, then captured and replayed from its CUDA graph with no host sync,
+    against the same step on the CPU from the same tensors (the state and the
+    environments made on the CPU and carried to the card by the schema). Held by what
+    the QR's gauge leaves alone, the product A C of the isometry and the evolved bond
+    centre, to 1e-10. Each replay counts the real MPO operands it copies to complex.
+
+    The state is the full-rank ground state at g=1 (chi 8 -> 16 at site 3: A is square,
+    so its columns span the whole space whatever the rounding). With Schmidt values
+    near the rounding (the ground state at g=3) the rounding decides the columns of A
+    that carry them, and A C moves by far more than its input does, on the CPU alone
+    (scripts/torch_tdvp_conditioning.py)."""
+    from cyten_tpu_torch.algorithms import TDVPQREngine
+    from cyten_tpu_torch.blocks.tridiag import tridiagonal_evolve
+    from cyten_tpu_torch.tensors import permute_legs, tdot
+    from cyten_tpu_torch.tools.hdf5_io import from_tree, to_tree
+
+    L, i = 8, 3
+    model0 = TFIModel(L=L, g=1.0, conserve='parity', device='cpu')
+    psi = SimpleMPS.from_product_state(model0.site_legs, [0] * L, backend=model0.backend)
+    DMRGEngine(psi, model0, chi_max=16, eps=1e-14).run(n_sweeps=3)
+    opts = {'dt': 0.05, 'fused': True, 'lanczos_options': {'N_max': 12}}
+    eng = TDVPQREngine(psi, TFIModel(L=L, g=1.5, conserve='parity', device='cpu'), **opts)
+    th = psi.get_theta1(0)
+    for k in range(i):  # the sweep's right-moving steps up to site i, on the CPU
+        _, C, eng.LPs[k + 1] = eng._fused_step('R', k, th)
+        th = permute_legs(tdot(C, psi.Bs[k + 1], 'vR', 'vL'), codomain=['vL', 'p'],
+                          domain=['vR'])
+    A, C, _ = eng._fused_step('R', i, th)
+    want = np.asarray(tdot(A, C, 'vR', 'vL').to_numpy())
+
+    def moved(t):
+        return from_tree(to_tree(t), device=card)
+
+    card_eng = TDVPQREngine(moved(psi), TFIModel(L=L, g=1.5, conserve='parity'), **opts)
+    card_eng.LPs[i], card_eng.RPs[i] = moved(eng.LPs[i]), moved(eng.RPs[i])
+    th = moved(th)
+    outs, converted = [], []
+    for _ in range(3):  # eager, capture + replay, replay
+        before = tridiagonal_evolve.launches
+        converted_before = grouped_matmul.converted
+        if len(outs) == 2:  # a replay reads nothing on the host
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            A, C, _ = card_eng._fused_step('R', i, th)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        assert tridiagonal_evolve.launches == before + 2
+        converted.append(grouped_matmul.converted - converted_before)
+        outs.append(np.asarray(tdot(A, C, 'vR', 'vL').to_numpy()))
+    assert len(card_eng.graphs()) == 1
+    assert converted[1] == converted[2] > 0
+    for o in outs:
+        np.testing.assert_allclose(o, want, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(outs[2], outs[0], rtol=0, atol=1e-12)

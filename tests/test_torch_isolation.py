@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor cyten_tpu (every module,
-the bench, static mode, checkpoints, excited states, the models layer, one-site DMRG
-and the infinite chain included), nor
+the bench, static mode, checkpoints, excited states, the models layer, one-site DMRG,
+the infinite chain and time evolution included), nor
 h5py or orbax for its checkpoints, and without CUDA its default device raises instead of
 running on the CPU."""
 
@@ -92,6 +92,28 @@ heis = HeisenbergModel(L=2, conserve='Sz', bc='infinite', device='cpu')
 psi = SimpleMPS.from_product_state(heis.site_legs, [0, 1], backend=heis.backend,
                                    bc='infinite')
 assert MultiCellIDMRGEngine(psi, heis, chi_max=4).run(n_steps=2) < 0
+# time evolution: the Krylov propagators, TEBD, TDVP (fused too), iTDVP, VUMPS
+import cyten_tpu_torch.algorithms.itdvp
+import cyten_tpu_torch.algorithms.tdvp
+import cyten_tpu_torch.algorithms.tebd
+import cyten_tpu_torch.algorithms.vumps
+from cyten_tpu_torch.algorithms import (
+    TDVP2Engine, TDVPEngine, TDVPQREngine, TEBDEngine, VUMPSEngine, iTDVPEngine,
+)
+from cyten_tpu_torch.tensors import Arnoldi, LanczosEvolution, lanczos_arpack
+chain = TFIModel(L=4, g=1.5, conserve='parity', device='cpu')
+psi = SimpleMPS.from_product_state(chain.site_legs, [0] * 4, backend=chain.backend)
+opts = {'lanczos_options': {'N_max': 6}}
+TEBDEngine(psi, chain, dt=0.1, chi_max=4, imaginary=False).run(1)
+TDVP2Engine(psi, chain, dt=0.05, chi_max=4, **opts).run(1)
+TDVPEngine(psi, chain, dt=0.05, **opts).run(1)
+E = TDVPQREngine(psi, chain, dt=0.05, fused=True, **opts).run(1).energy()
+assert abs(psi.norm_squared() - 1.) < 1e-10 and E < 0
+cell = eng.psi
+itdvp = iTDVPEngine(cell, tfi, dt=0.05, imaginary=True, canonical_tol=1e-2,
+                    env_max_iter=10, **opts).run(1)
+assert itdvp.energy_density() < 0
+assert VUMPSEngine(cell, tfi, env_max_iter=10, **opts).step() < 1.
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'cyten_tpu', 'h5py', 'orbax'))
 print('LEAKED', leaked)

@@ -343,6 +343,25 @@ def test_kind_counts_are_counted_like_the_wrapper():
     assert counter.launches == before
 
 
+def test_conversions_are_tallied_like_launches():
+    """grouped_matmul.converted goes through _kernels.tally: outside a capture it adds
+    one, inside a graph's capture the graph records it for its replays to add."""
+    from cyten_tpu_torch.blocks import _kernels
+
+    before = grouped_matmul.converted
+    _kernels.tally(grouped_matmul, 'converted')
+    assert grouped_matmul.converted == before + 1
+    recorder = type('Recorder', (), {'tallies': {}})()
+    old, _kernels._capture = _kernels._capture, recorder
+    try:
+        _kernels.tally(grouped_matmul, 'converted')
+        _kernels.tally(grouped_matmul, 'converted')
+    finally:
+        _kernels._capture = old
+    assert recorder.tallies == {(grouped_matmul, 'converted'): 2}
+    assert grouped_matmul.converted == before + 1
+
+
 def test_mixed_tdot_on_the_cpu_widens_the_bf16_operand():
     """A bf16 block against an f32 block: on the CPU the product is that of the
     widened bf16 operand (TorchBlockBackend._dot_dtypes' promotion), in f32."""
